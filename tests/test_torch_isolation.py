@@ -1,0 +1,73 @@
+"""The port stands alone: paddle_tpu_torch imports neither jax nor
+anything of paddle_tpu.
+
+A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
+``jaxlib`` and ``paddle_tpu``, imports every module of the port, and
+serves one request on the CPU.  A source scan checks the import
+statements of the package and of ``chip_smoke.py``.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = {"jax", "jaxlib", "paddle_tpu"}
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = {"jax", "jaxlib", "paddle_tpu"}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import paddle_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    paddle_tpu_torch.__path__, "paddle_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+import numpy as np
+from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+from paddle_tpu_torch.models import gpt
+cfg = gpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                    num_heads=2, max_position_embeddings=64)
+eng = ContinuousBatchingEngine(gpt.init_params(cfg, 0, device="cpu"), cfg,
+                               max_batch=2, max_len=32, device="cpu")
+rid = eng.submit(np.arange(5), max_new=4)
+out = eng.run()
+assert eng.status(rid) == "DONE" and len(out[rid]) == 4, out
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("modules", len(names))
+"""
+
+
+def test_port_imports_and_serves_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 10
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_source_imports_no_jax_or_paddle_tpu():
+    files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [(str(f.relative_to(ROOT)), mod) for f in files
+           for mod in _imports(f) if mod.split(".")[0] in BLOCKED]
+    assert len(files) > 10
+    assert not bad, bad
