@@ -6,19 +6,35 @@
 Phases; any failure is an uncaught exception and a non-zero exit:
 
 1. setup — require CUDA, print the card's name and power limit
-   (nvidia-smi), build every CUDA kernel of the serving path from the
-   sources in the checkout and print the build seconds.
-2. kernels — hold ``flash_decode`` against its plain PyTorch version
-   on the card at the serving path's shapes (bf16 against the plain
-   float32 math at atol 2e-2, float32 at atol 1e-4); time the kernel,
-   the plain version and ``F.scaled_dot_product_attention`` with an
-   explicit boolean mask (the yardstick, never called by the port), and
-   compute each shape's bound from the bytes and operations its inputs
-   need.
-3. reference — the engine on the card (flash kernel) against the same
-   engine on the CPU (plain version), gpt_tiny in float32: identical
-   greedy streams.
-4. serving — gpt3_1p3b at full width (24 layers, H 2048, 16 heads of
+   (nvidia-smi), build every CUDA kernel of the serving and training
+   paths from the sources in the checkout (one nvcc per source, all
+   started together) and print the build seconds.
+2. kernels (serving) — hold ``flash_decode`` against its plain PyTorch
+   version on the card at the serving path's shapes (float32 at atol
+   1e-4; bf16 per element, see below); time the
+   kernel, the plain version and ``F.scaled_dot_product_attention``
+   with an explicit boolean mask (the yardstick, never called by the
+   port), and compute each shape's bound from the bytes and operations
+   its inputs need.
+3. kernels (training) — the flash-attention forward, dK/dV and dQ
+   kernels against their plain versions at the training shape (B 8,
+   S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
+   packed qkv) and at float32, non-causal and ragged (S 1000, hD 64)
+   cases; ``fused_ce_fwd`` at N 8192, V 50304, H 2048, bf16, with
+   labels out of range.  float32 outputs are held at 1e-4 of the
+   largest reference value, lse and z/picked at atol 1e-3.  Yardsticks:
+   SDPA (``is_causal``) forward and its autograd backward;
+   ``matmul_f32out`` + ``torch.logsumexp`` (two calls).
+   The attention kernels and their plain versions both compute in
+   float32 and round once, so each bf16 element is held to
+   |got - want| <= 2^-7 |want| + 1e-3: one rounding step of the
+   reference value, plus room for float32 summation order near zero.
+4. reference — the serving engine on the card against the CPU engine
+   (gpt_tiny f32, identical greedy streams); then three train steps of
+   gpt_tiny f32 on the card (flash kernels) against the CPU (plain
+   versions) at (num_micro 1, remat False) and (2, True): losses at
+   rel 1e-4.
+5. serving — gpt3_1p3b at full width (24 layers, H 2048, 16 heads of
    128, V 50304, bf16, random weights from seed 0) behind
    ``ContinuousBatchingEngine(max_batch=8, max_len=1024,
    attn_kernel="flash")``: 12 requests with seeded prompt lengths
@@ -27,7 +43,25 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    prefill program.  Then one ``decode_step_multi`` at that width,
    "flash" against "xla", logits finite and within atol 0.25, and a
    profile of where a decode step's time goes.
-5. the kernels line and, last, the device line.
+6. training — gpt3_1p3b bf16 at full width through
+   ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
+   float32 AdamW moments, one warm step then 4 steps under
+   ``TrainLoop(max_inflight=2)`` on one seeded batch: every loss finite,
+   step 5 below step 1, and 24 launches per step of each flash kernel
+   (counts reset just before).  Step ms, tokens/s, peak memory and a
+   one-step profile by kernel family.  Then the eval loss
+   (``gpt.loss_fn`` under no_grad: exactly one ``fused_ce_fwd``
+   launch) and one ``remat=True`` step (48 forward launches), both held
+   to the differentiated no-remat loss at those params (atol 2e-3: the
+   same bf16 hidden states, float32 logits, another summation order).
+   Against the plain softmax composition (``use_flash=False``, which
+   rounds P to bf16 and launches no flash kernel): its no-grad loss at
+   those params and its loss at the
+   seed-0 init (atol 2e-3), its gradients there (each leaf's
+   ||g_flash - g_plain|| within 5e-2 of ||g_plain||), and its own
+   5-step trajectory from that init (each loss within 1e-2 of the flash
+   run's).
+7. the kernels line and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
 parity is not loosened by the card's TF32 mode.
@@ -35,6 +69,7 @@ parity is not loosened by the card's TF32 mode.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,6 +86,11 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,            # dense tensor-core bf16
             "float32": 67e12}              # CUDA-core float32
 SERVE_TOL = 0.25                           # flash vs xla logits, bf16
+BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-3       # kernel vs plain, per element
+F32_REL = 1e-4                             # training kernels, f32, of max
+LOSS_TOL = 2e-3                            # eval / remat vs no-remat loss
+PLAIN_GRAD_REL = 5e-2                      # flash vs plain composition,
+PLAIN_TRAJ_TOL = 1e-2                      # per gradient leaf; 5 losses
 
 
 def _log(obj):
@@ -95,6 +135,19 @@ def _work(B, W, T, nH, nKV, hD, pos, elem):
     return nbytes, 4 * hD * nH * pairs
 
 
+def _limit_share(got, want, f32_tol, of_max=False):
+    """The largest share of its limit that one element of got - want
+    uses (the check passes at <= 1).  bfloat16: 2^-7 |want| + 1e-3 per
+    element; float32: ``f32_tol``, times max(1, max |want|) when
+    ``of_max``."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        return (diff / (BF16_RTOL * w.abs() + BF16_ATOL)).max().item()
+    scale = max(1.0, w.abs().max().item()) if of_max else 1.0
+    return diff.max().item() / (f32_tol * scale)
+
+
 def kernel_phase(fd):
     rng = np.random.default_rng(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -131,10 +184,10 @@ def kernel_phase(fd):
         torch.cuda.synchronize()
         want = fd.flash_decode_attention_plain(q, k, v, pos)
         err = (got.float() - want.float()).abs().max().item()
-        atol = 2e-2 if dt == torch.bfloat16 else 1e-4
-        if not err <= atol:
-            raise AssertionError(f"flash_decode {name}: max abs err {err} "
-                                 f"> {atol}")
+        share = _limit_share(got, want, 1e-4)
+        if not share <= 1:
+            raise AssertionError(f"flash_decode {name}: max abs err {err}, "
+                                 f"{share} of its limit")
         # the yardstick: one library call on the same inputs
         rep = nH // nKV
         qt = q.transpose(1, 2)
@@ -165,7 +218,7 @@ def kernel_phase(fd):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops,
-            "max_abs_err": err, "atol": atol,
+            "max_abs_err": err, "limit_share": share,
             "library_max_abs_err": float(lib_err),
         }
         _log(row)
@@ -321,15 +374,26 @@ def _step_profile(gpt, cfg, params, cache, tok, pos, kernel):
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) / n * 1e3)
     wall_ms = statistics.median(windows)
+    return dict(wall_ms=wall_ms, wall_ms_windows=windows,
+                **_profile(step, n, wall_ms,
+                           [("flash_decode", ("flash_decode",))]))
+
+
+def _profile(fn, n, wall_ms, families, top_n=8):
+    """Device time of ``n`` calls of ``fn`` under torch.profiler, per
+    call, by kernel family: each (family, name substrings) in order,
+    then cuBLAS GEMMs (Hopper's are named nvjet_*), then the rest; the
+    idle share is 1 - busy / ``wall_ms`` (an unprofiled call's wall
+    time)."""
     clocks = _nvidia_smi("clocks.sm,power.draw")
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            step()
+            fn()
         torch.cuda.synchronize()
-    # device kernels only; cuBLAS's Hopper GEMMs are named nvjet_*
-    fam = {"flash_decode": 0.0, "matmul": 0.0, "other": 0.0}
+    fam = {name: 0.0 for name, _ in families}
+    fam.update(matmul=0.0, other=0.0)
     kernels, top = 0, []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -340,20 +404,386 @@ def _step_profile(gpt, cfg, params, cache, tok, pos, kernel):
         name = ev.key.lower()
         kernels += ev.count
         top.append((us / n / 1e3, ev.count // n, ev.key[:70]))
-        if "flash_decode" in name:
-            fam["flash_decode"] += us
-        elif any(s in name for s in ("nvjet", "gemm", "cutlass", "cublas",
-                                     "gemv")):
-            fam["matmul"] += us
-        else:
-            fam["other"] += us
+        hit = next((f for f, subs in families
+                    if any(x in name for x in subs)), None)
+        if hit is None and any(x in name for x in ("nvjet", "gemm",
+                                                   "cutlass", "cublas",
+                                                   "gemv")):
+            hit = "matmul"
+        fam[hit or "other"] += us
     dev_ms = {k: v / n / 1e3 for k, v in fam.items()}
     busy = sum(dev_ms.values())
-    return {"wall_ms": wall_ms, "wall_ms_windows": windows,
-            "sm_clock_power": clocks, "device_ms": dev_ms,
+    return {"sm_clock_power": clocks, "device_ms": dev_ms,
             "device_busy_ms": busy, "kernels_per_step": kernels / n,
             "idle_share": (1 - busy / wall_ms) if busy else None,
-            "top_kernels_ms_count_name": sorted(top, reverse=True)[:8]}
+            "top_kernels_ms_count_name": sorted(top, reverse=True)[:top_n]}
+
+
+def _err(got, want):
+    """(max |got - want|, max |want|, the share of elements that differ,
+    the share of its limit the worst element uses)."""
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(), want.float().abs().max().item(),
+            (diff > 0).float().mean().item(),
+            _limit_share(got, want, F32_REL, of_max=True))
+
+
+def _bound(nbytes, ops, dt):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def train_kernel_phase(fa, fce, matmul_f32out):
+    """The training kernels against their plain versions on the card,
+    with times, bounds and the library yardsticks."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases = [
+        # name, B, S, nH, hD, dtype, causal
+        ("train", 8, 1024, 16, 128, torch.bfloat16, True),
+        ("train_f32", 2, 1024, 16, 128, torch.float32, True),
+        ("noncausal", 2, 1024, 16, 128, torch.bfloat16, False),
+        ("ragged", 2, 1000, 16, 64, torch.bfloat16, True),
+    ]
+    results = {}
+    for name, B, S, nH, hD, dt, causal in cases:
+        dts = str(dt).split(".")[-1]
+        qkv = torch.randn((B, S, 3, nH * hD), generator=gen,
+                          device="cuda").to(dt)
+        q, k, v = (qkv[:, :, i].view(B, S, nH, hD) for i in range(3))
+        dout = torch.randn((B, S, nH, hD), generator=gen,
+                           device="cuda").to(dt)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                            causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
+        torch.cuda.synchronize()
+        w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse,
+                                                      delta, causal)
+        w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
+                                               causal)
+        errs = {"out": _err(out, w_out), "dk": _err(dk, w_dk),
+                "dv": _err(dv, w_dv), "dq": _err(dq, w_dq)}
+        lse_err = (lse - w_lse).abs().max().item()
+        _log({"phase": "kernel_training_check", "name": name,
+              "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
+              "lse_max_abs_err": lse_err})
+        for key, (err, _, _, share) in errs.items():
+            if not share <= 1:
+                raise AssertionError(f"flash_attention {name} {key}: max abs "
+                                     f"err {err}, {share} of its limit")
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"flash_attention {name} lse: {lse_err}")
+        del w_out, w_lse, w_dk, w_dv, w_dq
+        # the yardstick: SDPA forward and its autograd backward
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in leaves), is_causal=causal)
+        lib_err = (lib_out.detach().transpose(1, 2).float()
+                   - out.float()).abs().max().item()
+        times = {
+            "fwd_ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                              causal),
+                               reps=10, flush=flush),
+            "fwd_plain_ms": _time_ms(
+                lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
+                reps=3, flush=flush),
+            "fwd_library_ms": _time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    *(t.transpose(1, 2) for t in (q, k, v)),
+                    is_causal=causal), reps=10, flush=flush),
+            "dkv_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, dout, lse, delta, causal), reps=10, flush=flush),
+            "dkv_plain_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+                q, k, v, dout, lse, delta, causal), reps=3, flush=flush),
+            "dq_ms": _time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, dout, lse, delta, causal), reps=10, flush=flush),
+            "dq_plain_ms": _time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+                q, k, v, dout, lse, delta, causal), reps=3, flush=flush),
+            "bwd_library_ms": _time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, dout.transpose(1, 2), retain_graph=True),
+                reps=10, flush=flush),
+        }
+        del lib_out, leaves
+        # visible (query, key) pairs per (batch, head); elem bytes
+        pairs = S * (S + 1) // 2 if causal else S * S
+        n_el, e, stats = B * S * nH * hD, q.element_size(), B * nH * S * 4
+        bounds = {
+            "fwd": _bound(4 * n_el * e + stats, 4 * hD * pairs * B * nH, dts),
+            "dkv": _bound(6 * n_el * e + 2 * stats, 8 * hD * pairs * B * nH,
+                          dts),
+            "dq": _bound(5 * n_el * e + 2 * stats, 6 * hD * pairs * B * nH,
+                         dts),
+            # the whole backward at FlashAttention-2's count (2.5x fwd)
+            "bwd_pair": _bound(7 * n_el * e + 2 * stats,
+                               10 * hD * pairs * B * nH, dts),
+        }
+        row = {"phase": "kernel_training", "name": name,
+               "shape": f"B={B} S={S} nH={nH} hD={hD} {dts} "
+                        f"causal={causal} packed qkv",
+               **times,
+               "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
+               "max_ref": {k2: v2[1] for k2, v2 in errs.items()},
+               "share_differing": {k2: v2[2] for k2, v2 in errs.items()},
+               "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
+               "lse_max_abs_err": lse_err,
+               "library_fwd_max_abs_err": lib_err,
+               "bounds": bounds}
+        _log(row)
+        results[name] = row
+        del qkv, q, k, v, dout, out, lse, delta, dk, dv, dq
+    torch.cuda.empty_cache()
+
+    # fused_ce_fwd at the eval shape
+    N, V, H = 8192, 50304, 2048
+    h = torch.randn((N, H), generator=gen, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((V, H), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    lbl = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lbl[:64:4], lbl[1:64:4], lbl[2:64:4] = -1, V, V + 100
+    z, picked = fce.fused_ce_fwd(h, W, lbl)
+    torch.cuda.synchronize()
+    wz, wp = fce.fused_ce_fwd_plain(h, W, lbl)
+    errs = [(z - wz).abs().max().item(), (picked - wp).abs().max().item()]
+    if not max(errs) <= 1e-3 or not bool((picked[:64:4] == 0).all()):
+        raise AssertionError(f"fused_ce_fwd: z/picked errors {errs}")
+    row = {"phase": "kernel_training", "name": "fused_ce",
+           "shape": f"N={N} V={V} H={H} bfloat16, 48 labels out of range",
+           "ms": _time_ms(lambda: fce.fused_ce_fwd(h, W, lbl), reps=3,
+                          flush=flush),
+           "plain_ms": _time_ms(lambda: fce.fused_ce_fwd_plain(h, W, lbl),
+                                reps=3, flush=flush),
+           # two calls: the float32-output product, then logsumexp
+           "library_ms": _time_ms(lambda: torch.logsumexp(
+               matmul_f32out(h, W.t()), -1), reps=3, flush=flush),
+           "library_calls": "matmul_f32out (torch.mm out_dtype=float32) "
+                            "+ torch.logsumexp",
+           "max_abs_err": max(errs), "z_err": errs[0],
+           "picked_err": errs[1], "atol": 1e-3,
+           **_bound((N * H + V * H) * 2 + N * 12, 2 * N * V * H,
+                    "bfloat16")}
+    _log(row)
+    results["fused_ce"] = row
+    del h, W, lbl, z, picked, wz, wp, flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_reference_phase(gpt, hybrid):
+    """gpt_tiny f32: three steps on the card (flash kernels) against the
+    CPU (plain versions) on the same weights and batch; rel 1e-4."""
+    cfg = gpt.gpt_tiny(dtype=torch.float32)
+    params = gpt.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)))
+    labels = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)))
+    for num_micro, remat in ((1, False), (2, True)):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            step, shard, init_opt = hybrid.build_train_step(
+                cfg, num_micro=num_micro, remat=remat, device=dev)
+            p = shard(params)
+            o = init_opt(p)
+            out = []
+            for _ in range(3):
+                loss, p, o = step(p, o, ids.to(dev), labels.to(dev))
+                out.append(loss.item())
+            losses[dev] = out
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"]))
+        if not rel <= 1e-4:
+            raise AssertionError(f"train reference {num_micro}/{remat}: "
+                                 f"card {losses['cuda']} vs CPU "
+                                 f"{losses['cpu']}")
+        _log({"phase": "reference_training", "config": "gpt_tiny f32",
+              "num_micro": num_micro, "remat": remat,
+              "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+              "max_rel_diff": rel, "rtol": 1e-4})
+
+
+def _train_batch(cfg, B=8, S=1024):
+    """The training phases' one batch: seeded random ids and labels."""
+    rng = np.random.default_rng(0)
+    return tuple(torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda") for _ in range(2))
+
+
+def training_phase(gpt, hybrid, TrainLoop, fa, fce):
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    B, S = 8, 1024
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, shard, init_opt = hybrid.build_train_step(
+        cfg, num_micro=1, remat=False, device="cuda")
+    params = shard(gpt.init_params(cfg, seed=0, device="cuda"))
+    opt = init_opt(params)
+    ids, labels = _train_batch(cfg, B, S)
+    torch.cuda.synchronize()
+    _log({"phase": "training_setup", "params": gpt.param_count(params),
+          "init_s": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    first, params, opt = step(params, opt, ids, labels)     # warm
+    torch.cuda.synchronize()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    loop = TrainLoop(step, max_inflight=2)
+    handles = []
+    for _ in range(4):
+        d, params, opt = loop.step(params, opt, ids, labels)
+        handles.append(d)
+    loop.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    losses = [first.item()] + [float(d) for d in handles]
+    if not all(np.isfinite(losses)) or not losses[4] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    if launches != {name: 4 * L for name in launches}:
+        raise AssertionError(f"flash_attention launches {launches} != "
+                             f"{L} per step x 4 steps")
+    step_ms = wall / 4 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        step(params, opt, ids, labels)
+
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(one_step, 1, wall_ms, [
+        ("flash_fwd", ("flash_attention_fwd",)),
+        ("flash_bwd", ("flash_attention_bwd",))], top_n=24)
+    row = {"phase": "training", "config": "gpt3_1p3b bf16", "B": B, "S": S,
+           "num_micro": 1, "remat": False, "moments": "float32",
+           "losses": losses, "launches_4_steps": launches,
+           "step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3),
+           "stall_s": loop.stall_seconds, "peak_memory_bytes": peak,
+           "profiled_step_wall_ms": wall_ms, **prof}
+    _log(row)
+
+    # the differentiated (scan) loss at these params, no remat
+    ref, grads = step.loss_and_grads(params, ids, labels)
+    ref = ref.item()
+    del grads
+    fce.LAUNCHES = 0
+    with torch.no_grad():
+        ev = gpt.loss_fn(params, ids, labels, cfg).item()
+    ce_launches = fce.LAUNCHES
+    if ce_launches != 1 or not abs(ev - ref) <= LOSS_TOL:
+        raise AssertionError(f"eval loss {ev} ({ce_launches} fused_ce "
+                             f"launches) vs differentiated {ref}")
+    # the same loss through the plain composition: no flash kernel
+    with torch.no_grad():
+        ev_plain = gpt.loss_fn(params, ids, labels, dataclasses.replace(
+            cfg, use_flash=False)).item()
+    _log({"phase": "eval_plain_attention", "differentiated_loss": ref,
+          "plain_attention_loss": ev_plain, "atol": LOSS_TOL})
+    if not abs(ev_plain - ref) <= LOSS_TOL:
+        raise AssertionError(f"plain-attention loss {ev_plain} vs flash "
+                             f"{ref}")
+    step_r, _, _ = hybrid.build_train_step(cfg, num_micro=1, remat=True,
+                                           device="cuda")
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    rl, params, opt = step_r(params, opt, ids, labels)
+    torch.cuda.synchronize()
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    rl = rl.item()
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+    remat_launches = dict(fa.LAUNCHES)
+    if remat_launches != want or not abs(rl - ref) <= LOSS_TOL:
+        raise AssertionError(f"remat step: launches {remat_launches} (want "
+                             f"{want}), loss {rl} vs {ref}")
+    # the optimizer alone, on gradients at these params
+    _, grads = step.loss_and_grads(params, ids, labels)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    hybrid.adamw_update(params, grads, opt, hybrid.AdamWConfig())
+    b.record()
+    torch.cuda.synchronize()
+    del grads
+    _log({"phase": "eval_and_remat", "differentiated_loss": ref,
+          "eval_loss": ev, "fused_ce_launches": ce_launches,
+          "remat_loss": rl, "remat_launches": remat_launches,
+          "remat_step_ms": remat_ms, "atol": LOSS_TOL,
+          "adamw_update_ms": a.elapsed_time(b),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return row, launches, ce_launches
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree)
+                for x in _named_leaves(tree[key], f"{prefix}{key}/")]
+    return [(prefix[:-1], tree)]
+
+
+def plain_training_phase(gpt, hybrid, fa, flash_losses):
+    """The full-width training step against one through the plain
+    softmax composition (``use_flash=False``), which launches no flash
+    kernel: the gradients at the seed-0 init, then a 5-step trajectory
+    from it on the training phase's batch, held to that phase's."""
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    ids, labels = _train_batch(cfg)
+    step, shard, init_opt = hybrid.build_train_step(
+        cfg, num_micro=1, remat=False, device="cuda")
+    step_p, _, _ = hybrid.build_train_step(
+        plain_cfg, num_micro=1, remat=False, device="cuda")
+    params = shard(gpt.init_params(cfg, seed=0, device="cuda"))
+    opt = init_opt(params)
+    lf, gf = step.loss_and_grads(params, ids, labels)
+    before = dict(fa.LAUNCHES)
+    lp, gp = step_p.loss_and_grads(params, ids, labels)
+    grad_rel = {}
+    for (name, a), (_, b) in zip(_named_leaves(gf), _named_leaves(gp)):
+        grad_rel[name] = ((a.float() - b.float()).norm()
+                          / b.float().norm()).item()
+    del gf, gp
+    losses, times = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss, params, opt = step_p(params, opt, ids, labels)
+        losses.append(loss.item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    diffs = [abs(a - b) for a, b in zip(losses, flash_losses)]
+    row = {"phase": "plain_attention_training",
+           "config": "gpt3_1p3b bf16, use_flash=False", "B": 8, "S": 1024,
+           "init_loss_flash": lf.item(), "init_loss_plain": lp.item(),
+           "grad_rel_diff": grad_rel, "losses_plain": losses,
+           "losses_flash": flash_losses, "loss_diffs": diffs,
+           "flash_launches": launched,
+           "synchronised_step_ms": times[1:],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "loss_atol": PLAIN_TRAJ_TOL, "grad_rel_tol": PLAIN_GRAD_REL}
+    _log(row)
+    if any(launched.values()):
+        raise AssertionError(f"the plain path launched {launched}")
+    if not abs(row["init_loss_flash"] - row["init_loss_plain"]) <= LOSS_TOL:
+        raise AssertionError(f"init loss: flash {lf.item()} vs plain "
+                             f"{lp.item()}")
+    if not max(grad_rel.values()) <= PLAIN_GRAD_REL:
+        raise AssertionError(f"gradients: flash vs plain {grad_rel}")
+    if not max(diffs) <= PLAIN_TRAJ_TOL:
+        raise AssertionError(f"trajectory: plain {losses} vs flash "
+                             f"{flash_losses}")
+    return row
 
 
 def main(argv=None) -> int:
@@ -369,10 +799,15 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.distributed import hybrid
     from paddle_tpu_torch.incubate.nn.kernels import _build
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
     from paddle_tpu_torch.incubate.nn.kernels import flash_decode as fd
+    from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.jit.loop import TrainLoop
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.common import matmul_f32out
 
     card = _nvidia_smi("name,power.limit")
     print(card, flush=True)
@@ -380,32 +815,69 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
     t0 = time.perf_counter()
-    libs = _build.build(["flash_decode"])
+    libs = _build.build(["flash_decode", "flash_attention", "fused_ce"])
     _log({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs.values()]})
 
     kernels = kernel_phase(fd)
+    train_kernels = train_kernel_phase(fa, fce, matmul_f32out)
     reference_phase(gpt, ContinuousBatchingEngine)
+    train_reference_phase(gpt, hybrid)
     cfg, params, serving, launches = serving_phase(
         gpt, ContinuousBatchingEngine, fd)
     compare_phase(gpt, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    training, fa_launches, ce_launches = training_phase(
+        gpt, hybrid, TrainLoop, fa, fce)
+    torch.cuda.empty_cache()
+    plain_training = plain_training_phase(gpt, hybrid, fa,
+                                          training["losses"])
 
-    dec = kernels[0]
-    line = {"kernels": [{
+    src = "paddle_tpu_torch/incubate/nn/kernels/csrc/"
+    ref = "paddle_tpu/incubate/nn/kernels/"
+    dec, tr, ce = kernels[0], train_kernels["train"], train_kernels["fused_ce"]
+    entries = [{
         "name": "flash_decode", "route": "cuda",
-        "source": "paddle_tpu_torch/incubate/nn/kernels/csrc/"
-                  "flash_decode.cu",
-        "replaces": "paddle_tpu/incubate/nn/kernels/flash_decode.py:67",
+        "source": src + "flash_decode.cu",
+        "replaces": ref + "flash_decode.py:67",
         "launches": launches, "max_abs_err": dec["max_abs_err"],
         "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "shape": dec["shape"]}]}
+        "library_ms": dec["library_ms"], "shape": dec["shape"]}]
+    for name, key, line, err in (
+            ("flash_attention_fwd", "fwd", 342, "out"),
+            ("flash_attention_bwd_dkv", "dkv", 475, "dk"),
+            ("flash_attention_bwd_dq", "dq", 711, "dq")):
+        e = tr["max_abs_err"][err] if key != "dkv" else max(
+            tr["max_abs_err"]["dk"], tr["max_abs_err"]["dv"])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": src + "flash_attention.cu",
+            "replaces": ref + f"flash_attention.py:{line}",
+            "launches": fa_launches[name], "max_abs_err": e,
+            "ms": tr[f"{key}_ms"], "plain_ms": tr[f"{key}_plain_ms"],
+            "bound_ms": tr["bounds"][key]["bound_ms"],
+            "bound_by": tr["bounds"][key]["bound_by"],
+            # SDPA's backward computes dq, dk and dv in one call
+            "library_ms": tr["fwd_library_ms" if key == "fwd"
+                             else "bwd_library_ms"],
+            "shape": tr["shape"]})
+    entries.append({
+        "name": "fused_ce_fwd", "route": "cuda",
+        "source": src + "fused_ce.cu", "replaces": ref + "fused_ce.py:55",
+        "launches": ce_launches, "max_abs_err": ce["max_abs_err"],
+        "ms": ce["ms"], "plain_ms": ce["plain_ms"],
+        "bound_ms": ce["bound_ms"], "bound_by": ce["bound_by"],
+        "library_ms": ce["library_ms"], "shape": ce["shape"]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": kernels, "serving": serving},
+            {"card": card, "kernels": kernels,
+             "train_kernels": train_kernels, "serving": serving,
+             "training": training, "plain_training": plain_training},
             indent=1))
-    _log(line)
+    _log({"kernels": entries})
     _log({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """GPT — the flagship decoder-only LM (port of
-``paddle_tpu/models/gpt.py``: config, init, forward and the KV-cache
-entry points of the serving path; dense weights, one device).
+``paddle_tpu/models/gpt.py``: config, init, forward, the training loss
+and the KV-cache entry points of the serving path; dense weights, one
+device).
 
 The parameter tree keeps the JAX layout exactly — per-layer weights
 stacked on a leading L axis, qkv packed as ``[L, H, 3, H]`` — so
@@ -18,12 +19,13 @@ Differences from the JAX functions, by design:
 * :func:`_layer_norm` is ``F.layer_norm``, which computes mean and
   variance in float32 for bfloat16 input; the JAX version computes
   them in the input dtype.  At float32 the two agree to rounding.
-* The tied head returns float32 logits as the JAX einsum with
-  ``preferred_element_type=float32`` does.  For bfloat16 weights the
-  product runs in bfloat16 (float32 accumulation) and is rounded to
-  bfloat16 before the cast, so greedy argmax can differ from the JAX
-  head on near-ties; a float32 copy of the [V, H] table per step would
-  move 0.4 GB at the 1.3B config.
+* The tied head and the loss head take float32 output from bfloat16
+  operands through :func:`~.common.matmul_f32out`, as the JAX einsums
+  with ``preferred_element_type=float32`` do; no logit is rounded to
+  bfloat16.
+* Training attention (``use_flash``) is the hand-written flash kernel
+  pair on the card and its plain forward/backward on the CPU; remat is
+  ``torch.utils.checkpoint`` per layer (False and True only).
 """
 from __future__ import annotations
 
@@ -37,13 +39,18 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..incubate.nn.functional import _decode_attention
+from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
+                                                 pick_num_chunks)
+from ..incubate.nn.kernels.flash_attention import (default_use_flash,
+                                                   flash_attention)
 from ..incubate.nn.kernels.flash_decode import flash_decode_attention
-from .common import layer_slices, scan_layers
+from .common import layer_slices, matmul_f32out, scan_layers_with_remat
 
 __all__ = ["GPTConfig", "gpt3_1p3b", "gpt_tiny", "init_params",
            "params_from_numpy", "param_count", "embed",
-           "logits_from_hidden", "forward", "init_decode_cache", "prefill",
-           "prefill_into_slots", "decode_step_multi"]
+           "logits_from_hidden", "forward_layers", "forward", "loss_fn",
+           "init_decode_cache", "prefill", "prefill_into_slots",
+           "decode_step_multi"]
 
 
 @dataclasses.dataclass
@@ -57,9 +64,10 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
     dtype: torch.dtype = torch.float32
-    # training attention in forward(): False -> the plain composition;
-    # True (or None on CUDA) -> the flash_attention kernel, not yet
-    # ported (ROADMAP Queue 2 item 1), so it raises
+    # training attention in forward()/loss_fn(): None -> the
+    # flash_attention kernels on CUDA, the plain composition on the CPU;
+    # True -> flash_attention on either (its plain versions on the CPU);
+    # False -> the plain composition
     use_flash: Optional[bool] = None
 
     @property
@@ -179,13 +187,14 @@ def _layer_norm(x, g, b, eps):
 
 
 def _causal_attention(q, k, v, head_dim, use_flash: Optional[bool] = False):
-    """[B, S, nH, hD] causal attention: the plain softmax composition
-    in float32 (the JAX XLA branch).  The flash_attention kernel it
-    would route to on an accelerator is not ported yet, so
-    ``use_flash=True`` — or ``None`` on a CUDA tensor — raises rather
-    than quietly running the plain version."""
-    if use_flash or (use_flash is None and q.is_cuda):
-        raise NotImplementedError("flash_attention: ROADMAP Queue 2 item 1")
+    """[B, S, nH, hD] causal attention.  ``use_flash`` (or ``None`` on a
+    CUDA tensor, as ``default_use_flash``) routes to
+    :func:`flash_attention`; otherwise the plain softmax composition in
+    float32 (the JAX XLA branch)."""
+    if use_flash is None:
+        use_flash = default_use_flash(q.device)
+    if use_flash:
+        return flash_attention(q, k, v, causal=True)
     S = q.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (1.0 / math.sqrt(head_dim))
@@ -239,18 +248,52 @@ def embed(params, input_ids, cfg: GPTConfig):
     return params["wte"][input_ids] + params["wpe"][pos]
 
 
+def _tied_logits(x, wte):
+    """The weight-tied head on normalised hidden states x [..., H]:
+    float32 logits [..., V] from operands in the model dtype."""
+    logits = matmul_f32out(x.reshape(-1, x.shape[-1]), wte.t())
+    return logits.view(*x.shape[:-1], wte.shape[0])
+
+
 def logits_from_hidden(params, h, cfg: GPTConfig):
     """Final LN + weight-tied head -> float32 logits [..., V]."""
     h = _layer_norm(h, params["lnf_g"], params["lnf_b"],
                     cfg.layer_norm_epsilon)
-    return (h @ params["wte"].t()).float()
+    return _tied_logits(h, params["wte"])
 
 
-def forward(params, input_ids, cfg: GPTConfig):
+def forward_layers(h, layer_params, cfg: GPTConfig, remat=False):
+    """The stacked decoder layers over h [B, S, H]; ``remat`` False or
+    True (full per-layer recompute), see ``scan_layers_with_remat``."""
+    return scan_layers_with_remat(lambda c, lp: _decoder_layer(c, lp, cfg),
+                                  h, layer_params, remat)
+
+
+def forward(params, input_ids, cfg: GPTConfig, remat=False):
     h = embed(params, input_ids, cfg)
-    h = scan_layers(lambda c, lp: _decoder_layer(c, lp, cfg), h,
-                    params["layers"])
+    h = forward_layers(h, params["layers"], cfg, remat=remat)
     return logits_from_hidden(params, h, cfg)
+
+
+def _head_loss(params, h, labels, cfg: GPTConfig):
+    """Final LN + tied head + cross entropy over h [B, S, H], the mean
+    over tokens.  The head goes through ``chunked_vocab_nll``: no
+    [tokens, V] log-softmax is saved under autograd, and a no-grad call
+    on the card of a supported shape runs the fused_ce kernel."""
+    h = _layer_norm(h, params["lnf_g"], params["lnf_b"],
+                    cfg.layer_norm_epsilon)
+    N = h.shape[0] * h.shape[1]
+    nll = chunked_vocab_nll(h.reshape(N, h.shape[-1]), params["wte"],
+                            labels.reshape(N), 0,
+                            pick_num_chunks(N, params["wte"].shape[0]))
+    return nll.mean()
+
+
+def loss_fn(params, input_ids, labels, cfg: GPTConfig, remat=False):
+    """Next-token cross entropy, the mean over tokens."""
+    h = embed(params, input_ids, cfg)
+    h = forward_layers(h, params["layers"], cfg, remat=remat)
+    return _head_loss(params, h, labels, cfg)
 
 
 # ---------------------------------------------------------------------------

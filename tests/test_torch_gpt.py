@@ -64,9 +64,14 @@ def test_forward_matches_jax(models):
 
 
 def test_causal_attention_flash_is_not_silently_plain():
-    q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tgpt._causal_attention(q, q, q, 16, use_flash=True)
+    """use_flash=True goes through the flash_attention Function (its
+    plain versions on the CPU), not the plain composition."""
+    q = torch.randn(1, 4, 2, 16, requires_grad=True)
+    out = tgpt._causal_attention(q, q, q, 16, use_flash=True)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    plain = tgpt._causal_attention(q, q, q, 16, use_flash=False)
+    assert type(plain.grad_fn).__name__ != "_FlashAttentionBackward"
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-6)
 
 
 def test_prefill_matches_jax(models):

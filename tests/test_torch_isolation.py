@@ -2,8 +2,8 @@
 anything of paddle_tpu.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``jaxlib`` and ``paddle_tpu``, imports every module of the port, and
-serves one request on the CPU.  A source scan checks the import
+``jaxlib`` and ``paddle_tpu``, imports every module of the port, serves
+one request and takes one train step on the CPU.  A source scan checks the import
 statements of the package and of ``chip_smoke.py``.
 """
 import ast
@@ -42,6 +42,16 @@ eng = ContinuousBatchingEngine(gpt.init_params(cfg, 0, device="cpu"), cfg,
 rid = eng.submit(np.arange(5), max_new=4)
 out = eng.run()
 assert eng.status(rid) == "DONE" and len(out[rid]) == 4, out
+
+import torch
+from paddle_tpu_torch.distributed import hybrid
+tcfg = gpt.gpt_tiny(num_layers=2)
+step, shard, init_opt = hybrid.build_train_step(tcfg, num_micro=2,
+                                                device="cpu")
+p = shard(gpt.init_params(tcfg, 0, device="cpu"))
+ids = torch.arange(64).reshape(2, 32) % tcfg.vocab_size
+loss, p, o = step(p, init_opt(p), ids, ids.roll(-1, 1))
+assert torch.isfinite(loss) and int(o["step"]) == 1, loss
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))
@@ -49,6 +59,7 @@ print("modules", len(names))
 
 
 def test_port_imports_and_serves_with_jax_blocked():
+    """Imports, serves and trains with jax and paddle_tpu blocked."""
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
