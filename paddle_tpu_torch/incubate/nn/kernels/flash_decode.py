@@ -3,18 +3,25 @@
 
 One kernel serves every attention of the serving path: decode (W = 1),
 and admission prefill (W = S, pos = 0: causal self-attention is the
-window mask with a zero base offset).  The TPU kernel
+window mask with a zero base offset), over two layouts —
+:func:`flash_decode_attention` reads a contiguous cache
+``[B, T, nKV, hD]``, :func:`flash_decode_paged` a shared page pool
+``[num_blocks, block_size, nKV, hD]`` through per-slot block tables —
+and three storage modes: the model dtype, int8 ``(data, scale)`` tuples
+and bare ``float8_e4m3fn`` tensors.  The TPU kernel
 ``_flash_decode_kernel`` becomes the hand-written CUDA kernel in
 ``csrc/flash_decode.cu``; its source note says what bounds it on the
 H100 and what the simple design leaves for later.
 
-Dispatch: a CPU tensor runs :func:`flash_decode_attention_plain`; a
-CUDA tensor launches the kernel or raises.  There is no fallback from
+Dispatch: a CPU tensor runs the plain version
+(:func:`flash_decode_attention_plain`, :func:`flash_decode_paged_plain`);
+a CUDA tensor launches the kernel or raises.  There is no fallback from
 one to the other.
 
-The kernel takes the batch, token and head strides of q, k and v, so
-the prefill path's q/k/v (strided slices of the packed qkv activation)
-reach it without a copy; only the last axis must be contiguous.
+The kernel takes the slot (or page), row and head strides of q, K, V
+and the int8 scales, so the prefill path's q/k/v (strided slices of the
+packed qkv activation) reach it without a copy; only the last axis of
+q, K and V must be contiguous.
 """
 from __future__ import annotations
 
@@ -23,58 +30,145 @@ import math
 
 import torch
 
+from ..kv_quant import byte_view, dequantize_kv, kv_components, kv_map
 from . import _build
 
-__all__ = ["flash_decode_attention", "flash_decode_attention_plain",
-           "LAUNCHES"]
+__all__ = ["flash_decode_attention", "flash_decode_paged",
+           "flash_decode_attention_plain", "flash_decode_paged_plain",
+           "kv_mode", "reset_launches", "LAUNCHES", "PAGED_LAUNCHES",
+           "MODE_LAUNCHES"]
 
-#: kernel launches so far (CUDA tensors only; the plain version and
-#: rejected calls do not count)
+#: kernel launches so far (CUDA tensors only; the plain versions and
+#: rejected calls do not count): contiguous-layout launches ...
 LAUNCHES = 0
+#: ... paged-layout launches ...
+PAGED_LAUNCHES = 0
+#: ... and every launch of either layout by K/V storage mode
+#: ("dense" = the model dtype, "int8", "fp8")
+MODE_LAUNCHES = {"dense": 0, "int8": 0, "fp8": 0}
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _NEG_INF = -1e30
 _fn = None
 
 
-def _check(q, keys, values, pos):
-    if q.dim() != 4 or keys.dim() != 4 or values.dim() != 4:
-        raise ValueError("q, keys and values must be 4-D "
-                         "([B, W, nH, hD] and [B, T, nKV, hD])")
+def reset_launches():
+    """Set every launch count to 0."""
+    global LAUNCHES, PAGED_LAUNCHES
+    LAUNCHES = 0
+    PAGED_LAUNCHES = 0
+    for mode in MODE_LAUNCHES:
+        MODE_LAUNCHES[mode] = 0
+
+
+def _split_kv(x):
+    """(data, scale) for an int8 operand, (data, None) otherwise."""
+    if isinstance(x, tuple):
+        if len(x) != 2:
+            raise ValueError("a quantized K/V operand is a (data, scale) "
+                             "pair")
+        return x
+    return x, None
+
+
+def kv_mode(keys) -> str:
+    """The storage mode of a K/V operand: "dense", "int8" or "fp8"."""
+    data, _ = _split_kv(keys)
+    if data.dtype == torch.int8:
+        return "int8"
+    if data.dtype == torch.float8_e4m3fn:
+        return "fp8"
+    return "dense"
+
+
+def _check_kv(q, keys, values, what):
+    """Shape, storage and device checks shared by both layouts; returns
+    (k, k_scale, v, v_scale)."""
+    k, ks = _split_kv(keys)
+    v, vs = _split_kv(values)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q and {what} must be 4-D")
     B, W, nH, hD = q.shape
-    if keys.shape != values.shape:
-        raise ValueError(f"keys {tuple(keys.shape)} and values "
-                         f"{tuple(values.shape)} differ in shape")
-    if keys.shape[0] != B or keys.shape[3] != hD:
-        raise ValueError(f"q {tuple(q.shape)} does not match keys "
-                         f"{tuple(keys.shape)} in batch or head dim")
-    nKV = keys.shape[2]
+    if k.shape != v.shape:
+        raise ValueError(f"keys {tuple(k.shape)} and values "
+                         f"{tuple(v.shape)} differ in shape")
+    if k.shape[3] != hD:
+        raise ValueError(f"q {tuple(q.shape)} does not match {what} "
+                         f"{tuple(k.shape)} in head dim")
+    nKV = k.shape[2]
     if nKV < 1 or nH % nKV:
         raise ValueError(f"{nH} query heads are not a multiple of "
                          f"{nKV} kv heads")
     if hD not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {hD} not in {SUPPORTED_HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODE or keys.dtype != q.dtype \
-            or values.dtype != q.dtype:
-        raise TypeError(f"q/keys/values must share float32 or bfloat16, "
-                        f"got {q.dtype}/{keys.dtype}/{values.dtype}")
+    if q.dtype not in _Q_CODE:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != v.dtype or k.dtype not in (q.dtype, *_KV_CODE):
+        raise TypeError(f"keys/values must share q's dtype {q.dtype}, "
+                        f"int8 or float8_e4m3fn, got {k.dtype}/{v.dtype}")
+    quant = k.dtype == torch.int8
+    if quant != (ks is not None) or quant != (vs is not None):
+        raise TypeError("int8 keys/values travel as (data, scale) pairs, "
+                        "and only int8 carries scales")
+    if quant:
+        want = tuple(k.shape[:3]) + (1,)
+        for s in (ks, vs):
+            if s.dtype != torch.float32 or tuple(s.shape) != want:
+                raise ValueError(f"scales must be float32 {want}, got "
+                                 f"{s.dtype} {tuple(s.shape)}")
+    tensors = [q, k, v] + ([ks, vs] if quant else [])
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"q and {what} lie on different devices: "
+                         f"{sorted(map(str, devs))}")
+    return k, ks, v, vs
+
+
+def _check_pos(pos, B, device):
     if pos.dtype != torch.int32 or tuple(pos.shape) != (B,):
         raise ValueError(f"pos must be int32 [{B}], got {pos.dtype} "
                          f"{tuple(pos.shape)}")
-    devs = {t.device for t in (q, keys, values, pos)}
-    if len(devs) != 1:
-        raise ValueError(f"q, keys, values and pos lie on different "
-                         f"devices: {sorted(map(str, devs))}")
+    if pos.device != device:
+        raise ValueError(f"pos lies on {pos.device}, q on {device}")
+
+
+def _check(q, keys, values, pos):
+    k, ks, v, vs = _check_kv(q, keys, values, "keys/values "
+                             "([B, W, nH, hD] and [B, T, nKV, hD])")
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"q {tuple(q.shape)} does not match keys "
+                         f"{tuple(k.shape)} in batch")
+    _check_pos(pos, q.shape[0], q.device)
+    return k, ks, v, vs
+
+
+def _check_paged(q, key_pool, value_pool, block_tables, pos):
+    k, ks, v, vs = _check_kv(q, key_pool, value_pool, "the pools "
+                             "([B, W, nH, hD] and [nb, bs, nKV, hD])")
+    B = q.shape[0]
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B or block_tables.shape[1] < 1:
+        raise ValueError(f"block_tables must be int32 [{B}, max_blocks], "
+                         f"got {block_tables.dtype} "
+                         f"{tuple(block_tables.shape)}")
+    if block_tables.device != q.device:
+        raise ValueError(f"block_tables lie on {block_tables.device}, q "
+                         f"on {q.device}")
+    _check_pos(pos, B, q.device)
+    return k, ks, v, vs
 
 
 def flash_decode_attention_plain(q, keys, values, pos):
-    """The kernel's function in plain PyTorch, float32 math: masked
-    scores, exp against the row max, P.V divided by max(l, 1e-30)."""
+    """The kernel's function in plain PyTorch, float32 math: K/V
+    dequantized to float32 (int8 data times its scale, fp8 widened),
+    masked scores, exp against the row max, P.V divided by
+    max(l, 1e-30), cast to q's dtype."""
     B, W, nH, hD = q.shape
-    T, nKV = keys.shape[1], keys.shape[2]
-    k = keys.float()
-    v = values.float()
+    k = dequantize_kv(keys)
+    v = dequantize_kv(values)
+    T, nKV = k.shape[1], k.shape[2]
     if nKV != nH:
         k = k.repeat_interleave(nH // nKV, dim=2)
         v = v.repeat_interleave(nH // nKV, dim=2)
@@ -92,12 +186,32 @@ def flash_decode_attention_plain(q, keys, values, pos):
     return (out / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def _gather_pages(pool, block_tables):
+    """[B, mb*bs, ...] view of each slot's pages: ids clamped into the
+    pool (-1 reads page 0, an id past the pool its last page, as an XLA
+    gather clamps)."""
+    B, mb = block_tables.shape
+    nb = kv_components(pool)[0].shape[0]
+    safe = block_tables.clamp(0, nb - 1).long()
+    return kv_map(lambda a: byte_view(a)[safe].view(a.dtype).reshape(
+        (B, mb * a.shape[1]) + tuple(a.shape[2:])), pool)
+
+
+def flash_decode_paged_plain(q, key_pool, value_pool, block_tables, pos):
+    """The paged kernel's function in plain PyTorch: gather each slot's
+    pages (``pool[max(bt, 0)]``) into a contiguous history and run
+    :func:`flash_decode_attention_plain` on it."""
+    return flash_decode_attention_plain(
+        q, _gather_pages(key_pool, block_tables),
+        _gather_pages(value_pool, block_tables), pos)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("flash_decode").pt_flash_decode
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                       + [ctypes.c_longlong] * 15
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -123,26 +237,58 @@ def _strides(t, vec):
     return out
 
 
-def _launch(q, keys, values, pos):
-    global LAUNCHES
+def _scale_strides(s):
+    """Element strides of axes 0..2 of a [*, *, nKV, 1] scale tensor
+    (read one float at a time: no alignment beyond float32's)."""
+    if s is None:
+        return [0, 0, 0]
+    return [0 if s.shape[ax] == 1 else s.stride(ax) for ax in range(3)]
+
+
+def _launch(q, k, ks, v, vs, pos, block_tables=None):
+    global LAUNCHES, PAGED_LAUNCHES
     B, W, nH, hD = q.shape
-    T, nKV = keys.shape[1], keys.shape[2]
+    nKV = k.shape[2]
     out = torch.empty((B, W, nH, hD), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    vec = 16 // q.element_size()
-    qs, ks, vs = (_strides(t, vec) for t in (q, keys, values))
+    vec = 16 // k.element_size()
+    qs = _strides(q, 16 // q.element_size())
+    kst, vst = _strides(k, vec), _strides(v, vec)
     pos = pos.contiguous()
+    if block_tables is None:
+        bt_ptr, mb, bs, nb, T = None, 0, 0, 0, k.shape[1]
+    else:
+        block_tables = block_tables.contiguous()
+        bt_ptr = block_tables.data_ptr()
+        mb, bs, nb = block_tables.shape[1], k.shape[1], k.shape[0]
+        T = mb * bs
+    kv_code = _KV_CODE.get(k.dtype, _Q_CODE[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(q.data_ptr(), keys.data_ptr(), values.data_ptr(),
-                   pos.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype],
-                   B, W, T, nH, nKV, hD, *qs, *ks, *vs,
-                   1.0 / math.sqrt(hD), stream)
+    rc = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(),
+        pos.data_ptr(), bt_ptr, out.data_ptr(),
+        _Q_CODE[q.dtype], kv_code, B, W, T, nH, nKV, hD, mb, bs, nb,
+        *qs, *kst, *vst, *_scale_strides(ks), *_scale_strides(vs),
+        1.0 / math.sqrt(hD), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
+    if block_tables is None:
+        LAUNCHES += 1
+    else:
+        PAGED_LAUNCHES += 1
+    MODE_LAUNCHES[kv_mode(k)] += 1
     return out
+
+
+def _device_gate(q, name):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    return q.device.type == "cpu"
 
 
 def flash_decode_attention(q, keys, values, pos):
@@ -150,18 +296,39 @@ def flash_decode_attention(q, keys, values, pos):
 
     q [B, W, nH, hD] (W query positions per slot, fed at positions
     pos..pos+W-1); keys/values [B, T, nKV, hD] INCLUDING the window's
-    own just-written K/V; pos [B] int32 (>= 0).  Query j of slot b
-    attends cache rows < pos[b] + j + 1, so W = 1 is the decode step
-    and pos = 0, W = S is causal prefill.  GQA via head grouping.
-    Returns [B, W, nH, hD] in q's dtype.
+    own just-written K/V — bare tensors in q's dtype or in
+    float8_e4m3fn, or int8 ``(data, scale [B, T, nKV, 1] float32)``
+    pairs; pos [B] int32 (>= 0).  Query j of slot b attends cache rows
+    < pos[b] + j + 1, so W = 1 is the decode step and pos = 0, W = S is
+    causal prefill.  GQA via head grouping.  Returns [B, W, nH, hD] in
+    q's dtype.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (float32 or bfloat16, hD in 16/32/64/128, last axis contiguous,
-    other strides and the base 16-byte aligned) or raise."""
-    _check(q, keys, values, pos)
-    if q.device.type == "cpu":
+    (q float32 or bfloat16, hD in 16/32/64/128, last axis contiguous,
+    other strides and the bases 16-byte aligned) or raise."""
+    k, ks, v, vs = _check(q, keys, values, pos)
+    if _device_gate(q, "flash_decode_attention"):
         return flash_decode_attention_plain(q, keys, values, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_attention runs on cuda or cpu "
-                         f"tensors, got {q.device}")
-    return _launch(q, keys, values, pos)
+    return _launch(q, k, ks, v, vs, pos)
+
+
+def flash_decode_paged(q, key_pool, value_pool, block_tables, pos):
+    """Paged-layout flash decoding attention over a shared page pool.
+
+    q [B, W, nH, hD]; key_pool/value_pool [num_blocks, block_size, nKV,
+    hD] (same storage modes as :func:`flash_decode_attention`, int8
+    scales [num_blocks, block_size, nKV, 1]); block_tables [B,
+    max_blocks] int32 page ids, -1 = unallocated, read as page 0 — such
+    pages must back only rows past every query's length, which the
+    kernel then never reads (an id past the pool reads its last page:
+    no read leaves the pool); pos [B] int32.  Same mask contract as the
+    contiguous form over the slot's logical history of max_blocks *
+    block_size rows.
+
+    CPU tensors run :func:`flash_decode_paged_plain`; CUDA tensors
+    launch the kernel or raise."""
+    k, ks, v, vs = _check_paged(q, key_pool, value_pool, block_tables, pos)
+    if _device_gate(q, "flash_decode_paged"):
+        return flash_decode_paged_plain(q, key_pool, value_pool,
+                                        block_tables, pos)
+    return _launch(q, k, ks, v, vs, pos, block_tables)

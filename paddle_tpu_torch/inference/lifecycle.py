@@ -1,13 +1,14 @@
-"""Request-lifecycle primitives for the serving engine (the parts of
-``paddle_tpu/inference/lifecycle.py`` this slice's engine uses: the
+"""Request-lifecycle primitives for the serving engines (the parts of
+``paddle_tpu/inference/lifecycle.py`` the port's engines use: the
 status constants, the engine state, the two error types, and the
-bounded admission queue with the ``reject`` overload policy).  Pure
-Python; imports no backend."""
+bounded admission queue with the ``reject`` overload policy and the
+front re-queue the paged engine's evictions use).  Pure Python;
+imports no backend."""
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Optional
+from typing import Iterable, Optional
 
 __all__ = ["RequestStatus", "EngineState", "AdmissionQueue",
            "QueueFullError", "EngineClosedError", "now"]
@@ -20,13 +21,14 @@ def now() -> float:
 
 class RequestStatus:
     """Per-request states (plain strings, so they serialize and compare
-    without an import on the client side).  This engine has no
-    deadlines, cancellation or failure isolation yet, so DONE is its
-    only terminal state; the JAX module's FAILED / TIMEOUT / CANCELLED /
-    REJECTED come with those paths."""
+    without an import on the client side).  DONE ends a request that
+    produced its tokens; FAILED one the livelock guard retired.  The
+    JAX module's TIMEOUT / CANCELLED / REJECTED come with deadlines,
+    cancellation and the other overload policies."""
     QUEUED = "QUEUED"
     RUNNING = "RUNNING"
     DONE = "DONE"
+    FAILED = "FAILED"
 
 
 class EngineState:
@@ -47,7 +49,10 @@ class EngineClosedError(RuntimeError):
 class AdmissionQueue:
     """Bounded FIFO admission queue with the ``reject`` policy:
     :meth:`offer` raises :class:`QueueFullError` at the bound
-    (``maxsize=None`` is unbounded)."""
+    (``maxsize=None`` is unbounded).  :meth:`appendleft` and
+    :meth:`extendleft` re-queue requests the engine already accepted
+    (paged evictions, admissions the pool cannot back yet) and bypass
+    the bound, so accepted work is never bounced."""
 
     def __init__(self, maxsize: Optional[int] = None):
         if maxsize is not None and maxsize < 1:
@@ -66,6 +71,15 @@ class AdmissionQueue:
                 f"admission queue full ({len(self._q)}/{self.maxsize} "
                 f"queued, policy='reject')")
         self._q.append(req)
+        self.high_water = max(self.high_water, len(self._q))
+
+    def appendleft(self, req) -> None:
+        self._q.appendleft(req)
+        self.high_water = max(self.high_water, len(self._q))
+
+    def extendleft(self, reqs: Iterable) -> None:
+        """Like ``deque.extendleft``: the LAST item ends up in front."""
+        self._q.extendleft(reqs)
         self.high_water = max(self.high_water, len(self._q))
 
     def popleft(self):

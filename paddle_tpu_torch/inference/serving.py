@@ -1,29 +1,37 @@
-"""Continuous-batching serving engine over the KV cache (port of
-``paddle_tpu/inference/serving.py``: ``Request``, ``_derive_buckets``
-and the scheduler core of ``ContinuousBatchingEngine``).
+"""Continuous-batching serving engines over the KV cache (port of
+``paddle_tpu/inference/serving.py``: ``Request``, ``_derive_buckets``,
+the scheduler core of ``ContinuousBatchingEngine`` and
+``PagedContinuousBatchingEngine``).
 
 The host runs the scheduler — admission, retirement, slot assignment —
 and the device runs two programs over one in-place KV cache:
 
-* a batched admission prefill (``gpt.prefill_into_slots``): every
-  request admitted in a round whose prompt falls in the same length
-  bucket is prefilled together, ids padded with 0 to the bucket, each
-  prompt's K/V written straight into its slot;
-* a K-step decode loop (``gpt.decode_step_multi`` + greedy argmax per
+* a batched admission prefill: every request admitted in a round whose
+  sequence falls in the same length bucket is prefilled together, ids
+  padded with 0 to the bucket, each sequence's K/V written straight
+  into its slot (``gpt.prefill_into_slots``) or its pages
+  (``gpt.prefill_paged_batched``);
+* a K-step decode loop (the engine's decode step + greedy argmax per
   step) advancing every slot at its own position, with ONE host sync
   per K steps.
 
-Priming follows the JAX engine: prompts pad to a bucket, so an
-admitted slot starts at ``pos = S-1`` feeding its last real prompt
-token; the first decode step recomputes that row and its argmax is
-generated token #1.  Inactive slots decode at ``max_len-1`` with
-``done`` set — junk rows that no query attends.  The scheduler makes
-the same choices as the JAX one step for step, so greedy streams
-match it.
+Priming follows the JAX engine: sequences pad to a bucket, so an
+admitted slot starts at ``pos = S-1`` feeding its last real token; the
+first decode step recomputes that row and its argmax is the next
+token.  Inactive slots decode at ``max_len-1`` with ``done`` set: the
+contiguous engine writes junk rows that no query attends, the paged
+engine drops their writes (their block tables are all -1).  The
+scheduler makes the same choices as the JAX one step for step, so
+greedy streams match it.
 
-Left out of this slice (ROADMAP Queue 1 items 7-9, 11-12): prefix
-cache, speculative decoding, paged and fused engines, tensor-parallel
-mesh, int8/fp8 KV cache, retries/breaker/deadlines, observability.
+The KV cache is stored as ``kv_dtype`` ("bf16" = the model dtype,
+"int8" with per-row scales, "fp8"); every write quantizes on the way
+in and the flash kernel dequantizes while it reads.
+
+Left out (ROADMAP Queue 1): prefix cache and host tier, handoff and
+reinstall hooks, speculative decoding and ``verify_paged``, fused
+engine, tensor-parallel mesh, retries/breaker/deadlines/cancel,
+observability, the ``PT_KV_DTYPE`` flag.
 """
 from __future__ import annotations
 
@@ -34,12 +42,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..incubate.nn.kv_quant import resolve_kv_dtype
 from ..models import decoding, gpt
 from .lifecycle import (AdmissionQueue, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
 
-__all__ = ["ContinuousBatchingEngine", "Request", "RequestStatus",
-           "EngineState", "QueueFullError", "EngineClosedError"]
+__all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
+           "Request", "RequestStatus", "EngineState", "QueueFullError",
+           "EngineClosedError"]
 
 
 @dataclasses.dataclass(eq=False)
@@ -50,11 +60,20 @@ class Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     status: str = RequestStatus.QUEUED
+    error: Optional[str] = None
     submitted_at: float = 0.0
     # monotonic stamps; TTFT resolves at the host sync that returned the
     # first token, so a K-step decode loop stamps all K tokens at once
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+
+    def seq_so_far(self) -> np.ndarray:
+        """prompt + already-generated tokens — what a re-admission
+        after a paged eviction must prefill."""
+        if not self.tokens:
+            return self.prompt
+        return np.concatenate([self.prompt,
+                               np.asarray(self.tokens, np.int32)])
 
 
 def _derive_buckets(max_len: int) -> Tuple[int, ...]:
@@ -81,15 +100,21 @@ class ContinuousBatchingEngine:
 
     ``attn_kernel`` ("flash" default | "xla") — "flash" serves decode
     and prefill attention from the flash_decode kernel; "xla" runs the
-    plain compositions.  ``device`` — CUDA unless ``"cpu"`` is passed;
-    ``params`` must already lie there.  ``max_queue`` bounds the
-    admission queue (``reject`` policy: submit raises
-    :class:`QueueFullError`)."""
+    plain compositions.  ``kv_dtype`` ("bf16" default | "int8" |
+    "fp8") — the KV cache's storage format; an explicit argument, since
+    the JAX engine's ``PT_KV_DTYPE`` flag registry is not ported.
+    ``device`` — CUDA unless ``"cpu"`` is passed; ``params`` must
+    already lie there.  ``max_queue`` bounds the admission queue
+    (``reject`` policy: submit raises :class:`QueueFullError`).
+    ``max_stall_rounds`` — consecutive scheduler rounds without
+    progress after which the stalled request retires FAILED with a
+    capacity diagnostic (the livelock guard)."""
 
     def __init__(self, params, cfg, max_batch: int = 4,
                  max_len: int = 1024, eos_token_id: Optional[int] = None,
                  max_queue: Optional[int] = None,
-                 attn_kernel: str = "flash", device=None):
+                 attn_kernel: str = "flash", kv_dtype: str = "bf16",
+                 max_stall_rounds: int = 8, device=None):
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"engine max_len={max_len} exceeds the model's "
@@ -108,8 +133,13 @@ class ContinuousBatchingEngine:
         self.max_len = max_len
         self.eos = eos_token_id
         self.attn_kernel = attn_kernel
-        self._cache = gpt.init_decode_cache(cfg, max_batch, max_len,
-                                            device=self.device)
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        self.max_stall_rounds = int(max_stall_rounds)
+        self._stall_rounds = 0
+        self._stalls_total = 0
+        # admissions sent back to the queue front because their capacity
+        # could not be reserved (paged: the pool was short of pages)
+        self._deferred = 0
         self._buckets = _derive_buckets(max_len)
         self._slot_req: List[Optional[Request]] = [None] * max_batch
         self._pos = np.zeros(max_batch, np.int32)     # pos being fed
@@ -124,6 +154,60 @@ class ContinuousBatchingEngine:
         self._decode_steps = 0
         # host clock around each decode loop, its one sync included
         self._decode_seconds = 0.0
+        self._init_cache()
+
+    # -- cache strategy (overridden by the paged engine) ---------------------
+    def _init_cache(self):
+        self._cache = gpt.init_decode_cache(self.cfg, self.max_batch,
+                                            self.max_len, self.kv_dtype,
+                                            device=self.device)
+
+    def cache_bytes(self) -> int:
+        """Device bytes held by the KV cache allocation, scale planes
+        included."""
+        return sum(c.numel() * c.element_size()
+                   for c in self._cache.values())
+
+    def _decode_step_fn(self):
+        """The per-step decode (p, c, extra, tok, pos) -> (logits,
+        cache): the one point where the contiguous and paged engines
+        differ on the device side (``extra`` carries the paged engine's
+        block tables; unused here)."""
+        cfg, ak = self.cfg, self.attn_kernel
+
+        def step(p, c, extra, tok, pos):
+            del extra
+            return gpt.decode_step_multi(p, c, tok, pos, cfg,
+                                         attn_kernel=ak)
+
+        return step
+
+    def _decode_extra(self):
+        """Per-round extra device argument of the decode step."""
+        return None
+
+    def _scan_clamp(self, active, max_tokens: int = 1) -> int:
+        """Upper bound on the decode loop's length from cache headroom.
+        Returns 0 when no active slot can advance (paged: after an
+        eviction reshuffle)."""
+        del max_tokens
+        return min(self.max_len - 1 - int(self._pos[i]) for i in active)
+
+    def _reserve_slot(self, slot: int, req: Request,
+                      seq: np.ndarray) -> bool:
+        """Claim per-slot capacity before any device work (paged:
+        pages).  Returns False when the engine cannot host the request
+        now."""
+        return True
+
+    def _release_slot(self, slot: int):
+        """Free per-slot cache resources on retirement (paged: pages)."""
+
+    def _stall_diagnostic(self, req: Request) -> str:
+        return (f"request {req.rid} made no progress in "
+                f"{self.max_stall_rounds} scheduler rounds "
+                f"(sequence length {req.seq_so_far().size}, "
+                f"max_len {self.max_len})")
 
     # -- client surface ----------------------------------------------------
     def submit(self, prompt, max_new: int = 32) -> int:
@@ -150,7 +234,8 @@ class ContinuousBatchingEngine:
 
     def run(self, steps_per_sync: int = 16) -> Dict[int, List[int]]:
         """Serve until the queue and every slot are empty; returns
-        {rid: generated tokens}."""
+        {rid: generated tokens}.  Every request ends in a terminal
+        status (DONE, or FAILED by the livelock guard)."""
         results: Dict[int, List[int]] = {}
         while self._has_work():
             for req in self.step(steps_per_sync):
@@ -169,8 +254,9 @@ class ContinuousBatchingEngine:
         """Admit into free slots, advance every active slot up to
         ``max_tokens`` tokens, retire finished requests.  Returns the
         requests retired this iteration."""
+        retired_before = len(self._pending_report)
         self._admit()
-        self._decode_round(max_tokens)
+        self._decode_round(max_tokens, retired_before)
         out, self._pending_report = self._pending_report, []
         return out
 
@@ -191,17 +277,20 @@ class ContinuousBatchingEngine:
     def metrics(self) -> Dict[str, Any]:
         """Scheduler snapshot: device programs per kind (``launches``),
         decode steps run and their host-clock seconds, queue and slot
-        gauges, cache bytes."""
+        gauges, the livelock guard's stalled rounds, deferred
+        admissions, KV storage format and cache bytes."""
         return {
             "attn_kernel": self.attn_kernel,
+            "kv_dtype": self.kv_dtype,
             "launches": dict(self._launch_counts),
             "decode_steps": self._decode_steps,
             "decode_seconds": self._decode_seconds,
             "active_slots": self.active_slots,
             "queued": self.queued,
             "queue_high_water": self._queue.high_water,
-            "cache_bytes": sum(c.numel() * c.element_size()
-                               for c in self._cache.values()),
+            "stalls": self._stalls_total,
+            "deferred_admissions": self._deferred,
+            "cache_bytes": self.cache_bytes(),
         }
 
     # -- scheduler ---------------------------------------------------------
@@ -214,58 +303,82 @@ class ContinuousBatchingEngine:
     def _note_launch(self, kind: str):
         self._launch_counts[kind] = self._launch_counts.get(kind, 0) + 1
 
+    def _requeue_front(self, reqs: Sequence[Request]):
+        """Back to the queue FRONT preserving FIFO order (extendleft
+        reverses its argument)."""
+        if reqs:
+            self._queue.extendleft(reversed(list(reqs)))
+
     def _admit(self):
-        """Fill free slots in slot order from the queue head, then
-        prefill every same-bucket group of this round in one program."""
-        plans: List[Tuple[int, Request]] = []
+        """Fill free slots in slot order from the queue head, reserve
+        their capacity (whatever the pool cannot back yet goes back to
+        the queue front, FIFO), then prefill every same-bucket group of
+        this round in one program."""
+        plans: List[Tuple[int, Request, np.ndarray]] = []
         for slot in range(self.max_batch):
             if self._slot_req[slot] is not None:
                 continue
             if not self._queue:
                 break
-            plans.append((slot, self._queue.popleft()))
-        while plans:
-            b = self._bucket(plans[0][1].prompt.size)
-            group = [p for p in plans if self._bucket(p[1].prompt.size) == b]
-            plans = [p for p in plans if p not in group]
-            self._prefill_batch([s for s, _ in group],
-                                [r for _, r in group], b)
-            for slot, req in group:
-                self._finish_admit(slot, req)
+            req = self._queue.popleft()
+            plans.append((slot, req, req.seq_so_far()))
+        ready = []
+        for idx, plan in enumerate(plans):
+            if self._reserve_slot(*plan):
+                ready.append(plan)
+            else:
+                self._requeue_front([p[1] for p in plans[idx:]])
+                self._deferred += len(plans) - idx
+                break
+        while ready:
+            b = self._bucket(ready[0][2].size)
+            group = [p for p in ready if self._bucket(p[2].size) == b]
+            ready = [p for p in ready if p not in group]
+            self._prefill_batch([p[0] for p in group],
+                                [p[2] for p in group])
+            self._note_launch("prefill")
+            for slot, req, seq in group:
+                self._finish_admit(slot, req, seq)
 
     def _prefill_batch(self, slots: Sequence[int],
-                       reqs: Sequence[Request], bucket: int):
-        ids = np.zeros((len(reqs), bucket), np.int32)
-        for i, r in enumerate(reqs):
-            ids[i, :r.prompt.size] = r.prompt
+                       seqs: Sequence[np.ndarray]):
+        """One prefill of a bucket's sequences straight into their
+        slots."""
+        bucket = self._bucket(max(s.size for s in seqs))
+        ids = np.zeros((len(seqs), bucket), np.int32)
+        for i, s in enumerate(seqs):
+            ids[i, :s.size] = s
         with torch.inference_mode():
             gpt.prefill_into_slots(
                 self.params, torch.from_numpy(ids).to(self.device),
                 self.cfg, self._cache,
                 torch.tensor(slots, dtype=torch.long, device=self.device),
                 attn_kernel=self.attn_kernel)
-        self._note_launch("prefill")
 
-    def _finish_admit(self, slot: int, req: Request):
+    def _finish_admit(self, slot: int, req: Request, seq: np.ndarray):
         self._slot_req[slot] = req
         req.status = RequestStatus.RUNNING
         # prime: feed the last REAL token at pos len-1 — the next decode
-        # step's argmax is generated token #1
-        self._pos[slot] = req.prompt.size - 1
-        self._next_tok[slot] = int(req.prompt[-1])
+        # step's argmax continues the sequence (for a fresh request that
+        # is generated token #1; after an eviction the next unconsumed
+        # token)
+        self._pos[slot] = seq.size - 1
+        self._next_tok[slot] = int(seq[-1])
 
     def _decode_many(self, K: int, tok, pos, done) -> np.ndarray:
         """K greedy decode steps on the device; one host sync at the
         end.  Done slots keep their position (their writes land on a
-        junk row) and feed the eos id.  Returns tokens [K, B]."""
+        row they own, or on a junk row) and feed the eos id.  Returns
+        tokens [K, B]."""
         eos = -1 if self.eos is None else self.eos
+        step_fn = self._decode_step_fn()
+        extra = self._decode_extra()
         out = torch.empty((K, self.max_batch), dtype=torch.int32,
                           device=self.device)
         with torch.inference_mode():
             for s in range(K):
-                logits, _ = gpt.decode_step_multi(
-                    self.params, self._cache, tok, pos, self.cfg,
-                    attn_kernel=self.attn_kernel)
+                logits, _ = step_fn(self.params, self._cache, extra, tok,
+                                    pos)
                 nxt = decoding.sample_token_pos(logits, None, pos, 0.0)
                 nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
                 done = done | (nxt == eos)
@@ -276,14 +389,26 @@ class ContinuousBatchingEngine:
         self._decode_steps += K
         return out.cpu().numpy()
 
-    def _decode_round(self, max_tokens: int):
+    def _decode_round(self, max_tokens: int, retired_before: int):
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not active:
+            # capacity-blocked admission with nothing running: only a
+            # round that retired nothing counts toward the livelock guard
+            if self._queue and len(self._pending_report) == retired_before:
+                self._note_stall()
             return
-        # K bounded by cache headroom, rounded down to a power of two;
-        # slots whose budget runs out mid-loop retire at the boundary
-        # and the host drops their overshoot
-        clamp = min(self.max_len - 1 - int(self._pos[i]) for i in active)
+        clamp = self._scan_clamp(active, max_tokens)
+        if clamp < 1:
+            # nobody can advance this iteration (paged eviction just
+            # reshuffled); the next step() re-admits and retries —
+            # unless this evict -> re-admit cycle is a livelock
+            self._note_stall()
+            return
+        # _scan_clamp may have EVICTED slots (paged): refresh the view
+        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        # K bounded by headroom, rounded down to a power of two; slots
+        # whose budget runs out mid-loop retire at the boundary and the
+        # host drops their overshoot
         K = max(1, min(max_tokens, clamp))
         K = 1 << (K.bit_length() - 1)
         active_mask = np.array([r is not None for r in self._slot_req])
@@ -297,6 +422,7 @@ class ContinuousBatchingEngine:
         toks = self._decode_many(K, tok, pos, done)
         t_host = _now()
         self._decode_seconds += t_host - t_scan
+        self._stall_rounds = 0    # tokens produced: not a livelock
         for i in active:
             req = self._slot_req[i]
             for new in toks[:, i]:
@@ -309,12 +435,257 @@ class ContinuousBatchingEngine:
                 if len(req.tokens) >= req.max_new or int(new) == self.eos:
                     req.done = True
             if req.done:
-                self._retire(req, i)
+                self._retire(req, RequestStatus.DONE, slot=i)
             else:
                 self._next_tok[i] = int(toks[-1, i])
 
-    def _retire(self, req: Request, slot: int):
-        req.status = RequestStatus.DONE
+    def _note_stall(self):
+        """Livelock guard: count consecutive zero-progress rounds while
+        work exists; at the limit, fail the queue-head request (or else
+        the first running one) with a capacity diagnostic instead of
+        spinning in the evict -> re-admit cycle forever."""
+        self._stall_rounds += 1
+        self._stalls_total += 1
+        if self._stall_rounds < self.max_stall_rounds:
+            return
+        self._stall_rounds = 0
+        if self._queue:
+            req = self._queue.popleft()
+            self._retire(req, RequestStatus.FAILED,
+                         self._stall_diagnostic(req))
+            return
+        for i, r in enumerate(self._slot_req):
+            if r is not None:
+                self._retire(r, RequestStatus.FAILED,
+                             self._stall_diagnostic(r), slot=i)
+                return
+
+    def _retire(self, req: Request, status: str,
+                error: Optional[str] = None, slot: Optional[int] = None):
+        """Move a request to a terminal status, free its slot and its
+        cache resources, and stage it for the next step()'s report."""
+        req.status = status
+        req.error = error
         req.finished_at = _now()
-        self._slot_req[slot] = None
+        if status == RequestStatus.DONE:
+            req.done = True
+        if slot is not None:
+            self._slot_req[slot] = None
+            self._release_slot(slot)
         self._pending_report.append(req)
+
+
+class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
+    """Continuous batching over a PAGED KV cache (the vLLM-style
+    block-table design).
+
+    The contiguous engine allocates max_batch x max_len rows up front,
+    so device memory is pinned by the worst-case length.  Here the cache
+    is a pool of ``num_blocks`` pages of ``block_size`` rows (default:
+    half the contiguous allocation) shared by all slots; each slot holds
+    a block table of page ids, claims pages as its sequence crosses page
+    boundaries and returns them at retirement.  A slot whose next token
+    has no page and no free page to claim is EVICTED: its pages go back
+    to the pool and its request, with its sequence so far, to the queue
+    front.  Decode runs ``gpt.decode_step_paged`` (the flash kernel
+    reads the pool through the block table) and admission runs
+    ``gpt.prefill_paged_batched`` into freshly claimed pages.
+
+    Left out of this port: the prefix cache's shared pages (the per-page
+    refcount is kept for it), the host tier, handoff and reinstall
+    hooks, and speculative verify."""
+
+    def __init__(self, params, cfg, max_batch: int = 4,
+                 max_len: int = 1024, eos_token_id: Optional[int] = None,
+                 block_size: int = 64, num_blocks: Optional[int] = None,
+                 **kw):
+        self.block_size = int(block_size)
+        if self.block_size < 1 or max_len % self.block_size:
+            raise ValueError("max_len must be a multiple of block_size")
+        self._max_blocks_per_slot = max_len // self.block_size
+        # default pool: half the contiguous allocation — the paged
+        # engine's whole point is that mixed lengths fit in less
+        self.num_blocks = int(num_blocks if num_blocks is not None
+                              else max_batch * self._max_blocks_per_slot
+                              // 2)
+        if self.num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got "
+                             f"{self.num_blocks}")
+        self._evictions = 0
+        super().__init__(params, cfg, max_batch=max_batch,
+                         max_len=max_len, eos_token_id=eos_token_id, **kw)
+
+    def submit(self, prompt, max_new: int = 32) -> int:
+        arr = np.asarray(prompt, np.int32).reshape(-1)
+        # the base submit owns the empty/max_new/over-long errors; only
+        # a valid request gets the worst-case page check
+        if 1 <= arr.size <= self.max_len and max_new >= 1:
+            longest = min(arr.size + max_new, self.max_len)
+            worst = max(-(-self._bucket(longest) // self.block_size),
+                        (longest - 1) // self.block_size + 1)
+            if worst > self.num_blocks:
+                raise ValueError(
+                    f"request needs up to {worst} pages but the pool "
+                    f"only has {self.num_blocks}; raise num_blocks or "
+                    "lower max_new")
+        return super().submit(arr, max_new=max_new)
+
+    # -- cache strategy ------------------------------------------------------
+    def _init_cache(self):
+        # pools [L, num_blocks, block_size, nH, hD] (+ int8 scales): the
+        # contiguous cache layout with one "slot" per page
+        self._cache = gpt.init_decode_cache(self.cfg, self.num_blocks,
+                                            self.block_size, self.kv_dtype,
+                                            device=self.device)
+        self._free = list(range(self.num_blocks - 1, -1, -1))
+        # per-page refcount: 1 for the owning slot (a prefix cache would
+        # add one per span pinning it); a page is free again at zero
+        self._page_rc = np.zeros(self.num_blocks, np.int64)
+        self._tables = np.full((self.max_batch, self._max_blocks_per_slot),
+                               -1, np.int32)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def metrics(self) -> Dict[str, Any]:
+        m = super().metrics()
+        m.update(num_blocks=self.num_blocks, block_size=self.block_size,
+                 free_blocks=self.free_blocks, evictions=self._evictions)
+        return m
+
+    def _claim(self, n: int):
+        if len(self._free) < n:
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for pid in out:
+            self._page_rc[pid] = 1
+        return out
+
+    def _unref_page(self, pid: int):
+        self._page_rc[pid] -= 1
+        if self._page_rc[pid] <= 0:
+            self._page_rc[pid] = 0
+            self._free.append(pid)
+
+    def _unref_pages(self, pids):
+        for pid in pids:
+            self._unref_page(int(pid))
+
+    def _release_slot(self, slot: int):
+        self._unref_pages(b for b in self._tables[slot] if b >= 0)
+        self._tables[slot] = -1
+
+    # -- decode hooks --------------------------------------------------------
+    def _decode_step_fn(self):
+        cfg, ak = self.cfg, self.attn_kernel
+
+        def step(p, c, extra, tok, pos):
+            return gpt.decode_step_paged(p, c, extra, tok, pos, cfg,
+                                         attn_kernel=ak)
+
+        return step
+
+    def _decode_extra(self):
+        # the block tables, copied to the device once per decode round
+        return torch.tensor(self._tables, dtype=torch.int32,
+                            device=self.device)
+
+    def _scan_clamp(self, active, max_tokens: int = 1) -> int:
+        """Besides cache headroom, no slot may decode past its last
+        ALLOCATED page.  Pages are claimed only as far as the next
+        decode loop reaches (claiming a request's whole budget up front
+        would bring back worst-case memory per request), and PARTIAL
+        claims take whatever pages are free.  A slot left with zero
+        backed headroom is EVICTED — pages released, sequence re-queued
+        for a later prefill — never decoded into unbacked positions."""
+        lim = self.max_len
+        stalled = []
+        for i in active:
+            req = self._slot_req[i]
+            remaining = min(req.max_new - len(req.tokens), max_tokens)
+            want = min(int(self._pos[i]) + remaining, self.max_len - 1)
+            self._ensure_pages(i, want)
+            allocated = int((self._tables[i] >= 0).sum())
+            headroom = min(
+                allocated * self.block_size - 1 - int(self._pos[i]),
+                self.max_len - 1 - int(self._pos[i]))
+            if headroom < 1:
+                stalled.append(i)
+            else:
+                lim = min(lim, headroom)
+        if stalled:
+            # re-admitted FIFO, in slot order
+            self._requeue_front([self._evict(i) for i in stalled])
+        if len(stalled) == len(active):
+            return 0  # nobody can move; step() retries after re-admit
+        return lim
+
+    def _ensure_pages(self, slot: int, upto_pos: int) -> bool:
+        """Claim pages toward backing positions [0, upto_pos] —
+        PARTIAL: takes whatever the pool has."""
+        need = upto_pos // self.block_size + 1
+        have = int((self._tables[slot] >= 0).sum())
+        if need <= have:
+            return True
+        got = self._claim(min(need - have, len(self._free)))
+        if got:
+            self._tables[slot, have:have + len(got)] = got
+        return int((self._tables[slot] >= 0).sum()) >= need
+
+    def _evict(self, slot: int) -> Request:
+        """Preemption: release the slot's pages and return the request
+        (sequence so far) for the caller to re-queue at the front."""
+        req = self._slot_req[slot]
+        self._slot_req[slot] = None
+        self._release_slot(slot)
+        req.status = RequestStatus.QUEUED
+        self._evictions += 1
+        return req
+
+    def _stall_diagnostic(self, req: Request) -> str:
+        need = req.seq_so_far().size // self.block_size + 1
+        return (f"request {req.rid} stalled in the evict/re-admit cycle "
+                f"for {self.max_stall_rounds} rounds with zero tokens "
+                f"produced: it needs {need} pages to advance but the "
+                f"pool has {self.num_blocks} total ({self.free_blocks} "
+                f"free) against {self.active_slots} running slots; "
+                f"raise num_blocks or lower concurrency")
+
+    # -- admission -----------------------------------------------------------
+    def _reserve_slot(self, slot: int, req: Request,
+                      seq: np.ndarray) -> bool:
+        """Claim the slot's pages before any device work: the pages the
+        bucket's prefill writes, and at least one token of decode
+        headroom (the first new write lands at pos S, page S // bs)
+        — without it a sequence resumed exactly at a page boundary
+        stalls at zero headroom and the evict/re-admit cycle
+        livelocks."""
+        S = seq.size
+        need = max(-(-self._bucket(S) // self.block_size),
+                   S // self.block_size + 1)
+        got = self._claim(need)
+        if got is None:
+            return False
+        self._tables[slot] = -1
+        self._tables[slot, :need] = got
+        return True
+
+    def _prefill_batch(self, slots: Sequence[int],
+                       seqs: Sequence[np.ndarray]):
+        """One prefill of a bucket's sequences straight into their
+        (pre-reserved) pages; ids pad to whole pages."""
+        bucket = self._bucket(max(s.size for s in seqs))
+        nblk = -(-bucket // self.block_size)
+        ids = np.zeros((len(seqs), nblk * self.block_size), np.int32)
+        for i, s in enumerate(seqs):
+            ids[i, :s.size] = s
+        # only the prefill's pages; the rest of the claim is decode
+        # headroom
+        pages = self._tables[np.asarray(slots, np.intp)][:, :nblk]
+        with torch.inference_mode():
+            gpt.prefill_paged_batched(
+                self.params, torch.from_numpy(ids).to(self.device),
+                self.cfg, self._cache,
+                torch.from_numpy(np.ascontiguousarray(pages)).to(
+                    self.device), attn_kernel=self.attn_kernel)

@@ -8,7 +8,10 @@ stacked on a leading L axis, qkv packed as ``[L, H, 3, H]`` — so
 :func:`params_from_numpy` maps the JAX pytree one to one and both
 packages compute with the same weights.  Layout: activations
 ``[B, S, H]``; attention ``[B, S, nH, hD]``; KV cache
-``{"k", "v"}: [L, B, max_len, nH, hD]``.
+``{"k", "v"}: [L, B, max_len, nH, hD]`` in the storage dtype of
+``kv_dtype`` (int8 adds ``{"ks", "vs"}`` scale planes with a trailing
+axis of 1); paged pools the same with ``[L, num_blocks, block_size,
+...]``.  Every cache write quantizes this step's rows on the way in.
 
 Differences from the JAX functions, by design:
 
@@ -43,14 +46,19 @@ from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
                                                  pick_num_chunks)
 from ..incubate.nn.kernels.flash_attention import (default_use_flash,
                                                    flash_attention)
-from ..incubate.nn.kernels.flash_decode import flash_decode_attention
+from ..incubate.nn.kernels.flash_decode import (flash_decode_attention,
+                                                flash_decode_paged)
+from ..incubate.nn.kv_quant import (byte_view, cast_kv, kv_has_scales,
+                                    kv_map, kv_storage_dtype, kv_zeros,
+                                    quantize_kv, resolve_kv_dtype)
 from .common import layer_slices, matmul_f32out, scan_layers_with_remat
 
 __all__ = ["GPTConfig", "gpt3_1p3b", "gpt_tiny", "init_params",
            "params_from_numpy", "param_count", "embed",
            "logits_from_hidden", "forward_layers", "forward", "loss_fn",
            "init_decode_cache", "prefill", "prefill_into_slots",
-           "decode_step_multi"]
+           "decode_step_multi", "decode_step_paged",
+           "prefill_paged_batched", "prefill_paged"]
 
 
 @dataclasses.dataclass
@@ -301,30 +309,73 @@ def loss_fn(params, input_ids, labels, cfg: GPTConfig, remat=False):
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: GPTConfig, batch: int, max_len: int,
-                      device=None):
-    """Zeroed {"k", "v"}: [L, batch, max_len, nH, hD] in the model
-    dtype (the JAX ``kv_dtype="bf16"`` rule; quantized caches are a
-    later slice)."""
+                      kv_dtype: str = "bf16", device=None):
+    """Zeroed {"k", "v"}: [L, batch, max_len, nH, hD] in the storage
+    dtype of ``kv_dtype`` ("bf16" = the model dtype, "int8", "fp8");
+    int8 adds float32 scale planes {"ks", "vs"}: [L, batch, max_len,
+    nH, 1].  The paged engine's pools are this layout with batch =
+    num_blocks and max_len = block_size."""
     dev = resolve_device(device)
+    kv_dtype = resolve_kv_dtype(kv_dtype)
     shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    dt = kv_storage_dtype(kv_dtype, cfg.dtype)
+    cache = {"k": kv_zeros(shape, dt, dev), "v": kv_zeros(shape, dt, dev)}
+    if kv_has_scales(kv_dtype):
+        # per-head, per-token scales: trailing axis 1 so every token-axis
+        # index expression that addresses the data addresses the scale
+        cache["ks"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=dev)
+        cache["vs"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=dev)
+    return cache
 
 
-def _prefill_layers(params, input_ids, cfg: GPTConfig, cache, slots,
+def _kv_layer(cache, l: int):
+    """Layer ``l`` of the cache as (K, V): bare tensors, or (data,
+    scale) pairs for int8 (the JAX ``_kv_xs`` convention)."""
+    if "ks" in cache:
+        return ((cache["k"][l], cache["ks"][l]),
+                (cache["v"][l], cache["vs"][l]))
+    return cache["k"][l], cache["v"][l]
+
+
+def _kv_write(c, val, write):
+    """Quantize-on-write seam shared by every cache-writing entry point:
+    ``c`` is one layer's K or V (bare tensor or (data, scale) pair),
+    ``val`` the freshly computed rows [..., hD] in compute precision,
+    and ``write(arr, rows)`` stores rows already in ``arr``'s dtype at
+    this entry point's index expression, in place.  Only this step's
+    rows ever exist in the compute precision."""
+    if isinstance(c, tuple):
+        q, s = quantize_kv(val, "int8")
+        write(c[0], q)
+        write(c[1], s)
+    else:
+        write(c, cast_kv(val, c.dtype))
+
+
+def _prefill_layers(params, input_ids, cfg: GPTConfig, cache, write,
                     attn_kernel: Optional[str]):
-    """The stack over prompts [N, S], each layer's K/V written in place
-    into rows [0, S) of ``cache[l, slots]``; returns the last hidden
-    state [N, S, H]."""
+    """The stack over prompts [N, S]: each layer's K/V (computed in the
+    model dtype; the window attends its own unquantized rows) goes
+    through ``write(arr, rows)`` into layer l of ``cache``; returns the
+    last hidden state [N, S, H]."""
     _check_attn_kernel(attn_kernel)
-    S = input_ids.shape[1]
     h = embed(params, input_ids, cfg)
     for l, lp in enumerate(layer_slices(params["layers"])):
         h, (k, v) = _decoder_layer(h, lp, cfg, return_kv=True,
                                    attn_kernel=attn_kernel)
-        cache["k"][l][slots, :S] = k
-        cache["v"][l][slots, :S] = v
+        ck, cv = _kv_layer(cache, l)
+        _kv_write(ck, k, write)
+        _kv_write(cv, v, write)
     return h
+
+
+def _slot_rows_writer(slots, S):
+    """Prefill writes: rows [0, S) of each listed slot."""
+    def write(arr, rows):
+        byte_view(arr)[slots, :S] = byte_view(rows)
+    return write
 
 
 def prefill(params, input_ids, cfg: GPTConfig, cache,
@@ -333,9 +384,9 @@ def prefill(params, input_ids, cfg: GPTConfig, cache,
     into cache rows [0, S) in place.  Returns (last-position logits
     [B, V], cache, pos=S)."""
     B, S = input_ids.shape
+    slots = torch.arange(B, device=input_ids.device)
     h = _prefill_layers(params, input_ids, cfg, cache,
-                        torch.arange(B, device=input_ids.device),
-                        attn_kernel)
+                        _slot_rows_writer(slots, S), attn_kernel)
     logits = logits_from_hidden(params, h[:, -1:], cfg)[:, 0]
     return logits, cache, S
 
@@ -348,17 +399,19 @@ def prefill_into_slots(params, input_ids, cfg: GPTConfig, cache, slots,
     ``cache[l, slots]`` in place — no scratch cache.  Returns the
     cache (the engine discards logits: priming recomputes the last
     prompt position)."""
-    _prefill_layers(params, input_ids, cfg, cache, slots, attn_kernel)
+    _prefill_layers(params, input_ids, cfg, cache,
+                    _slot_rows_writer(slots.long(), input_ids.shape[1]),
+                    attn_kernel)
     return cache
 
 
-def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_at, pos,
-                       attn_kernel: Optional[str]):
-    """One-token block of the decode path: this token's K/V are written
-    in place at ``ck/cv[write_at]`` (write_at = (arange(B), pos) as
-    int64, built once per step), then each slot attends its rows <= pos
-    (pos [B] int32) through the flash kernel or the plain
-    composition."""
+def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_kv, attend):
+    """One-token block of the decode paths: this token's K/V go through
+    ``write_kv(ck, cv, k, v)`` (the write strategy: per-slot row, or the
+    slot's page), then ``attend(q, ck, cv)`` gives the attention output
+    [B, nH, hD] — the flash kernel or the plain composition over the
+    cache or its page view.  The two are the only variation points, so
+    every decode path runs one implementation."""
     B = h.shape[0]
     nH, hD, H = cfg.num_heads, cfg.head_dim, cfg.hidden_size
     x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
@@ -366,12 +419,8 @@ def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_at, pos,
     q = qkv[:, 0].view(B, nH, hD)
     k = qkv[:, 1].view(B, nH, hD)
     v = qkv[:, 2].view(B, nH, hD)
-    ck[write_at] = k
-    cv[write_at] = v
-    if attn_kernel == "flash":
-        attn = flash_decode_attention(q[:, None], ck, cv, pos)[:, 0]
-    else:
-        attn = _decode_attention(q, ck, cv, pos + 1)
+    write_kv(ck, cv, k, v)
+    attn = attend(q, ck, cv)
     hh = h + attn.reshape(B, H) @ lp["proj_w"] + lp["proj_b"]
     x = _layer_norm(hh, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
     x = F.gelu(x @ lp["fc1_w"] + lp["fc1_b"], approximate="tanh")
@@ -381,15 +430,156 @@ def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_at, pos,
 def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
                       attn_kernel: Optional[str] = None):
     """One token per slot at PER-SLOT positions: token [B], pos [B]
-    int32 -> (logits [B, V] float32, cache updated in place).
-    ``attn_kernel="flash"`` serves the attention from the flash_decode
-    kernel (W = 1) instead of the plain composition."""
+    int32 -> (logits [B, V] float32, cache updated in place).  Each
+    slot's K/V row lands at ``cache[l, b, pos[b]]`` (quantized on write
+    for an int8/fp8 cache).  ``attn_kernel="flash"`` serves the
+    attention from the flash_decode kernel (W = 1) instead of the plain
+    composition."""
     _check_attn_kernel(attn_kernel)
     B = token.shape[0]
     h = params["wte"][token] + params["wpe"][pos]                # [B, H]
     write_at = (torch.arange(B, device=token.device), pos.long())
+
+    def write(arr, rows):
+        byte_view(arr)[write_at] = byte_view(rows)
+
+    def write_kv(ck, cv, k, v):
+        _kv_write(ck, k, write)
+        _kv_write(cv, v, write)
+
+    if attn_kernel == "flash":
+        def attend(q, ck, cv):
+            return flash_decode_attention(q[:, None], ck, cv, pos)[:, 0]
+    else:
+        def attend(q, ck, cv):
+            return _decode_attention(q, ck, cv, pos + 1)
+
     for l, lp in enumerate(layer_slices(params["layers"])):
-        h = _decode_layer_step(h, lp, cache["k"][l], cache["v"][l], cfg,
-                               write_at, pos, attn_kernel)
+        ck, cv = _kv_layer(cache, l)
+        h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
     logits = logits_from_hidden(params, h[:, None], cfg)[:, 0]
     return logits, cache
+
+
+def _paged_write_target(block_tables, pos, block_size, num_blocks):
+    """Where each slot's decode row goes in a paged pool: (page, offset,
+    source slot, any_valid).  A slot whose page is -1 (or past the pool)
+    drops its write, as the JAX scatter does with ``mode="drop"``; an
+    in-place index_put cannot drop, so such a slot repeats the first
+    valid slot's write —
+    the same row with the same bytes, whatever order the duplicates land
+    in.  With no valid slot at all the writes rewrite page 0's row 0
+    with its own content (see :func:`decode_step_paged`)."""
+    B = pos.shape[0]
+    posl = pos.long()
+    page = block_tables.long().gather(1, (posl // block_size)[:, None])[:, 0]
+    off = posl % block_size
+    valid = (page >= 0) & (page < num_blocks)
+    first = torch.argmax(valid.to(torch.int32))   # 0 when none is valid
+    src = torch.where(valid, torch.arange(B, device=pos.device), first)
+    any_valid = valid.any()
+    zero = torch.zeros_like(page)
+    return (torch.where(any_valid, page[src], zero),
+            torch.where(any_valid, off[src], zero), src, any_valid)
+
+
+def decode_step_paged(params, pools, block_tables, token, pos,
+                      cfg: GPTConfig, attn_kernel: Optional[str] = None):
+    """One token per slot against a PAGED KV cache: pools {"k", "v"
+    (, "ks", "vs")}: [L, num_blocks, block_size, nH, hD (or 1)] shared
+    by all slots; block_tables [B, max_blocks] int32 page ids per slot
+    (-1 = unallocated); token/pos [B].  Returns (logits [B, V], pools
+    updated in place).  The write puts this token's K/V in row
+    ``pos % block_size`` of page ``block_tables[b, pos // block_size]``
+    and drops it when that page is -1 (an inactive slot, whose table is
+    all -1) or past the pool.  ``attn_kernel="flash"`` reads the pool in
+    place through ``flash_decode_paged``; otherwise the slot's pages are
+    gathered (ids clamped into the pool) and the plain composition
+    attends them, masked to pos + 1."""
+    _check_attn_kernel(attn_kernel)
+    B = token.shape[0]
+    nb, bs = pools["k"].shape[1], pools["k"].shape[2]
+    h = params["wte"][token] + params["wpe"][pos]                # [B, H]
+    page, off, src, any_valid = _paged_write_target(block_tables, pos, bs,
+                                                    nb)
+
+    def write(arr, rows):
+        raw = byte_view(arr)
+        rows = byte_view(rows).index_select(0, src)
+        raw[page, off] = torch.where(any_valid, rows, raw[page, off])
+
+    def write_kv(ck, cv, k, v):
+        _kv_write(ck, k, write)
+        _kv_write(cv, v, write)
+
+    if attn_kernel == "flash":
+        def attend(q, ck, cv):
+            return flash_decode_paged(q[:, None], ck, cv, block_tables,
+                                      pos)[:, 0]
+    else:
+        # ids clamped into the pool, as the JAX gather clamps
+        safe = block_tables.clamp(0, nb - 1).long()
+
+        def view(a):
+            return byte_view(a)[safe].view(a.dtype).reshape(
+                (B, -1) + tuple(a.shape[2:]))
+
+        def attend(q, ck, cv):
+            return _decode_attention(q, kv_map(view, ck), kv_map(view, cv),
+                                     pos + 1)
+
+    for l, lp in enumerate(layer_slices(params["layers"])):
+        ck, cv = _kv_layer(pools, l)
+        h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
+    logits = logits_from_hidden(params, h[:, None], cfg)[:, 0]
+    return logits, pools
+
+
+def prefill_paged_batched(params, input_ids, cfg: GPTConfig, pools, pages,
+                          attn_kernel: Optional[str] = None):
+    """Batched admission prefill for the PAGED pools: input_ids [N, S]
+    with S a whole number of pages, pages [N, S / block_size] page ids
+    (distinct across requests).  Each layer's K/V reshapes to pages and
+    lands in those pages of the pools in place.  Returns the pools.
+    ``attn_kernel="flash"``: the window's causal self-attention runs
+    through the contiguous flash_decode kernel over the window's own
+    K/V (paging only decides where the rows land)."""
+    N, S = input_ids.shape
+    bs = pools["k"].shape[2]
+    if S % bs or tuple(pages.shape) != (N, S // bs):
+        raise ValueError(f"prefill of [{N}, {S}] ids into pages of "
+                         f"{bs} rows needs S a multiple of {bs} and pages "
+                         f"[{N}, {S // bs}], got {tuple(pages.shape)}")
+    nblk = S // bs
+    pages = pages.long()
+
+    def write(arr, rows):
+        byte_view(arr)[pages] = byte_view(rows).reshape(
+            (N, nblk, bs) + tuple(arr.shape[2:]))
+
+    _prefill_layers(params, input_ids, cfg, pools, write, attn_kernel)
+    return pools
+
+
+def prefill_paged(params, input_ids, cfg: GPTConfig, pools, pages):
+    """Prefill one request's prompt [S] into its pages: the contiguous
+    prefill into a scratch cache of whole pages (a prompt shorter than
+    its pages pads with id 0), then the scratch lands page by page in
+    the pools.  ``pages`` [ceil(S / block_size)] page ids.  Returns
+    (logits [V] at the last padded position, pools updated in
+    place)."""
+    S = input_ids.shape[-1]
+    L, bs = pools["k"].shape[0], pools["k"].shape[2]
+    nblk = -(-S // bs)
+    # the scratch mirrors the pools' storage (data and any scales), so
+    # the contiguous prefill quantizes on write
+    scratch = {name: kv_zeros((L, 1, nblk * bs) + tuple(a.shape[3:]),
+                              a.dtype, a.device)
+               for name, a in pools.items()}
+    ids = F.pad(input_ids, (0, nblk * bs - S))
+    logits, scratch, _ = prefill(params, ids[None], cfg, scratch)
+    pages = pages.long()
+    for name, a in pools.items():
+        byte_view(a)[:, pages] = byte_view(scratch[name][:, 0]).reshape(
+            (L, nblk, bs) + tuple(a.shape[3:]))
+    return logits[0], pools

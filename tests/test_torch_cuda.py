@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.distributed import hybrid
+from paddle_tpu_torch.incubate.nn import kv_quant
 from paddle_tpu_torch.incubate.nn.functional.chunked_ce import (
     chunked_vocab_nll)
 from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
@@ -95,6 +96,185 @@ def test_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
     out = fd.flash_decode_attention(
         q, k, v, torch.zeros(2, dtype=torch.int32, device=cuda))
     assert out.is_cuda and torch.isfinite(out).all()
+
+
+def _kv_store(rng, shape, mode, dtype, device):
+    """One K or V operand in a storage mode: "dense" in ``dtype``, int8
+    ``(data, scale)`` or bare fp8, quantized on the card."""
+    x = _rand(rng, shape, torch.float32, device)
+    if mode == "dense":
+        return x.to(dtype)
+    data, scale = kv_quant.quantize_kv(x, mode)
+    return data if scale is None else (data, scale)
+
+
+def _paged_case(rng, B, W, T, nKV, hD, bs, mode, dtype, device):
+    """Pools of shuffled pages behind each slot's table, -1 past the
+    pages its last query needs, and positions with pos[0] = 0 and
+    pos[-1] = T - W."""
+    mb = -(-T // bs)
+    nb = B * mb + 2
+    pk = _kv_store(rng, (nb, bs, nKV, hD), mode, dtype, device)
+    pv = _kv_store(rng, (nb, bs, nKV, hD), mode, dtype, device)
+    pos = rng.integers(0, T - W + 1, B)
+    pos[0], pos[-1] = 0, T - W
+    order = rng.permutation(nb)[:B * mb].reshape(B, mb)
+    bt = np.full((B, mb), -1, np.int32)
+    for b in range(B):
+        used = (pos[b] + W - 1) // bs + 1
+        bt[b, :used] = order[b, :used]
+    return (pk, pv, torch.tensor(bt, device=device),
+            torch.tensor(pos, dtype=torch.int32, device=device))
+
+
+_MODES = [("dense", torch.float32), ("dense", torch.bfloat16),
+          ("int8", torch.float32), ("int8", torch.bfloat16),
+          ("fp8", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES)
+@pytest.mark.parametrize("bs", [8, 16, 64])
+@pytest.mark.parametrize("B,W,T,nH,nKV,hD", [
+    (3, 1, 200, 4, 4, 128),      # decode, a ragged last page
+    (2, 1, 130, 16, 4, 64),      # GQA: 16 query heads over 4 kv heads
+    (3, 4, 96, 4, 2, 32),        # verify-shaped window
+    (2, 2, 96, 2, 1, 16),        # one 16-byte load per int8/fp8 row
+])
+def test_flash_decode_paged_kernel_matches_plain(cuda, mode, dtype, bs, B,
+                                                 W, T, nH, nKV, hD):
+    rng = np.random.default_rng(B * T + bs + hD)
+    q = _rand(rng, (B, W, nH, hD), dtype, cuda)
+    pk, pv, bt, pos = _paged_case(rng, B, W, T, nKV, hD, bs, mode, dtype,
+                                  cuda)
+    assert (bt < 0).any()      # -1 tail pages are part of every case
+    before = (fd.LAUNCHES, fd.PAGED_LAUNCHES, fd.MODE_LAUNCHES[mode])
+    got = fd.flash_decode_paged(q, pk, pv, bt, pos)
+    torch.cuda.synchronize()
+    assert (fd.LAUNCHES, fd.PAGED_LAUNCHES, fd.MODE_LAUNCHES[mode]) == (
+        before[0], before[1] + 1, before[2] + 1)
+    want = fd.flash_decode_paged_plain(q, pk, pv, bt, pos)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_kernel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES[2:])
+@pytest.mark.parametrize("B,W,T,nH,nKV,hD", [
+    (4, 1, 100, 8, 8, 128),
+    (2, 37, 37, 4, 2, 64),
+    (3, 4, 64, 4, 4, 16),
+])
+def test_flash_decode_quantized_kernel_matches_plain(cuda, mode, dtype, B, W,
+                                                     T, nH, nKV, hD):
+    rng = np.random.default_rng(B * W + T + hD)
+    q = _rand(rng, (B, W, nH, hD), dtype, cuda)
+    k = _kv_store(rng, (B, T, nKV, hD), mode, dtype, cuda)
+    v = _kv_store(rng, (B, T, nKV, hD), mode, dtype, cuda)
+    pos = torch.tensor(rng.integers(0, T - W + 1, B), dtype=torch.int32,
+                       device=cuda)
+    pos[0] = 0
+    before = (fd.LAUNCHES, fd.MODE_LAUNCHES[mode])
+    got = fd.flash_decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert (fd.LAUNCHES, fd.MODE_LAUNCHES[mode]) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = fd.flash_decode_attention_plain(q, k, v, pos)
+    assert got.dtype == dtype
+    _assert_kernel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES)
+def test_paged_identity_table_is_contiguous_bit_for_bit(cuda, mode, dtype):
+    """The paged kernel over an identity table computes exactly what the
+    contiguous kernel computes on the same rows."""
+    rng = np.random.default_rng(17)
+    B, W, T, nH, nKV, hD, bs = 4, 3, 256, 8, 4, 64, 16
+    q = _rand(rng, (B, W, nH, hD), dtype, cuda)
+    k = _kv_store(rng, (B, T, nKV, hD), mode, dtype, cuda)
+    v = _kv_store(rng, (B, T, nKV, hD), mode, dtype, cuda)
+    pos = torch.tensor(rng.integers(0, T - W + 1, B), dtype=torch.int32,
+                       device=cuda)
+
+    def pages(x):
+        return kv_quant.kv_map(
+            lambda a: a.reshape((B * T // bs, bs) + tuple(a.shape[2:])), x)
+
+    bt = torch.arange(B * T // bs, dtype=torch.int32,
+                      device=cuda).view(B, T // bs)
+    a = fd.flash_decode_attention(q, k, v, pos)
+    b = fd.flash_decode_paged(q, pages(k), pages(v), bt, pos)
+    assert torch.equal(a, b)
+
+
+def test_paged_ids_past_the_pool_read_its_last_page(cuda):
+    """A table id past the pool reads the pool's last page, as the plain
+    version's gather clamps it: no read leaves the pool."""
+    rng = np.random.default_rng(13)
+    q = _rand(rng, (3, 1, 4, 64), torch.bfloat16, cuda)
+    pk, pv, bt, pos = _paged_case(rng, 3, 1, 64, 4, 64, 16, "int8",
+                                  torch.bfloat16, cuda)
+    nb = pk[0].shape[0]
+    bt[:, 0] = torch.tensor([nb, nb + 7, 1 << 20], dtype=torch.int32)
+    got = fd.flash_decode_paged(q, pk, pv, bt, pos)
+    torch.cuda.synchronize()
+    want = fd.flash_decode_paged_plain(q, pk, pv, bt, pos)
+    _assert_kernel(got, want, 1e-4)
+    last = torch.full_like(bt[:, :1], nb - 1)
+    torch.testing.assert_close(
+        want, fd.flash_decode_paged_plain(
+            q, pk, pv, torch.cat([last, bt[:, 1:]], 1), pos))
+
+
+def test_paged_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    def refuse(*_):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fd, "flash_decode_paged_plain", refuse)
+    monkeypatch.setattr(fd, "flash_decode_attention_plain", refuse)
+    rng = np.random.default_rng(3)
+    q = _rand(rng, (2, 1, 4, 32), torch.bfloat16, cuda)
+    pk, pv, bt, pos = _paged_case(rng, 2, 1, 40, 2, 32, 8, "int8",
+                                  torch.bfloat16, cuda)
+    out = fd.flash_decode_paged(q, pk, pv, bt, pos)
+    assert out.is_cuda and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("bad", [
+    "kv_row_stride", "kv_last_axis", "head_dim", "f16_cache", "int8_bare",
+    "scale_dtype", "bt_int64", "bt_on_cpu", "pos_on_cpu"])
+def test_flash_decode_paged_rejects(cuda, bad):
+    """A CUDA call the kernel does not take raises; nothing falls back."""
+    rng = np.random.default_rng(5)
+    B, nKV, hD, bs = 2, 2, 32, 8
+    q = _rand(rng, (B, 1, 4, hD), torch.bfloat16, cuda)
+    (k, ks), (v, vs), bt, pos = _paged_case(rng, B, 1, 32, nKV, hD, bs,
+                                            "int8", torch.bfloat16, cuda)
+    if bad == "kv_row_stride":
+        # rows of 40 int8 values: not a whole number of 16-byte loads
+        wide = torch.zeros(k.shape[:3] + (hD + 8,), dtype=torch.int8,
+                           device=cuda)
+        k = wide[..., :hD]
+    elif bad == "kv_last_axis":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "head_dim":
+        q, k, v = q[..., :24], k[..., :24], v[..., :24]
+    elif bad == "f16_cache":
+        k, v = k.half(), v.half()
+        ks = vs = None
+    elif bad == "int8_bare":
+        ks = vs = None
+    elif bad == "scale_dtype":
+        ks = ks.double()
+    elif bad == "bt_int64":
+        bt = bt.long()
+    elif bad == "bt_on_cpu":
+        bt = bt.cpu()
+    else:
+        pos = pos.cpu()
+    keys = k if ks is None else (k, ks)
+    values = v if vs is None else (v, vs)
+    before = (fd.LAUNCHES, fd.PAGED_LAUNCHES)
+    with pytest.raises((TypeError, ValueError)):
+        fd.flash_decode_paged(q, keys, values, bt, pos)
+    assert (fd.LAUNCHES, fd.PAGED_LAUNCHES) == before
 
 
 def test_engine_on_card_matches_cpu(cuda):

@@ -1,10 +1,12 @@
 """Port parity: paddle_tpu_torch's flash_decode against paddle_tpu's.
 
 The same numpy inputs go through the JAX ``flash_decode_attention``
-(the Pallas kernel, in interpret mode on the CPU) and the XLA
-compositions ``_window_decode_attention`` / ``_decode_attention``, and
-through the port's wrapper, which runs its plain version on CPU
-tensors.  Tolerance rtol = atol = 1e-5: float32, the same math in a
+(the Pallas kernel, in interpret mode on the CPU) and ``flash_decode_paged``
+and the XLA compositions ``_window_decode_attention`` /
+``_decode_attention``, and through the port's wrappers, which run their
+plain versions on CPU tensors — over dense float32 caches, int8
+``(data, scale)`` pairs and float8_e4m3fn caches, whose stored bytes
+both sides share.  Tolerance rtol = atol = 1e-5: float32, the same math in a
 different reduction order.  The CUDA kernel itself is held to the
 plain version in ``test_torch_cuda.py``, which needs a card.
 """
@@ -18,8 +20,11 @@ from paddle_tpu.incubate.nn.functional import (
     _decode_attention as jax_decode_attention,
     _window_decode_attention as jax_window_attention)
 from paddle_tpu.incubate.nn.kernels.flash_decode import (
-    flash_decode_attention as jax_flash_decode)
+    flash_decode_attention as jax_flash_decode,
+    flash_decode_paged as jax_flash_decode_paged)
+from paddle_tpu.incubate.nn import kv_quant as jkvq
 from paddle_tpu_torch.incubate.nn import functional as tfunc
+from paddle_tpu_torch.incubate.nn import kv_quant as tkvq
 from paddle_tpu_torch.incubate.nn.kernels import _build
 from paddle_tpu_torch.incubate.nn.kernels import flash_decode as tfd
 
@@ -125,3 +130,173 @@ def test_missing_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["flash_decode"])
     assert not (tmp_path / "_build").exists()
+
+
+# ---------------------------------------------------------------------------
+# paged layout and quantized storage
+# ---------------------------------------------------------------------------
+
+def _quantized(k, kd):
+    """The same stored K (or V) for both packages: JAX quantizes, the
+    port receives the identical bytes."""
+    if kd == "dense":
+        return jnp.asarray(k), torch.from_numpy(k)
+    q, s = jkvq.quantize_kv(jnp.asarray(k), "int8" if kd == "int8"
+                            else "fp8")
+    if kd == "int8":
+        return (q, s), (torch.from_numpy(np.array(q)),
+                        torch.from_numpy(np.array(s)))
+    raw = torch.from_numpy(np.asarray(q).view(np.uint8).copy())
+    return q, raw.view(torch.float8_e4m3fn)
+
+
+# the shuffled table of tests/test_flash_decode_multi.py: a straddle
+# (pos 17 crosses into the slot's third page), a first fed position at
+# a page boundary, and -1 tail pages
+_BT = np.array([[3, 7, 1, -1],
+                [2, 0, -1, -1],
+                [5, 9, 11, 4]], np.int32)
+_POS = np.array([17, 8, 30], np.int32)
+
+
+@pytest.mark.parametrize("kd", ["dense", "int8", "fp8"])
+def test_paged_plain_matches_jax_kernel(kd):
+    rng = np.random.default_rng(4)
+    B, W, nH, nKV, hD, nb, bs = 3, 3, 4, 2, 16, 16, 8
+    q = rng.standard_normal((B, W, nH, hD)).astype(np.float32)
+    pk = rng.standard_normal((nb, bs, nKV, hD)).astype(np.float32)
+    pv = rng.standard_normal((nb, bs, nKV, hD)).astype(np.float32)
+    jk, tk = _quantized(pk, kd)
+    jv, tv = _quantized(pv, kd)
+    ref = np.asarray(jax_flash_decode_paged(
+        jnp.asarray(q), jk, jv, jnp.asarray(_BT), jnp.asarray(_POS)))
+    out = tfd.flash_decode_paged(torch.from_numpy(q), tk, tv,
+                                 torch.from_numpy(_BT),
+                                 torch.from_numpy(_POS))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("kd", ["int8", "fp8"])
+@pytest.mark.parametrize("W", [1, 5])
+def test_quantized_contiguous_matches_jax(kd, W):
+    q, k, v, pos = _inputs(11 + W, 4, W, 40, 4, 2, 32)
+    jk, tk = _quantized(k, kd)
+    jv, tv = _quantized(v, kd)
+    jpos = jnp.asarray(pos)
+    ref_kernel = np.asarray(jax_flash_decode(jnp.asarray(q), jk, jv, jpos))
+    ref_window = np.asarray(jax_window_attention(jnp.asarray(q), jk, jv,
+                                                 jpos))
+    out = tfd.flash_decode_attention(torch.from_numpy(q), tk, tv,
+                                     torch.from_numpy(pos)).numpy()
+    np.testing.assert_allclose(out, ref_kernel, **TOL)
+    np.testing.assert_allclose(out, ref_window, **TOL)
+    win = tfunc._window_decode_attention(torch.from_numpy(q), tk, tv,
+                                         torch.from_numpy(pos)).numpy()
+    np.testing.assert_allclose(win, ref_window, **TOL)
+    if W == 1:
+        ref = np.asarray(jax_decode_attention(jnp.asarray(q[:, 0]), jk, jv,
+                                              jpos + 1))
+        dec = tfunc._decode_attention(torch.from_numpy(q[:, 0]), tk, tv,
+                                      torch.from_numpy(pos) + 1).numpy()
+        np.testing.assert_allclose(dec, ref, **TOL)
+        np.testing.assert_allclose(out[:, 0], ref, **TOL)
+
+
+def test_quantized_output_in_q_dtype():
+    """A quantized cache dequantizes to float32; the output comes back
+    in q's dtype (bf16 here), as the JAX composition casts it."""
+    q, k, v, pos = _inputs(5, 2, 1, 16, 2, 2, 16)
+    tq = torch.from_numpy(q).bfloat16()
+    kq = tkvq.quantize_kv(torch.from_numpy(k), "int8")
+    vq = tkvq.quantize_kv(torch.from_numpy(v), "int8")
+    out = tfd.flash_decode_attention(tq, kq, vq, torch.from_numpy(pos))
+    dec = tfunc._decode_attention(tq[:, 0], kq, vq,
+                                  torch.from_numpy(pos) + 1)
+    assert out.dtype == dec.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kd", ["dense", "int8", "fp8"])
+def test_paged_identity_table_equals_contiguous(kd):
+    """A paged call whose table lays each slot's pages in order is the
+    contiguous call on the same rows, bit for bit."""
+    q, k, v, pos = _inputs(6, 4, 2, 32, 4, 2, 16)
+    _, tk = _quantized(k, kd)
+    _, tv = _quantized(v, kd)
+    B, T, bs = 4, 32, 8
+    def paged(x):
+        return tkvq.kv_map(lambda a: a.reshape((B * T // bs, bs)
+                                               + tuple(a.shape[2:])), x)
+
+    bt = torch.arange(B * T // bs, dtype=torch.int32).view(B, T // bs)
+    a = tfd.flash_decode_attention(torch.from_numpy(q), tk, tv,
+                                   torch.from_numpy(pos))
+    b = tfd.flash_decode_paged(torch.from_numpy(q), paged(tk), paged(tv),
+                               bt, torch.from_numpy(pos))
+    assert torch.equal(a, b)
+
+
+def test_paged_cpu_path_does_not_count_launches():
+    before = (tfd.LAUNCHES, tfd.PAGED_LAUNCHES, dict(tfd.MODE_LAUNCHES))
+    tfd.flash_decode_paged(*_t(np.zeros((3, 1, 4, 16), np.float32),
+                               np.zeros((16, 8, 2, 16), np.float32),
+                               np.zeros((16, 8, 2, 16), np.float32), _BT,
+                               _POS))
+    assert (tfd.LAUNCHES, tfd.PAGED_LAUNCHES,
+            dict(tfd.MODE_LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("bad", ["int8_bare", "scale_shape", "scale_dtype",
+                                 "scaled_float", "mixed", "f16_cache"])
+def test_quantized_operands_rejected(bad):
+    q, k, v, pos = _t(*_inputs(2, 2, 1, 16, 4, 2, 16))
+    kq = tkvq.quantize_kv(k, "int8")
+    vq = tkvq.quantize_kv(v, "int8")
+    if bad == "int8_bare":
+        kq, vq = kq[0], vq[0]
+    elif bad == "scale_shape":
+        kq = (kq[0], kq[1][:, :, :1])
+    elif bad == "scale_dtype":
+        kq = (kq[0], kq[1].double())
+    elif bad == "scaled_float":
+        kq, vq = (k, kq[1]), (v, vq[1])
+    elif bad == "mixed":
+        vq = tkvq.quantize_kv(v, "fp8")[0]
+    else:
+        kq, vq = k.half(), v.half()
+    with pytest.raises((TypeError, ValueError)):
+        tfd.flash_decode_attention(q, kq, vq, pos)
+
+
+@pytest.mark.parametrize("bad", ["bt_dtype", "bt_batch", "bt_rank",
+                                 "pos_dtype"])
+def test_paged_wrapper_rejects(bad):
+    q, pk, pv, bt, pos = _t(np.zeros((3, 1, 4, 16), np.float32),
+                            np.zeros((16, 8, 2, 16), np.float32),
+                            np.zeros((16, 8, 2, 16), np.float32), _BT, _POS)
+    if bad == "bt_dtype":
+        bt = bt.long()
+    elif bad == "bt_batch":
+        bt = bt[:2]
+    elif bad == "bt_rank":
+        bt = bt.reshape(-1)
+    else:
+        pos = pos.long()
+    with pytest.raises(ValueError):
+        tfd.flash_decode_paged(q, pk, pv, bt, pos)
+
+
+def test_paged_plain_clamps_ids_into_the_pool():
+    """-1 reads page 0 and an id past the pool its last page, as the
+    JAX gather clamps (the CUDA kernel clamps the same way)."""
+    rng = np.random.default_rng(9)
+    q, pk, pv = _t(rng.standard_normal((3, 2, 4, 16)).astype(np.float32),
+                   rng.standard_normal((16, 8, 2, 16)).astype(np.float32),
+                   rng.standard_normal((16, 8, 2, 16)).astype(np.float32))
+    bt = torch.from_numpy(_BT.copy())
+    pos = torch.from_numpy(_POS)
+    bt[:, 0] = torch.tensor([-1, 16, 99], dtype=torch.int32)
+    clamped = bt.clone()
+    clamped[:, 0] = torch.tensor([0, 15, 15], dtype=torch.int32)
+    assert torch.equal(tfd.flash_decode_paged(q, pk, pv, bt, pos),
+                       tfd.flash_decode_paged(q, pk, pv, clamped, pos))
