@@ -83,9 +83,33 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    ||g_flash - g_plain|| within 5e-2 of ||g_plain||), and its own
    5-step trajectory from that init (each loss within 1e-2 of the flash
    run's).
-7. the kernels line (flash_decode in each layout and storage mode
-   that the serving runs launch, the training kernels) and, last, the
-   device line.
+7. b1 int8 serving — the serving weights quantized by the port
+   (``gpt.quantize_decode_params``).  ``fused_decode_layers`` against
+   its plain version in four storage modes (an f32 cache at gpt_tiny
+   width; bf16, int8 and fp8 at gpt3_1p3b) at positions 0, 7, 8, 255,
+   256, 700 and 1023 of a seeded T 1024 cache: h_out row 0 within 2^-6
+   of its largest value, the written rows within one step of their
+   storage (bf16 step, int8 quantum, e4m3 step) plus 2^-16 of the row's
+   largest value for the float32 sum order — layer 0 held to that, its
+   int8 scales to 1e-5; layers >= 1 add 2^-7 of the row's largest value
+   (the hidden state's own difference, carried through 24 layers, see
+   ``_fused_errors``) and their scales 2^-7 — every other row bit for
+   bit; the plain version on the card against the CPU at 24 layers (the
+   witness of that carried difference); the kernel's time at positions
+   64, 512 and 1023 beside the byte bound, the plain version's at 512.
+   Then ``FusedB1Engine`` on the card against the CPU one (gpt_tiny f32,
+   int8 weights, bf16/int8/fp8 caches: identical streams, one fused
+   launch per decode step), and at full width: the serving workload's
+   first 3 requests (601, 458, 373 tokens, max_new 32) through
+   ``FusedB1Engine(max_len=1024)`` and the per-op int8
+   ``ContinuousBatchingEngine(max_batch=1)`` at each kv_dtype, with
+   exact launch counts (fused_decode once per decode step, flash_decode
+   24 per prefill only), stream agreement reported; one step of each at
+   pos 601 on a shared cache, profiled, and the per-op step timed (no
+   single library call computes a layer stack: it stands in for one).
+8. the kernels line (flash_decode in each layout and storage mode
+   that the serving runs launch, the training kernels, fused_decode in
+   each storage mode) and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
 parity is not loosened by the card's TF32 mode.
@@ -523,7 +547,7 @@ def compare_phase(gpt, cfg, params):
                       tok_s=B / prof["wall_ms"] * 1e3, **prof))
 
 
-def _step_profile(step):
+def _step_profile(step, families=(("flash_decode", ("flash_decode",)),)):
     """Wall time of one eager decode step ``step()`` (synchronised)
     against the device time the profiler sees in it, by kernel
     family."""
@@ -540,8 +564,7 @@ def _step_profile(step):
         windows.append((time.perf_counter() - t0) / n * 1e3)
     wall_ms = statistics.median(windows)
     return dict(wall_ms=wall_ms, wall_ms_windows=windows,
-                **_profile(step, n, wall_ms,
-                           [("flash_decode", ("flash_decode",))]))
+                **_profile(step, n, wall_ms, list(families)))
 
 
 def _profile(fn, n, wall_ms, families, top_n=8):
@@ -592,10 +615,13 @@ def _profile(fn, n, wall_ms, families, top_n=8):
             "top_host_ops_ms_count_name": sorted(host, reverse=True)[:top_n]}
 
 
-def _to_device(params, dev):
-    return {k: ({n: w.to(dev) for n, w in v.items()}
-                if isinstance(v, dict) else v.to(dev))
-            for k, v in params.items()}
+def _to_device(tree, dev):
+    """A parameter tree (dicts, int8 (weight, scale) tuples) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, dev) for v in tree)
+    return tree.to(dev)
 
 
 def paged_reference_phase(gpt, Engine, PagedEngine):
@@ -1190,6 +1216,381 @@ def plain_training_phase(gpt, hybrid, fa, flash_losses):
     return row
 
 
+FUSED_POS = (0, 7, 8, 255, 256, 700, 1023)   # of a T 1024 cache
+FUSED_TIMED_POS = (64, 512, 1023)
+FUSED_H_REL = 2 ** -6                        # h_out row 0, of its max
+FUSED_SUM_ORDER = 2 ** -16     # of a written row's max: float32 sum order
+FUSED_CARRIED = 2 ** -7        # of a written row's max, layers >= 1
+FUSED_SCALE0_REL = 1e-5        # int8 scales of layer 0, relative
+FUSED_WITNESS_POS = (0, 700)   # plain on the card against the CPU
+FUSED_FAMILIES = (("fused_decode", ("fused_decode",)),
+                  ("flash_decode", ("flash_decode",)))
+
+
+def _fused_store(kvq, x, mode):
+    """K/V x [2, L, T, nH, hD] float32 in the kernel's flat [L, T, H]
+    layout and a storage mode ("f32"/"bf16": the model dtype, "int8"
+    with [L, T, nH] scale planes, "fp8"): (ck, cv, scales or None)."""
+    L, T, nH, hD = x.shape[1:]
+    if mode == "int8":
+        (ck, ks), (cv, vs) = (kvq.quantize_kv(x[i], "int8") for i in range(2))
+        return (ck.reshape(L, T, nH * hD), cv.reshape(L, T, nH * hD),
+                (ks.reshape(L, T, nH).contiguous(),
+                 vs.reshape(L, T, nH).contiguous()))
+    if mode == "fp8":
+        ck, cv = (kvq.quantize_kv(x[i], "fp8")[0].reshape(L, T, nH * hD)
+                  for i in range(2))
+        return ck, cv, None
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    return (x[0].reshape(L, T, nH * hD).to(dt),
+            x[1].reshape(L, T, nH * hD).to(dt), None)
+
+
+def _fused_work(cfg, pos, kv_elem, scale_bytes, small_elem):
+    """Bytes and operations of one fused step at ``pos``: every int8
+    weight read once; the float32 per-channel scales, one per output
+    column (qkv 3H, proj H, fc1 F, fc2 H: 5H + F a layer); the biases
+    (qkv 3H, proj H, fc1 F, fc2 H) and LN parameters (4H) in the model
+    dtype (9H + F a layer); the K/V history rows < pos read once (data
+    and int8 scales), the two new rows written, h0 row 0 and pos read,
+    h_out [8, H] written; 2 operations per weight and 4*hD per (row
+    attended, head)."""
+    L, H, F, nH = (cfg.num_layers, cfg.hidden_size, cfg.ffn_size,
+                   cfg.num_heads)
+    weights = L * (3 * H * H + H * H + 2 * H * F)
+    row = H * kv_elem + nH * scale_bytes
+    nbytes = (weights + L * (5 * H + F) * 4 + L * (9 * H + F) * small_elem
+              + 2 * L * (pos + 1) * row + 4 * H + 4 + 32 * H)
+    return nbytes, 2 * weights + 4 * H * L * (pos + 1)
+
+
+def _fused_errors(kvq, got, want, before, pos, mode):
+    """Kernel against plain at one position: h_out row 0 within
+    FUSED_H_REL of its largest value, rows 1-7 zero; every row other
+    than pos bit for bit; the written rows in storage units, each
+    element within one step of its storage (bf16: 2^-7 |want|; fp8:
+    2^-3 |want|; float32: none; int8: one quantum).  Layer 0 reads the
+    same inputs in both versions: its rows add only FUSED_SUM_ORDER of
+    the row's largest value (the float32 sums run in another order) and,
+    for fp8, the subnormal step 2^-9; its int8 scales are held to
+    FUSED_SCALE0_REL.  Layers >= 1 add FUSED_CARRIED of the row's
+    largest value (int8 scales: FUSED_CARRIED relative): now and then a
+    bf16 rounding point (LN output, q, p, GELU output) flips by one
+    step, and the sharp softmax over the history carries such a step
+    into the next layers — at 24 layers the hidden state differs by
+    ~2e-3 of its largest value, as much as the plain version moves
+    between the card and the CPU (``_plain_order_witness``).  Returns
+    the shares of each limit used (all layers, and layer 0) and the
+    errors."""
+    h, w = got[0][0], want[0][0]
+    err = (h - w).abs().max().item()
+    out = {"h_max_abs_err": err, "h_max": w.abs().max().item()}
+    out["h_share"] = err / (FUSED_H_REL * out["h_max"])
+    if not (torch.isfinite(h).all() and out["h_share"] <= 1
+            and not got[0][1:].any()):
+        raise AssertionError(f"fused_decode {mode} pos {pos}: h_out {out}")
+    keep = torch.ones(got[1].shape[1], dtype=torch.bool, device="cuda")
+    keep[pos] = False
+    shares = []
+    for g, x, b in zip(got[1:], want[1:], before):
+        if not torch.equal(kvq.byte_view(g)[:, keep],
+                           kvq.byte_view(b)[:, keep]):
+            raise AssertionError(f"fused_decode {mode} pos {pos}: a row "
+                                 f"other than pos changed")
+        gr, xr = g[:, pos].float(), x[:, pos].float()
+        top = xr.abs().amax(1, keepdim=True)
+        if g.dtype == torch.int8:
+            lim = torch.ones_like(xr)
+        elif g.dtype == torch.float32 and mode == "int8":   # scale planes
+            lim = FUSED_CARRIED * xr.abs()
+            lim[0] = FUSED_SCALE0_REL * xr[0].abs()
+            out["scale_rel_layer0"] = max(
+                out.get("scale_rel_layer0", 0.0),
+                ((gr[0] - xr[0]).abs() / xr[0].abs()).max().item())
+        else:
+            step = {torch.bfloat16: 2 ** -7 * xr.abs(),
+                    torch.float8_e4m3fn: 2 ** -3 * xr.abs(),
+                    torch.float32: 0 * xr}[g.dtype]
+            lim = step + FUSED_CARRIED * top
+            lim[0] = step[0] + FUSED_SUM_ORDER * top[0] + (
+                2 ** -9 if g.dtype == torch.float8_e4m3fn else 0.0)
+        share = (gr - xr).abs() / lim
+        shares.append((share.max().item(), share[0].max().item()))
+    out["row_share"] = max(s for s, _ in shares)
+    out["row_share_layer0"] = max(s for _, s in shares)
+    if not out["row_share"] <= 1:
+        raise AssertionError(f"fused_decode {mode} pos {pos}: written rows "
+                             f"{shares} of their limits (all layers, "
+                             f"layer 0)")
+    return out
+
+
+def _plain_order_witness(fdl, qlayers, h0, state, nH, eps, positions):
+    """The plain version on the CPU against the plain version on the
+    card, on the same inputs: only the order of the float32 sums differs
+    (the CPU's GEMVs against cuBLAS), no kernel is involved.  How far
+    h_out row 0 moves is how far a bf16 rounding flip, carried through
+    the layers, moves it.  Returns {pos: max |diff| / max |h_out|}."""
+    out = {}
+    cpu_layers = _to_device(qlayers, "cpu")
+    for pos in positions:
+        rows = []
+        for dev, layers in (("cuda", qlayers), ("cpu", cpu_layers)):
+            ck, cv, *s = (t.to(dev, copy=True) for t in state)
+            rows.append(fdl.fused_decode_layers_plain(
+                h0.to(dev), layers, ck, cv, pos, nH, eps=eps,
+                scales=tuple(s) or None)[0][0].cpu())
+            del ck, cv, s
+        out[str(pos)] = ((rows[0] - rows[1]).abs().max()
+                         / rows[1].abs().max()).item()
+    return out
+
+
+def fused_kernel_phase(fdl, kvq, gpt, cfg, qparams):
+    """fused_decode_layers against its plain version on the card in the
+    four storage modes — an f32 cache at gpt_tiny width (seed-1 weights,
+    quantized), bf16, int8 and fp8 at gpt3_1p3b (the serving weights,
+    quantized) — at positions FUSED_POS of a T 1024 cache filled from a
+    seed (``_fused_errors``); the plain version on the card against the
+    CPU at FUSED_WITNESS_POS (bf16 cache); then the kernel's time at
+    FUSED_TIMED_POS beside its bound, and the plain version's at 512.  No single library call computes a
+    layer stack: the per-op int8 step's time stands in for it (the
+    fused serving phase)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    tiny = gpt.gpt_tiny(dtype=torch.float32)
+    tq = gpt.quantize_decode_params(gpt.init_params(tiny, seed=1,
+                                                    device="cuda"), tiny)
+    T = 1024
+    results = {}
+    for mode, c, qp in (("f32", tiny, tq), ("bf16", cfg, qparams),
+                        ("int8", cfg, qparams), ("fp8", cfg, qparams)):
+        L, H, nH = c.num_layers, c.hidden_size, c.num_heads
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        x = torch.randn((2, L, T, nH, H // nH), generator=gen, device="cuda")
+        ck, cv, sc = _fused_store(kvq, x, mode)
+        del x
+        state = (ck, cv) + (sc or ())
+        h0 = torch.zeros((8, H), device="cuda")
+        h0[0] = torch.randn((H,), generator=gen, device="cuda")
+        eps = c.layer_norm_epsilon
+
+        def call(pos, fn=fdl.fused_decode_layers, tensors=state):
+            ck, cv, *s = tensors
+            return fn(h0, qp["layers"], ck, cv, pos, nH, eps=eps,
+                      scales=tuple(s) or None)
+
+        worst, h_rel = {}, {}
+        for pos in FUSED_POS:
+            p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            before = [t.clone() for t in state]
+            got = call(p)
+            torch.cuda.synchronize()
+            want = call(p, fdl.fused_decode_layers_plain,
+                        [t.clone() for t in before])
+            errs = _fused_errors(kvq, got, want, before, pos, mode)
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            h_rel[str(pos)] = errs["h_max_abs_err"] / errs["h_max"]
+            for t, b in zip(state, before):      # the seeded cache again
+                kvq.byte_view(t).copy_(kvq.byte_view(b))
+            del before, got, want
+        witness = {} if mode != "bf16" else {
+            "plain_card_vs_cpu_h_rel": _plain_order_witness(
+                fdl, qp["layers"], h0, state, nH, eps, FUSED_WITNESS_POS)}
+        small_elem = qp["layers"]["ln1_g"].element_size()
+        kv_elem = ck.element_size()
+        timed = {}
+        for pos in FUSED_TIMED_POS:
+            p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            nbytes, ops = _fused_work(c, pos, kv_elem,
+                                      4 if mode == "int8" else 0, small_elem)
+            timed[str(pos)] = {"ms": _time_ms(lambda: call(p), flush=flush),
+                               **_bound(nbytes, ops, "bfloat16")}
+        p = torch.tensor([512], dtype=torch.int32, device="cuda")
+        row = {"phase": "kernel_fused", "mode": mode,
+               "shape": f"L={L} H={H} nH={nH} F={c.ffn_size} T={T} cache "
+                        f"{mode}, params {str(c.dtype).split('.')[-1]}",
+               "positions_checked": list(FUSED_POS), **worst,
+               "max_abs_err": worst["h_max_abs_err"], "h_rel": h_rel,
+               **witness, "timed": timed,
+               "plain_ms_at_512": _time_ms(
+                   lambda: call(p, fdl.fused_decode_layers_plain), reps=3,
+                   flush=flush)}
+        _log(row)
+        results[mode] = row
+        del state, ck, cv, sc
+        torch.cuda.empty_cache()
+    del flush, tq
+    torch.cuda.empty_cache()
+    return results
+
+
+def fused_reference_phase(gpt, FusedEngine, fdl):
+    """gpt_tiny f32 with int8 weights: FusedB1Engine on the card gives
+    the CPU FusedB1Engine's greedy streams at kv_dtype bf16, int8 and
+    fp8, with one fused launch per decode step (none on the CPU)."""
+    cfg = gpt.gpt_tiny(dtype=torch.float32, use_flash=False)
+    cpu = gpt.quantize_decode_params(
+        gpt.init_params(cfg, seed=1, device="cpu"), cfg)
+    gpu = _to_device(cpu, "cuda")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)), m)
+            for n, m in ((5, 12), (40, 20), (17, 8), (90, 16), (3, 24))]
+    for kd in ("bf16", "int8", "fp8"):
+        streams, launched = [], []
+        for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            eng = FusedEngine(params, cfg, max_len=256, kv_dtype=kd,
+                              device=dev)
+            fdl.reset_launches()
+            rids = [eng.submit(p, max_new=m) for p, m in reqs]
+            out = eng.run(steps_per_sync=8)
+            streams.append([out[r] for r in rids])
+            launched.append((fdl.LAUNCHES, eng.metrics()["decode_steps"]))
+        if streams[0] != streams[1]:
+            raise AssertionError(f"fused {kd}: card stream {streams[1]} != "
+                                 f"CPU stream {streams[0]}")
+        if launched[0][0] != 0 or launched[1][0] != launched[1][1]:
+            raise AssertionError(f"fused {kd}: launches (CPU, card) "
+                                 f"{launched}")
+        _log({"phase": "reference_fused", "config": "gpt_tiny f32, int8 "
+              "weights", "kv_dtype": kd, "requests": len(reqs),
+              "card_launches_decode_steps": launched[1],
+              "streams_identical": True})
+
+
+def fused_serving_phase(gpt, Engine, FusedEngine, fd, fdl, cfg, qparams):
+    """gpt3_1p3b with int8 weights (the serving weights, quantized by
+    the port) behind FusedB1Engine(max_len=1024) and the per-op int8
+    ContinuousBatchingEngine(max_batch=1), at kv_dtype bf16, int8 and
+    fp8, "flash" prefill: the serving workload's first 3 requests
+    (prompt lengths 601, 458, 373), max_new 32, steps_per_sync 16.
+    Counts reset just before each run: the fused engine launches
+    fused_decode once per decode step and flash_decode only for its
+    prefills (24 each, dense mode); the per-op engine never launches
+    fused_decode.  Stream agreement between the two is reported, not
+    asserted (random full-width weights give near-tied logits).  Then
+    one step of each at the state after the first prompt, on one shared
+    cache: logits compared, profiled, and the per-op step timed as the
+    fused kernel's stand-in yardstick."""
+    L = cfg.num_layers
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 701, 12)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens][:3]
+    runs, streams_of = {}, {}
+    for kd in ("bf16", "int8", "fp8"):
+        mode = "dense" if kd == "bf16" else kd
+        for label in ("fused", "per_op"):
+            fused = label == "fused"
+            kw = dict(max_len=1024, kv_dtype=kd, attn_kernel="flash",
+                      device="cuda")
+            eng = (FusedEngine(qparams, cfg, **kw) if fused
+                   else Engine(qparams, cfg, max_batch=1, **kw))
+            eng.submit(np.arange(40) % cfg.vocab_size, max_new=4)  # warm-up
+            eng.run()
+            base = eng.metrics()
+            fd.reset_launches()
+            fdl.reset_launches()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, max_new=32) for p in prompts]
+            out = eng.run(steps_per_sync=16)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = eng.metrics()
+            pk = "prefill_fused" if fused else "prefill"
+            steps = m["decode_steps"] - base["decode_steps"]
+            prefills = m["launches"][pk] - base["launches"][pk]
+            counts = {"fused_decode": fdl.LAUNCHES,
+                      **{f"fused_{k}": n for k, n in
+                         fdl.MODE_LAUNCHES.items()},
+                      "flash_decode": fd.LAUNCHES,
+                      "flash_decode_paged": fd.PAGED_LAUNCHES,
+                      **{f"flash_{k}": n for k, n in
+                         fd.MODE_LAUNCHES.items()}}
+            want = {k: 0 for k in counts}
+            want["flash_decode"] = L * prefills
+            want["flash_dense"] = L * prefills
+            if fused:
+                want["fused_decode"] = steps
+                want[f"fused_{mode}"] = steps
+            else:
+                want["flash_decode"] += L * steps
+                want[f"flash_{mode}"] += L * steps
+            if counts != want or steps < 1 or prefills != len(prompts):
+                raise AssertionError(f"{label} {kd}: launches {counts}, want "
+                                     f"{want} ({steps} decode steps, "
+                                     f"{prefills} prefills)")
+            for rid in rids:
+                req = eng.request(rid)
+                if req.status != "DONE" or len(out[rid]) != 32 or not all(
+                        0 <= t < cfg.vocab_size for t in out[rid]):
+                    raise AssertionError(f"{label} {kd} request {rid}: "
+                                         f"{req.status}, {out.get(rid)}")
+            ttft = [eng.request(r).first_token_at
+                    - eng.request(r).submitted_at for r in rids]
+            dsec = m["decode_seconds"] - base["decode_seconds"]
+            streams_of[(label, kd)] = [out[r] for r in rids]
+            row = {"phase": "serving_b1", "engine": label, "kv_dtype": kd,
+                   "prompt_lens": [int(n) for n in lens[:3]], "max_new": 32,
+                   "cache_bytes": m["cache_bytes"], "launches": counts,
+                   "decode_steps": steps, "prefills": prefills,
+                   "tokens": 32 * len(rids), "wall_s": wall,
+                   "decode_loop_s": dsec,
+                   "decode_loop_tok_s": 32 * len(rids) / dsec,
+                   "e2e_tok_s": 32 * len(rids) / wall,
+                   "ttft_s": ttft, "ttft_mean_s": float(np.mean(ttft))}
+            _log(row)
+            runs[(label, kd)] = row
+            del eng
+            torch.cuda.empty_cache()
+        a, b = streams_of[("fused", kd)], streams_of[("per_op", kd)]
+        _log({"phase": "serving_b1_agreement", "kv_dtype": kd,
+              "streams_equal": f"{sum(x == y for x, y in zip(a, b))}/3",
+              "tokens_equal": f"{sum(p == q for x, y in zip(a, b) for p, q in zip(x, y))}/96"})
+
+    # one step of each engine's decode at the state after prompt 0
+    n0 = int(lens[0])
+    ids = torch.tensor(prompts[0], device="cuda")[None]
+    tok = torch.tensor(prompts[1][:1], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([n0], dtype=torch.int32, device="cuda")
+    steps = {}
+    for kd in ("bf16", "int8", "fp8"):
+        cache = gpt.init_decode_cache(cfg, 1, 1024, kd, device="cuda")
+        with torch.inference_mode():
+            gpt.prefill_into_slots(qparams, ids, cfg, cache,
+                                   torch.zeros(1, dtype=torch.long,
+                                               device="cuda"),
+                                   attn_kernel="flash")
+            flat = gpt.flatten_decode_cache(cache, cfg)   # the same storage
+
+            def fused_step():
+                return gpt.decode_step_fused(qparams, flat, tok, pos, cfg)
+
+            def per_op_step():
+                return gpt.decode_step_multi(qparams, cache, tok, pos, cfg,
+                                             attn_kernel="flash")
+
+            lf, lp = fused_step()[0], per_op_step()[0]
+            torch.cuda.synchronize()
+            if not (torch.isfinite(lf).all() and torch.isfinite(lp).all()):
+                raise AssertionError(f"b1 step {kd}: non-finite logits")
+            row = {"phase": "b1_step", "kv_dtype": kd, "pos": n0,
+                   "fused_vs_per_op_max_abs_logit_diff":
+                       (lf - lp).abs().max().item(),
+                   "logit_std": lp.std().item(),
+                   "argmax_equal": bool(lf.argmax() == lp.argmax()),
+                   "per_op_int8_step_ms": _time_ms(per_op_step, reps=10)}
+            for label, fn in (("fused", fused_step), ("per_op", per_op_step)):
+                prof = _step_profile(fn, FUSED_FAMILIES)
+                row[label] = dict(tok_s=1e3 / prof["wall_ms"], **prof)
+        _log(row)
+        steps[kd] = row
+        del cache, flat
+        torch.cuda.empty_cache()
+    return runs, steps
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON")
@@ -1208,9 +1609,11 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
     from paddle_tpu_torch.incubate.nn.kernels import flash_decode as fd
     from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
+    from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
     from paddle_tpu_torch.inference.serving import (
-        ContinuousBatchingEngine, PagedContinuousBatchingEngine)
+        ContinuousBatchingEngine, FusedB1Engine,
+        PagedContinuousBatchingEngine)
     from paddle_tpu_torch.jit.loop import TrainLoop
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.models.common import matmul_f32out
@@ -1221,7 +1624,8 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
     t0 = time.perf_counter()
-    libs = _build.build(["flash_decode", "flash_attention", "fused_ce"])
+    libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
+                         "fused_decode"])
     _log({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs.values()]})
 
@@ -1239,7 +1643,14 @@ def main(argv=None) -> int:
                                   PagedContinuousBatchingEngine, fd, cfg,
                                   params, streams)
     paged_compare_phase(gpt, cfg, params)
+    qparams = gpt.quantize_decode_params(params, cfg)
     del params
+    torch.cuda.empty_cache()
+    fused_kernels = fused_kernel_phase(fdl, kvq, gpt, cfg, qparams)
+    fused_reference_phase(gpt, FusedB1Engine, fdl)
+    fused_runs, b1_steps = fused_serving_phase(
+        gpt, ContinuousBatchingEngine, FusedB1Engine, fd, fdl, cfg, qparams)
+    del qparams
     torch.cuda.empty_cache()
     training, fa_launches, ce_launches = training_phase(
         gpt, hybrid, TrainLoop, fa, fce)
@@ -1305,6 +1716,24 @@ def main(argv=None) -> int:
         "ms": ce["ms"], "plain_ms": ce["plain_ms"],
         "bound_ms": ce["bound_ms"], "bound_by": ce["bound_by"],
         "library_ms": ce["library_ms"], "shape": ce["shape"]})
+    # the fused layer stack: launches from the full-width run of the
+    # kv_dtype that serves each storage mode, time and bound at pos 512
+    for name, kd in (("fused_decode_layers", "bf16"),
+                     ("fused_decode_layers_int8", "int8"),
+                     ("fused_decode_layers_fp8", "fp8")):
+        row = fused_kernels[kd]
+        t = row["timed"]["512"]
+        entries.append({
+            "name": name, "route": "cuda", "source": src + "fused_decode.cu",
+            "replaces": ref + "fused_decode.py:84",
+            "launches": fused_runs[("fused", kd)]["launches"]["fused_decode"],
+            "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": row["plain_ms_at_512"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # no single library call computes a layer stack
+            "library_ms": None,
+            "per_op_int8_step_ms": b1_steps[kd]["per_op_int8_step_ms"],
+            "shape": row["shape"] + ", pos 512"})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -1312,6 +1741,9 @@ def main(argv=None) -> int:
              "paged_kernels": paged_kernels,
              "serving_kv": {f"{a} {b}": r for (a, b), r in kv_runs.items()},
              "train_kernels": train_kernels, "serving": serving,
+             "fused_kernels": fused_kernels,
+             "serving_b1": {f"{a} {b}": r for (a, b), r in fused_runs.items()},
+             "b1_steps": b1_steps,
              "training": training, "plain_training": plain_training},
             indent=1))
     _log({"kernels": entries})

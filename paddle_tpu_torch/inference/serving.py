@@ -1,7 +1,7 @@
 """Continuous-batching serving engines over the KV cache (port of
 ``paddle_tpu/inference/serving.py``: ``Request``, ``_derive_buckets``,
-the scheduler core of ``ContinuousBatchingEngine`` and
-``PagedContinuousBatchingEngine``).
+the scheduler core of ``ContinuousBatchingEngine``,
+``PagedContinuousBatchingEngine`` and ``FusedB1Engine``).
 
 The host runs the scheduler — admission, retirement, slot assignment —
 and the device runs two programs over one in-place KV cache:
@@ -29,9 +29,9 @@ The KV cache is stored as ``kv_dtype`` ("bf16" = the model dtype,
 in and the flash kernel dequantizes while it reads.
 
 Left out (ROADMAP Queue 1): prefix cache and host tier, handoff and
-reinstall hooks, speculative decoding and ``verify_paged``, fused
-engine, tensor-parallel mesh, retries/breaker/deadlines/cancel,
-observability, the ``PT_KV_DTYPE`` flag.
+reinstall hooks, speculative decoding (``verify_paged``,
+``verify_fused``), tensor-parallel mesh, retries/breaker/deadlines/
+cancel, observability, the ``PT_KV_DTYPE`` flag.
 """
 from __future__ import annotations
 
@@ -42,14 +42,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..incubate.nn.kv_quant import resolve_kv_dtype
+from ..incubate.nn.kernels.fused_decode import KV_CHUNK
+from ..incubate.nn.kv_quant import (byte_view, kv_has_scales,
+                                    kv_storage_dtype, kv_zeros,
+                                    resolve_kv_dtype)
 from ..models import decoding, gpt
 from .lifecycle import (AdmissionQueue, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
-           "Request", "RequestStatus", "EngineState", "QueueFullError",
-           "EngineClosedError"]
+           "FusedB1Engine", "Request", "RequestStatus", "EngineState",
+           "QueueFullError", "EngineClosedError"]
 
 
 @dataclasses.dataclass(eq=False)
@@ -110,6 +113,9 @@ class ContinuousBatchingEngine:
     progress after which the stalled request retires FAILED with a
     capacity diagnostic (the livelock guard)."""
 
+    # the metrics()["launches"] key of an admission prefill
+    _prefill_kind = "prefill"
+
     def __init__(self, params, cfg, max_batch: int = 4,
                  max_len: int = 1024, eos_token_id: Optional[int] = None,
                  max_queue: Optional[int] = None,
@@ -124,9 +130,10 @@ class ContinuousBatchingEngine:
                 f"attn_kernel must be 'xla' or 'flash', "
                 f"got {attn_kernel!r}")
         self.device = resolve_device(device)
-        if params["wte"].device.type != self.device.type:
-            raise ValueError(f"params lie on {params['wte'].device}, the "
-                             f"engine runs on {self.device}")
+        where = params["wpe"].device
+        if where.type != self.device.type:
+            raise ValueError(f"params lie on {where}, the engine runs on "
+                             f"{self.device}")
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -336,7 +343,7 @@ class ContinuousBatchingEngine:
             ready = [p for p in ready if p not in group]
             self._prefill_batch([p[0] for p in group],
                                 [p[2] for p in group])
-            self._note_launch("prefill")
+            self._note_launch(self._prefill_kind)
             for slot, req, seq in group:
                 self._finish_admit(slot, req, seq)
 
@@ -689,3 +696,78 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 self.cfg, self._cache,
                 torch.from_numpy(np.ascontiguousarray(pages)).to(
                     self.device), attn_kernel=self.attn_kernel)
+
+
+class FusedB1Engine(ContinuousBatchingEngine):
+    """``max_batch=1`` serving over the FUSED decode stack: every decode
+    step is one ``gpt.decode_step_fused``, whose whole layer stack is
+    ONE launch of the ``fused_decode`` kernel (the b1 latency path).
+    Requires int8 params (``gpt.quantize_decode_params``); the cache
+    lives in the kernel's flat ``[L, max_len, H]`` layout in the
+    ``kv_dtype``'s storage, int8 adding float32 ``[L, max_len, nH]``
+    scale planes.
+
+    Admission prefills the prompt through the int8 per-op stack
+    (``gpt.prefill_into_slots``; its attention through ``flash_decode``
+    when ``attn_kernel="flash"``) into a ``[L, 1, max_len, nH, hD]``
+    view of the zeroed flat cache: the bytes of JAX's fresh scratch
+    cache, flattened, without a copy.  ``attn_kernel`` changes only the
+    prefill; the fused kernel serves every decode step.
+
+    Left out of this port: ``verify_fused`` (speculative decoding), the
+    prefix-cache and handoff hooks, and tensor-parallel replication."""
+
+    _prefill_kind = "prefill_fused"
+
+    def __init__(self, qparams, cfg, max_len: int = 1024,
+                 eos_token_id: Optional[int] = None, **kw):
+        if not isinstance(qparams["layers"]["qkv_w"], tuple):
+            raise ValueError("FusedB1Engine needs int8 params "
+                             "(gpt.quantize_decode_params)")
+        if max_len <= 0 or max_len % 8 or (
+                max_len > KV_CHUNK and max_len % KV_CHUNK):
+            raise ValueError(
+                f"FusedB1Engine max_len={max_len} must be a positive "
+                "multiple of 8 (the fused kernel's cache-row group) and of "
+                f"{KV_CHUNK} when above it (the KV streaming chunk)")
+        super().__init__(qparams, cfg, max_batch=1, max_len=max_len,
+                         eos_token_id=eos_token_id, **kw)
+
+    def _init_cache(self):
+        cfg = self.cfg
+        L, H = cfg.num_layers, cfg.hidden_size
+        dt = kv_storage_dtype(self.kv_dtype, cfg.dtype)
+        self._cache = {"k": kv_zeros((L, self.max_len, H), dt, self.device),
+                       "v": kv_zeros((L, self.max_len, H), dt, self.device)}
+        if kv_has_scales(self.kv_dtype):
+            for name in ("ks", "vs"):
+                self._cache[name] = torch.zeros(
+                    (L, self.max_len, cfg.num_heads), dtype=torch.float32,
+                    device=self.device)
+
+    def _decode_step_fn(self):
+        cfg = self.cfg
+
+        def step(p, c, extra, tok, pos):
+            del extra
+            return gpt.decode_step_fused(p, c, tok, pos, cfg)
+
+        return step
+
+    def _prefill_batch(self, slots: Sequence[int],
+                       seqs: Sequence[np.ndarray]):
+        (seq,) = seqs
+        cfg = self.cfg
+        L, T = cfg.num_layers, self.max_len
+        ids = np.zeros((1, self._bucket(seq.size)), np.int32)
+        ids[0, :seq.size] = seq
+        view = {}
+        for name, a in self._cache.items():
+            byte_view(a).zero_()
+            tail = cfg.head_dim if name in ("k", "v") else 1
+            view[name] = a.view(L, 1, T, cfg.num_heads, tail)
+        with torch.inference_mode():
+            gpt.prefill_into_slots(
+                self.params, torch.from_numpy(ids).to(self.device), cfg,
+                view, torch.zeros(1, dtype=torch.long, device=self.device),
+                attn_kernel=self.attn_kernel)

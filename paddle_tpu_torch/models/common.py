@@ -21,8 +21,14 @@ def layer_slices(layers: Dict[str, torch.Tensor]
 
     The views come from one ``unbind`` per stacked tensor, so under
     autograd each stack receives its per-layer gradients in one stack
-    op rather than one full-size scatter per layer."""
-    per = {name: w.unbind(0) for name, w in layers.items()}
+    op rather than one full-size scatter per layer.  A tuple leaf (an
+    int8 weight and its scale) yields a tuple of per-layer views."""
+    def unbind(w):
+        if isinstance(w, tuple):
+            return tuple(zip(*(c.unbind(0) for c in w)))
+        return w.unbind(0)
+
+    per = {name: unbind(w) for name, w in layers.items()}
     n = len(next(iter(per.values())))
     for l in range(n):
         yield {name: ws[l] for name, ws in per.items()}

@@ -13,6 +13,14 @@ packages compute with the same weights.  Layout: activations
 axis of 1); paged pools the same with ``[L, num_blocks, block_size,
 ...]``.  Every cache write quantizes this step's rows on the way in.
 
+Weight-only int8 (:func:`quantize_decode_params`): the four matmul
+weights become ``(int8 [L, K, N], float32 scale [L, N])`` tuples and the
+tied table ``(int8 [V, H], float32 row scale [V])``; every entry point of
+the serving path takes such a tree (:func:`_wmm`, :func:`_embed_rows`,
+the int8 tied head).  :func:`decode_step_fused` runs the whole layer
+stack of a b1 step in the ``fused_decode`` kernel over the flat
+``[L, T, H]`` cache of :func:`flatten_decode_cache`.
+
 Differences from the JAX functions, by design:
 
 * The depth ``lax.scan`` is a Python loop over layers, and the cache
@@ -48,6 +56,7 @@ from ..incubate.nn.kernels.flash_attention import (default_use_flash,
                                                    flash_attention)
 from ..incubate.nn.kernels.flash_decode import (flash_decode_attention,
                                                 flash_decode_paged)
+from ..incubate.nn.kernels.fused_decode import fused_decode_layers
 from ..incubate.nn.kv_quant import (byte_view, cast_kv, kv_has_scales,
                                     kv_map, kv_storage_dtype, kv_zeros,
                                     quantize_kv, resolve_kv_dtype)
@@ -58,7 +67,9 @@ __all__ = ["GPTConfig", "gpt3_1p3b", "gpt_tiny", "init_params",
            "logits_from_hidden", "forward_layers", "forward", "loss_fn",
            "init_decode_cache", "prefill", "prefill_into_slots",
            "decode_step_multi", "decode_step_paged",
-           "prefill_paged_batched", "prefill_paged"]
+           "prefill_paged_batched", "prefill_paged",
+           "quantize_decode_params", "decode_step_fused",
+           "flatten_decode_cache"]
 
 
 @dataclasses.dataclass
@@ -157,9 +168,11 @@ def params_from_numpy(tree, device=None,
                       dtype: Optional[torch.dtype] = None):
     """The weights bridge: a parameter tree of numpy arrays (the JAX
     pytree passed through ``np.asarray``) -> the port's tree of tensors
-    on ``device`` (CUDA by default), same nesting and shapes.  Floating
-    arrays are cast to ``dtype`` when given; bfloat16 numpy arrays
-    (``ml_dtypes``) pass through float32, which holds them exactly."""
+    on ``device`` (CUDA by default), same nesting and shapes; tuple
+    leaves (the int8 ``(weight, scale)`` pairs of
+    :func:`quantize_decode_params`) stay tuples.  Floating arrays are
+    cast to ``dtype`` when given; bfloat16 numpy arrays (``ml_dtypes``)
+    pass through float32, which holds them exactly."""
     dev = resolve_device(device)
 
     def conv(a):
@@ -173,15 +186,20 @@ def params_from_numpy(tree, device=None,
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
         return conv(node)
 
     return walk(tree)
 
 
 def param_count(params) -> int:
+    """Stored elements of the tree (int8 scales included)."""
     def walk(node):
         if isinstance(node, dict):
             return sum(walk(v) for v in node.values())
+        if isinstance(node, tuple):
+            return sum(walk(v) for v in node)
         return node.numel()
     return walk(params)
 
@@ -222,15 +240,42 @@ def _check_attn_kernel(attn_kernel: Optional[str]) -> Optional[str]:
     return attn_kernel
 
 
+def _wmm(x, w):
+    """``x @ w`` for a dense ``w`` [K, N] or an int8 pair (qw int8
+    [K, N], scale float32 [N]): then the product is taken in x's dtype
+    and scaled in it, ``(x @ qw) * s``, as the JAX function does."""
+    if isinstance(w, tuple):
+        qw, s = w
+        return (x @ qw.to(x.dtype)) * s.to(x.dtype)
+    return x @ w
+
+
+def _qkv_weight(lp, H):
+    """The packed qkv weight as a [H, 3H] operand of :func:`_wmm`: the
+    dense ``[H, 3, H]`` reshaped, or the int8 pair (quantized as
+    ``[H, 3H]`` with a ``[3H]`` scale) as it is."""
+    w = lp["qkv_w"]
+    return w if isinstance(w, tuple) else w.reshape(H, 3 * H)
+
+
+def _embed_rows(wte, idx, dtype):
+    """Embedding lookup for a dense [V, H] table or a per-ROW int8 pair
+    (qw [V, H], scale [V]), dequantized in ``dtype``."""
+    if isinstance(wte, tuple):
+        qw, s = wte
+        return qw[idx].to(dtype) * s[idx][..., None].to(dtype)
+    return wte[idx]
+
+
 def _decoder_layer(h, lp, cfg: GPTConfig, return_kv: bool = False,
                    attn_kernel: Optional[str] = None):
-    """One pre-LN decoder layer (dense branch).  ``lp`` holds this
-    layer's params; ``return_kv`` also returns its K/V (prefill)."""
+    """One pre-LN decoder layer, dense or weight-only int8 (``lp``
+    holds this layer's params); ``return_kv`` also returns its K/V
+    (prefill)."""
     nH, hD = cfg.num_heads, cfg.head_dim
     x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
     B, S, H = x.shape
-    qkv = (x @ lp["qkv_w"].reshape(H, 3 * H)).view(B, S, 3, H) \
-        + lp["qkv_b"]
+    qkv = _wmm(x, _qkv_weight(lp, H)).view(B, S, 3, H) + lp["qkv_b"]
     q = qkv[:, :, 0].view(B, S, nH, hD)
     k = qkv[:, :, 1].view(B, S, nH, hD)
     v = qkv[:, :, 2].view(B, S, nH, hD)
@@ -242,25 +287,34 @@ def _decoder_layer(h, lp, cfg: GPTConfig, return_kv: bool = False,
             q, k, v, torch.zeros((B,), dtype=torch.int32, device=h.device))
     else:
         attn = _causal_attention(q, k, v, hD, use_flash=cfg.use_flash)
-    attn = attn.reshape(B, S, H) @ lp["proj_w"]
+    attn = _wmm(attn.reshape(B, S, H), lp["proj_w"])
     h = h + attn + lp["proj_b"]
     x = _layer_norm(h, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
-    x = F.gelu(x @ lp["fc1_w"] + lp["fc1_b"], approximate="tanh")
-    out = h + x @ lp["fc2_w"] + lp["fc2_b"]
+    x = F.gelu(_wmm(x, lp["fc1_w"]) + lp["fc1_b"], approximate="tanh")
+    out = h + _wmm(x, lp["fc2_w"]) + lp["fc2_b"]
     return (out, (k, v)) if return_kv else out
 
 
 def embed(params, input_ids, cfg: GPTConfig):
     S = input_ids.shape[-1]
     pos = torch.arange(S, device=input_ids.device)
-    return params["wte"][input_ids] + params["wpe"][pos]
+    return _embed_rows(params["wte"], input_ids, params["wpe"].dtype) \
+        + params["wpe"][pos]
 
 
 def _tied_logits(x, wte):
     """The weight-tied head on normalised hidden states x [..., H]:
-    float32 logits [..., V] from operands in the model dtype."""
-    logits = matmul_f32out(x.reshape(-1, x.shape[-1]), wte.t())
-    return logits.view(*x.shape[:-1], wte.shape[0])
+    float32 logits [..., V] from operands in the model dtype.  An int8
+    table (qw, row scale) is dequantized to x's dtype for the product
+    and its float32 logits are scaled per vocabulary row, as JAX's
+    einsum with ``preferred_element_type=float32`` then ``* s``."""
+    if isinstance(wte, tuple):
+        qw, s = wte
+        logits = matmul_f32out(x.reshape(-1, x.shape[-1]),
+                               qw.to(x.dtype).t()) * s
+    else:
+        logits = matmul_f32out(x.reshape(-1, x.shape[-1]), wte.t())
+    return logits.view(*x.shape[:-1], logits.shape[-1])
 
 
 def logits_from_hidden(params, h, cfg: GPTConfig):
@@ -415,16 +469,16 @@ def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_kv, attend):
     B = h.shape[0]
     nH, hD, H = cfg.num_heads, cfg.head_dim, cfg.hidden_size
     x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
-    qkv = (x @ lp["qkv_w"].reshape(H, 3 * H)).view(B, 3, H) + lp["qkv_b"]
+    qkv = _wmm(x, _qkv_weight(lp, H)).view(B, 3, H) + lp["qkv_b"]
     q = qkv[:, 0].view(B, nH, hD)
     k = qkv[:, 1].view(B, nH, hD)
     v = qkv[:, 2].view(B, nH, hD)
     write_kv(ck, cv, k, v)
     attn = attend(q, ck, cv)
-    hh = h + attn.reshape(B, H) @ lp["proj_w"] + lp["proj_b"]
+    hh = h + _wmm(attn.reshape(B, H), lp["proj_w"]) + lp["proj_b"]
     x = _layer_norm(hh, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
-    x = F.gelu(x @ lp["fc1_w"] + lp["fc1_b"], approximate="tanh")
-    return hh + x @ lp["fc2_w"] + lp["fc2_b"]
+    x = F.gelu(_wmm(x, lp["fc1_w"]) + lp["fc1_b"], approximate="tanh")
+    return hh + _wmm(x, lp["fc2_w"]) + lp["fc2_b"]
 
 
 def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
@@ -437,7 +491,8 @@ def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
     composition."""
     _check_attn_kernel(attn_kernel)
     B = token.shape[0]
-    h = params["wte"][token] + params["wpe"][pos]                # [B, H]
+    h = _embed_rows(params["wte"], token, params["wpe"].dtype) \
+        + params["wpe"][pos]                                     # [B, H]
     write_at = (torch.arange(B, device=token.device), pos.long())
 
     def write(arr, rows):
@@ -499,7 +554,8 @@ def decode_step_paged(params, pools, block_tables, token, pos,
     _check_attn_kernel(attn_kernel)
     B = token.shape[0]
     nb, bs = pools["k"].shape[1], pools["k"].shape[2]
-    h = params["wte"][token] + params["wpe"][pos]                # [B, H]
+    h = _embed_rows(params["wte"], token, params["wpe"].dtype) \
+        + params["wpe"][pos]                                     # [B, H]
     page, off, src, any_valid = _paged_write_target(block_tables, pos, bs,
                                                     nb)
 
@@ -583,3 +639,79 @@ def prefill_paged(params, input_ids, cfg: GPTConfig, pools, pages):
         byte_view(a)[:, pages] = byte_view(scratch[name][:, 0]).reshape(
             (L, nblk, bs) + tuple(a.shape[3:]))
     return logits[0], pools
+
+
+# ---------------------------------------------------------------------------
+# Weight-only int8 and the fused b1 decode step
+# ---------------------------------------------------------------------------
+
+def quantize_decode_params(params, cfg: GPTConfig):
+    """Weight-only int8 copy of a GPT parameter tree for the decode path.
+    The matmul weights become (int8, per-out-channel float32 scale)
+    pairs — qkv quantized as ``[L, H, 3H]`` — and the tied table
+    quantizes per ROW, so the lookup (row scale) and the head (output
+    channel = vocabulary row) dequantize alike.  LN, biases and the
+    positional table stay as they are.  Scales are ``max|w| / 127`` and
+    the values ``clip(round(w / max(s, 1e-8)), -127, 127)`` with round
+    half to even, in float32: bit-identical to the JAX function on the
+    same weights."""
+    L, H = cfg.num_layers, cfg.hidden_size
+
+    def chan_q(w):
+        wf = w.float()
+        s = wf.abs().amax(dim=-2) / 127.0
+        q = torch.round(wf / s.clamp_min(1e-8)[..., None, :]) \
+            .clamp(-127, 127).to(torch.int8)
+        return q, s
+
+    lp = params["layers"]
+    qlayers = dict(lp)
+    qlayers["qkv_w"] = chan_q(lp["qkv_w"].reshape(L, H, 3 * H))
+    for name in ("proj_w", "fc1_w", "fc2_w"):
+        qlayers[name] = chan_q(lp[name])
+    out = dict(params)
+    out["layers"] = qlayers
+    wte = params["wte"].float()
+    s = wte.abs().amax(dim=1) / 127.0                 # per vocab row
+    qwte = torch.round(wte / s.clamp_min(1e-8)[:, None]) \
+        .clamp(-127, 127).to(torch.int8)
+    out["wte"] = (qwte, s)
+    return out
+
+
+def decode_step_fused(qparams, cache, token, pos, cfg: GPTConfig):
+    """The b1 decode step through the fused layer-stack kernel
+    (``incubate/nn/kernels/fused_decode.py``): ONE launch runs all L
+    layers for this token.  ``qparams`` from
+    :func:`quantize_decode_params`; cache {"k", "v"}: [L, T, H] in the
+    storage dtype (:func:`flatten_decode_cache`), int8 adding {"ks",
+    "vs"}: [L, T, nH]; token [1] int32; pos the position fed (an int or
+    an int32 tensor of one element; a device tensor is read by the
+    kernel, so the step never syncs the host).  Returns (logits [1, V]
+    float32, cache updated in place)."""
+    H = cfg.hidden_size
+    wte_q, wte_s = qparams["wte"]
+    dev = wte_q.device
+    pos1 = (pos.reshape(1) if torch.is_tensor(pos)
+            else torch.tensor([pos], dtype=torch.int32, device=dev))
+    tok = token.reshape(1)
+    # row 0 of the kernel's [8, H] input is the real one
+    row = wte_q[tok].float() * wte_s[tok][:, None] \
+        + qparams["wpe"][pos1].float()
+    h0 = F.pad(row, (0, 0, 0, 7))
+    scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
+    hout = fused_decode_layers(h0, qparams["layers"], cache["k"],
+                               cache["v"], pos1.to(torch.int32),
+                               cfg.num_heads, eps=cfg.layer_norm_epsilon,
+                               scales=scales)[0]
+    logits = logits_from_hidden(qparams, hout[0:1][None].to(cfg.dtype),
+                                cfg)[:, 0]
+    return logits, cache
+
+
+def flatten_decode_cache(cache, cfg: GPTConfig):
+    """The standard b1 cache [L, 1, T, nH, hD] (scales [L, 1, T, nH, 1])
+    in the fused kernel's layout [L, T, H] (scales [L, T, nH]): views
+    of the same storage."""
+    L, T = cache["k"].shape[0], cache["k"].shape[2]
+    return {k: v[:, 0].reshape(L, T, -1) for k, v in cache.items()}

@@ -448,3 +448,251 @@ def test_matmul_f32out_under_autograd_on_card(cuda):
     assert a.grad.dtype == b.grad.dtype == torch.bfloat16
     torch.testing.assert_close(a.grad.float(), a32.grad, rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(b.grad.float(), b32.grad, rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# fused_decode: the whole int8 layer stack of a b1 step in one launch
+# ---------------------------------------------------------------------------
+
+from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl  # noqa: E402
+
+_FUSED_MODES = ("f32", "bf16", "int8", "fp8")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _fused_case(rng, device, L, H, nH, F, T, mode, param_dtype, pos):
+    """Seeded inputs of fused_decode_layers: a random int8 layer stack
+    (scales ~ 1/(127 sqrt(K)), so activations stay O(1)), h0 row 0, and
+    a [L, T, H] cache whose rows hold random K/V in ``mode``'s storage
+    (f32 / bf16 model-dtype caches, int8 with scales, fp8)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 30)))
+
+    def w(K, N):
+        q = torch.randint(-127, 128, (L, K, N), generator=gen,
+                          device=device, dtype=torch.int8)
+        s = torch.from_numpy((rng.uniform(0.5, 1.5, (L, N)) / (127 * K ** 0.5))
+                             .astype(np.float32))
+        return q, s.to(device)
+
+    def small(*shape, base=0.0):
+        return (_rand(rng, shape, torch.float32, device) * 0.1 + base).to(
+            param_dtype)
+
+    qlayers = {"qkv_w": w(H, 3 * H), "proj_w": w(H, H), "fc1_w": w(H, F),
+               "fc2_w": w(F, H), "qkv_b": small(L, 3, H),
+               "proj_b": small(L, H), "fc1_b": small(L, F),
+               "fc2_b": small(L, H), "ln1_g": small(L, H, base=1.0),
+               "ln1_b": small(L, H), "ln2_g": small(L, H, base=1.0),
+               "ln2_b": small(L, H)}
+    h0 = torch.zeros((8, H), dtype=torch.float32, device=device)
+    h0[0] = _rand(rng, (H,), torch.float32, device)
+    x = _rand(rng, (2, L, T, nH, H // nH), torch.float32, device)
+    scales = None
+    if mode == "int8":
+        (ck, ks), (cv, vs) = (kv_quant.quantize_kv(x[i], "int8")
+                              for i in range(2))
+        ck, cv = ck.reshape(L, T, H), cv.reshape(L, T, H)
+        scales = (ks.reshape(L, T, nH).contiguous(),
+                  vs.reshape(L, T, nH).contiguous())
+    elif mode == "fp8":
+        ck, cv = (kv_quant.quantize_kv(x[i], "fp8")[0].reshape(L, T, H)
+                  for i in range(2))
+    else:
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        ck, cv = (x[i].reshape(L, T, H).to(dt) for i in range(2))
+    return h0, qlayers, ck, cv, scales, torch.tensor(
+        [pos], dtype=torch.int32, device=device)
+
+
+def _clone_cache(ck, cv, scales):
+    return (ck.clone(), cv.clone(),
+            None if scales is None else tuple(s.clone() for s in scales))
+
+
+def _assert_fused(got, want, before, pos, mode):
+    """h_out row 0 within 2^-6 of its largest value (the two versions
+    sum in other orders, so a bf16 rounding point — LN output, q, p, the
+    GELU output — may flip by one step, and the step's effect carries
+    through the following layers); rows 1-7 zero; the written row in
+    storage units (model dtype: one bf16 step, 2^-7 |want| + 2^-7 of the
+    row's largest value; int8: one quantum and scales to 2^-7; fp8: one
+    e4m3 step, 2^-3 |want| + 2^-9); every other row bit for bit."""
+    h, w = got[0][0], want[0][0]
+    assert torch.isfinite(h).all()
+    assert (h - w).abs().max().item() <= 2 ** -6 * w.abs().max().item()
+    assert not got[0][1:].any()
+    for i, (g, x, b) in enumerate(zip(got[1:3], want[1:3], before[:2])):
+        gb, xb, bb = (kv_quant.byte_view(t) for t in (g, x, b))
+        keep = torch.ones(g.shape[1], dtype=torch.bool, device=g.device)
+        keep[pos] = False
+        assert torch.equal(gb[:, keep], bb[:, keep]), f"cache {i}: rows " \
+            "other than pos changed"
+        gr, xr = g[:, pos].float(), x[:, pos].float()
+        if mode == "int8":
+            assert (gr - xr).abs().max().item() <= 1
+        elif mode == "fp8":
+            assert ((gr - xr).abs() <= 2 ** -3 * xr.abs() + 2 ** -9).all()
+        else:
+            assert ((gr - xr).abs() <= 2 ** -7 * xr.abs()
+                    + 2 ** -7 * xr.abs().max()).all()
+    if mode == "int8":
+        for g, x, b in zip(got[3:], want[3:], before[2]):
+            keep = torch.ones(g.shape[1], dtype=torch.bool, device=g.device)
+            keep[pos] = False
+            assert torch.equal(g[:, keep], b[:, keep])
+            assert ((g[:, pos] - x[:, pos]).abs()
+                    <= 2 ** -7 * x[:, pos].abs()).all()
+
+
+@pytest.mark.parametrize("mode", _FUSED_MODES)
+@pytest.mark.parametrize("pos", [0, 7, 8, 255, 256, 700, 1023])
+def test_fused_decode_kernel_matches_plain(cuda, mode, pos):
+    rng = np.random.default_rng(pos + 7)
+    L, H, nH, F, T = 2, 256, 2, 1024, 1024
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, L, H, nH, F, T, mode,
+                                        torch.bfloat16, pos)
+    before = _clone_cache(ck, cv, sc)
+    wk, wv, ws = _clone_cache(ck, cv, sc)
+    n0 = (fdl.LAUNCHES, dict(fdl.MODE_LAUNCHES))
+    got = fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, eps=1e-5,
+                                  scales=sc)
+    torch.cuda.synchronize()
+    key = "dense" if mode in ("f32", "bf16") else mode
+    assert fdl.LAUNCHES == n0[0] + 1
+    assert fdl.MODE_LAUNCHES[key] == n0[1][key] + 1
+    assert got[1] is ck and got[2] is cv
+    want = fdl.fused_decode_layers_plain(h0, ql, wk, wv, p, nH, eps=1e-5,
+                                         scales=ws)
+    _assert_fused(got, want, before, pos, mode)
+
+
+@pytest.mark.parametrize("mode", _FUSED_MODES)
+@pytest.mark.parametrize("H,nH,F,param_dtype", [
+    (64, 4, 256, torch.float32),      # hD 16
+    (96, 3, 160, torch.float32),      # hD 32, widths not a tile multiple
+    (192, 3, 768, torch.bfloat16),    # hD 64
+])
+def test_fused_decode_head_dims_and_params(cuda, mode, H, nH, F,
+                                           param_dtype):
+    rng = np.random.default_rng(H + F)
+    pos = 300
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, 3, H, nH, F, 512, mode,
+                                        param_dtype, pos)
+    before = _clone_cache(ck, cv, sc)
+    wk, wv, ws = _clone_cache(ck, cv, sc)
+    got = fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, eps=1e-5,
+                                  scales=sc)
+    want = fdl.fused_decode_layers_plain(h0, ql, wk, wv, p, nH, eps=1e-5,
+                                         scales=ws)
+    _assert_fused(got, want, before, pos, mode)
+
+
+@pytest.mark.parametrize("H,nH,F,T,pos", [
+    (16384, 128, 16384, 8, 7),        # widths at MAX_WIDTH, shortest T
+    (128, 1, 16384, 256, 255),        # F at the limit, T at the chunk
+    (256, 2, 512, 8, 0),
+])
+def test_fused_decode_cooperative_launch_at_the_limits(cuda, H, nH, F, T,
+                                                       pos):
+    rng = np.random.default_rng(T)
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, 1, H, nH, F, T, "bf16",
+                                        torch.bfloat16, pos)
+    before = _clone_cache(ck, cv, sc)
+    wk, wv, ws = _clone_cache(ck, cv, sc)
+    got = fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, scales=sc)
+    want = fdl.fused_decode_layers_plain(h0, ql, wk, wv, p, nH, scales=ws)
+    _assert_fused(got, want, before, pos, "bf16")
+
+
+def test_fused_decode_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    def refuse(*_, **__):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fdl, "fused_decode_layers_plain", refuse)
+    monkeypatch.setattr(fdl, "_plain", refuse)
+    rng = np.random.default_rng(1)
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, 2, 64, 2, 256, 64,
+                                        "int8", torch.float32, 5)
+    out = fdl.fused_decode_layers(h0, ql, ck, cv, p, 2, scales=sc)
+    assert out[0].is_cuda and torch.isfinite(out[0]).all()
+
+
+def test_fused_decode_pos_out_of_range_writes_nothing(cuda):
+    rng = np.random.default_rng(2)
+    h0, ql, ck, cv, sc, _ = _fused_case(rng, cuda, 2, 64, 2, 256, 64,
+                                        "bf16", torch.float32, 0)
+    before = ck.clone(), cv.clone()
+    for bad in (-1, 64):
+        out = fdl.fused_decode_layers(
+            h0, ql, ck, cv, torch.tensor([bad], dtype=torch.int32,
+                                         device=cuda), 2)
+        assert torch.isnan(out[0][0]).all() and not out[0][1:].any()
+    assert torch.equal(ck, before[0]) and torch.equal(cv, before[1])
+
+
+@pytest.mark.parametrize("bad", [
+    "h0_bf16", "weight_int16", "weight_noncontiguous", "params_mixed",
+    "cache_f16", "T_not_8", "T_not_256", "int8_no_scales", "pos_int64",
+    "pos_on_cpu", "cache_misaligned"])
+def test_fused_decode_rejects(cuda, bad):
+    """A call the kernel does not take raises before any launch."""
+    rng = np.random.default_rng(4)
+    T = 264 if bad == "T_not_256" else (12 if bad == "T_not_8" else 64)
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, 2, 64, 2, 256, T,
+                                        "int8", torch.float32, 3)
+    if bad == "h0_bf16":
+        h0 = h0.to(torch.bfloat16)
+    elif bad == "weight_int16":
+        ql["fc1_w"] = (ql["fc1_w"][0].to(torch.int16), ql["fc1_w"][1])
+    elif bad == "weight_noncontiguous":
+        q = ql["proj_w"][0]
+        ql["proj_w"] = (q.transpose(1, 2).contiguous().transpose(1, 2),
+                        ql["proj_w"][1])
+    elif bad == "params_mixed":
+        ql["ln2_b"] = ql["ln2_b"].to(torch.bfloat16)
+    elif bad == "cache_f16":
+        ck, cv, sc = ck.half(), cv.half(), None
+    elif bad == "int8_no_scales":
+        sc = None
+    elif bad == "pos_int64":
+        p = p.long()
+    elif bad == "pos_on_cpu":
+        p = p.cpu()
+    elif bad == "cache_misaligned":     # contiguous, 8 bytes off 16
+        flat = torch.zeros(ck.numel() + 8, dtype=torch.int8, device=cuda)
+        ck = flat[8:].view(ck.shape)
+    before = fdl.LAUNCHES
+    with pytest.raises((TypeError, ValueError)):
+        fdl.fused_decode_layers(h0, ql, ck, cv, p, 2, scales=sc)
+    assert fdl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_fused_engine_on_card_matches_cpu(cuda, kv_dtype):
+    """FusedB1Engine on the card gives the CPU engine's greedy streams
+    (gpt_tiny, float32, int8 weights), one fused launch a decode step."""
+    from paddle_tpu_torch.inference.serving import FusedB1Engine
+    cfg = gpt.gpt_tiny(use_flash=False)
+    cpu = gpt.quantize_decode_params(
+        gpt.init_params(cfg, seed=2, device="cpu"), cfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (4, 33, 17)]
+    streams = []
+    for params, device in ((cpu, "cpu"), (_to(cpu, cuda), cuda)):
+        eng = FusedB1Engine(params, cfg, max_len=64, kv_dtype=kv_dtype,
+                            device=device)
+        before = fdl.LAUNCHES
+        rids = [eng.submit(p, max_new=10) for p in prompts]
+        out = eng.run(steps_per_sync=4)
+        streams.append([out[r] for r in rids])
+        launched = fdl.LAUNCHES - before
+        assert launched == (eng.metrics()["decode_steps"]
+                            if device == cuda else 0)
+    assert streams[0] == streams[1]

@@ -3,7 +3,8 @@ anything of paddle_tpu.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib`` and ``paddle_tpu``, imports every module of the port, serves
-one request and takes one train step on the CPU.  A source scan checks the import
+one request (and one through the fused b1 engine on int8 weights) and
+takes one train step on the CPU.  A source scan checks the import
 statements of the package and of ``chip_smoke.py``.
 """
 import ast
@@ -42,6 +43,14 @@ eng = ContinuousBatchingEngine(gpt.init_params(cfg, 0, device="cpu"), cfg,
 rid = eng.submit(np.arange(5), max_new=4)
 out = eng.run()
 assert eng.status(rid) == "DONE" and len(out[rid]) == 4, out
+
+from paddle_tpu_torch.incubate.nn.kernels import fused_decode
+from paddle_tpu_torch.inference.serving import FusedB1Engine
+qp = gpt.quantize_decode_params(gpt.init_params(cfg, 0, device="cpu"), cfg)
+feng = FusedB1Engine(qp, cfg, max_len=32, kv_dtype="int8", device="cpu")
+rid = feng.submit(np.arange(5), max_new=4)
+out = feng.run()
+assert len(out[rid]) == 4 and fused_decode.LAUNCHES == 0, out
 
 import torch
 from paddle_tpu_torch.distributed import hybrid
