@@ -107,9 +107,42 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    24 per prefill only), stream agreement reported; one step of each at
    pos 601 on a shared cache, profiled, and the per-op step timed (no
    single library call computes a layer stack: it stands in for one).
-8. the kernels line (flash_decode in each layout and storage mode
-   that the serving runs launch, the training kernels, fused_decode in
-   each storage mode) and, last, the device line.
+8. RMSNorm — the ``rms_norm`` kernel against ``rms_norm_plain`` in both
+   rounding policies ("fused", the TPU kernel's; "llama", the LLaMA
+   path's), float32 and bfloat16, at [8, 4096], [2048, 4096], [8, 128]
+   and [7, 11008], and through a row stride: float32 per element within
+   1e-6 |want| + 1e-7, bfloat16 equal or one step apart on at most 1e-3
+   of the elements, rstd within 1e-6 relative; times beside
+   ``F.rms_norm`` and the byte bound.  Then the LLaMA path's attention
+   kernels at the shapes llama_7b gives them (32 heads of 128, bf16,
+   unpacked q/k/v), per element at the limits of phase 2/3:
+   ``flash_attention_fwd`` at generate's prefill (B 4, S 512, causal),
+   ``flash_decode`` at the slot loop's decode step (B 8, T 1024, ragged)
+   and at its longest ``prefill_into_slots`` (B 1, W = T = 600, pos 0).
+9. LLaMA reference — llama_tiny (GQA 4/2) float32 at
+   initializer_range 0.3: ``generate`` and the slot loop
+   (``llama_slot_loop``, kv_dtype bf16 and int8) on the card's kernel
+   route give the CPU plain route's greedy streams, launches exact.
+10. LLaMA serving — llama_7b at full width (32 layers, H 4096, 32 heads
+   of 128, FFN 11008, V 32000, bf16, seed 0) after the GPT trees are
+   freed: ``generate`` of 4 x 512 tokens, 32 new, and the slot loop over
+   8 prompts (32..700 tokens, max_len 1024, 32 new, "flash"), with exact
+   launch counts (RMS "llama" 65 a forward pass, 64 a
+   ``prefill_into_slots``; flash_attention_fwd 32 a generate prefill;
+   flash_decode 32 a slot decode step or ``prefill_into_slots``); prefill
+   ms, decode tok/s, one 8-slot step profiled, cache bytes, peak memory;
+   the plain route on the same weights (streams reported), and both
+   routes' first-step logits against the same steps in float32: the
+   kernel route's largest error within 1.5 x the plain route's; beside
+   it, negative controls (the kernel route with a fault injected around
+   a wrapper: K/V heads rolled, attention zeroed, layer 0's first
+   RMSNorm in the "fused" policy, flash_decode's newest row dropped)
+   read against the same steps: each attention fault must break the
+   bound (the RMS one, a rounding-level fault, is reported).
+11. the seconds of each phase, the kernels line (flash_decode in each
+   layout and storage mode that the serving runs launch, the training
+   kernels, fused_decode in each storage mode, rms_norm in each policy)
+   and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
 parity is not loosened by the card's TF32 mode.
@@ -117,6 +150,7 @@ parity is not loosened by the card's TF32 mode.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -209,19 +243,22 @@ def _limit_share(got, want, f32_tol, of_max=False):
     return diff.max().item() / (f32_tol * scale)
 
 
-def kernel_phase(fd):
+DECODE_CASES = [
+    # name, B, W, T, nH, nKV, dtype, pos, packed (q/k/v sliced from qkv)
+    ("decode", 8, 1, 1024, 16, 16, torch.bfloat16, "ragged", False),
+    ("verify", 8, 4, 1024, 16, 16, torch.bfloat16, "ragged", False),
+    ("prefill", 2, 512, 512, 16, 16, torch.bfloat16, "zero", True),
+    ("prefill_1024", 2, 1024, 1024, 16, 16, torch.bfloat16, "zero", True),
+    ("decode_gqa", 8, 1, 1024, 16, 4, torch.bfloat16, "ragged", False),
+    ("decode_f32", 8, 1, 1024, 16, 16, torch.float32, "ragged", False),
+]
+
+
+def kernel_phase(fd, cases=DECODE_CASES, phase="kernel"):
+    """``flash_decode`` against its plain version at each case's shapes
+    (hD 128), timed beside its plain version, SDPA and the bound."""
     rng = np.random.default_rng(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    cases = [
-        # name, B, W, T, nH, nKV, dtype, pos, packed (q/k/v sliced from qkv)
-        ("decode", 8, 1, 1024, 16, 16, torch.bfloat16, "ragged", False),
-        ("verify", 8, 4, 1024, 16, 16, torch.bfloat16, "ragged", False),
-        ("prefill", 2, 512, 512, 16, 16, torch.bfloat16, "zero", True),
-        ("prefill_1024", 2, 1024, 1024, 16, 16, torch.bfloat16, "zero",
-         True),
-        ("decode_gqa", 8, 1, 1024, 16, 4, torch.bfloat16, "ragged", False),
-        ("decode_f32", 8, 1, 1024, 16, 16, torch.float32, "ragged", False),
-    ]
     hD = 128
     results = []
     for name, B, W, T, nH, nKV, dt, pk, packed in cases:
@@ -263,7 +300,7 @@ def kernel_phase(fd):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[str(dt).split(".")[-1]] * 1e3
         row = {
-            "phase": "kernel", "name": name,
+            "phase": phase, "name": name,
             "shape": f"B={B} W={W} T={T} nH={nH} nKV={nKV} hD={hD} "
                      f"{str(dt).split('.')[-1]}",
             "kernel_ms": _time_ms(
@@ -551,12 +588,12 @@ def _step_profile(step, families=(("flash_decode", ("flash_decode",)),)):
     """Wall time of one eager decode step ``step()`` (synchronised)
     against the device time the profiler sees in it, by kernel
     family."""
-    for _ in range(10):
+    for _ in range(5):
         step()
     torch.cuda.synchronize()
-    n = 20
+    n = 10
     windows = []
-    for _ in range(5):
+    for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -1590,6 +1627,572 @@ def fused_serving_phase(gpt, Engine, FusedEngine, fd, fdl, cfg, qparams):
     return runs, steps
 
 
+RMS_CASES = ((8, 4096), (2048, 4096), (8, 128), (7, 11008))
+RMS_F32_REL, RMS_F32_ABS = 1e-6, 1e-7   # float32 out, per element
+RMS_BF16_STEP_SHARE = 1e-3   # bf16: elements one step apart, at most
+RMS_RSTD_REL = 1e-6          # "fused" rstd, relative
+LLAMA_ROUTE_FACTOR = 1.5     # first-step logits vs float32, of plain's
+# negative controls the route bound must fail (the RMS-policy control is
+# a rounding-level fault, below bf16 noise: reported only)
+LLAMA_MUST_FAIL = ("kv_heads_rolled", "attention_zeroed",
+                   "newest_row_dropped")
+LLAMA_FAMILIES = (("rms_norm", ("rms_norm",)),
+                  ("flash_decode", ("flash_decode",)))
+
+
+def _bf16_steps(got, want):
+    """Per element, how many bfloat16 steps apart got and want are (the
+    distance of their bit patterns on the ordered line of values)."""
+    def ordered(t):
+        b = t.view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _rms_errors(got, want, rstd=None, want_rstd=None):
+    """The RMS kernel against its plain version, per element: float32
+    within RMS_F32_REL |want| + RMS_F32_ABS; bfloat16 equal, or one step
+    apart on at most RMS_BF16_STEP_SHARE of the elements (the float32
+    sum runs in another order, so rstd may cross a rounding boundary);
+    "fused" rstd within RMS_RSTD_REL.  Raises past a limit; returns
+    (max |got - want|, share of elements that differ)."""
+    diff = (got.float() - want.float()).abs()
+    err, share = diff.max().item(), (diff > 0).float().mean().item()
+    if got.dtype == torch.bfloat16:
+        steps = _bf16_steps(got, want)
+        ok = steps.max().item() <= 1 and share <= RMS_BF16_STEP_SHARE
+    else:
+        ok = bool((diff <= RMS_F32_REL * want.float().abs()
+                   + RMS_F32_ABS).all())
+    if rstd is not None:
+        rel = ((rstd - want_rstd).abs() / want_rstd).max().item()
+        ok = ok and rel <= RMS_RSTD_REL
+    if not ok:
+        raise AssertionError(f"rms_norm {got.dtype} {tuple(got.shape)}: max "
+                             f"abs err {err}, {share} of elements differ")
+    return err, share
+
+
+def rms_kernel_phase(fnr):
+    """The RMS kernel against its plain version on the card, both
+    policies, float32 and bfloat16, at the LLaMA path's rows (8 decode
+    rows and 4 x 512 prefill rows of llama_7b, 8 rows of llama_tiny) and
+    an odd case (7 rows of 11008); times of the kernel, the plain
+    version and ``F.rms_norm`` (the one PyTorch call computing the same
+    function, never called by the port), and the byte bound.  One more
+    call reads x through a row stride (every other row)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    eps = 1e-6
+    results = {}
+    for N, H in RMS_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((N, H), generator=gen, device="cuda").to(dt)
+            w = (1 + 0.1 * torch.randn((H,), generator=gen,
+                                       device="cuda")).to(dt)
+            for policy in fnr.POLICIES:
+                got, rstd = fnr.rms_norm(x, w, eps, policy)
+                torch.cuda.synchronize()
+                want, want_rstd = fnr.rms_norm_plain(x, w, eps, policy)
+                err, share = _rms_errors(got, want, rstd, want_rstd)
+                lib = F.rms_norm(x, (H,), w, eps)
+                e = x.element_size()
+                nbytes = 2 * N * H * e + H * e + (4 * N if rstd is not None
+                                                  else 0)
+                row = {"phase": "kernel_rms", "policy": policy,
+                       "shape": f"N={N} H={H} {str(dt).split('.')[-1]}",
+                       "ms": _time_ms(lambda: fnr.rms_norm(x, w, eps, policy),
+                                      flush=flush),
+                       "plain_ms": _time_ms(
+                           lambda: fnr.rms_norm_plain(x, w, eps, policy),
+                           flush=flush),
+                       "library_ms": _time_ms(
+                           lambda: F.rms_norm(x, (H,), w, eps), flush=flush),
+                       # a multiply-add and two products an element
+                       **_bound(nbytes, 4 * N * H, "float32"),
+                       "max_abs_err": err, "share_differing": share,
+                       "library_max_abs_err": (lib.float() - want.float())
+                       .abs().max().item()}
+                _log(row)
+                results[(policy, N, H, str(dt).split(".")[-1])] = row
+    # a row stride: every other row of a [16, 4096] tensor
+    base = torch.randn((16, 4096), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    w = torch.ones(4096, dtype=torch.bfloat16, device="cuda")
+    for policy in fnr.POLICIES:
+        got, rstd = fnr.rms_norm(base[::2], w, eps, policy)
+        want, want_rstd = fnr.rms_norm_plain(base[::2], w, eps, policy)
+        _rms_errors(got, want, rstd, want_rstd)
+    _log({"phase": "kernel_rms_strided", "shape": "every other row of "
+          "[16, 4096] bfloat16", "policies": list(fnr.POLICIES),
+          "within_limits": True})
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def _llama_prompt_lens(rng):
+    """The slot loop's 8 prompt lengths in 32..700 (the first draw of
+    ``rng``, as the GPT serving workload draws its lengths)."""
+    return [int(n) for n in rng.integers(32, 701, 8)]
+
+
+def llama_kernel_phase(fa, fd):
+    """The two attention kernels of the LLaMA path at the shapes llama_7b
+    gives them (32 heads of 128, bf16, q, k and v each a contiguous
+    tensor as the rope and the v projection leave them), held per element
+    to their plain versions at the limits of the GPT shapes:
+    ``flash_attention_fwd`` at generate's prefill (B 4, S 512, causal);
+    ``flash_decode`` at the slot loop's decode step (B 8, T 1024, ragged
+    positions) and at its ``prefill_into_slots`` of the longest prompt
+    (B 1, W = T = its length less one, pos 0: the window attends its own
+    fresh K/V).  Times beside the plain versions, SDPA and the bound."""
+    W = max(_llama_prompt_lens(np.random.default_rng(0))) - 1
+    bf = torch.bfloat16
+    rows = kernel_phase(fd, [
+        ("llama_decode", 8, 1, 1024, 32, 32, bf, "ragged", False),
+        ("llama_prefill_into_slots", 1, W, W, 32, 32, bf, "zero", False)],
+        phase="kernel_llama")
+    results = {r["name"]: r for r in rows}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    B, S, nH, hD = 4, 512, 32, 128
+    q, k, v = (torch.randn((B, S, nH, hD), generator=gen, device="cuda")
+               .to(bf) for _ in range(3))
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    err, ref_max, differ, share = _err(out, w_out)
+    lse_err = (lse - w_lse).abs().max().item()
+    if not share <= 1 or not lse_err <= 1e-3:
+        raise AssertionError(f"flash_attention_fwd llama_prefill: max abs err "
+                             f"{err}, {share} of its limit; lse {lse_err}")
+    sdpa = [t.transpose(1, 2) for t in (q, k, v)]
+    lib_err = (F.scaled_dot_product_attention(*sdpa, is_causal=True)
+               .transpose(1, 2).float() - w_out.float()).abs().max().item()
+    n_el, stats = B * S * nH * hD, B * nH * S * 4
+    row = {"phase": "kernel_llama", "name": "llama_prefill",
+           "shape": f"B={B} S={S} nH={nH} hD={hD} bfloat16 causal, "
+                    f"unpacked q/k/v",
+           "kernel_ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                                True),
+                                 reps=10, flush=flush),
+           "plain_ms": _time_ms(
+               lambda: fa.flash_attention_fwd_plain(q, k, v, True), reps=3,
+               flush=flush),
+           "library_ms": _time_ms(
+               lambda: F.scaled_dot_product_attention(*sdpa, is_causal=True),
+               reps=10, flush=flush),
+           **_bound(4 * n_el * 2 + stats,
+                    4 * hD * (S * (S + 1) // 2) * B * nH, "bfloat16"),
+           "max_abs_err": err, "max_ref": ref_max, "share_differing": differ,
+           "limit_share": share, "lse_max_abs_err": lse_err,
+           "library_max_abs_err": lib_err}
+    _log(row)
+    results["llama_prefill"] = row
+    del flush, q, k, v, out, lse, w_out, w_lse, sdpa
+    torch.cuda.empty_cache()
+    return results
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def llama_slot_loop(llama, params, cfg, prompts, new_tokens, max_len,
+                    kv_dtype="bf16", attn_kernel=None, device="cuda"):
+    """The serving engine's slot priming, written out for LLaMA: each
+    prompt but its last token goes through ``prefill_into_slots`` into
+    its own slot; one ``decode_step_multi`` at each slot's position S-1
+    feeds the last prompt token (the first new token), and new_tokens - 1
+    greedy steps follow.  Returns a dict: the streams [B][new_tokens],
+    the first step's logits, the cache and the last step's token and
+    positions (for a profile), and host seconds of the prefills and of
+    the decode steps (each section ends in a synchronise)."""
+    cache = llama.init_decode_cache(cfg, len(prompts), max_len, kv_dtype,
+                                    device=device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for b, p in enumerate(prompts):
+            ids = torch.as_tensor(np.asarray(p[:-1]), device=device)[None]
+            llama.prefill_into_slots(params, ids, cfg, cache,
+                                     torch.tensor([b], device=device),
+                                     attn_kernel=attn_kernel)
+        _sync(device)
+        t1 = time.perf_counter()
+        tok = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32,
+                           device=device)
+        pos = torch.tensor([len(p) - 1 for p in prompts], dtype=torch.int32,
+                           device=device)
+        out, first = [], None
+        for i in range(new_tokens):
+            if i:
+                pos = pos + 1
+            logits, cache = llama.decode_step_multi(
+                params, cache, tok, pos, cfg, attn_kernel=attn_kernel)
+            if first is None:
+                first = logits
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        streams = torch.stack(out, 1).cpu().tolist()
+        t2 = time.perf_counter()
+    return {"streams": streams, "first_logits": first, "cache": cache,
+            "token": tok, "pos": pos, "prefill_s": t1 - t0,
+            "decode_s": t2 - t1}
+
+
+def _rms_launches(cfg, forwards, into_slots):
+    """RMS "llama" launches of a run: 2L + 1 a forward pass (a prefill,
+    a decode step), 2L a ``prefill_into_slots`` call (no final norm)."""
+    L = cfg.num_layers
+    return (2 * L + 1) * forwards + 2 * L * into_slots
+
+
+def llama_reference_phase(llama, fnr, fd):
+    """llama_tiny (4 q / 2 kv heads, hD 32) in float32 at
+    initializer_range 0.3 (0.02 gives near-constant streams that would
+    hide a broken cache): the card's kernel route (use_flash None: the
+    RMS kernel, flash_attention; attn_kernel "flash") against the CPU's
+    plain route, identical greedy streams for ``generate`` (B 2, S 16,
+    8 new) and for the slot loop over 4 prompts of different lengths at
+    kv_dtype bf16 and int8; the card's launches counted exactly."""
+    cfg = llama.llama_tiny(dtype=torch.float32, initializer_range=0.3)
+    cpu_params = llama.init_params(cfg, seed=1, device="cpu")
+    gpu_params = _to_device(cpu_params, "cuda")
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, cfg.vocab_size, (2, 16))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 23, 12, 40)]
+    gen = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        fnr.reset_launches()
+        gen[dev] = llama.generate(params, ids, cfg, max_new_tokens=8).cpu() \
+            .tolist()
+    want = _rms_launches(cfg, 8, 0)
+    if gen["cpu"] != gen["cuda"] or fnr.LAUNCHES["llama"] != want:
+        raise AssertionError(f"llama_tiny generate: card {gen['cuda']} vs "
+                             f"CPU {gen['cpu']}, {fnr.LAUNCHES} RMS launches "
+                             f"(want {want})")
+    loops = {}
+    for kd in ("bf16", "int8"):
+        cpu = llama_slot_loop(llama, cpu_params, cfg, prompts, 8, 64, kd,
+                              "xla", "cpu")
+        fnr.reset_launches()
+        fd.reset_launches()
+        card = llama_slot_loop(llama, gpu_params, cfg, prompts, 8, 64, kd,
+                               "flash", "cuda")
+        counts = (fnr.LAUNCHES["llama"], fd.LAUNCHES)
+        want = (_rms_launches(cfg, 8, len(prompts)),
+                cfg.num_layers * (8 + len(prompts)))
+        if card["streams"] != cpu["streams"] or counts != want:
+            raise AssertionError(f"llama_tiny slot loop {kd}: card "
+                                 f"{card['streams']} vs CPU {cpu['streams']}, "
+                                 f"launches {counts} (want {want})")
+        loops[kd] = card["streams"]
+    _log({"phase": "reference_llama", "config": "llama_tiny f32, GQA 4/2, "
+          "initializer_range 0.3", "generate": gen["cuda"],
+          "slot_loop_prompt_lens": [len(p) for p in prompts],
+          "slot_loop_kv_dtypes": sorted(loops), "streams_identical": True})
+
+
+@contextlib.contextmanager
+def _patched(module, name, fault):
+    """``module.name`` replaced by ``fault(module.name)`` for the block."""
+    old = getattr(module, name)
+    setattr(module, name, fault(old))
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+# Negative controls of the full-width route check: each is the kernel
+# route with one fault of the kind a kernel could have, injected at run
+# time around the call (the sources are not touched).  Attention faults
+# wrap the attention kernel's wrapper (``flash_attention`` in prefill,
+# ``flash_decode_attention`` in decode); the RMS fault wraps ``rms_norm``.
+def _kv_heads_rolled(attn):
+    """Every head attends the K/V of its neighbour (a head-index
+    fault)."""
+    def f(q, k, v, *a, **kw):
+        return attn(q, k.roll(1, 2), v.roll(1, 2), *a, **kw)
+    return f
+
+
+def _attention_zeroed(attn):
+    """The attention output is never written (zeros)."""
+    def f(q, k, v, *a, **kw):
+        return torch.zeros_like(q)
+    return f
+
+
+def _newest_row_dropped(attn):
+    """flash_decode attends rows [0, pos) instead of [0, pos] (an
+    off-by-one mask)."""
+    def f(q, k, v, pos):
+        return attn(q, k, v, pos - 1)
+    return f
+
+
+def _first_rms_fused(rms):
+    """The first RMSNorm of the call (layer 0's attention norm) runs in
+    the "fused" rounding policy (a rounding-point fault)."""
+    calls = [0]
+
+    def f(x, w, eps, policy):
+        calls[0] += 1
+        return rms(x, w, eps, "fused" if calls[0] == 1 else policy)
+    return f
+
+
+def _controls(llama, common, run, decode):
+    """``run()`` (one kernel-route step's logits) under each negative
+    control: the attention faults on the kernel that step runs
+    (``decode``: flash_decode, else flash_attention), and the RMS
+    fault."""
+    attn = (llama, "flash_decode_attention") if decode \
+        else (common, "flash_attention")
+    faults = [("kv_heads_rolled", attn, _kv_heads_rolled),
+              ("attention_zeroed", attn, _attention_zeroed),
+              ("first_rms_fused", (llama, "rms_norm"), _first_rms_fused)]
+    if decode:
+        faults.append(("newest_row_dropped", attn, _newest_row_dropped))
+    out = {}
+    for name, (module, attr), fault in faults:
+        with _patched(module, attr, fault), torch.inference_mode():
+            out[name] = run()
+    return out
+
+
+def llama_serving_phase(llama, common, fnr, fa, fd):
+    """llama_7b at full width (32 layers, H 4096, 32 heads of 128, FFN
+    11008, V 32000, bf16, random weights from seed 0).  (a) ``generate``
+    of 4 seeded prompts of 512 tokens, 32 new, greedy; (b) the slot loop
+    over 8 prompts (lengths from seed 0 in 32..700), max_len 1024, 32
+    new tokens, attn_kernel "flash".  Counts are set to 0 just before
+    each and held exactly: RMS "llama" 65 a forward pass and 64 a
+    ``prefill_into_slots``, flash_attention_fwd 32 a generate prefill,
+    flash_decode 32 a slot decode step and a ``prefill_into_slots``.
+    Then one 8-slot decode step profiled; the plain route (use_flash
+    False, attn_kernel "xla") on the same weights and prompts, its
+    stream agreement reported; and the first-step logits of both routes
+    (generate's prefill, the slot loop's first step) against the same
+    steps computed in float32 from the same weights (``_route_cmp``)."""
+    cfg = llama.llama_7b(dtype=torch.bfloat16)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    _log({"phase": "llama_setup", "config": "llama_7b bf16",
+          "params": llama.param_count(params),
+          "init_s": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    rng = np.random.default_rng(0)
+    B, S, new = 4, 512, 32
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                       device="cuda")
+    # warm-up: cuBLAS handles and each kernel's first launch
+    llama.generate(params, ids[:, :16], cfg, max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    def counts():
+        return {"rms_llama": fnr.LAUNCHES["llama"],
+                "rms_fused": fnr.LAUNCHES["fused"],
+                "flash_attention_fwd": fa.LAUNCHES["flash_attention_fwd"],
+                "flash_decode": fd.LAUNCHES}
+
+    def reset():
+        fnr.reset_launches()
+        fd.reset_launches()
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+
+    reset()
+    t0 = time.perf_counter()
+    toks = llama.generate(params, ids, cfg, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = counts()
+    want = {"rms_llama": _rms_launches(cfg, new, 0), "rms_fused": 0,
+            "flash_attention_fwd": L, "flash_decode": 0}
+    if gen_counts != want:
+        raise AssertionError(f"llama_7b generate launches {gen_counts}, "
+                             f"want {want}")
+    toks = toks.cpu()
+    if toks.shape != (B, new) or not bool(((toks >= 0)
+                                           & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"llama_7b generate tokens {toks}")
+    with torch.inference_mode():
+        cache = llama.init_decode_cache(cfg, B, S + new, device="cuda")
+        first = {"kernel": llama.prefill(params, ids, cfg, cache)[0]}
+        prefill_ms = _time_ms(lambda: llama.prefill(params, ids, cfg, cache),
+                              reps=3)
+        first["plain"] = llama.prefill(params, ids, plain_cfg, cache)[0]
+        first["controls"] = _controls(
+            llama, common, lambda: llama.prefill(params, ids, cfg, cache)[0],
+            decode=False)
+        del cache
+    plain_toks = llama.generate(params, ids, plain_cfg,
+                                max_new_tokens=new).cpu()
+    gen_row = {"phase": "llama_generate", "B": B, "S": S, "max_new": new,
+               "launches": gen_counts, "wall_s": gen_s,
+               "prefill_ms": prefill_ms,
+               # decode: the wall time less one prefill's device time
+               "decode_tok_s": B * (new - 1) / (gen_s - prefill_ms / 1e3),
+               "e2e_tok_s": B * new / gen_s,
+               "plain_route_streams_equal":
+                   f"{sum(a == b for a, b in zip(toks.tolist(), plain_toks.tolist()))}/{B}",
+               "plain_route_tokens_equal":
+                   f"{int((toks == plain_toks).sum())}/{B * new}"}
+
+    # (b) the slot loop over 8 prompts of seeded lengths
+    rng = np.random.default_rng(0)
+    lens = _llama_prompt_lens(rng)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    loop = llama_slot_loop(llama, params, cfg, prompts, new, 1024,
+                           attn_kernel="flash")
+    loop_counts = counts()
+    want = {"rms_llama": _rms_launches(cfg, new, len(prompts)),
+            "rms_fused": 0, "flash_attention_fwd": 0,
+            "flash_decode": L * (new + len(prompts))}
+    if loop_counts != want:
+        raise AssertionError(f"llama_7b slot loop launches {loop_counts}, "
+                             f"want {want}")
+    cache = loop.pop("cache")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    peak = torch.cuda.max_memory_allocated()
+    prof = _step_profile(lambda: llama.decode_step_multi(
+        params, cache, loop["token"], loop["pos"], cfg, attn_kernel="flash"),
+        LLAMA_FAMILIES)
+    # the first step again on the final cache (rows past S-1 are masked,
+    # row S-1 is rewritten before it is read), then under each control
+    first_tok = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32,
+                             device="cuda")
+    first_pos = torch.tensor([n - 1 for n in lens], dtype=torch.int32,
+                             device="cuda")
+
+    def first_step():
+        return llama.decode_step_multi(params, cache, first_tok, first_pos,
+                                       cfg, attn_kernel="flash")[0]
+
+    with torch.inference_mode():
+        again = first_step()
+    loop_controls = _controls(llama, common, first_step, decode=True)
+    del cache
+    torch.cuda.empty_cache()
+    plain = llama_slot_loop(llama, params, plain_cfg, prompts, new, 1024,
+                            attn_kernel="xla")
+    del plain["cache"]
+    same = sum(a == b for a, b in zip(loop["streams"], plain["streams"]))
+    tokens_same = sum(x == y for a, b in zip(loop["streams"], plain["streams"])
+                      for x, y in zip(a, b))
+    loop_row = {"phase": "llama_slot_loop", "prompt_lens": lens,
+                "max_len": 1024, "new_tokens": new, "launches": loop_counts,
+                "prefill_s": loop["prefill_s"], "decode_s": loop["decode_s"],
+                "decode_tok_s": len(prompts) * new / loop["decode_s"],
+                "cache_bytes": cache_bytes, "peak_memory_bytes": peak,
+                "plain_route_streams_equal": f"{same}/{len(prompts)}",
+                "plain_route_tokens_equal":
+                    f"{tokens_same}/{len(prompts) * new}",
+                "decode_step": dict(slots=len(prompts),
+                                    tok_s=len(prompts) / prof["wall_ms"] * 1e3,
+                                    **prof)}
+    torch.cuda.empty_cache()
+
+    # the first steps again in float32 (the same weights widened, plain
+    # compositions, TF32 off): the yardstick both bf16 routes are held to
+    f32 = _cast(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, use_flash=False)
+    with torch.inference_mode():
+        cache = llama.init_decode_cache(cfg32, B, S + new, device="cuda")
+        ref_gen = llama.prefill(f32, ids, cfg32, cache)[0]
+        del cache
+    ref_loop = llama_slot_loop(llama, f32, cfg32, prompts, 1, 1024,
+                               attn_kernel="xla")
+    del f32, ref_loop["cache"]
+    torch.cuda.empty_cache()
+    gen_row.update(_route_cmp(first["kernel"], first["plain"], ref_gen,
+                              "prefill", first["controls"]))
+    loop_row.update(_route_cmp(loop["first_logits"], plain["first_logits"],
+                               ref_loop["first_logits"], "first_step",
+                               loop_controls))
+    loop_row["first_step_recomputed_max_abs_diff"] = \
+        (again - loop["first_logits"]).abs().max().item()
+    _log(gen_row)
+    _log(loop_row)
+    return gen_row, loop_row
+
+
+def _cast(tree, dtype):
+    """A parameter tree with every floating leaf cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _route_cmp(kernel, plain, ref, label, controls):
+    """The bf16 kernel route's first-step logits against the same step in
+    float32 (``ref``), per element: |kernel - ref| within
+    LLAMA_ROUTE_FACTOR times the plain bf16 route's largest |plain - ref|
+    (the size of bf16 rounding through the stack, measured on the same
+    inputs); the two routes round P, and sum, in other places, so their
+    difference alone has no fixed size.  Raises past the bound.  Each
+    negative control (the kernel route with one injected fault) is read
+    against the same float32 step and reported beside the bound: the
+    largest and the mean |control - ref|, a non-finite control as inf.
+    Raises too if an attention-fault control (LLAMA_MUST_FAIL) stays
+    within the bound: then the bound could not tell a broken route."""
+    for name, t in (("kernel", kernel), ("plain", plain), ("f32", ref)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"llama_7b {label}: non-finite {name} logits")
+
+    def dist(t):
+        d = (t.float() - ref).abs()
+        if not torch.isfinite(d).all():
+            return float("inf"), float("inf")
+        return d.max().item(), d.mean().item()
+
+    ek, mk = dist(kernel)
+    ep, mp = dist(plain)
+    bound = LLAMA_ROUTE_FACTOR * ep
+    if not ek <= bound:
+        raise AssertionError(f"llama_7b {label}: kernel route {ek} from the "
+                             f"float32 step, > {LLAMA_ROUTE_FACTOR} x the "
+                             f"plain route's {ep}")
+
+    def agree(a):
+        return f"{int((a.argmax(-1) == ref.argmax(-1)).sum())}/{ref.shape[0]}"
+
+    ctl = {}
+    for name, t in controls.items():
+        m, a = dist(t)
+        ctl[name] = {"max_abs": m, "mean_abs": a, "max_over_bound": m / bound,
+                     "mean_over_plain_mean": a / mp,
+                     "argmax_agree_f32": agree(t)}
+        if name in LLAMA_MUST_FAIL and not m > bound:
+            raise AssertionError(f"llama_7b {label}: control {name} is "
+                                 f"{m} from the float32 step, within the "
+                                 f"bound {bound}")
+    return {f"{label}_kernel_vs_f32_max_abs": ek,
+            f"{label}_plain_vs_f32_max_abs": ep,
+            f"{label}_kernel_vs_f32_mean_abs": mk,
+            f"{label}_plain_vs_f32_mean_abs": mp,
+            f"{label}_kernel_vs_plain_max_abs":
+                (kernel - plain).abs().max().item(),
+            f"{label}_bound": bound,
+            f"{label}_logit_std_f32": ref.std().item(),
+            f"{label}_argmax_agree_kernel_f32": agree(kernel),
+            f"{label}_argmax_agree_plain_f32": agree(plain),
+            f"{label}_controls": ctl}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1610,12 +2213,13 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn.kernels import flash_decode as fd
     from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
     from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl
+    from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingEngine, FusedB1Engine,
         PagedContinuousBatchingEngine)
     from paddle_tpu_torch.jit.loop import TrainLoop
-    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models import common, gpt, llama
     from paddle_tpu_torch.models.common import matmul_f32out
 
     card = _nvidia_smi("name,power.limit")
@@ -1625,38 +2229,60 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0), "card": card})
     t0 = time.perf_counter()
     libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
-                         "fused_decode"])
+                         "fused_decode", "rms_norm"])
     _log({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs.values()]})
 
-    kernels = kernel_phase(fd)
-    paged_kernels = paged_kernel_phase(fd, kvq)
-    train_kernels = train_kernel_phase(fa, fce, matmul_f32out)
-    reference_phase(gpt, ContinuousBatchingEngine)
-    paged_reference_phase(gpt, ContinuousBatchingEngine,
-                          PagedContinuousBatchingEngine)
-    train_reference_phase(gpt, hybrid)
-    cfg, params, serving, launches, streams = serving_phase(
-        gpt, ContinuousBatchingEngine, fd)
-    compare_phase(gpt, cfg, params)
-    kv_runs = paged_serving_phase(gpt, ContinuousBatchingEngine,
-                                  PagedContinuousBatchingEngine, fd, cfg,
-                                  params, streams)
-    paged_compare_phase(gpt, cfg, params)
+    seconds = {}
+
+    def timed(name, phase, *a):
+        """Run one phase and keep its seconds (host clock, synchronised)."""
+        t = time.perf_counter()
+        out = phase(*a)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    kernels = timed("kernel", kernel_phase, fd)
+    paged_kernels = timed("paged_kernel", paged_kernel_phase, fd, kvq)
+    train_kernels = timed("train_kernel", train_kernel_phase, fa, fce,
+                          matmul_f32out)
+    timed("reference", reference_phase, gpt, ContinuousBatchingEngine)
+    timed("paged_reference", paged_reference_phase, gpt,
+          ContinuousBatchingEngine, PagedContinuousBatchingEngine)
+    timed("train_reference", train_reference_phase, gpt, hybrid)
+    cfg, params, serving, launches, streams = timed(
+        "serving", serving_phase, gpt, ContinuousBatchingEngine, fd)
+    timed("compare", compare_phase, gpt, cfg, params)
+    kv_runs = timed("paged_serving", paged_serving_phase, gpt,
+                    ContinuousBatchingEngine, PagedContinuousBatchingEngine,
+                    fd, cfg, params, streams)
+    timed("paged_compare", paged_compare_phase, gpt, cfg, params)
     qparams = gpt.quantize_decode_params(params, cfg)
     del params
     torch.cuda.empty_cache()
-    fused_kernels = fused_kernel_phase(fdl, kvq, gpt, cfg, qparams)
-    fused_reference_phase(gpt, FusedB1Engine, fdl)
-    fused_runs, b1_steps = fused_serving_phase(
-        gpt, ContinuousBatchingEngine, FusedB1Engine, fd, fdl, cfg, qparams)
+    fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
+                          cfg, qparams)
+    timed("fused_reference", fused_reference_phase, gpt, FusedB1Engine, fdl)
+    fused_runs, b1_steps = timed(
+        "fused_serving", fused_serving_phase, gpt, ContinuousBatchingEngine,
+        FusedB1Engine, fd, fdl, cfg, qparams)
     del qparams
     torch.cuda.empty_cache()
-    training, fa_launches, ce_launches = training_phase(
-        gpt, hybrid, TrainLoop, fa, fce)
+    training, fa_launches, ce_launches = timed(
+        "training", training_phase, gpt, hybrid, TrainLoop, fa, fce)
     torch.cuda.empty_cache()
-    plain_training = plain_training_phase(gpt, hybrid, fa,
-                                          training["losses"])
+    plain_training = timed("plain_training", plain_training_phase, gpt,
+                           hybrid, fa, training["losses"])
+    # the GPT trees are gone with their phases
+    torch.cuda.empty_cache()
+    rms_kernels = timed("rms_kernel", rms_kernel_phase, fnr)
+    llama_kernels = timed("llama_kernel", llama_kernel_phase, fa, fd)
+    timed("llama_reference", llama_reference_phase, llama, fnr, fd)
+    llama_gen, llama_loop = timed("llama_serving", llama_serving_phase,
+                                  llama, common, fnr, fa, fd)
+    _log({"phase": "phase_seconds", **seconds,
+          "total_with_build": time.perf_counter() - t0})
 
     src = "paddle_tpu_torch/incubate/nn/kernels/csrc/"
     ref = "paddle_tpu/incubate/nn/kernels/"
@@ -1734,6 +2360,49 @@ def main(argv=None) -> int:
             "library_ms": None,
             "per_op_int8_step_ms": b1_steps[kd]["per_op_int8_step_ms"],
             "shape": row["shape"] + ", pos 512"})
+    # the LLaMA path's shapes of the two attention kernels, launches from
+    # the llama_7b runs (flash_decode: the slot loop's decode steps and
+    # prefill_into_slots calls together)
+    def at_llama(launches, *names):
+        return {"launches": launches, "cases": [
+            {k: llama_kernels[n][k] for k in (
+                "name", "shape", "max_abs_err", "limit_share", "kernel_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for n in names]}
+
+    for e in entries:
+        if e["name"] == "flash_decode":
+            e["llama_7b"] = at_llama(llama_loop["launches"]["flash_decode"],
+                                     "llama_decode",
+                                     "llama_prefill_into_slots")
+        elif e["name"] == "flash_attention_fwd":
+            e["llama_7b"] = at_llama(
+                llama_gen["launches"]["flash_attention_fwd"], "llama_prefill")
+    # RMSNorm: one kernel, one entry per policy, timed at the prefill
+    # rows of llama_7b (4 x 512, bf16) with the decode rows (8) beside;
+    # launches from the llama_7b runs (generate and the slot loop)
+    for name, policy, replaces, note in (
+            ("rms_norm", "fused", ref + "fused_norm_rope.py:33",
+             "no path of the JAX package calls rms_norm_pallas, so the "
+             "LLaMA runs launch this policy no time; the same kernel "
+             "carries the path under policy llama"),
+            ("rms_norm_llama", "llama", "paddle_tpu/models/llama.py:117",
+             "an XLA function in the JAX package, not a Pallas kernel: "
+             "every RMSNorm of the LLaMA path")):
+        row = rms_kernels[(policy, 2048, 4096, "bfloat16")]
+        dec = rms_kernels[(policy, 8, 4096, "bfloat16")]
+        entries.append({
+            "name": name, "route": "cuda", "source": src + "rms_norm.cu",
+            "replaces": replaces, "note": note,
+            "launches": (llama_gen["launches"][f"rms_{policy}"]
+                         + llama_loop["launches"][f"rms_{policy}"]),
+            "max_abs_err": max(r["max_abs_err"] for (p, *_), r in
+                               rms_kernels.items() if p == policy),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "decode_shape": {k: dec[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -1744,7 +2413,11 @@ def main(argv=None) -> int:
              "fused_kernels": fused_kernels,
              "serving_b1": {f"{a} {b}": r for (a, b), r in fused_runs.items()},
              "b1_steps": b1_steps,
-             "training": training, "plain_training": plain_training},
+             "training": training, "plain_training": plain_training,
+             "rms_kernels": {" ".join(map(str, k)): r
+                             for k, r in rms_kernels.items()},
+             "llama_kernels": llama_kernels,
+             "llama_generate": llama_gen, "llama_slot_loop": llama_loop},
             indent=1))
     _log({"kernels": entries})
     _log({"ok": True, "device": {"platform": "gpu",

@@ -44,7 +44,6 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -52,15 +51,14 @@ from ..device import resolve_device
 from ..incubate.nn.functional import _decode_attention
 from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
                                                  pick_num_chunks)
-from ..incubate.nn.kernels.flash_attention import (default_use_flash,
-                                                   flash_attention)
 from ..incubate.nn.kernels.flash_decode import (flash_decode_attention,
                                                 flash_decode_paged)
 from ..incubate.nn.kernels.fused_decode import fused_decode_layers
-from ..incubate.nn.kv_quant import (byte_view, cast_kv, kv_has_scales,
-                                    kv_map, kv_storage_dtype, kv_zeros,
-                                    quantize_kv, resolve_kv_dtype)
-from .common import layer_slices, matmul_f32out, scan_layers_with_remat
+from ..incubate.nn.kv_quant import byte_view, kv_map, kv_zeros
+from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
+                     _kv_write, _slot_rows_writer, _zero_cache, layer_slices,
+                     matmul_f32out, param_count, params_from_numpy,
+                     scan_layers_with_remat)
 
 __all__ = ["GPTConfig", "gpt3_1p3b", "gpt_tiny", "init_params",
            "params_from_numpy", "param_count", "embed",
@@ -164,80 +162,12 @@ def init_params(cfg: GPTConfig, seed: int = 0,
     }
 
 
-def params_from_numpy(tree, device=None,
-                      dtype: Optional[torch.dtype] = None):
-    """The weights bridge: a parameter tree of numpy arrays (the JAX
-    pytree passed through ``np.asarray``) -> the port's tree of tensors
-    on ``device`` (CUDA by default), same nesting and shapes; tuple
-    leaves (the int8 ``(weight, scale)`` pairs of
-    :func:`quantize_decode_params`) stay tuples.  Floating arrays are
-    cast to ``dtype`` when given; bfloat16 numpy arrays (``ml_dtypes``)
-    pass through float32, which holds them exactly."""
-    dev = resolve_device(device)
-
-    def conv(a):
-        a = np.asarray(a)
-        t = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-             if a.dtype.name == "bfloat16" else torch.from_numpy(np.array(a)))
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(dev)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, tuple):
-            return tuple(walk(v) for v in node)
-        return conv(node)
-
-    return walk(tree)
-
-
-def param_count(params) -> int:
-    """Stored elements of the tree (int8 scales included)."""
-    def walk(node):
-        if isinstance(node, dict):
-            return sum(walk(v) for v in node.values())
-        if isinstance(node, tuple):
-            return sum(walk(v) for v in node)
-        return node.numel()
-    return walk(params)
-
-
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 def _layer_norm(x, g, b, eps):
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
-
-
-def _causal_attention(q, k, v, head_dim, use_flash: Optional[bool] = False):
-    """[B, S, nH, hD] causal attention.  ``use_flash`` (or ``None`` on a
-    CUDA tensor, as ``default_use_flash``) routes to
-    :func:`flash_attention`; otherwise the plain softmax composition in
-    float32 (the JAX XLA branch)."""
-    if use_flash is None:
-        use_flash = default_use_flash(q.device)
-    if use_flash:
-        return flash_attention(q, k, v, causal=True)
-    S = q.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(head_dim))
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
-def _check_attn_kernel(attn_kernel: Optional[str]) -> Optional[str]:
-    """Validate the serving attention-kernel knob.  None/"xla" is the
-    plain composition; "flash" routes decode and prefill attention
-    through the flash_decode kernel."""
-    if attn_kernel not in (None, "xla", "flash"):
-        raise ValueError(
-            f"attn_kernel must be 'xla' or 'flash', got {attn_kernel!r}")
-    return attn_kernel
 
 
 def _wmm(x, w):
@@ -369,43 +299,8 @@ def init_decode_cache(cfg: GPTConfig, batch: int, max_len: int,
     int8 adds float32 scale planes {"ks", "vs"}: [L, batch, max_len,
     nH, 1].  The paged engine's pools are this layout with batch =
     num_blocks and max_len = block_size."""
-    dev = resolve_device(device)
-    kv_dtype = resolve_kv_dtype(kv_dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
-    dt = kv_storage_dtype(kv_dtype, cfg.dtype)
-    cache = {"k": kv_zeros(shape, dt, dev), "v": kv_zeros(shape, dt, dev)}
-    if kv_has_scales(kv_dtype):
-        # per-head, per-token scales: trailing axis 1 so every token-axis
-        # index expression that addresses the data addresses the scale
-        cache["ks"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
-                                  device=dev)
-        cache["vs"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
-                                  device=dev)
-    return cache
-
-
-def _kv_layer(cache, l: int):
-    """Layer ``l`` of the cache as (K, V): bare tensors, or (data,
-    scale) pairs for int8 (the JAX ``_kv_xs`` convention)."""
-    if "ks" in cache:
-        return ((cache["k"][l], cache["ks"][l]),
-                (cache["v"][l], cache["vs"][l]))
-    return cache["k"][l], cache["v"][l]
-
-
-def _kv_write(c, val, write):
-    """Quantize-on-write seam shared by every cache-writing entry point:
-    ``c`` is one layer's K or V (bare tensor or (data, scale) pair),
-    ``val`` the freshly computed rows [..., hD] in compute precision,
-    and ``write(arr, rows)`` stores rows already in ``arr``'s dtype at
-    this entry point's index expression, in place.  Only this step's
-    rows ever exist in the compute precision."""
-    if isinstance(c, tuple):
-        q, s = quantize_kv(val, "int8")
-        write(c[0], q)
-        write(c[1], s)
-    else:
-        write(c, cast_kv(val, c.dtype))
+    return _zero_cache((cfg.num_layers, batch, max_len, cfg.num_heads,
+                        cfg.head_dim), kv_dtype, cfg.dtype, device)
 
 
 def _prefill_layers(params, input_ids, cfg: GPTConfig, cache, write,
@@ -423,13 +318,6 @@ def _prefill_layers(params, input_ids, cfg: GPTConfig, cache, write,
         _kv_write(ck, k, write)
         _kv_write(cv, v, write)
     return h
-
-
-def _slot_rows_writer(slots, S):
-    """Prefill writes: rows [0, S) of each listed slot."""
-    def write(arr, rows):
-        byte_view(arr)[slots, :S] = byte_view(rows)
-    return write
 
 
 def prefill(params, input_ids, cfg: GPTConfig, cache,

@@ -14,7 +14,14 @@ value, plus room for float32 summation order near zero).  In float32
 (another summation order) flash_decode is held at atol 1e-4, and the
 training kernels, whose gradients grow with S, at 1e-4 of the largest
 reference value.  fused_ce's float32 outputs are held at atol 1e-3.
+The RMS kernel is held by ``chip_smoke._rms_errors``, the limits the
+card run uses (float32 per element at 1e-6 relative + 1e-7; bfloat16
+equal or one step apart on at most 1e-3 of the elements; rstd at 1e-6
+relative).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +33,13 @@ from paddle_tpu_torch.incubate.nn.functional.chunked_ce import (
 from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
 from paddle_tpu_torch.incubate.nn.kernels import flash_decode as fd
 from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
-from paddle_tpu_torch.models import gpt
+from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
+from paddle_tpu_torch.models import gpt, llama
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -68,6 +81,8 @@ def _rand(rng, shape, dtype, device):
     (2, 37, 37, 4, 2, 64),       # prefill-shaped, GQA, ragged tile
     (3, 4, 64, 4, 4, 16),        # verify-shaped, small head dim
     (2, 5, 40, 2, 1, 32),        # multi-query
+    (8, 1, 1024, 32, 32, 128),   # llama_7b slot decode step
+    (1, 600, 600, 32, 32, 128),  # llama_7b prefill_into_slots, W = T
 ])
 def test_flash_decode_kernel_matches_plain(cuda, dtype, B, W, T, nH, nKV,
                                            hD):
@@ -305,6 +320,7 @@ def test_engine_on_card_matches_cpu(cuda):
     (1, 200, 2, 64, False, True),    # non-causal, strided q/k/v of qkv
     (2, 128, 2, 128, True, True),    # the training layout
     (1, 1000, 2, 64, True, False),   # ragged S at length
+    (4, 512, 32, 128, True, False),  # llama_7b generate prefill
 ])
 def test_flash_attention_kernels_match_plain(cuda, dtype, B, S, nH, hD,
                                              causal, packed):
@@ -696,3 +712,119 @@ def test_fused_engine_on_card_matches_cpu(cuda, kv_dtype):
         assert launched == (eng.metrics()["decode_steps"]
                             if device == cuda else 0)
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("policy", ["fused", "llama"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H", [
+    (8, 4096),      # llama_7b decode rows
+    (2048, 4096),   # prefill rows
+    (8, 128),       # llama_tiny
+    (7, 11008),     # odd N, FFN width
+    (5, 11),        # H under and not a multiple of the vector width
+    (3, 1100),      # rows not 16-byte aligned (bf16: 2200 bytes)
+])
+def test_rms_norm_kernel_matches_plain(cuda, policy, dtype, N, H):
+    rng = np.random.default_rng(N + H)
+    x = _rand(rng, (N, H), dtype, cuda)
+    w = (1 + 0.1 * _rand(rng, (H,), torch.float32, cuda)).to(dtype)
+    before = dict(fnr.LAUNCHES)
+    got, rstd = fnr.rms_norm(x, w, 1e-6, policy)
+    torch.cuda.synchronize()
+    assert fnr.LAUNCHES[policy] == before[policy] + 1
+    assert sum(fnr.LAUNCHES.values()) == sum(before.values()) + 1
+    want, want_rstd = fnr.rms_norm_plain(x, w, 1e-6, policy)
+    assert got.dtype == dtype and got.shape == (N, H)
+    assert (rstd is None) == (policy == "llama")
+    chip_smoke._rms_errors(got, want, rstd, want_rstd)
+
+
+@pytest.mark.parametrize("layout", ["row_stride", "misaligned"])
+def test_rms_norm_kernel_strides(cuda, layout):
+    """x with rows wider than H (a column slice) or a base 2 bytes off
+    16: the kernel reads it in place."""
+    rng = np.random.default_rng(9)
+    if layout == "row_stride":
+        x = _rand(rng, (6, 4096 + 64), torch.bfloat16, cuda)[:, 64:]
+    else:
+        flat = _rand(rng, (6 * 4096 + 1,), torch.bfloat16, cuda)
+        x = flat[1:].view(6, 4096)
+    w = _rand(rng, (4096,), torch.bfloat16, cuda)
+    for policy in fnr.POLICIES:
+        got, rstd = fnr.rms_norm(x, w, 1e-6, policy)
+        want, want_rstd = fnr.rms_norm_plain(x, w, 1e-6, policy)
+        chip_smoke._rms_errors(got, want, rstd, want_rstd)
+
+
+@pytest.mark.parametrize("bad", ["float16", "w_dtype", "last_axis_strided",
+                                 "w_strided", "under_grad"])
+def test_rms_norm_rejects(cuda, bad):
+    """A call the kernel does not take raises before any launch."""
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    if bad == "float16":
+        x, w = x.half(), w.half()
+    elif bad == "w_dtype":
+        w = w.bfloat16()
+    elif bad == "last_axis_strided":
+        x = torch.randn(64, 4, device=cuda).t()
+    elif bad == "w_strided":
+        w = torch.ones(128, device=cuda)[::2]
+    elif bad == "under_grad":
+        x.requires_grad_(True)
+    before = dict(fnr.LAUNCHES)
+    for policy in fnr.POLICIES:
+        with pytest.raises((TypeError, ValueError, NotImplementedError)):
+            fnr.rms_norm(x, w, 1e-6, policy)
+    assert fnr.LAUNCHES == before
+
+
+def test_rms_norm_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    def refuse(*_):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fnr, "rms_norm_plain", refuse)
+    out, _ = fnr.rms_norm(torch.randn(3, 40, device=cuda),
+                          torch.ones(40, device=cuda), 1e-6, "llama")
+    assert out.is_cuda and torch.isfinite(out).all()
+
+
+def test_rms_norm_pallas_autograd_on_card(cuda):
+    """rms_norm_pallas: the "fused" kernel forward (one launch), the plain
+    backward; gradients equal the CPU's within 1e-5."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 5, 96)).astype(np.float32)
+    w = rng.standard_normal(96).astype(np.float32)
+    g = rng.standard_normal((2, 5, 96)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        tx = torch.tensor(x, device=dev, requires_grad=True)
+        tw = torch.tensor(w, device=dev, requires_grad=True)
+        before = fnr.LAUNCHES["fused"]
+        out = fnr.rms_norm_pallas(tx, tw)
+        assert fnr.LAUNCHES["fused"] == before + (dev == cuda)
+        (out * torch.tensor(g, device=dev)).sum().backward()
+        grads.append((tx.grad.cpu(), tw.grad.cpu()))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_llama_forward_on_card_matches_cpu(cuda):
+    """llama_tiny (GQA 4/2) float32: the card's route (the RMS kernel,
+    flash_attention over the repeated KV heads) against the CPU's plain
+    route, logits within 1e-4 of their largest value."""
+    cfg = llama.llama_tiny(initializer_range=0.3)
+    cpu = llama.init_params(cfg, seed=3, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, 40)))
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    got = llama.forward(_to(cpu, cuda), ids.to(cuda), cfg)
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + cfg.num_layers
+    want = llama.forward(cpu, ids, cfg)
+    _assert_rel(got.cpu(), want, 1e-4)
+
+
+def test_llama_tiny_card_streams_match_cpu(cuda):
+    """chip_smoke's reference phase: generate and the slot loop (kv_dtype
+    bf16 and int8) on the card equal the CPU's plain route, with the
+    launch counts held exactly."""
+    chip_smoke.llama_reference_phase(llama, fnr, fd)

@@ -3,8 +3,8 @@ anything of paddle_tpu.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib`` and ``paddle_tpu``, imports every module of the port, serves
-one request (and one through the fused b1 engine on int8 weights) and
-takes one train step on the CPU.  A source scan checks the import
+one request (and one through the fused b1 engine on int8 weights),
+takes one train step and runs one llama_tiny ``generate`` on the CPU.  A source scan checks the import
 statements of the package and of ``chip_smoke.py``.
 """
 import ast
@@ -61,6 +61,13 @@ p = shard(gpt.init_params(tcfg, 0, device="cpu"))
 ids = torch.arange(64).reshape(2, 32) % tcfg.vocab_size
 loss, p, o = step(p, init_opt(p), ids, ids.roll(-1, 1))
 assert torch.isfinite(loss) and int(o["step"]) == 1, loss
+
+from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope
+from paddle_tpu_torch.models import llama
+lcfg = llama.llama_tiny(num_layers=2)
+toks = llama.generate(llama.init_params(lcfg, 0, device="cpu"),
+                      torch.arange(12).reshape(2, 6), lcfg, max_new_tokens=4)
+assert toks.shape == (2, 4) and sum(fused_norm_rope.LAUNCHES.values()) == 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))
