@@ -139,9 +139,54 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    RMSNorm in the "fused" policy, flash_decode's newest row dropped)
    read against the same steps: each attention fault must break the
    bound (the RMS one, a rounding-level fault, is reported).
-11. the seconds of each phase, the kernels line (flash_decode in each
+11. ring kernels — the ring variant of flash attention (a run-time q
+   offset: key j visible to query i iff j <= i + offset) at one ring
+   chunk of llama_7b (B 1, 1024 queries and keys, 32 heads of 128,
+   causal), bfloat16 and float32, offsets -1024 (every row fully
+   masked), -37, 0, 37, 1024 and 3072, and at the shape phase 15 gives
+   it (llama_7b training, B 4, S 2048, bf16) at offsets 0, -37 and 37:
+   forward, dK/dV and dQ (with an lse cotangent folded into delta) held
+   per element to their plain versions at the limits of phase 3, lse at
+   atol 1e-3, offset 0 bit for bit to the same kernels under
+   ``flash_attention``'s entry; times beside the plain versions and
+   SDPA with the offset's boolean mask (forward, autograd backward; at
+   offsets >= 0 only), bounds from the visible pairs (bytes where none).
+12. ring replay — the 4 ranks of a 4-way ring over 4096 positions on one
+   card through ``ring_attention_loop`` with a local hand-over, 16
+   launches of each offset kernel: the outputs and dq/dk/dv of one
+   backward against dense ``flash_attention`` over 4096 (float32 within
+   1e-4 of the largest value; bfloat16, whose dK/dV sum across ranks in
+   bf16 as in JAX, within 2^-6 in norm and 2^-4 of the largest value);
+   both timed.
+13. LLaMA training reference — llama_tiny (GQA 4/2) float32 through
+   ``build_train_step(model=llama_stage_model(cfg, remat))``: three
+   steps on the card (flash and RMS kernels) against the CPU (plain
+   versions) at remat False and True, losses at rel 1e-4, launches
+   exact.
+14. LLaMA training — llama_7b's width (H 4096, 32 heads of 128, FFN
+   11008, V 32000, untied head, bf16, seed-0 weights) with the depth
+   cut to 8 layers (1.88 B parameters; float32 AdamW moments make
+   ~22.6 GB of state): at the init, the kernel route's loss and
+   gradients against the plain compositions' (``use_flash=False``) on
+   one sequence (atol 2e-3; each leaf within 5e-2 in norm); then B 4,
+   S 2048, one seeded batch, 1 warm + 4 steps through
+   ``TrainLoop(max_inflight=2)`` (the loss must fall; launches exact:
+   each flash kernel 8 a step, RMS "llama" 17), step ms, tokens/s, peak
+   memory, a profile by family (flash fwd, flash bwd, GEMMs, RMS fwd,
+   other) with the optimizer timed alone; one ``remat=True`` step; the
+   RMS "llama" backward at [8192, 4096] bf16 against the same call on
+   the CPU (dw one bf16 step per element; dx one step of the larger of
+   the element and twice its first addend, see ``rms_backward_check``).
+15. LLaMA sequence parallel — ``llama.loss_fn(sp_group=g)`` on a real
+   one-rank NCCL group at that config (the ring at P = 1: the offset
+   kernels, 8 launches each) against ``loss_fn`` without a group: loss
+   within 1e-6 relative, each gradient leaf within 1e-3 in norm; a
+   first call sets up the communicator, the second is counted and timed.
+16. the seconds of each phase, the kernels line (flash_decode in each
    layout and storage mode that the serving runs launch, the training
-   kernels, fused_decode in each storage mode, rms_norm in each policy)
+   kernels, fused_decode in each storage mode, rms_norm in each policy,
+   the ring variant's three kernels, ``flash_attention_with_lse_*``,
+   with launches from phase 15 and times at its shape)
    and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
@@ -931,7 +976,8 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                                             causal)
         dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
         torch.cuda.synchronize()
-        w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0,
+                                                         causal=causal)
         w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse,
                                                       delta, causal)
         w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
@@ -960,8 +1006,8 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                                                               causal),
                                reps=10, flush=flush),
             "fwd_plain_ms": _time_ms(
-                lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
-                reps=3, flush=flush),
+                lambda: fa.flash_attention_with_lse_plain(
+                    q, k, v, 0, causal=causal), reps=3, flush=flush),
             "fwd_library_ms": _time_ms(
                 lambda: F.scaled_dot_product_attention(
                     *(t.transpose(1, 2) for t in (q, k, v)),
@@ -1100,8 +1146,7 @@ def training_phase(gpt, hybrid, TrainLoop, fa, fce):
           "memory_allocated": torch.cuda.memory_allocated()})
     first, params, opt = step(params, opt, ids, labels)     # warm
     torch.cuda.synchronize()
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    fa.reset_launches()
     t0 = time.perf_counter()
     loop = TrainLoop(step, max_inflight=2)
     handles = []
@@ -1111,7 +1156,7 @@ def training_phase(gpt, hybrid, TrainLoop, fa, fce):
     loop.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = fa.launches()
     losses = [first.item()] + [float(d) for d in handles]
     if not all(np.isfinite(losses)) or not losses[4] < losses[0]:
         raise AssertionError(f"training losses {losses}")
@@ -1161,8 +1206,7 @@ def training_phase(gpt, hybrid, TrainLoop, fa, fce):
                              f"{ref}")
     step_r, _, _ = hybrid.build_train_step(cfg, num_micro=1, remat=True,
                                            device="cuda")
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    fa.reset_launches()
     t0 = time.perf_counter()
     rl, params, opt = step_r(params, opt, ids, labels)
     torch.cuda.synchronize()
@@ -1170,7 +1214,7 @@ def training_phase(gpt, hybrid, TrainLoop, fa, fce):
     rl = rl.item()
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
             "flash_attention_bwd_dq": L}
-    remat_launches = dict(fa.LAUNCHES)
+    remat_launches = fa.launches()
     if remat_launches != want or not abs(rl - ref) <= LOSS_TOL:
         raise AssertionError(f"remat step: launches {remat_launches} (want "
                              f"{want}), loss {rl} vs {ref}")
@@ -1640,6 +1684,13 @@ LLAMA_FAMILIES = (("rms_norm", ("rms_norm",)),
                   ("flash_decode", ("flash_decode",)))
 
 
+def _bf16_step(t):
+    """The bfloat16 step (unit in the last place) at each |t| (float32;
+    the smallest normal's step below it)."""
+    e = torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
 def _bf16_steps(got, want):
     """Per element, how many bfloat16 steps apart got and want are (the
     distance of their bit patterns on the ordered line of values)."""
@@ -1763,7 +1814,7 @@ def llama_kernel_phase(fa, fd):
                .to(bf) for _ in range(3))
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     torch.cuda.synchronize()
-    w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0)
     err, ref_max, differ, share = _err(out, w_out)
     lse_err = (lse - w_lse).abs().max().item()
     if not share <= 1 or not lse_err <= 1e-3:
@@ -1780,7 +1831,7 @@ def llama_kernel_phase(fa, fd):
                                                                 True),
                                  reps=10, flush=flush),
            "plain_ms": _time_ms(
-               lambda: fa.flash_attention_fwd_plain(q, k, v, True), reps=3,
+               lambda: fa.flash_attention_with_lse_plain(q, k, v, 0), reps=3,
                flush=flush),
            "library_ms": _time_ms(
                lambda: F.scaled_dot_product_attention(*sdpa, is_causal=True),
@@ -2008,8 +2059,7 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
     def reset():
         fnr.reset_launches()
         fd.reset_launches()
-        for name in fa.LAUNCHES:
-            fa.LAUNCHES[name] = 0
+        fa.reset_launches()
 
     reset()
     t0 = time.perf_counter()
@@ -2194,6 +2244,620 @@ def _route_cmp(kernel, plain, ref, label, controls):
             f"{label}_controls": ctl}
 
 
+# ---------------------------------------------------------------------------
+# LLaMA training and the ring variant of flash attention
+# ---------------------------------------------------------------------------
+
+RING_P = 4                          # ranks of the replayed ring
+RING_CHUNK = 1024                   # llama_7b's 4096 positions over 4 ranks
+RING_OFFSETS = (-1024, -37, 0, 37, 1024, 3072)
+RING_TRAIN_OFFSETS = (0, -37, 37)   # at the sp run's [B, S] (offset 0 there)
+RING_LSE_ATOL = 1e-3
+# the replayed ring against dense flash attention over the whole
+# sequence: float32 within F32_REL of the largest value; bfloat16 (each
+# rank's partials rounded to bf16 by the kernel, dK/dV summed across ranks
+# in bf16, as in JAX) within 2^-6 in norm and 2^-4 of the largest value
+RING_BF16_NORM_REL, RING_BF16_MAX_REL = 2 ** -6, 2 ** -4
+SP_LOSS_REL = 1e-6                  # one-rank ring vs no group: loss
+SP_GRAD_NORM_REL = 1e-3             # and each gradient leaf, in norm
+LLAMA_TRAIN_LAYERS = 8              # llama_7b's 32, cut to fit AdamW state
+LLAMA_TRAIN_B, LLAMA_TRAIN_S = 4, 2048
+LLAMA_FLASH_FAMILIES = (("flash_fwd", ("flash_attention_fwd",)),
+                        ("flash_bwd", ("flash_attention_bwd",)),
+                        ("rms_fwd", ("rms_norm",)))
+
+
+def _visible_pairs(Sq, Sk, offset):
+    """(query, key) pairs with j <= i + offset, per (batch, head)."""
+    i = np.arange(Sq)
+    return int(np.clip(i + offset + 1, 0, Sk).sum())
+
+
+def _visible(Sq, Sk, offset, device):
+    """[Sq, Sk] bool: key j visible to query i iff j <= i + offset."""
+    return (torch.arange(Sk, device=device)[None, :]
+            <= torch.arange(Sq, device=device)[:, None] + offset)
+
+
+RING = "flash_attention_with_lse"    # the ring variant's launch counts
+
+
+def ring_kernels_check(fa, q, k, v, dout, g_lse, offset):
+    """The offset variant's three kernels (counted under the ring entry)
+    against their plain versions on the same inputs (the backward pair
+    reads the kernel's lse and a delta that folds in the lse cotangent),
+    per element at the training phase's limits, lse at RING_LSE_ATOL;
+    and at offset 0 the same three kernels under ``flash_attention``'s
+    entry, as its autograd Function launches them, bit for bit.  Raises
+    past a limit; returns (kernel outputs (out, lse, dk, dv, dq), delta,
+    errors, lse error)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, True, None, offset, RING)
+    delta = ((dout.float() * out.float()).sum(-1).transpose(1, 2)
+             - g_lse).contiguous()
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, True,
+                                        None, offset, RING)
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, True, None,
+                                   offset, RING)
+    torch.cuda.synchronize()
+    w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, offset)
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
+                                                  True, None, offset)
+    w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, True,
+                                           None, offset)
+    errs = {"out": _err(out, w_out), "dk": _err(dk, w_dk),
+            "dv": _err(dv, w_dv), "dq": _err(dq, w_dq)}
+    lse_err = (lse - w_lse).abs().max().item()
+    label = f"offset {offset} {q.dtype} {tuple(q.shape)}"
+    for key, (err, _, _, share) in errs.items():
+        if not share <= 1:
+            raise AssertionError(f"flash_attention offset kernels {label} "
+                                 f"{key}: max abs err {err}, {share} of "
+                                 f"its limit")
+    if not lse_err <= RING_LSE_ATOL:
+        raise AssertionError(f"flash_attention offset kernels {label} lse: "
+                             f"{lse_err}")
+    if offset == 0:
+        z_out, z_lse = fa.flash_attention_fwd(q, k, v, True)
+        z_dk, z_dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta)
+        z_dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta)
+        for name, a, b in (("out", out, z_out), ("lse", lse, z_lse),
+                           ("dk", dk, z_dk), ("dv", dv, z_dv),
+                           ("dq", dq, z_dq)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"offset 0 vs the zero-offset kernel "
+                                     f"{label} {name}: not bit for bit")
+    return (out, lse, dk, dv, dq), delta, errs, lse_err
+
+
+def ring_kernel_phase(fa):
+    """The offset variant at llama_7b's attention per ring chunk (B 1,
+    1024 queries and keys, 32 heads of 128, causal), bfloat16 and
+    float32, at offsets -1024 (every row fully masked: the kernels visit
+    every key tile, as the TPU kernel does), -37, 0, 37, 1024 and 3072
+    (every key visible); and at the shape the sequence-parallel run
+    gives it (llama_7b training, B 4, S 2048, bf16) at offsets 0 (that
+    run's), -37 and 37.  Each held per element to the plain versions,
+    offset 0 bit for bit to the zero-offset entry.  Times of the kernels
+    and the plain versions; SDPA with the offset's boolean mask, forward
+    and autograd backward, at offsets >= 0 (a fully masked row gives NaN
+    there); bounds from the visible pairs (bytes where none is)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    nH, hD = 32, 128
+    cases = [("chunk", 1, RING_CHUNK, torch.bfloat16, RING_OFFSETS),
+             ("chunk", 1, RING_CHUNK, torch.float32, RING_OFFSETS),
+             ("train", LLAMA_TRAIN_B, LLAMA_TRAIN_S, torch.bfloat16,
+              RING_TRAIN_OFFSETS)]
+    results = {}
+    for case, B, S, dt, offsets in cases:
+        dts = str(dt).split(".")[-1]
+        q, k, v, dout = (torch.randn((B, S, nH, hD), generator=gen,
+                                     device="cuda").to(dt) for _ in range(4))
+        g_lse = torch.randn((B, nH, S), generator=gen, device="cuda")
+        for off in offsets:
+            (out, lse, *_), delta, errs, lse_err = ring_kernels_check(
+                fa, q, k, v, dout, g_lse, off)
+            times = {
+                "fwd_ms": _time_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, True, None, off, RING), reps=10, flush=flush),
+                "fwd_plain_ms": _time_ms(
+                    lambda: fa.flash_attention_with_lse_plain(q, k, v, off),
+                    reps=3, flush=flush),
+                "dkv_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, dout, lse, delta, True, None, off, RING),
+                    reps=10, flush=flush),
+                "dkv_plain_ms": _time_ms(
+                    lambda: fa.flash_attention_bwd_dkv_plain(
+                        q, k, v, dout, lse, delta, True, None, off), reps=3,
+                    flush=flush),
+                "dq_ms": _time_ms(lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, dout, lse, delta, True, None, off, RING),
+                    reps=10, flush=flush),
+                "dq_plain_ms": _time_ms(
+                    lambda: fa.flash_attention_bwd_dq_plain(
+                        q, k, v, dout, lse, delta, True, None, off), reps=3,
+                    flush=flush),
+                "fwd_library_ms": None, "bwd_library_ms": None}
+            lib_err = None
+            if off >= 0:
+                mask = _visible(S, S, off, "cuda")
+                leaves = [t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*leaves,
+                                                         attn_mask=mask)
+                lib_err = (lib_out.detach().transpose(1, 2).float()
+                           - out.float()).abs().max().item()
+                times["fwd_library_ms"] = _time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        *(t.transpose(1, 2) for t in (q, k, v)),
+                        attn_mask=mask), reps=10, flush=flush)
+                times["bwd_library_ms"] = _time_ms(
+                    lambda: torch.autograd.grad(
+                        lib_out, leaves, dout.transpose(1, 2),
+                        retain_graph=True), reps=10, flush=flush)
+                del lib_out, leaves, mask
+            pairs = _visible_pairs(S, S, off) * B * nH
+            n_el, e, stats = B * S * nH * hD, q.element_size(), B * nH * S * 4
+            bounds = {
+                "fwd": _bound(4 * n_el * e + stats, 4 * hD * pairs, dts),
+                "dkv": _bound(6 * n_el * e + 2 * stats, 8 * hD * pairs, dts),
+                "dq": _bound(5 * n_el * e + 2 * stats, 6 * hD * pairs, dts)}
+            row = {"phase": "kernel_ring", "case": case, "offset": off,
+                   "shape": f"B={B} Sq=Sk={S} nH={nH} hD={hD} {dts} causal",
+                   "visible_pairs": pairs, **times,
+                   "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
+                   "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
+                   "lse_max_abs_err": lse_err,
+                   "library_fwd_max_abs_err": lib_err,
+                   "offset0_bit_for_bit": True if off == 0 else None,
+                   "bounds": bounds}
+            _log(row)
+            results[(f"{case} {dts}", off)] = row
+            del out, lse, delta
+        del q, k, v, dout, g_lse
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def _replay_pass(kc, vc, rank):
+    """The hand-over of rank ``rank`` in a replayed ring: each call
+    returns the chunk one rank further back than the last one."""
+    held = iter(range(rank - 1, rank - len(kc), -1))
+
+    def pass_kv(_k, _v):
+        src = next(held) % len(kc)
+        return kc[src], vc[src]
+    return pass_kv
+
+
+def ring_replay(fa, ra, B, Sl, nH, hD, dtype, seed=0, timed=False):
+    """All RING_P ranks of a ring over a sequence of RING_P * Sl, replayed
+    on one card through ``ring_attention_loop`` with a local hand-over:
+    the concatenated outputs and dq/dk/dv from one backward against
+    dense ``flash_attention`` over the whole sequence (float32 within
+    F32_REL of the largest value; bfloat16 within RING_BF16_NORM_REL in
+    norm and RING_BF16_MAX_REL of the largest value).  Raises past a
+    limit; returns a row of errors (and times of both, fwd + bwd)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (B, RING_P * Sl, nH, hD)
+    base = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(4)]
+    g = base[3]
+
+    def replay():
+        leaves = [t.detach().requires_grad_(True) for t in base[:3]]
+        qc, kc, vc = (t.chunk(RING_P, dim=1) for t in leaves)
+        out = torch.cat([ra.ring_attention_loop(
+            qc[r], kc[r], vc[r], r, RING_P, _replay_pass(kc, vc, r))
+            for r in range(RING_P)], dim=1)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    def dense():
+        leaves = [t.detach().requires_grad_(True) for t in base[:3]]
+        out = fa.flash_attention(*leaves)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    fa.reset_launches()
+    got = replay()
+    torch.cuda.synchronize()
+    launches = fa.launches(RING)
+    want = dense()
+    row = {"shape": f"{RING_P} ranks x B={B} S={Sl} nH={nH} hD={hD} "
+                    f"{str(dtype).split('.')[-1]}", "launches": launches}
+    if launches != {n: RING_P * RING_P for n in launches}:
+        raise AssertionError(f"ring replay launches {launches}: want "
+                             f"{RING_P * RING_P} of each (every block)")
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        diff = (a.float() - b.float())
+        ref = b.float().abs().max().item()
+        err, norm_rel = diff.abs().max().item(), (
+            diff.norm() / b.float().norm()).item()
+        row[name] = {"max_abs_err": err, "max_ref": ref, "norm_rel": norm_rel}
+        if dtype == torch.float32:
+            ok = err <= F32_REL * max(1.0, ref)
+        else:
+            ok = norm_rel <= RING_BF16_NORM_REL \
+                and err <= RING_BF16_MAX_REL * ref
+        if not ok:
+            raise AssertionError(f"ring replay {row['shape']} {name}: "
+                                 f"{row[name]}")
+    if timed:
+        row["replay_ms"] = _time_ms(replay, reps=5)
+        row["dense_ms"] = _time_ms(dense, reps=5)
+    return row
+
+
+def ring_replay_phase(fa, ra):
+    """The replayed 4-way ring at llama_7b's shapes (chunks of 1024,
+    global S 4096, 32 heads of 128), float32 and bfloat16, timed beside
+    dense flash attention (forward and backward)."""
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        row = ring_replay(fa, ra, 1, RING_CHUNK, 32, 128, dt, timed=True)
+        row["phase"] = "ring_replay"
+        _log(row)
+        rows[str(dt).split(".")[-1]] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _grad_leaves(params):
+    """(names, leaves) of a parameter tree, each leaf made trainable."""
+    named = _named_leaves(params)
+    for _, t in named:
+        t.requires_grad_(True)
+    return [n for n, _ in named], [t for _, t in named]
+
+
+def llama_sp_check(llama, fa, cfg, params, ids, labels):
+    """``llama.loss_fn(sp_group=g)`` on a real one-rank NCCL group (the
+    ring at P = 1: one block at offset 0 through the offset kernels, no
+    exchange) against ``loss_fn`` without a group on the same params and
+    batch: the loss within SP_LOSS_REL, each gradient leaf within
+    SP_GRAD_NORM_REL in norm (bit for bit is reported).  A first call
+    sets up the NCCL communicator; the kernels' counts are reset just
+    before the second and read just after, and it alone is timed."""
+    import torch.distributed as dist
+    names, leaves = _grad_leaves(params)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+
+    def sp_loss_and_grads():
+        loss = llama.loss_fn(params, ids, labels, cfg, sp_group=group)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    try:
+        group = dist.new_group([0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp_loss_and_grads()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        loss_sp, g_sp = sp_loss_and_grads()
+        torch.cuda.synchronize()
+        sp_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.launches(RING)
+        zero_offset = fa.launches()
+        loss = llama.loss_fn(params, ids, labels, cfg)
+        g = torch.autograd.grad(loss, leaves)
+    finally:
+        dist.destroy_process_group()
+    rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, g_sp, g)}
+    row = {"loss_sp": loss_sp.item(), "loss": loss.item(),
+           "loss_bit_for_bit": bool(torch.equal(loss_sp, loss)),
+           "grads_bit_for_bit": all(torch.equal(a, b)
+                                    for a, b in zip(g_sp, g)),
+           "grad_norm_rel_max": max(rel.values()), "offset_launches": launches,
+           "zero_offset_launches": zero_offset,
+           "first_call_ms": first_ms, "sp_loss_and_grads_ms": sp_ms}
+    L = cfg.num_layers
+    if launches != {n: L for n in launches} or any(zero_offset.values()):
+        raise AssertionError(f"llama sp launches: offset {launches} (want "
+                             f"{L} each), zero-offset {zero_offset}")
+    if not abs(row["loss_sp"] - row["loss"]) <= SP_LOSS_REL * abs(
+            row["loss"]) or not row["grad_norm_rel_max"] <= SP_GRAD_NORM_REL:
+        raise AssertionError(f"llama sp at P = 1 vs no group: {row}, {rel}")
+    return row
+
+
+def _llama_train_counts(fa, fnr):
+    return {**fa.launches(), "ring": sum(fa.launches(RING).values()),
+            "rms_llama": fnr.LAUNCHES["llama"]}
+
+
+def _llama_train_want(L, steps, remat):
+    """Launches of ``steps`` LLaMA train steps: each flash kernel L a
+    step (the forward 2L under remat), RMS "llama" 2L + 1 a forward pass
+    (2L more under remat: the layers run again in the backward)."""
+    return {"flash_attention_fwd": steps * L * (2 if remat else 1),
+            "flash_attention_bwd_dkv": steps * L,
+            "flash_attention_bwd_dq": steps * L, "ring": 0,
+            "rms_llama": steps * (2 * L + 1 + (2 * L if remat else 0))}
+
+
+def llama_train_reference_phase(llama, hybrid, fa, fnr):
+    """llama_tiny (GQA 4/2) float32: three train steps on the card (the
+    flash and RMS kernels) against the CPU (plain versions) on the same
+    weights and batch, at remat False and True: losses at rel 1e-4,
+    launches exact."""
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    ids, labels = (torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)))
+                   for _ in range(2))
+    rows = []
+    for remat in (False, True):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            step, shard, init_opt = hybrid.build_train_step(
+                cfg, device=dev, model=hybrid.llama_stage_model(cfg, remat))
+            p = shard(params)
+            o = init_opt(p)
+            fa.reset_launches()
+            fnr.reset_launches()
+            out = []
+            for _ in range(3):
+                loss, p, o = step(p, o, ids.to(dev), labels.to(dev))
+                out.append(loss.item())
+            losses[dev] = out
+            counts = _llama_train_counts(fa, fnr)
+            want = (_llama_train_want(cfg.num_layers, 3, remat)
+                    if dev == "cuda" else dict.fromkeys(counts, 0))
+            if counts != want:
+                raise AssertionError(f"llama train reference {dev} remat "
+                                     f"{remat}: launches {counts} != {want}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"]))
+        row = {"phase": "reference_llama_training",
+               "config": "llama_tiny f32, GQA 4/2", "remat": remat,
+               "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+               "max_rel_diff": rel, "rtol": 1e-4,
+               "launches_card": _llama_train_want(cfg.num_layers, 3, remat)}
+        _log(row)
+        if not rel <= 1e-4 or not losses["cuda"][2] < losses["cuda"][0]:
+            raise AssertionError(f"llama train reference remat {remat}: card "
+                                 f"{losses['cuda']} vs CPU {losses['cpu']}")
+        rows.append(row)
+    return rows
+
+
+def rms_backward_check(fnr, x, w, g, policy):
+    """``rms_norm`` under autograd on the card (the kernel's forward,
+    the policy's plain backward) against the same call on the CPU (the
+    plain forward, the same backward) on the same inputs: float32 within
+    1e-5 of each gradient's largest value; bfloat16 dw at most one step
+    apart per element (a float32 sum rounded once, in another order),
+    and so dx, except that the "llama" dx is held within one step of the
+    larger of the element and twice its first addend |g * w * rstd|: it
+    ends in a bfloat16 add of two rounded terms, and where they cancel,
+    one step of either is many steps of the sum.  Raises past a limit;
+    returns (max |err| of dx, of dw, shares of differing elements)."""
+    before = fnr.LAUNCHES[policy]
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xx, ww = (t.detach().to(dev).requires_grad_(True) for t in (x, w))
+        fnr.rms_norm(xx, ww, 1e-6, policy)[0].backward(g.to(dev))
+        grads.append((xx.grad.cpu(), ww.grad.cpu()))
+    if fnr.LAUNCHES[policy] != before + 1:
+        raise AssertionError("rms_norm under autograd did not launch its "
+                             "kernel once")
+    addend = None
+    if policy == "llama":
+        xc, gc, wc = x.cpu().float(), g.cpu().float(), w.cpu().float()
+        addend = 2 * (gc * wc * torch.rsqrt((xc * xc).mean(-1, keepdim=True)
+                                             + 1e-6)).abs()
+    out = []
+    for (got, want), floor in zip(zip(*grads), (addend, None)):
+        diff = (got.float() - want.float()).abs()
+        if got.dtype == torch.bfloat16:
+            scale = torch.maximum(got.float().abs(), want.float().abs())
+            if floor is not None:
+                scale = torch.maximum(scale, floor)
+            ok = bool((diff <= _bf16_step(scale)).all())
+        else:
+            ok = diff.max().item() <= 1e-5 * want.float().abs().max().item()
+        if not ok:
+            raise AssertionError(f"rms_norm {policy} backward {got.dtype} "
+                                 f"{tuple(x.shape)}, card vs CPU: max abs "
+                                 f"err {diff.max().item()}")
+        out += [diff.max().item(), (diff > 0).float().mean().item()]
+    return out
+
+
+def llama_train_phase(llama, hybrid, TrainLoop, fa, fnr):
+    """llama_7b at full width, depth cut to LLAMA_TRAIN_LAYERS, bf16,
+    seed-0 weights, through ``build_train_step(model=llama_stage_model)``
+    with float32 AdamW moments: B 4, S 2048, one seeded batch, one warm
+    step then 4 under ``TrainLoop(max_inflight=2)`` (every loss finite,
+    step 5 below step 1, launches exact, counts reset just before); step
+    ms, tokens/s, peak memory, a one-step profile by family and the
+    optimizer alone by CUDA events; one ``remat=True`` step; the RMS
+    "llama" backward at [B*S, H] against the plain version's autograd.
+    First, at the init, the kernel route's loss and gradients against
+    the plain compositions' (``use_flash=False``) on one sequence.
+    Returns (row, (cfg, params, ids, labels)) for the sequence-parallel
+    check."""
+    cfg = llama.llama_7b(num_layers=LLAMA_TRAIN_LAYERS, dtype=torch.bfloat16)
+    B, S, L = LLAMA_TRAIN_B, LLAMA_TRAIN_S, cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, shard, init_opt = hybrid.build_train_step(
+        cfg, device="cuda", model=hybrid.llama_stage_model(cfg, remat=False))
+    params = shard(llama.init_params(cfg, seed=0, device="cuda"))
+    ids, labels = _train_batch(cfg, B, S)
+    torch.cuda.synchronize()
+    _log({"phase": "llama_training_setup", "config": "llama_7b bf16, "
+          f"{L} of 32 layers", "params": llama.param_count(params),
+          "init_s": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    # the kernel route against the plain compositions (use_flash=False:
+    # the masked softmax, which rounds P to bf16, and rms_norm_plain) at
+    # the seed-0 init on the batch's first sequence: loss within
+    # LOSS_TOL, each gradient leaf within PLAIN_GRAD_REL in norm
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    step_p, _, _ = hybrid.build_train_step(
+        plain_cfg, device="cuda",
+        model=hybrid.llama_stage_model(plain_cfg, remat=False))
+    lf, gf = step.loss_and_grads(params, ids[:1], labels[:1])
+    fa.reset_launches()
+    fnr.reset_launches()
+    lp, gp = step_p.loss_and_grads(params, ids[:1], labels[:1])
+    plain_launches = _llama_train_counts(fa, fnr)
+    grad_rel = {name: ((a.float() - b.float()).norm()
+                       / b.float().norm()).item()
+                for (name, a), (_, b) in zip(_named_leaves(gf),
+                                             _named_leaves(gp))}
+    route = {"phase": "llama_training_plain_route",
+             "shape": f"B=1 S={S} (the batch's first sequence)",
+             "loss_kernels": lf.item(), "loss_plain": lp.item(),
+             "grad_rel_diff": grad_rel, "plain_launches": plain_launches,
+             "loss_atol": LOSS_TOL, "grad_rel_tol": PLAIN_GRAD_REL}
+    _log(route)
+    del gf, gp
+    if any(plain_launches.values()) \
+            or not abs(lf.item() - lp.item()) <= LOSS_TOL \
+            or not max(grad_rel.values()) <= PLAIN_GRAD_REL:
+        raise AssertionError(f"llama_7b training, kernel vs plain route: "
+                             f"{route}")
+    opt = init_opt(params)
+    first, params, opt = step(params, opt, ids, labels)      # warm
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    fnr.reset_launches()
+    t0 = time.perf_counter()
+    loop = TrainLoop(step, max_inflight=2)
+    handles = []
+    for _ in range(4):
+        d, params, opt = loop.step(params, opt, ids, labels)
+        handles.append(d)
+    loop.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _llama_train_counts(fa, fnr)
+    losses = [first.item()] + [float(d) for d in handles]
+    if not all(np.isfinite(losses)) or not losses[4] < losses[0]:
+        raise AssertionError(f"llama training losses {losses}")
+    if launches != _llama_train_want(L, 4, False):
+        raise AssertionError(f"llama training launches {launches} != "
+                             f"{_llama_train_want(L, 4, False)}")
+    step_ms = wall / 4 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        step(params, opt, ids, labels)
+
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(one_step, 1, wall_ms, list(LLAMA_FLASH_FAMILIES),
+                    top_n=24)
+    # the optimizer alone, on gradients at these params (CUDA events):
+    # its kernels are elementwise ones that the profile files under other
+    _, grads = step.loss_and_grads(params, ids, labels)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    hybrid.adamw_update(params, grads, opt, hybrid.AdamWConfig())
+    b.record()
+    torch.cuda.synchronize()
+    opt_ms = a.elapsed_time(b)
+    del grads
+    dev = dict(prof["device_ms"])
+    dev["optimizer"] = opt_ms
+    dev["other"] = dev["other"] - opt_ms
+    row = {"phase": "llama_training",
+           "config": f"llama_7b bf16, {L} of 32 layers (depth cut), seed 0",
+           "B": B, "S": S, "remat": False, "moments": "float32",
+           "plain_route": {k: route[k] for k in (
+               "loss_kernels", "loss_plain")},
+           "plain_route_grad_rel_max": max(grad_rel.values()),
+           "losses": losses, "launches_4_steps": launches,
+           "step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3),
+           "stall_s": loop.stall_seconds, "peak_memory_bytes": peak,
+           "profiled_step_wall_ms": wall_ms, **prof,
+           "device_ms_by_family": dev, "adamw_update_ms": opt_ms}
+    _log(row)
+    # one remat=True step from these params
+    step_r, _, _ = hybrid.build_train_step(
+        cfg, device="cuda", model=hybrid.llama_stage_model(cfg, remat=True))
+    fa.reset_launches()
+    fnr.reset_launches()
+    t0 = time.perf_counter()
+    rl, params, opt = step_r(params, opt, ids, labels)
+    torch.cuda.synchronize()
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    remat_launches = _llama_train_counts(fa, fnr)
+    rl = rl.item()
+    if remat_launches != _llama_train_want(L, 1, True) \
+            or not np.isfinite(rl):
+        raise AssertionError(f"llama remat step: launches {remat_launches}, "
+                             f"loss {rl}")
+    row["remat_step"] = {
+        "loss": rl, "ms": remat_ms, "launches": remat_launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del opt
+    torch.cuda.empty_cache()
+    # the RMS "llama" backward at the path's rows
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    x, g = (torch.randn((B * S, cfg.hidden_size), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    w = (1 + 0.1 * torch.randn((cfg.hidden_size,), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    dx_err, dx_share, dw_err, dw_share = rms_backward_check(fnr, x, w, g,
+                                                            "llama")
+
+    def fwd_bwd(fn):
+        xx, ww = x.detach().requires_grad_(True), w.detach().requires_grad_(
+            True)
+        fn(xx, ww, 1e-6, "llama")[0].backward(g)
+
+    row["rms_llama_backward"] = {
+        "shape": f"[{B * S}, {cfg.hidden_size}] bfloat16",
+        "dx_max_abs_err": dx_err, "dx_share_differing": dx_share,
+        "dw_max_abs_err": dw_err, "dw_share_differing": dw_share,
+        "reference": "the same call on the CPU",
+        "rule": "dw one bf16 step per element; dx one step of max(|dx|, "
+                "2 |g w rstd|)",
+        "kernel_fwd_plain_bwd_ms": _time_ms(lambda: fwd_bwd(fnr.rms_norm)),
+        "plain_autograd_ms": _time_ms(lambda: fwd_bwd(fnr.rms_norm_plain))}
+    _log({"phase": "llama_training_remat_and_rms_backward",
+          "remat_step": row["remat_step"],
+          "rms_llama_backward": row["rms_llama_backward"]})
+    del x, g, w
+    return row, (cfg, params, ids, labels)
+
+
+def llama_sp_phase(llama, fa, cfg, params, ids, labels):
+    """The sequence-parallel loss of the training config on a one-rank
+    NCCL group (``llama_sp_check``); the offset kernels' launches there
+    are the kernels line's."""
+    row = llama_sp_check(llama, fa, cfg, params, ids, labels)
+    row.update(phase="llama_sp", config=f"llama_7b bf16, "
+               f"{cfg.num_layers} of 32 layers, B {ids.shape[0]}, "
+               f"S {ids.shape[1]}, one-rank NCCL group")
+    _log(row)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON")
@@ -2214,6 +2878,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
     from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl
     from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
+    from paddle_tpu_torch.incubate.nn.kernels import ring_attention as ra
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingEngine, FusedB1Engine,
@@ -2281,6 +2946,16 @@ def main(argv=None) -> int:
     timed("llama_reference", llama_reference_phase, llama, fnr, fd)
     llama_gen, llama_loop = timed("llama_serving", llama_serving_phase,
                                   llama, common, fnr, fa, fd)
+    torch.cuda.empty_cache()
+    ring_kernels = timed("ring_kernel", ring_kernel_phase, fa)
+    ring_replays = timed("ring_replay", ring_replay_phase, fa, ra)
+    timed("llama_train_reference", llama_train_reference_phase, llama,
+          hybrid, fa, fnr)
+    llama_train, train_state = timed("llama_train", llama_train_phase, llama,
+                                     hybrid, TrainLoop, fa, fnr)
+    llama_sp = timed("llama_sp", llama_sp_phase, llama, fa, *train_state)
+    del train_state
+    torch.cuda.empty_cache()
     _log({"phase": "phase_seconds", **seconds,
           "total_with_build": time.perf_counter() - t0})
 
@@ -2378,6 +3053,10 @@ def main(argv=None) -> int:
         elif e["name"] == "flash_attention_fwd":
             e["llama_7b"] = at_llama(
                 llama_gen["launches"]["flash_attention_fwd"], "llama_prefill")
+        if e["name"].startswith("flash_attention_"):
+            # the same kernels on the llama_7b training run (4 steps)
+            e["llama_7b_train_launches"] = \
+                llama_train["launches_4_steps"][e["name"]]
     # RMSNorm: one kernel, one entry per policy, timed at the prefill
     # rows of llama_7b (4 x 512, bf16) with the decode rows (8) beside;
     # launches from the llama_7b runs (generate and the slot loop)
@@ -2403,6 +3082,49 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"], "shape": row["shape"],
             "decode_shape": {k: dec[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms")}})
+    entries[-1]["llama_7b_train_launches"] = \
+        llama_train["launches_4_steps"]["rms_llama"]
+    # the ring variant (a run-time offset): launches from the sequence-
+    # parallel loss and gradients at the training config (a one-rank
+    # ring: offset 0 each layer, [4, 2048, 32x128] bf16); times, bound
+    # and SDPA with the offset's mask at that shape and offset, the ring
+    # chunk of llama_7b ([1, 1024]) at every offset beside
+    def ring_cell(r, key, err):
+        lib = "fwd_library_ms" if key == "fwd" else "bwd_library_ms"
+        return {"max_abs_err": max(r["max_abs_err"][x] for x in err),
+                "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
+                "bound_ms": r["bounds"][key]["bound_ms"],
+                "bound_by": r["bounds"][key]["bound_by"],
+                # SDPA with the boolean mask; its backward computes dq,
+                # dk and dv in one call
+                "library_ms": r[lib]}
+
+    at_train = ring_kernels[("train bfloat16", 0)]
+    for kernel, key, line, err in (("fwd", "fwd", 342, ("out",)),
+                                   ("bwd_dkv", "dkv", 475, ("dk", "dv")),
+                                   ("bwd_dq", "dq", 711, ("dq",))):
+        name = f"{RING}_{kernel}"
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": src + "flash_attention.cu",
+            "replaces": ref + f"flash_attention.py:{line} (traced_offset, "
+                              f"via flash_attention_with_lse :1023)",
+            "launches": llama_sp["offset_launches"][name],
+            **ring_cell(at_train, key, err),
+            "shape": at_train["shape"] + ", offset 0",
+            "offsets": [{"shape": r["shape"], "offset": off,
+                         **ring_cell(r, key, err)}
+                        for (_, off), r in ring_kernels.items()],
+            "ring_replay_launches": ring_replays["bfloat16"]["launches"][
+                name]})
+        # the zero-offset entry launches the same kernel with the same
+        # arguments at the training run's shape (bit for bit, above)
+        zero = next(e for e in entries
+                    if e["name"] == f"flash_attention_{kernel}")
+        zero["llama_7b_train"] = {
+            "shape": at_train["shape"],
+            "timed_under": f"{RING} at offset 0",
+            **ring_cell(at_train, key, err)}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -2417,7 +3139,11 @@ def main(argv=None) -> int:
              "rms_kernels": {" ".join(map(str, k)): r
                              for k, r in rms_kernels.items()},
              "llama_kernels": llama_kernels,
-             "llama_generate": llama_gen, "llama_slot_loop": llama_loop},
+             "llama_generate": llama_gen, "llama_slot_loop": llama_loop,
+             "ring_kernels": {f"{a} {b}": r
+                              for (a, b), r in ring_kernels.items()},
+             "ring_replay": ring_replays, "llama_training": llama_train,
+             "llama_sp": llama_sp},
             indent=1))
     _log({"kernels": entries})
     _log({"ok": True, "device": {"platform": "gpu",

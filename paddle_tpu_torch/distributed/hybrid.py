@@ -1,6 +1,6 @@
-"""The GPT train step (port of ``paddle_tpu/distributed/hybrid.py``:
-``AdamWConfig``, ``adamw_init``, ``adamw_update``, the GPT stage model
-and ``build_train_step`` — on ONE device).
+"""The train step (port of ``paddle_tpu/distributed/hybrid.py``:
+``AdamWConfig``, ``adamw_init``, ``adamw_update``, the GPT and LLaMA
+stage models and ``build_train_step`` — on ONE device).
 
 The JAX builder compiles a shard_map program over a (dp, pp, mp) mesh.
 Here the mesh is one device and the gpipe schedule at pp = 1 is what
@@ -8,9 +8,11 @@ remains: the step's loss is the mean over micro-batches of the head
 loss, and its gradients those of that mean.  Each micro-batch runs its
 own forward and backward and the gradients add up (gradient
 accumulation: the same result as one backward of the mean, with one
-micro-batch's activations alive at a time).  Meshes of more than one
-device, the 1F1B schedule, sequence parallelism and ZeRO stages are not
-ported (ROADMAP Queue 1 item 13).
+micro-batch's activations alive at a time).  A ``StageModel`` (embed,
+trunk, head) picks the model family, as in JAX: ``gpt_stage_model`` by
+default, ``llama_stage_model`` for LLaMA, both at pp = mp = 1.  Meshes of
+more than one device, the 1F1B schedule, sequence parallelism and ZeRO
+stages are not ported (ROADMAP Queue 1 item 10).
 
 JAX's step donates its params and optimizer state; here ``step``
 updates them IN PLACE and returns the same dicts.
@@ -18,14 +20,16 @@ updates them IN PLACE and returns the same dicts.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..device import resolve_device
 from ..models import gpt as gpt_mod
+from ..models import llama as llama_mod
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "build_train_step"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "StageModel",
+           "gpt_stage_model", "llama_stage_model", "build_train_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -112,25 +116,57 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
 
 
 # ---------------------------------------------------------------------------
-# The GPT stage at pp = 1: embed, trunk, head
+# Stage models at pp = mp = 1: embed, trunk, head
 # ---------------------------------------------------------------------------
 
-def _micro_loss(params, tok, lbl, cfg, remat):
-    """One micro-batch through the GPT stage: embed (cast to the model
+@dataclasses.dataclass
+class StageModel:
+    """What ``build_train_step`` needs of a model family (the JAX
+    contract at pp = mp = 1, without the partition specs):
+      embed(params, tok_mb)      -> h for one micro-batch
+      trunk(params, h)           -> h through the layers
+      head(params, h, lbl_mb)    -> the mean loss of the micro-batch."""
+    embed: Callable
+    trunk: Callable
+    head: Callable
+
+
+def gpt_stage_model(cfg, remat=True) -> StageModel:
+    """The GPT family: embed (token + position rows, cast to the model
     dtype, as JAX's stage embed), the layers, and the head loss (JAX's
     ``_head_loss`` at mp = 1)."""
-    S = tok.shape[-1]
-    h = (params["wte"][tok] + params["wpe"][torch.arange(
-        S, device=tok.device)]).to(cfg.dtype)
-    h = gpt_mod.forward_layers(h, params["layers"], cfg, remat=remat)
-    return gpt_mod._head_loss(params, h, lbl, cfg)
+    def embed(p, tok):
+        S = tok.shape[-1]
+        return (p["wte"][tok] + p["wpe"][torch.arange(
+            S, device=tok.device)]).to(cfg.dtype)
+
+    return StageModel(
+        embed=embed,
+        trunk=lambda p, h: gpt_mod.forward_layers(h, p["layers"], cfg,
+                                                  remat=remat),
+        head=lambda p, h, lbl: gpt_mod._head_loss(p, h, lbl, cfg))
+
+
+def llama_stage_model(cfg, remat=False) -> StageModel:
+    """The LLaMA family: the token rows in the model dtype, the layers,
+    and the final RMSNorm + LM head through ``chunked_vocab_nll``."""
+    return StageModel(
+        embed=lambda p, tok: p["wte"][tok].to(cfg.dtype),
+        trunk=lambda p, h: llama_mod.forward_layers(h, p["layers"], cfg,
+                                                    remat=remat),
+        head=lambda p, h, lbl: llama_mod._head_loss(p, h, lbl, cfg))
 
 
 def build_train_step(cfg, num_micro: int = 1,
                      adamw: Optional[AdamWConfig] = None,
-                     remat=True, moment_dtype: torch.dtype = torch.float32,
-                     device=None):
-    """The one-device train step for a ``GPTConfig``.
+                     remat=None, moment_dtype: torch.dtype = torch.float32,
+                     device=None, model: Optional[StageModel] = None):
+    """The one-device train step; ``model`` (a :class:`StageModel`, e.g.
+    ``llama_stage_model(cfg, remat)``) picks the family, a ``GPTConfig``
+    with ``gpt_stage_model(cfg, remat)`` by default.  ``remat`` (False or
+    True: full per-layer recompute; True when None) is read only for
+    that default: a given model carries its own, and passing both
+    raises.
 
     Returns ``(step, shard_params, init_opt)``:
       * ``shard_params(params)`` -> a fresh copy of the tree on the
@@ -144,10 +180,15 @@ def build_train_step(cfg, num_micro: int = 1,
         returned; loss is a 0-d float32 tensor on the device (the mean
         over micro-batches), read without a host sync.
     ``step.loss_and_grads(params, ids, labels)`` -> ``(loss, grads)``
-    is the test surface: exactly what ``step`` feeds the optimizer.
-    ``remat`` is False or True (full per-layer recompute)."""
+    is the test surface: exactly what ``step`` feeds the optimizer."""
     dev = resolve_device(device)
     adamw = adamw or AdamWConfig()
+    if model is None:
+        model = gpt_stage_model(cfg, True if remat is None else remat)
+    elif remat is not None:
+        raise ValueError("build_train_step: pass remat to the stage model "
+                         "(e.g. llama_stage_model(cfg, remat)), not beside "
+                         "model=")
     if num_micro < 1:
         raise ValueError(f"num_micro must be >= 1, got {num_micro}")
 
@@ -164,8 +205,8 @@ def build_train_step(cfg, num_micro: int = 1,
         for i in range(num_micro):
             sl = slice(i * mb, (i + 1) * mb)
             with torch.enable_grad():
-                part = _micro_loss(params, ids[sl], labels[sl], cfg,
-                                   remat) / num_micro
+                h = model.trunk(params, model.embed(params, ids[sl]))
+                part = model.head(params, h, labels[sl]) / num_micro
                 grads = torch.autograd.grad(part, leaves)
             loss += part.detach()
             if acc is None:

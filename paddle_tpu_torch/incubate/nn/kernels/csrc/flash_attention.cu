@@ -6,12 +6,28 @@
 // with lse), _single_bwd_kernel, _bwd_fused_kernel, _bwd_dkv_kernel and
 // _bwd_dq_kernel (the backward).  The single-block/streaming split there
 // exists only to fit TPU VMEM; here one forward kernel and one backward
-// pair serve every length.  Same contract as the streaming path at a zero
-// q offset: q [B, Sq, nH, hD], k/v [B, Sk, nH, hD]; causal masks key j
-// from query i unless j <= i; masked scores are -1e30 (NEG_INF);
+// pair serve every length.  Same contract as the streaming path:
+// q [B, Sq, nH, hD], k/v [B, Sk, nH, hD]; causal masks key j from query i
+// unless j <= i + offset, where `offset` is the run-time q-vs-k position
+// offset of the ring variant (flash_attention_with_lse, `traced_offset`
+// there; 0 for plain flash attention); masked scores are -1e30 (NEG_INF);
 // lse [B, nH, Sq] is float32, out is written in q's dtype.  The backward
-// takes lse and delta = rowsum(dO * O) [B, nH, Sq] (computed outside, as
-// the JAX wrapper computes it in XLA) and recomputes P = exp(S - lse).
+// takes lse and delta = rowsum(dO * O) - g_lse [B, nH, Sq] (computed
+// outside, as the JAX wrapper computes it in XLA) and recomputes
+// P = exp(S - lse).
+//
+// Masked scores are exponentiated like any others, as in the TPU kernels,
+// so a query row with no visible key (i + offset < 0) gets p = exp(0) = 1
+// on every key: its out is the mean of v's rows, its lse -1e30 (+ log Sk,
+// which vanishes in float32), and in the backward p = exp(-1e30 - lse) = 1
+// again.  Keys past Sk (a ragged tile) count no time: the TPU kernel
+// counts the padding of its own block_k there, so for fully masked rows
+// of a ragged Sk the two differ.  A row with a visible key sees key 0, so
+// its masked scores give exp(-1e30 - m) = 0 exactly, and a tile past the
+// diagonal can be skipped; only a tile whose every row has a visible key
+// (q0 + offset >= 0) skips, every other visits all key tiles.  At offset
+// 0 no row is fully masked: the loops and the values are those of the
+// zero-offset contract, bit for bit.
 //
 // What bounds it on the H100: 4*hD operations per visible (query, key)
 // pair and head in the forward (half the pairs under the causal mask),
@@ -32,8 +48,9 @@
 //   a row are one half-warp, so row max/sum reduce with shuffles and the
 //   online-softmax state m, l stays in registers.
 // * The causal mask skips every tile past the diagonal: the forward and
-//   dQ loop over key tiles up to their own tile, dK/dV over query tiles
-//   from their own tile on.
+//   dQ loop over key tiles up to the last one their tile's rows can see,
+//   dK/dV over the query tiles that can see their key tile (and the
+//   tiles that hold a row with no visible key at all).
 // * No atomics: dK/dV blocks own key tiles and dQ blocks own query
 //   tiles, so every result is written once and runs are deterministic.
 // * Scores and products run on the CUDA cores in float32.
@@ -151,6 +168,14 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// One past the last key a query tile at q0 must visit: under the causal
+// mask, when every row of the tile has a visible key, the last key its
+// last row sees; otherwise (or not causal) every key.
+__device__ __forceinline__ int key_end(int q0, int Sk, int causal,
+                                       int offset) {
+  return causal && q0 + offset >= 0 ? min(Sk, q0 + kTile + offset) : Sk;
+}
+
 template <int HD>
 constexpr int fwd_smem_bytes() {
   return (3 * kTile * (HD + 1) + kTile * kPS) * 4;
@@ -172,7 +197,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            float* __restrict__ lse, int Sq, int Sk, int nH,
                            Strides qs, Strides ks, Strides vs, float scale,
-                           int causal) {
+                           int causal, int offset) {
   constexpr int kS = HD + 1;
   constexpr int kD = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -203,7 +228,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kD; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  const int k_end = key_end(q0, Sk, causal, offset);
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, HD>(sK, kb, ks.t, k0, Sk, 1.f);
@@ -214,20 +239,21 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int qi = q0 + ty * kRows + i;
-      bool ok[kCols];
+      bool in[kCols];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + tx + 16 * j;
-        ok[j] = kj < Sk && (!causal || kj <= qi);
-        s[i][j] = ok[j] ? s[i][j] : kNegInf;
+        in[j] = kj < Sk;
+        s[i][j] = in[j] && (!causal || kj <= qi + offset) ? s[i][j] : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        // masked keys count (p = 1 in a row with no visible key, else 0)
+        const float p = in[j] ? expf(s[i][j] - m_new) : 0.f;
         sP[(ty * kRows + i) * kPS + tx + 16 * j] = p;
         sum += p;
       }
@@ -274,7 +300,7 @@ flash_attention_bwd_dkv_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int Sq, int Sk, int nH, Strides qs, Strides ks, Strides vs, Strides ds,
-    float scale, int causal) {
+    float scale, int causal, int offset) {
   constexpr int kS = HD + 1;
   constexpr int kD = HD / 16;
   extern __shared__ float smem[];
@@ -310,8 +336,10 @@ flash_attention_bwd_dkv_kernel(
       gv[i][c] = 0.f;
     }
 
-  // under the causal mask only queries at or after k0 see this tile
-  for (int q0 = causal ? k0 : 0; q0 < Sq; q0 += kTile) {
+  // under the causal mask a query tile whose rows all have a visible key
+  // gives this key tile p = 0 unless its last row sees key k0
+  for (int q0 = 0; q0 < Sq; q0 += kTile) {
+    if (causal && q0 + offset >= 0 && q0 + kTile - 1 + offset < k0) continue;
     __syncthreads();
     load_tile<T, HD>(sQ, qb, qs.t, q0, Sq, scale);
     load_tile<T, HD>(sO, ob, ds.t, q0, Sq, 1.f);
@@ -332,8 +360,8 @@ flash_attention_bwd_dkv_kernel(
       for (int j = 0; j < kCols; ++j) {
         const int c = tx + 16 * j;
         const int qi = q0 + c;
-        const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
-        const float p = ok ? expf(s[i][j] - sL[c]) : 0.f;
+        const float sv = !causal || kj <= qi + offset ? s[i][j] : kNegInf;
+        const float p = qi < Sq && kj < Sk ? expf(sv - sL[c]) : 0.f;
         sP[(ty * kRows + i) * kPS + c] = p;
         sG[(ty * kRows + i) * kPS + c] = p * (dp[i][j] - sDl[c]);
       }
@@ -382,7 +410,7 @@ flash_attention_bwd_dq_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
     int nH, Strides qs, Strides ks, Strides vs, Strides ds, float scale,
-    int causal) {
+    int causal, int offset) {
   constexpr int kS = HD + 1;
   constexpr int kD = HD / 16;
   extern __shared__ float smem[];
@@ -417,7 +445,7 @@ flash_attention_bwd_dq_kernel(
     for (int c = 0; c < kD; ++c) gq[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  const int k_end = key_end(q0, Sk, causal, offset);
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();
     load_tile<T, HD>(sK, kb, ks.t, k0, Sk, 1.f);
@@ -433,8 +461,8 @@ flash_attention_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
-        const float p = ok ? expf(s[i][j] - lr[i]) : 0.f;
+        const float sv = !causal || kj <= qi + offset ? s[i][j] : kNegInf;
+        const float p = qi < Sq && kj < Sk ? expf(sv - lr[i]) : 0.f;
         sG[(ty * kRows + i) * kPS + tx + 16 * j] = p * (dp[i][j] - dr[i]);
       }
     }
@@ -477,6 +505,7 @@ struct Args {
   Strides qs, ks, vs, ds;
   float scale;
   int causal;
+  int offset;
   cudaStream_t stream;
 };
 
@@ -499,7 +528,7 @@ cudaError_t launch(Pass pass, const Args& a) {
     if (err != cudaSuccess) return err;
     flash_attention_fwd_kernel<T, HD><<<grid_q, kThreads, bytes, a.stream>>>(
         q, k, v, static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.Sq, a.Sk,
-        a.nH, a.qs, a.ks, a.vs, a.scale, a.causal);
+        a.nH, a.qs, a.ks, a.vs, a.scale, a.causal, a.offset);
   } else if (pass == kDkv) {
     constexpr int bytes = dkv_smem_bytes<HD>();
     err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<T, HD>,
@@ -510,7 +539,7 @@ cudaError_t launch(Pass pass, const Args& a) {
         <<<grid_k, kThreads, bytes, a.stream>>>(
             q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0),
             static_cast<T*>(a.o1), a.Sq, a.Sk, a.nH, a.qs, a.ks, a.vs, a.ds,
-            a.scale, a.causal);
+            a.scale, a.causal, a.offset);
   } else {
     constexpr int bytes = dq_smem_bytes<HD>();
     err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, HD>,
@@ -519,7 +548,7 @@ cudaError_t launch(Pass pass, const Args& a) {
     if (err != cudaSuccess) return err;
     flash_attention_bwd_dq_kernel<T, HD><<<grid_q, kThreads, bytes, a.stream>>>(
         q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0), a.Sq, a.Sk, a.nH,
-        a.qs, a.ks, a.vs, a.ds, a.scale, a.causal);
+        a.qs, a.ks, a.vs, a.ds, a.scale, a.causal, a.offset);
   }
   return cudaGetLastError();
 }
@@ -553,8 +582,10 @@ int run(int dtype, int hD, Pass pass, const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16; hD in {32, 64, 128}.  Strides are in
 // elements for the batch, token and head axes (the last axis is
-// contiguous).  Each entry launches on `stream`, does not synchronise,
-// allocates nothing and returns the launch's cudaError_t
+// contiguous).  offset: key j is visible to query i iff j <= i + offset
+// (causal only; 0 for plain flash attention).  Each entry launches on
+// `stream`, does not synchronise, allocates nothing and returns the
+// launch's cudaError_t
 // (cudaErrorInvalidValue for a dtype/head-dim pair with no instance).
 
 extern "C" int pt_flash_attention_fwd(
@@ -563,10 +594,11 @@ extern "C" int pt_flash_attention_fwd(
     long long qs_b, long long qs_t, long long qs_h,
     long long ks_b, long long ks_t, long long ks_h,
     long long vs_b, long long vs_t, long long vs_h,
-    float scale, int causal, void* stream) {
+    float scale, int causal, int offset, void* stream) {
   const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, Sq, Sk, nH,
                {qs_b, qs_t, qs_h}, {ks_b, ks_t, ks_h}, {vs_b, vs_t, vs_h},
-               {0, 0, 0}, scale, causal, static_cast<cudaStream_t>(stream)};
+               {0, 0, 0}, scale, causal, offset,
+               static_cast<cudaStream_t>(stream)};
   return run(dtype, hD, kFwd, a);
 }
 
@@ -578,11 +610,11 @@ extern "C" int pt_flash_attention_bwd_dkv(
     long long ks_b, long long ks_t, long long ks_h,
     long long vs_b, long long vs_t, long long vs_h,
     long long ds_b, long long ds_t, long long ds_h,
-    float scale, int causal, void* stream) {
+    float scale, int causal, int offset, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dk, dv, B, Sq, Sk, nH,
                {qs_b, qs_t, qs_h}, {ks_b, ks_t, ks_h}, {vs_b, vs_t, vs_h},
-               {ds_b, ds_t, ds_h}, scale, causal,
+               {ds_b, ds_t, ds_h}, scale, causal, offset,
                static_cast<cudaStream_t>(stream)};
   return run(dtype, hD, kDkv, a);
 }
@@ -595,11 +627,11 @@ extern "C" int pt_flash_attention_bwd_dq(
     long long ks_b, long long ks_t, long long ks_h,
     long long vs_b, long long vs_t, long long vs_h,
     long long ds_b, long long ds_t, long long ds_h,
-    float scale, int causal, void* stream) {
+    float scale, int causal, int offset, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, B, Sq, Sk, nH,
                {qs_b, qs_t, qs_h}, {ks_b, ks_t, ks_h}, {vs_b, vs_t, vs_h},
-               {ds_b, ds_t, ds_h}, scale, causal,
+               {ds_b, ds_t, ds_h}, scale, causal, offset,
                static_cast<cudaStream_t>(stream)};
   return run(dtype, hD, kDq, a);
 }

@@ -21,6 +21,13 @@ third of the elements.  Both run in the hand-written CUDA kernel of
 Dispatch: a CPU tensor runs :func:`rms_norm_plain`; a CUDA tensor
 launches the kernel or raises.  There is no fallback.
 
+Under autograd :func:`rms_norm` is differentiable in x and w in both
+policies: the forward is the kernel (or the plain version on the CPU),
+the backward plain PyTorch, as both JAX counterparts are XLA — "fused"
+is the custom VJP ``_rms2d_bwd`` over the saved rstd, "llama" the
+gradient JAX's autodiff takes through ``_rms_norm``, in its order and
+with its roundings in x's dtype (rstd recomputed from x).
+
 The rotary helpers (:func:`rope_tables`, :func:`apply_rope`,
 :func:`fused_rotary_position_embedding`) are plain PyTorch, as the JAX
 module keeps them out of Pallas.  Their rotation is the rotate-half
@@ -104,11 +111,6 @@ def _launch(x2d, w, eps, policy):
     if H > 1 and w.stride(0) != 1:
         raise ValueError(f"rms_norm: w must be contiguous, stride "
                          f"{w.stride()}")
-    if torch.is_grad_enabled() and (x2d.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "rms_norm has no backward on the card: rms_norm_pallas is the "
-            "differentiable 'fused' RMSNorm; the 'llama' policy's backward "
-            "comes with LLaMA training (ROADMAP Queue 1 item 11)")
     out = torch.empty((N, H), dtype=x2d.dtype, device=x2d.device)
     rstd = (torch.empty((N,), dtype=torch.float32, device=x2d.device)
             if policy == "fused" else None)
@@ -125,15 +127,7 @@ def _launch(x2d, w, eps, policy):
     return out, rstd
 
 
-def rms_norm(x2d, w, eps: float, policy: str):
-    """RMSNorm of each row of x2d [N, H] scaled by w [H]: (out [N, H] in
-    x's dtype, rstd [N] float32 for ``policy="fused"``, None for
-    ``"llama"``).
-
-    CPU tensors run :func:`rms_norm_plain`; CUDA tensors launch the
-    kernel (x and w float32 or both bfloat16, the last axis of x and w
-    contiguous, any row stride; no autograd) or raise."""
-    _check(x2d, w, policy)
+def _forward(x2d, w, eps, policy):
     if x2d.device.type == "cpu":
         return rms_norm_plain(x2d, w, eps, policy)
     if x2d.device.type != "cuda":
@@ -142,35 +136,83 @@ def rms_norm(x2d, w, eps: float, policy: str):
     return _launch(x2d, w, eps, policy)
 
 
-class _RmsNormFused(torch.autograd.Function):
-    """``rms_norm_pallas`` under autograd: the forward is the "fused"
-    policy (saving rstd); the backward is plain PyTorch over (x, w,
-    rstd), as the JAX custom VJP ``_rms2d_bwd`` is plain JAX."""
+def _fused_bwd(x, w, rstd, g):
+    """JAX's ``_rms2d_bwd``: float32 math over the saved rstd."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    r = rstd[:, None]
+    xhat = xf * r
+    dxhat = gf * wf
+    dx = r * (dxhat - xhat * ((dxhat * xhat).sum(-1, keepdim=True)
+                              / x.shape[-1]))
+    dw = (gf * xhat).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _llama_bwd(x, w, eps, g):
+    """The gradient of ``(x * rstd.to(x.dtype)) * w`` with rstd =
+    rsqrt(var), var = mean(x^2 in float32) + eps, step by step as JAX's
+    autodiff takes it through ``_rms_norm`` (its jaxpr's order): the
+    products in x's dtype, rsqrt's derivative as ``-0.5 * rstd / var``,
+    the rstd branch back through float32, rounded once before the last
+    add.  XLA:CPU fuses some of these bfloat16 steps at a higher
+    precision, so JAX's bfloat16 gradient on the CPU is not a per-element
+    reference; float32 is the bar."""
+    H = x.shape[1]
+    xf = x.float()
+    var = (xf * xf).sum(-1, keepdim=True) / H + eps
+    rf = torch.rsqrt(var)
+    r = rf.to(x.dtype)
+    gy = g * w                                       # d(x * r)
+    dw = (g * (x * r)).sum(0)
+    dr = (gy * x).sum(-1, keepdim=True).float()
+    dvar = dr * (-0.5 * (rf / var))                  # rsqrt's derivative
+    dx = gy * r + ((dvar / H) * (2.0 * xf)).to(x.dtype)
+    return dx, dw.to(w.dtype)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """:func:`rms_norm` under autograd: the kernel (or plain) forward,
+    the policy's plain backward."""
 
     @staticmethod
-    def forward(ctx, x2d, w, eps):
-        out, rstd = rms_norm(x2d, w, eps, "fused")
+    def forward(ctx, x2d, w, eps, policy):
+        out, rstd = _forward(x2d, w, eps, policy)
         ctx.save_for_backward(x2d, w, rstd)
-        return out
+        ctx.eps, ctx.policy = eps, policy
+        if rstd is not None:
+            ctx.mark_non_differentiable(rstd)
+        return out, rstd
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_rstd):
         x, w, rstd = ctx.saved_tensors
-        xf, gf, wf = x.float(), g.float(), w.float()
-        r = rstd[:, None]
-        xhat = xf * r
-        dxhat = gf * wf
-        dx = r * (dxhat - xhat * ((dxhat * xhat).sum(-1, keepdim=True)
-                                  / x.shape[-1]))
-        dw = (gf * xhat).sum(0)
-        return dx.to(x.dtype), dw.to(w.dtype), None
+        if ctx.policy == "fused":
+            dx, dw = _fused_bwd(x, w, rstd, g)
+        else:
+            dx, dw = _llama_bwd(x, w, ctx.eps, g)
+        return dx, dw, None, None
+
+
+def rms_norm(x2d, w, eps: float, policy: str):
+    """RMSNorm of each row of x2d [N, H] scaled by w [H]: (out [N, H] in
+    x's dtype, rstd [N] float32 for ``policy="fused"``, None for
+    ``"llama"``).
+
+    CPU tensors run :func:`rms_norm_plain`; CUDA tensors launch the
+    kernel (x and w float32 or both bfloat16, the last axis of x and w
+    contiguous, any row stride) or raise.  Differentiable in x and w
+    (the policy's plain backward)."""
+    _check(x2d, w, policy)
+    if torch.is_grad_enabled() and (x2d.requires_grad or w.requires_grad):
+        return _RmsNorm.apply(x2d, w, eps, policy)
+    return _forward(x2d, w, eps, policy)
 
 
 def rms_norm_pallas(x, weight, epsilon: float = 1e-6):
     """RMSNorm over the last axis of ``x`` (any leading shape), the
     "fused" policy, differentiable in x and weight."""
     shape = x.shape
-    out = _RmsNormFused.apply(x.reshape(-1, shape[-1]), weight, epsilon)
+    out, _ = rms_norm(x.reshape(-1, shape[-1]), weight, epsilon, "fused")
     return out.reshape(shape)
 
 

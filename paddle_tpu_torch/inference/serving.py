@@ -233,9 +233,12 @@ class ContinuousBatchingEngine:
                 f"can prefill (max_len={self.max_len})")
         if prompt.size + max_new > self.max_len:
             raise ValueError("prompt + max_new exceeds engine max_len")
-        req = Request(self._next_rid, prompt, max_new, submitted_at=_now())
-        self._queue.offer(req)
+        # the rid is used up before the offer, so a rejected request
+        # (QueueFullError) still takes one, as in the JAX engine
+        rid = self._next_rid
         self._next_rid += 1
+        req = Request(rid, prompt, max_new, submitted_at=_now())
+        self._queue.offer(req)
         self._requests[req.rid] = req
         return req.rid
 

@@ -1,7 +1,7 @@
 """LLaMA — decoder LM with RMSNorm, rotary embeddings, SwiGLU and
 grouped-query attention (port of ``paddle_tpu/models/llama.py``: config,
-init, forward and the KV-cache entry points of the serving path, with
-``generate``; one device).
+init, forward, ``loss_fn`` with its sequence-parallel form, and the
+KV-cache entry points of the serving path, with ``generate``).
 
 The parameter tree keeps the JAX layout — per-layer weights stacked on a
 leading L axis, q/k/v/o and gate/up/down as separate ``[L, in, out]``
@@ -14,8 +14,11 @@ planes with a trailing axis of 1), quantized on write (``common._kv_write``).
 
 Kernels: every RMSNorm is the ``"llama"`` policy of the ``rms_norm``
 CUDA kernel (``incubate/nn/kernels/fused_norm_rope.py``), which keeps
-the two bfloat16 roundings of the JAX ``_rms_norm``; training attention
-in :func:`forward` and :func:`prefill` is ``flash_attention``; the
+the two bfloat16 roundings of the JAX ``_rms_norm`` (its backward is
+plain PyTorch, the gradient of that function); training attention in
+:func:`forward`, :func:`loss_fn` and :func:`prefill` is
+``flash_attention``, and under ``sp_group`` ``ring_attention`` over
+``flash_attention_with_lse``; the
 ``attn_kernel="flash"`` knob of :func:`prefill_into_slots` and
 :func:`decode_step_multi` routes their attention through
 ``flash_decode``, whose kernel groups the GQA heads itself.
@@ -29,8 +32,17 @@ Differences from the JAX functions, by design:
 * The depth ``lax.scan`` is a Python loop over layers, and the cache is
   updated IN PLACE; the cache-writing entry points return the dict they
   were given.
-* ``mp_axis``/``sp_axis`` (tensor and sequence parallelism) and
-  ``unroll_layers`` are not ported; ``generate`` is greedy only.
+* Sequence parallelism takes a ``torch.distributed`` group,
+  ``sp_group``, where JAX takes the mesh axis ``sp_axis``: each rank
+  holds its chunk of the sequence, rope reads positions ``rank * S``
+  on, attention is ``ring_attention``, and :func:`loss_fn` averages the
+  loss over the group with an all-reduce whose backward is an
+  all-reduce too (``lax.pmean``'s transpose).  As in JAX, each rank's
+  gradients of the replicated weights are partials whose mean over the
+  group is the dense gradient.  The ring runs the flash kernels on the
+  card whatever ``cfg.use_flash`` says (JAX's ring always runs Pallas).
+* ``mp_axis`` (tensor parallelism) and ``unroll_layers`` are not
+  ported; ``generate`` is greedy only.
 * The LM head takes float32 output from bfloat16 operands through
   :func:`~.common.matmul_f32out`, as JAX's ``preferred_element_type``.
 * ``F.silu`` in bfloat16 rounds differently from ``jax.nn.silu`` on the
@@ -43,12 +55,17 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed.collective import all_reduce_sum
 from ..incubate.nn.functional import _decode_attention
+from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
+                                                 pick_num_chunks)
 from ..incubate.nn.kernels.flash_decode import flash_decode_attention
 from ..incubate.nn.kernels.fused_norm_rope import rms_norm, rms_norm_plain
+from ..incubate.nn.kernels.ring_attention import ring_attention
 from ..incubate.nn.kv_quant import byte_view
 from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
                      _kv_write, _slot_rows_writer, _zero_cache, layer_slices,
@@ -58,7 +75,8 @@ from .decoding import generate_loop, sample_token
 
 __all__ = ["LlamaConfig", "llama_7b", "llama_tiny", "init_params",
            "params_from_numpy", "param_count", "rope_cos_sin", "apply_rope",
-           "forward_layers", "forward", "init_decode_cache", "prefill",
+           "forward_layers", "forward", "loss_fn", "init_decode_cache",
+           "prefill",
            "decode_step", "decode_step_multi", "prefill_into_slots",
            "generate"]
 
@@ -198,25 +216,28 @@ def apply_rope(x, cos, sin):
     return _rotate_pairs(x, cos[None, :, None, :], sin[None, :, None, :])
 
 
-def _attention(q, k, v, cfg: LlamaConfig):
+def _attention(q, k, v, cfg: LlamaConfig, sp_group=None):
     """Causal attention [B, S, nH, hD]: the KV heads repeated for GQA,
-    then ``flash_attention`` or the plain masked softmax
-    (``common._causal_attention``; ``cfg.use_flash`` decides)."""
+    then ``ring_attention`` over ``sp_group``, else ``flash_attention``
+    or the plain masked softmax (``common._causal_attention``;
+    ``cfg.use_flash`` decides)."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    if sp_group is not None:
+        return ring_attention(q, k, v, sp_group, causal=True)
     return _causal_attention(q, k, v, cfg.head_dim, use_flash=cfg.use_flash)
 
 
 def _decoder_layer(h, lp, cfg: LlamaConfig, cos, sin,
                    return_kv: bool = False,
-                   attn_kernel: Optional[str] = None):
+                   attn_kernel: Optional[str] = None, sp_group=None):
     """Pre-RMSNorm decoder layer over h [B, S, H]; ``return_kv`` also
     returns this layer's post-rope K and V at nKV heads (prefill).
     ``attn_kernel="flash"`` runs the causal attention in the flash_decode
     kernel (the window mask at a zero base offset; GQA grouped in the
-    kernel)."""
+    kernel); ``sp_group`` the ring over a sequence split."""
     B, S, _ = h.shape
     nH, nKV, hD = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     x = _rms_norm(h, lp["attn_norm"], cfg)
@@ -227,7 +248,7 @@ def _decoder_layer(h, lp, cfg: LlamaConfig, cos, sin,
         attn = flash_decode_attention(
             q, k, v, torch.zeros((B,), dtype=torch.int32, device=h.device))
     else:
-        attn = _attention(q, k, v, cfg)
+        attn = _attention(q, k, v, cfg, sp_group)
     h = h + attn.reshape(B, S, nH * hD) @ lp["o_w"]
     x = _rms_norm(h, lp["ffn_norm"], cfg)
     out = h + (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"]
@@ -243,21 +264,61 @@ def _logits(params, h, cfg: LlamaConfig):
     return logits.view(*h.shape[:-1], logits.shape[-1])
 
 
-def forward_layers(h, layer_params, cfg: LlamaConfig, remat=False):
+def forward_layers(h, layer_params, cfg: LlamaConfig, remat=False,
+                   sp_group=None):
     """The stacked decoder layers over h [B, S, H]; ``remat`` False or
-    True (see ``scan_layers_with_remat``)."""
-    cos, sin = rope_cos_sin(h.shape[1], cfg.head_dim, cfg.rope_theta,
-                            h.dtype, h.device)
+    True (see ``scan_layers_with_remat``).  Under ``sp_group`` h is this
+    rank's chunk of the sequence: rope positions start at rank * S."""
+    S = h.shape[1]
+    if sp_group is None:
+        cos, sin = rope_cos_sin(S, cfg.head_dim, cfg.rope_theta, h.dtype,
+                                h.device)
+    else:
+        pos0 = dist.get_rank(sp_group) * S
+        cos, sin = rope_cos_sin(S * dist.get_world_size(sp_group),
+                                cfg.head_dim, cfg.rope_theta, h.dtype,
+                                h.device)
+        cos, sin = cos[pos0:pos0 + S], sin[pos0:pos0 + S]
     return scan_layers_with_remat(
-        lambda c, lp: _decoder_layer(c, lp, cfg, cos, sin), h, layer_params,
-        remat)
+        lambda c, lp: _decoder_layer(c, lp, cfg, cos, sin,
+                                     sp_group=sp_group),
+        h, layer_params, remat)
 
 
-def forward(params, input_ids, cfg: LlamaConfig, remat=False):
-    """Float32 logits [B, S, V] of input_ids [B, S]."""
+def forward(params, input_ids, cfg: LlamaConfig, remat=False,
+            sp_group=None):
+    """Float32 logits [B, S, V] of input_ids [B, S] (this rank's chunk
+    under ``sp_group``)."""
     h = params["wte"][input_ids]
-    h = forward_layers(h, params["layers"], cfg, remat=remat)
+    h = forward_layers(h, params["layers"], cfg, remat=remat,
+                       sp_group=sp_group)
     return _logits(params, h, cfg)
+
+
+def _head_loss(params, h, labels, cfg: LlamaConfig):
+    """Final RMSNorm + LM head + cross entropy over h [B, S, H], the
+    mean over tokens, through ``chunked_vocab_nll`` (no [tokens, V]
+    log-softmax saved under autograd)."""
+    h = _rms_norm(h, params["final_norm"], cfg)
+    W = params["wte"] if cfg.tie_word_embeddings else params["lm_head"].t()
+    N = h.shape[0] * h.shape[1]
+    nll = chunked_vocab_nll(h.reshape(N, h.shape[-1]), W, labels.reshape(N),
+                            0, pick_num_chunks(N, cfg.vocab_size))
+    return nll.mean()
+
+
+def loss_fn(params, input_ids, labels, cfg: LlamaConfig, sp_group=None,
+            remat=False):
+    """Next-token cross entropy, the mean over tokens (ids/labels
+    [B, S]).  Under ``sp_group`` they are this rank's chunk of the
+    sequence and the loss is the mean over the group (``lax.pmean``)."""
+    h = params["wte"][input_ids]
+    h = forward_layers(h, params["layers"], cfg, remat=remat,
+                       sp_group=sp_group)
+    loss = _head_loss(params, h, labels, cfg)
+    if sp_group is not None:
+        loss = all_reduce_sum(loss, sp_group) / dist.get_world_size(sp_group)
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ reference value.  fused_ce's float32 outputs are held at atol 1e-3.
 The RMS kernel is held by ``chip_smoke._rms_errors``, the limits the
 card run uses (float32 per element at 1e-6 relative + 1e-7; bfloat16
 equal or one step apart on at most 1e-3 of the elements; rstd at 1e-6
-relative).
+relative), and its backward by ``chip_smoke.rms_backward_check``.  The
+ring variant of flash attention (a run-time offset) is held by
+``chip_smoke.ring_kernels_check`` (the limits above, lse at 1e-3, offset
+0 bit for bit to the zero-offset kernels) and ``chip_smoke.ring_replay``.
 """
 import importlib.util
 from pathlib import Path
@@ -26,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.distributed import hybrid
+from paddle_tpu_torch.distributed import collective, hybrid
 from paddle_tpu_torch.incubate.nn import kv_quant
 from paddle_tpu_torch.incubate.nn.functional.chunked_ce import (
     chunked_vocab_nll)
@@ -34,6 +37,7 @@ from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
 from paddle_tpu_torch.incubate.nn.kernels import flash_decode as fd
 from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
 from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
+from paddle_tpu_torch.incubate.nn.kernels import ring_attention as ra
 from paddle_tpu_torch.models import gpt, llama
 
 _spec = importlib.util.spec_from_file_location(
@@ -338,8 +342,9 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, B, S, nH, hD,
     dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        n: 1 for n in before}
-    w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        n: int(n in fa.launches()) for n in before}
+    w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0,
+                                                     causal=causal)
     w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
                                                   causal)
     w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
@@ -771,7 +776,8 @@ def test_rms_norm_rejects(cuda, bad):
     elif bad == "w_strided":
         w = torch.ones(128, device=cuda)[::2]
     elif bad == "under_grad":
-        x.requires_grad_(True)
+        # the autograd entry checks as the plain one does
+        x, w = x.half().requires_grad_(True), w.half()
     before = dict(fnr.LAUNCHES)
     for policy in fnr.POLICIES:
         with pytest.raises((TypeError, ValueError, NotImplementedError)):
@@ -828,3 +834,99 @@ def test_llama_tiny_card_streams_match_cpu(cuda):
     bf16 and int8) on the card equal the CPU's plain route, with the
     launch counts held exactly."""
     chip_smoke.llama_reference_phase(llama, fnr, fd)
+
+
+# ---------------------------------------------------------------------------
+# The ring variant of flash attention and LLaMA training
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [-200, -100, -37, 0, 37, 150, 300])
+def test_flash_attention_offset_kernels_match_plain(cuda, dtype, offset):
+    """q 100 rows against k 200 (ragged tiles, Sq != Sk), 2 heads of 64:
+    fully masked rows (offset <= -100), partly masked ones, every key
+    visible (300); offset 0 also bit for bit to the zero-offset call."""
+    rng = np.random.default_rng(offset + 500)
+    q = _rand(rng, (2, 100, 2, 64), dtype, cuda)
+    k, v = (_rand(rng, (2, 200, 2, 64), dtype, cuda) for _ in range(2))
+    dout = _rand(rng, (2, 100, 2, 64), dtype, cuda)
+    g_lse = _rand(rng, (2, 2, 100), torch.float32, cuda)
+    before = fa.launches("flash_attention_with_lse")
+    (out, lse, *_), _, _, _ = chip_smoke.ring_kernels_check(
+        fa, q, k, v, dout, g_lse, offset)
+    after = fa.launches("flash_attention_with_lse")
+    assert {n: after[n] - before[n] for n in before} == {
+        n: 1 for n in before}
+    if offset <= -100:                       # no row sees a key
+        assert (lse <= -1e29).all()
+        torch.testing.assert_close(out.float(), v.float().mean(
+            1, keepdim=True).expand_as(out), rtol=2 ** -7, atol=1e-3)
+
+
+def test_flash_attention_with_lse_autograd_on_card(cuda):
+    """The ring variant's Function on the card (kernels) against the CPU
+    (plain forward and backward), float32, with an lse cotangent."""
+    rng = np.random.default_rng(12)
+    x = [rng.standard_normal((1, 96, 2, 64)).astype(np.float32)
+         for _ in range(4)]
+    gl = rng.standard_normal((1, 2, 96)).astype(np.float32)
+    res = []
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in x[:3]]
+        out, lse = fa.flash_attention_with_lse(*leaves, -37)
+        torch.autograd.backward([out, lse], [torch.tensor(x[3], device=dev),
+                                             torch.tensor(gl, device=dev)])
+        res.append([t.detach().cpu() for t in (out, lse)]
+                   + [t.grad.cpu() for t in leaves])
+    for got, want in zip(res[1], res[0]):
+        _assert_rel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_replay_on_card_matches_dense(cuda, dtype):
+    """Four ranks of 100 positions replayed through ring_attention_loop
+    against dense flash attention over 400 (chip_smoke.ring_replay)."""
+    row = chip_smoke.ring_replay(fa, ra, 2, 100, 2, 64, dtype, seed=3)
+    assert row["launches"] == {
+        n: 16 for n in fa.launches("flash_attention_with_lse")}
+
+
+def test_ring_pass_refuses_cuda_tensors_on_gloo(cuda):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        k = torch.zeros(1, 8, 1, 32, device=cuda)
+        with pytest.raises(RuntimeError, match="gloo"):
+            collective.ring_pass(k, k)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("policy", ["fused", "llama"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H", [(64, 4096), (7, 1100)])
+def test_rms_norm_backward_on_card(cuda, policy, dtype, N, H):
+    rng = np.random.default_rng(N + H + 1)
+    x, g = (_rand(rng, (N, H), dtype, cuda) for _ in range(2))
+    w = (1 + 0.1 * _rand(rng, (H,), torch.float32, cuda)).to(dtype)
+    chip_smoke.rms_backward_check(fnr, x, w, g, policy)
+
+
+def test_llama_train_steps_on_card_match_cpu(cuda):
+    """chip_smoke's LLaMA reference phase: three steps of llama_tiny on
+    the card equal the CPU's, remat False and True, launches exact."""
+    chip_smoke.llama_train_reference_phase(llama, hybrid, fa, fnr)
+
+
+def test_llama_sp_on_a_one_rank_nccl_group(cuda):
+    """loss_fn(sp_group=g) on a one-rank NCCL group (the offset kernels,
+    one block a layer) against loss_fn without a group."""
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, seed=4, device=cuda)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 64))).to(cuda)
+    row = chip_smoke.llama_sp_check(llama, fa, cfg, params, ids, ids)
+    assert row["offset_launches"] == {
+        n: cfg.num_layers for n in fa.launches("flash_attention_with_lse")}

@@ -54,7 +54,7 @@ def test_flash_attention_matches_jax(causal, S, hD):
 
 def test_lse_is_the_row_logsumexp():
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(1, 1, 40, 2, 32))
-    _, lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    _, lse = fa.flash_attention_with_lse_plain(q, k, v, 0, causal=True)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(32)
     s = s.masked_fill(~torch.ones(40, 40, dtype=torch.bool).tril(),
                       float("-inf"))
@@ -70,9 +70,9 @@ def test_ragged_kv_length_masks_causally():
                                              dtype=np.float32))
     kv = torch.from_numpy(rng.standard_normal((1, 40, 1, 32),
                                               dtype=np.float32))
-    out, _ = fa.flash_attention_fwd_plain(q, kv, kv, causal=True)
-    want, _ = fa.flash_attention_fwd_plain(q, kv[:, :24], kv[:, :24],
-                                           causal=True)
+    out, _ = fa.flash_attention_with_lse_plain(q, kv, kv, 0, causal=True)
+    want, _ = fa.flash_attention_with_lse_plain(q, kv[:, :24], kv[:, :24],
+                                                0, causal=True)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
 
 

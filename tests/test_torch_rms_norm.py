@@ -15,6 +15,9 @@ On the CPU the port's wrapper runs the plain version, which is held:
 * ``"llama"`` in bfloat16 bit for bit against ``_rms_norm`` (rstd is
   rounded to bfloat16 before use, which hides a last-bit difference of
   the float32 rstd at these inputs), and in float32 within 1e-6.
+
+Under autograd both policies' backward (plain PyTorch) is held to the
+JAX gradient: see ``test_rms_norm_backward_matches_jax``.
 """
 import numpy as np
 import pytest
@@ -104,6 +107,45 @@ def test_rms_norm_pallas_grads_match_jax(N, H):
                                atol=1e-5)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("policy", fnr.POLICIES)
+@pytest.mark.parametrize("N,H", [(64, 512), (7, 1100)])
+def test_rms_norm_backward_matches_jax(policy, N, H):
+    """``rms_norm`` under autograd, both policies, against the JAX
+    gradient of its counterpart: "fused" the custom VJP of
+    ``rms_norm_pallas`` (interpret mode), "llama" autodiff through
+    ``llama._rms_norm``.  float32 within 1e-5 of each gradient's largest
+    value; bfloat16 no farther from the float32 gradient than JAX's own
+    bfloat16 gradient is, plus one bfloat16 step of the largest value.
+    The port takes JAX's steps in JAX's order, but XLA:CPU sums the
+    gradient's two bfloat16 ``reduce_sum``s in bfloat16 where the port
+    sums in float32 and rounds once, so JAX's bfloat16 gradient on the
+    CPU is not a per-element reference."""
+    x, w = _inputs(N, H, seed=6)
+    g = np.random.default_rng(7).standard_normal((N, H)).astype(np.float32)
+    jfn = ((lambda a, b: jllama._rms_norm(a, b, EPS)) if policy == "llama"
+           else (lambda a, b: jfnr.rms_norm_pallas(a, b, EPS)))
+    grads = {}
+    for dt in ("float32", "bfloat16"):
+        jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+        (jx, tx), (jw, tw), (jg, tg) = (_pair(a, jdt, tdt) for a in (x, w, g))
+        _, vjp = jax.vjp(jfn, jx, jw)
+        tx.requires_grad_(True)
+        tw.requires_grad_(True)
+        out, rstd = fnr.rms_norm(tx, tw, EPS, policy)
+        assert (rstd is None) == (policy == "llama")
+        out.backward(tg)
+        grads[dt] = ([_as_np(a) for a in vjp(jg)],
+                     [tx.grad.float().numpy(), tw.grad.float().numpy()])
+    want32 = grads["float32"][0]
+    for got, want in zip(grads["float32"][1], want32):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    for jgot, got, want in zip(*grads["bfloat16"], want32):
+        scale = np.abs(want).max()
+        assert np.abs(got - want).max() <= np.abs(jgot - want).max() \
+            + 2 ** -8 * scale
 
 
 @pytest.mark.parametrize("N,H", [(64, 4096), (7, 1100), (5, 11)])

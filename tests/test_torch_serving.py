@@ -131,3 +131,27 @@ def test_submit_validates(models):
             eng.submit(prompt, max_new=max_new)
     assert _derive_buckets(32) == (16, 32)
     assert _derive_buckets(100) == (16, 32, 64, 100)
+
+
+def test_rejected_submit_uses_up_its_rid_as_in_jax(models):
+    """``max_queue=1``: the second submit is rejected (QueueFullError) and
+    still takes a rid, in both engines; after the queue is served the
+    next submit gets the same rid in both, and the streams agree."""
+    jcfg, jp, tcfg, tp = models
+    from paddle_tpu.inference.lifecycle import QueueFullError as JaxFull
+    seen = []
+    for eng, full in ((JaxEngine(jp, jcfg, max_batch=1, max_len=32,
+                                 max_queue=1), JaxFull),
+                      (ContinuousBatchingEngine(tp, tcfg, max_batch=1,
+                                                max_len=32, max_queue=1,
+                                                device="cpu"),
+                       QueueFullError)):
+        first = eng.submit([1, 2, 3], max_new=2)
+        with pytest.raises(full):
+            eng.submit([4, 5], max_new=2)
+        out = eng.run()
+        again = eng.submit([6, 7], max_new=2)
+        out.update(eng.run())
+        seen.append((first, again, eng._next_rid, out))
+    assert seen[1][:3] == seen[0][:3] == (0, 2, 3)
+    assert seen[1][3] == seen[0][3]
