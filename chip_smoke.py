@@ -8,7 +8,9 @@ Phases; any failure is an uncaught exception and a non-zero exit:
 1. setup — require CUDA, print the card's name and power limit
    (nvidia-smi), build every CUDA kernel of the serving and training
    paths from the sources in the checkout (one nvcc per source, all
-   started together) and print the build seconds.
+   started together, beside them ``nvcc -Xptxas -v`` of
+   flash_attention.cu) and print the build seconds, then each flash-
+   attention instance's registers, spills, threads and shared memory.
 2. kernels (serving) — hold ``flash_decode`` against its plain PyTorch
    version on the card at the serving path's shapes (float32 at atol
    1e-4; bf16 per element, see below); time the
@@ -31,11 +33,17 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    labels out of range.  float32 outputs are held at 1e-4 of the
    largest reference value, lse and z/picked at atol 1e-3.  Yardsticks:
    SDPA (``is_causal``) forward and its autograd backward;
-   ``matmul_f32out`` + ``torch.logsumexp`` (two calls).
-   The attention kernels and their plain versions both compute in
-   float32 and round once, so each bf16 element is held to
-   |got - want| <= 2^-7 |want| + 1e-3: one rounding step of the
-   reference value, plus room for float32 summation order near zero.
+   ``matmul_f32out`` + ``torch.logsumexp`` (two calls).  Each flash
+   time has its achieved TFLOP/s and share of the bound beside it.
+   The attention kernels (bf16 on the tensor cores, P and dS carried as
+   two bf16 halves; float32 on the CUDA cores) and their plain versions
+   both keep P and dS to float32 precision and round once, so each bf16
+   element is held to |got - want| <= 2^-7 |want| + 1e-3: one rounding
+   step of the reference value, plus room for float32 summation order
+   near zero.  Then, reported and not asserted, why P is not rounded to
+   bf16 once as in the TPU kernels: the backward with P and dS rounded
+   once, computed in float32 and in float64 at the training shape, and
+   the share of that per-element limit their difference takes.
 4. reference — the serving engine on the card against the CPU engine
    (gpt_tiny f32, identical greedy streams); at kv_dtype bf16, int8 and
    fp8, the paged engine (block size 8, a pool of 18 pages, so
@@ -150,7 +158,9 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    atol 1e-3, offset 0 bit for bit to the same kernels under
    ``flash_attention``'s entry; times beside the plain versions and
    SDPA with the offset's boolean mask (forward, autograd backward; at
-   offsets >= 0 only), bounds from the visible pairs (bytes where none).
+   offsets >= 0 only; at the training shape and offset 0 also SDPA
+   ``is_causal``, its flash backend), bounds from the visible pairs
+   (bytes where none), achieved TFLOP/s and share of the bound.
 12. ring replay — the 4 ranks of a 4-way ring over 4096 positions on one
    card through ``ring_attention_loop`` with a local hand-over, 16
    launches of each offset kernel: the outputs and dq/dk/dv of one
@@ -196,8 +206,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -255,6 +267,68 @@ def _nvidia_smi(query):
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def _flash_ptxas_start(build):
+    """Start ``nvcc -Xptxas -v`` on flash_attention.cu with the build's
+    own flags, beside the build (its library is thrown away)."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / "flash_attention_ptxas.so"
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+         str(build.CSRC_DIR / "flash_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+# mangled names: the float32 kernels <float, hD>, the bf16 tensor-core
+# kernels <hD, warps>
+FLASH_KERNEL = re.compile(r"flash_attention_(fwd|bwd_dkv|bwd_dq)(_tc)?_kernel"
+                          r"I(?:f)?Li(\d+)E(?:Li(\d+)E)?")
+
+
+def flash_resources(proc, build):
+    """Registers, spills and the launch's dynamic shared memory of each
+    flash-attention kernel instance, from the ptxas report of
+    :func:`_flash_ptxas_start` and the library's own
+    ``pt_flash_attention_smem_bytes``."""
+    log, _ = proc[0].communicate()
+    if proc[0].returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v flash_attention.cu:\n{log}")
+    proc[1].unlink(missing_ok=True)
+    smem = build.load("flash_attention").pt_flash_attention_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    rows, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = FLASH_KERNEL.search(line)
+            cur = None
+            if m:
+                tc = bool(m.group(2))
+                name = (f"flash_attention_{m.group(1)}"
+                        f"{'_tc' if tc else ''} "
+                        f"{'bfloat16' if tc else 'float32'} hD {m.group(3)}")
+                cur = rows.setdefault(name, {
+                    "threads": 32 * int(m.group(4)) if tc else 256,
+                    "smem_bytes": smem(int(tc), int(m.group(3)), (
+                        "fwd", "bwd_dkv", "bwd_dq").index(m.group(1)))})
+        elif cur is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = \
+                int(st), int(ld)
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return rows
+
+
+def _rates(times, bounds):
+    """Achieved TFLOP/s and the share of the bound of each timed kernel
+    (``<key>_ms`` in ``times``, its operations and bound in ``bounds``)."""
+    return {"tflops": {k: b["ops"] / times[f"{k}_ms"] / 1e9
+                       for k, b in bounds.items() if f"{k}_ms" in times},
+            "bound_share": {k: b["bound_ms"] / times[f"{k}_ms"]
+                            for k, b in bounds.items()
+                            if f"{k}_ms" in times}}
 
 
 def _work(B, W, T, nH, nKV, hD, pos, elem, kv_elem=None, scale_bytes=0,
@@ -1041,7 +1115,7 @@ def train_kernel_phase(fa, fce, matmul_f32out):
         row = {"phase": "kernel_training", "name": name,
                "shape": f"B={B} S={S} nH={nH} hD={hD} {dts} "
                         f"causal={causal} packed qkv",
-               **times,
+               **times, **_rates(times, bounds),
                "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
                "max_ref": {k2: v2[1] for k2, v2 in errs.items()},
                "share_differing": {k2: v2[2] for k2, v2 in errs.items()},
@@ -1088,6 +1162,55 @@ def train_kernel_phase(fa, fce, matmul_f32out):
     del h, W, lbl, z, picked, wz, wp, flush
     torch.cuda.empty_cache()
     return results
+
+
+def _rounded_once_bwd(q, k, v, dout, lse, delta, dt):
+    """(dk, dv, dq) of causal attention with P and dS rounded once to
+    bf16 before their products, as the TPU kernels round them
+    (``p.astype(do.dtype)``, ``ds.astype(q.dtype)``), every other step
+    computed in ``dt``; results in bf16."""
+    def bf(x):
+        return x.to(torch.bfloat16).to(dt)
+    S, scale = q.shape[1], q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt)) * scale
+    s = s.masked_fill(~_visible(S, S, 0, q.device), -1e30)
+    p = torch.exp(s - lse.to(dt)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(dt), v.to(dt))
+    ds = p * (dp - delta.to(dt)[..., None]) * scale
+    return [t.to(torch.bfloat16) for t in (
+        torch.einsum("bhqk,bqhd->bkhd", bf(ds), q.to(dt)),
+        torch.einsum("bhqk,bqhd->bkhd", bf(p), dout.to(dt)),
+        torch.einsum("bhqk,bkhd->bqhd", bf(ds), k.to(dt)))]
+
+
+def rounding_witness_phase(fa):
+    """Why the bf16 kernels keep P and dS to 16 bits (two bf16 halves)
+    where the TPU kernels round them once: the backward with P and dS
+    rounded once, computed twice, in float32 and in float64, at the GPT
+    training shape (B 8, S 1024, 16 heads of 128, causal, the kernel's
+    lse and delta).  Both are right; a score that lands near a bf16 tie
+    rounds apart in the two, and the per-element limit of the kernel
+    checks (one bf16 step + 1e-3) reads the difference.  Reported, not
+    asserted: the share of that limit each gradient uses."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    B, S, nH, hD = 8, 1024, 16, 128
+    q, k, v, dout = (torch.randn((B, S, nH, hD), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    f32 = _rounded_once_bwd(q, k, v, dout, lse, delta, torch.float32)
+    f64 = _rounded_once_bwd(q, k, v, dout, lse, delta, torch.float64)
+    row = {"phase": "rounding_witness",
+           "shape": f"B={B} S={S} nH={nH} hD={hD} bfloat16 causal",
+           "limit_share_f32_vs_f64": {
+               n: _limit_share(a, b, F32_REL)
+               for n, a, b in zip(("dk", "dv", "dq"), f32, f64)}}
+    _log(row)
+    del q, k, v, dout, out, lse, delta, f32, f64
+    torch.cuda.empty_cache()
+    return row
 
 
 def train_reference_phase(gpt, hybrid):
@@ -1841,6 +1964,7 @@ def llama_kernel_phase(fa, fd):
            "max_abs_err": err, "max_ref": ref_max, "share_differing": differ,
            "limit_share": share, "lse_max_abs_err": lse_err,
            "library_max_abs_err": lib_err}
+    row.update(_rates({"fwd_ms": row["kernel_ms"]}, {"fwd": row}))
     _log(row)
     results["llama_prefill"] = row
     del flush, q, k, v, out, lse, w_out, w_lse, sdpa
@@ -2397,6 +2521,22 @@ def ring_kernel_phase(fa):
                         lib_out, leaves, dout.transpose(1, 2),
                         retain_graph=True), reps=10, flush=flush)
                 del lib_out, leaves, mask
+            if case == "train" and off == 0:
+                # the same function through SDPA's causal flag: its flash
+                # backend, where the boolean mask above takes another
+                leaves = [t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*leaves,
+                                                         is_causal=True)
+                times["fwd_library_causal_ms"] = _time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        *(t.transpose(1, 2) for t in (q, k, v)),
+                        is_causal=True), reps=10, flush=flush)
+                times["bwd_library_causal_ms"] = _time_ms(
+                    lambda: torch.autograd.grad(
+                        lib_out, leaves, dout.transpose(1, 2),
+                        retain_graph=True), reps=10, flush=flush)
+                del lib_out, leaves
             pairs = _visible_pairs(S, S, off) * B * nH
             n_el, e, stats = B * S * nH * hD, q.element_size(), B * nH * S * 4
             bounds = {
@@ -2405,7 +2545,7 @@ def ring_kernel_phase(fa):
                 "dq": _bound(5 * n_el * e + 2 * stats, 6 * hD * pairs, dts)}
             row = {"phase": "kernel_ring", "case": case, "offset": off,
                    "shape": f"B={B} Sq=Sk={S} nH={nH} hD={hD} {dts} causal",
-                   "visible_pairs": pairs, **times,
+                   "visible_pairs": pairs, **times, **_rates(times, bounds),
                    "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
                    "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
                    "lse_max_abs_err": lse_err,
@@ -2893,10 +3033,18 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
     t0 = time.perf_counter()
-    libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
-                         "fused_decode", "rms_norm"])
+    ptxas = _flash_ptxas_start(_build)
+    try:
+        libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
+                             "fused_decode", "rms_norm"])
+    except BaseException:
+        ptxas[0].kill()
+        ptxas[0].wait()
+        raise
     _log({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs.values()]})
+    resources = flash_resources(ptxas, _build)
+    _log({"phase": "flash_attention_resources", "kernels": resources})
 
     seconds = {}
 
@@ -2912,6 +3060,7 @@ def main(argv=None) -> int:
     paged_kernels = timed("paged_kernel", paged_kernel_phase, fd, kvq)
     train_kernels = timed("train_kernel", train_kernel_phase, fa, fce,
                           matmul_f32out)
+    rounding = timed("rounding_witness", rounding_witness_phase, fa)
     timed("reference", reference_phase, gpt, ContinuousBatchingEngine)
     timed("paged_reference", paged_reference_phase, gpt,
           ContinuousBatchingEngine, PagedContinuousBatchingEngine)
@@ -3131,7 +3280,8 @@ def main(argv=None) -> int:
             {"card": card, "kernels": kernels,
              "paged_kernels": paged_kernels,
              "serving_kv": {f"{a} {b}": r for (a, b), r in kv_runs.items()},
-             "train_kernels": train_kernels, "serving": serving,
+             "train_kernels": train_kernels,
+             "rounding_witness": rounding, "serving": serving,
              "fused_kernels": fused_kernels,
              "serving_b1": {f"{a} {b}": r for (a, b), r in fused_runs.items()},
              "b1_steps": b1_steps,

@@ -12,7 +12,18 @@ kernel, both recomputing P from the saved lse.  The TPU kernels
 (``_single_fwd_kernel`` / ``_fwd_kernel`` forward, ``_single_bwd_kernel``
 / ``_bwd_fused_kernel`` / ``_bwd_dkv_kernel`` + ``_bwd_dq_kernel``
 backward) become the three hand-written CUDA kernels in
-``csrc/flash_attention.cu``; its source note says what bounds them.
+``csrc/flash_attention.cu``, in two designs chosen there by dtype:
+bfloat16 runs on the tensor cores (``mma.sync``, bf16 tiles staged by
+``cp.async``), float32 on the CUDA cores; its source note says what
+bounds them.
+
+Rounding: every version keeps P and dS to float32 precision (the
+bfloat16 kernels feed each to the tensor cores as two bf16 halves), so
+the plain versions below are the kernels' function in float32.  The TPU
+kernels round P and dS to bf16 before their products; in bfloat16 the
+port stays within one bf16 step of the element plus half a step of the
+largest value of JAX's results (tests/test_torch_flash_attention.py),
+and the source note says why it does not round there itself.
 
 :func:`flash_attention_with_lse` runs the same three kernels with a
 run-time ``offset`` (key j visible to query i iff j <= i + offset) and

@@ -356,6 +356,90 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, B, S, nH, hD,
         _assert_kernel(got, want, 1e-4, of_max=True)
 
 
+def _flash_passes(q, k, v, dout, causal):
+    """Forward, then the backward pair twice on the same inputs."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = [(*fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal),
+              fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal))
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    return out, lse, delta, grads
+
+
+@pytest.mark.parametrize("hD", [32, 64, 128])
+@pytest.mark.parametrize("Sq,Sk,causal", [
+    (100, 100, True),     # ragged: one partial 64-row tile
+    (1000, 1000, True),   # ragged at length, many tiles
+    (100, 300, True),     # Sk > Sq: key tiles past every row skip
+    (300, 100, True),     # Sq > Sk
+    (300, 100, False),
+    (64, 1000, False),
+])
+def test_flash_attention_tc_kernels_match_plain(cuda, hD, Sq, Sk, causal):
+    """The bf16 tensor-core kernels against the plain versions per element
+    (one bf16 step), launch counts exact, and the backward deterministic:
+    two runs give the same bits."""
+    rng = np.random.default_rng(Sq + 7 * Sk + hD + causal)
+    q, dout = (_rand(rng, (2, Sq, 2, hD), torch.bfloat16, cuda)
+               for _ in range(2))
+    k, v = (_rand(rng, (2, Sk, 2, hD), torch.bfloat16, cuda)
+            for _ in range(2))
+    before = dict(fa.LAUNCHES)
+    out, lse, delta, grads = _flash_passes(q, k, v, dout, causal)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dkv": 2,
+        "flash_attention_bwd_dq": 2, "flash_attention_with_lse_fwd": 0,
+        "flash_attention_with_lse_bwd_dkv": 0,
+        "flash_attention_with_lse_bwd_dq": 0}
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    dk, dv, dq = grads[0]
+    w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0,
+                                                     causal=causal)
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
+                                                  causal)
+    w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    _assert_rel(lse, w_lse, 1e-4)
+    for got, want in ((out, w_out), (dq, w_dq), (dk, w_dk), (dv, w_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _assert_kernel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("offset", [-1024, -37, 37])
+def test_flash_attention_offsets_under_the_tc_tiles(cuda, offset):
+    """The ring variant in bf16 at one chunk of 1024 rows and keys (16 key
+    tiles of 64, 16 dK/dV query tiles): every row fully masked (-1024),
+    rows 0..36 fully masked (-37), every row seeing 37 keys ahead;
+    chip_smoke.ring_kernels_check holds each output per element."""
+    rng = np.random.default_rng(1024 + offset)
+    q, k, v, dout = (_rand(rng, (1, 1024, 2, 128), torch.bfloat16, cuda)
+                     for _ in range(4))
+    g_lse = _rand(rng, (1, 2, 1024), torch.float32, cuda)
+    before = fa.launches("flash_attention_with_lse")
+    chip_smoke.ring_kernels_check(fa, q, k, v, dout, g_lse, offset)
+    after = fa.launches("flash_attention_with_lse")
+    assert {n: after[n] - before[n] for n in before} == {
+        n: 1 for n in before}
+
+
+def test_flash_attention_dtype_picks_the_kernels(cuda):
+    """bf16 runs the tensor-core kernels (*_tc_kernel), float32 the CUDA-
+    core ones, as the profiler's kernel names show."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(1, 128, 2, 64, device=cuda).to(dtype)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _flash_passes(x, x, x, x, True)
+        names[dtype] = {e.key for e in prof.key_averages()
+                        if "flash_attention" in e.key}
+    assert len(names[torch.bfloat16]) == 3
+    assert all("_tc_kernel" in n for n in names[torch.bfloat16])
+    assert len(names[torch.float32]) == 3
+    assert not any("_tc_" in n for n in names[torch.float32])
+
+
 def test_flash_attention_autograd_on_card(cuda):
     """The Function's gradients on the card against autograd of the
     plain composition (float32, causal, packed qkv)."""
