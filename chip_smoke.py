@@ -9,11 +9,15 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    (nvidia-smi), build every CUDA kernel of the serving and training
    paths from the sources in the checkout (one nvcc per source, all
    started together, beside them ``nvcc -Xptxas -v`` of
-   flash_attention.cu) and print the build seconds, then each flash-
-   attention instance's registers, spills, threads and shared memory.
+   flash_attention.cu, flash_decode.cu and fused_ce.cu) and print the
+   build seconds, then the registers, spills, threads and shared memory
+   of each flash-attention instance and of flash_decode's split-KV,
+   merge and tensor-core instances and fused_ce's bf16 kernel and merge.
 2. kernels (serving) — hold ``flash_decode`` against its plain PyTorch
    version on the card at the serving path's shapes (float32 at atol
-   1e-4; bf16 per element, see below); time the
+   1e-4; bf16 per element, see below), each row naming the instance the
+   call ran (split-KV with its split count, tensor cores, or query
+   tiles: ``flash_decode.kernel_plan``); time the
    kernel, the plain version and ``F.scaled_dot_product_attention``
    with an explicit boolean mask (the yardstick, never called by the
    port), and compute each shape's bound from the bytes and operations
@@ -30,8 +34,10 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
    packed qkv) and at float32, non-causal and ragged (S 1000, hD 64)
    cases; ``fused_ce_fwd`` at N 8192, V 50304, H 2048, bf16, with
-   labels out of range.  float32 outputs are held at 1e-4 of the
-   largest reference value, lse and z/picked at atol 1e-3.  Yardsticks:
+   labels out of range (bf16: the tensor-core kernel split over the
+   vocabulary, then its merge; one launch count).  float32 outputs are
+   held at 1e-4 of the largest reference value, lse and z/picked at
+   atol 1e-3.  Yardsticks:
    SDPA (``is_causal``) forward and its autograd backward;
    ``matmul_f32out`` + ``torch.logsumexp`` (two calls).  Each flash
    time has its achieved TFLOP/s and share of the bound beside it.
@@ -58,8 +64,9 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    ``ContinuousBatchingEngine(max_batch=8, max_len=1024,
    attn_kernel="flash")``: 12 requests with seeded prompt lengths
    32-700 and max_new 32, all DONE with 32 tokens; the kernel's launch
-   count, reset just before, must equal 24 per decode step plus 24 per
-   prefill program.  Then one ``decode_step_multi`` at that width,
+   count, reset just before, must equal 24 per decode step (all on the
+   split-KV instance) plus 24 per prefill program (all on the tensor
+   cores).  Then one ``decode_step_multi`` at that width,
    "flash" against "xla", logits finite and within atol 0.25, and a
    profile of where a decode step's time goes.  The same 12 requests
    then go through ``PagedContinuousBatchingEngine(block_size=64)``
@@ -69,7 +76,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    Counts reset before each run: 24 launches of the paged layout per
    decode step and 24 of the contiguous one per prefill program (the
    contiguous engine: 24 per decode step too), in the run's storage
-   mode; every request DONE with 32 tokens, every page back in the
+   mode, decode steps on the split-KV instance and prefills on the
+   tensor cores; every request DONE with 32 tokens, every page back in the
    pool; agreement with the contiguous bf16 streams is reported, not
    asserted (bf16 near-ties, other GEMM shapes).  Then one paged decode
    step per kv_dtype, flash against xla, within atol 0.25, profiled.
@@ -269,48 +277,54 @@ def _nvidia_smi(query):
         timeout=60).stdout.strip().splitlines()[0]
 
 
+PTXAS_SOURCES = ("flash_attention", "flash_decode", "fused_ce")
+
+
 def _flash_ptxas_start(build):
-    """Start ``nvcc -Xptxas -v`` on flash_attention.cu with the build's
-    own flags, beside the build (its library is thrown away)."""
+    """Start ``nvcc -Xptxas -v`` on each of ``PTXAS_SOURCES`` with the
+    build's own flags, beside the build (the libraries are thrown away):
+    {source: (process, library path)}."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / "flash_attention_ptxas.so"
-    return subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-         str(build.CSRC_DIR / "flash_attention.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+    procs = {}
+    for name in PTXAS_SOURCES:
+        out = build.BUILD_DIR / f"{name}_ptxas.so"
+        procs[name] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(out), str(build.CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    return procs
 
 
 # mangled names: the float32 kernels <float, hD>, the bf16 tensor-core
 # kernels <hD, warps>
 FLASH_KERNEL = re.compile(r"flash_attention_(fwd|bwd_dkv|bwd_dq)(_tc)?_kernel"
                           r"I(?:f)?Li(\d+)E(?:Li(\d+)E)?")
+# flash_decode.cu's split-KV <TQ, TKV, paged, hD, queries>, merge <TQ, hD>
+# and tensor-core <hD, paged> instances; fused_ce.cu's bf16 kernel and
+# merge
+_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8",
+          "13__nv_fp8_e4m3": "fp8"}
+_Q_CODES = {"float32": 0, "bfloat16": 1}
+_KV_CODES = {"int8": 2, "fp8": 3}
+NEW_KERNELS = (
+    ("split", re.compile(r"flash_decode_split_kernelI(f|13__nv_bfloat16)"
+                         r"(f|a|13__nv_fp8_e4m3|13__nv_bfloat16|S\d*_)"
+                         r"Lb([01])ELi(\d+)ELi(\d+)E")),
+    ("merge", re.compile(r"flash_decode_merge_kernelI(f|13__nv_bfloat16)"
+                         r"Li(\d+)E")),
+    ("tc", re.compile(r"flash_decode_tc_kernelILi(\d+)ELb([01])E")),
+    ("ce_tc", re.compile(r"fused_ce_fwd_tc_kernel")),
+    ("ce_merge", re.compile(r"fused_ce_merge_kernel")))
 
 
-def flash_resources(proc, build):
-    """Registers, spills and the launch's dynamic shared memory of each
-    flash-attention kernel instance, from the ptxas report of
-    :func:`_flash_ptxas_start` and the library's own
-    ``pt_flash_attention_smem_bytes``."""
-    log, _ = proc[0].communicate()
-    if proc[0].returncode:
-        raise RuntimeError(f"nvcc -Xptxas -v flash_attention.cu:\n{log}")
-    proc[1].unlink(missing_ok=True)
-    smem = build.load("flash_attention").pt_flash_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    rows, cur = {}, None
+def _ptxas_entries(log):
+    """[(entry line, {registers, spill_store_bytes, spill_load_bytes,
+    static_smem_bytes})] of a ``-Xptxas -v`` report, in its order."""
+    entries, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = FLASH_KERNEL.search(line)
-            cur = None
-            if m:
-                tc = bool(m.group(2))
-                name = (f"flash_attention_{m.group(1)}"
-                        f"{'_tc' if tc else ''} "
-                        f"{'bfloat16' if tc else 'float32'} hD {m.group(3)}")
-                cur = rows.setdefault(name, {
-                    "threads": 32 * int(m.group(4)) if tc else 256,
-                    "smem_bytes": smem(int(tc), int(m.group(3)), (
-                        "fwd", "bwd_dkv", "bwd_dq").index(m.group(1)))})
+            cur = {}
+            entries.append((line, cur))
         elif cur is not None and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             cur["spill_store_bytes"], cur["spill_load_bytes"] = \
@@ -318,7 +332,75 @@ def flash_resources(proc, build):
         elif cur is not None and "Used" in line and "registers" in line:
             cur["registers"] = int(re.search(r"Used (\d+) registers",
                                              line).group(1))
-    return rows
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return entries
+
+
+def _new_kernel_row(kind, m, build):
+    """Name and launch facts of one flash_decode / fused_ce instance."""
+    fd_smem = build.load("flash_decode").pt_flash_decode_smem_bytes
+    fd_smem.argtypes = [ctypes.c_int] * 5
+    if kind == "split":
+        tq = _TYPES[m.group(1)]
+        tkv = tq if m.group(2).startswith("S") else _TYPES[m.group(2)]
+        code = _KV_CODES.get(tkv, _Q_CODES[tq])
+        return (f"flash_decode_split q {tq} K/V {tkv} "
+                f"{'paged' if m.group(3) == '1' else 'contiguous'} hD "
+                f"{m.group(4)} <= {m.group(5)} queries", 128,
+                fd_smem(1, _Q_CODES[tq], code, int(m.group(4)),
+                        int(m.group(5))))
+    if kind == "merge":
+        return (f"flash_decode_merge {_TYPES[m.group(1)]} hD {m.group(2)}",
+                128, 0)
+    if kind == "tc":
+        return (f"flash_decode_tc bfloat16 "
+                f"{'paged' if m.group(2) == '1' else 'contiguous'} hD "
+                f"{m.group(1)}", 128, fd_smem(2, 1, 1, int(m.group(1)), 0))
+    if kind == "ce_tc":
+        ce = build.load("fused_ce").pt_fused_ce_smem_bytes
+        return "fused_ce_fwd_tc bfloat16", 256, ce()
+    return "fused_ce_merge", 256, 0
+
+
+def flash_resources(procs, build):
+    """Registers, spills and shared memory of each kernel instance, from
+    the ptxas reports of :func:`_flash_ptxas_start` and the libraries'
+    own shared-memory queries: (the flash-attention instances, the
+    flash_decode split-KV / merge / tensor-core instances and the
+    fused_ce bf16 kernel and merge)."""
+    logs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{log}")
+        out.unlink(missing_ok=True)
+        logs[name] = log
+    smem = build.load("flash_attention").pt_flash_attention_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    rows = {}
+    for line, res in _ptxas_entries(logs["flash_attention"]):
+        m = FLASH_KERNEL.search(line)
+        if m:
+            tc = bool(m.group(2))
+            name = (f"flash_attention_{m.group(1)}"
+                    f"{'_tc' if tc else ''} "
+                    f"{'bfloat16' if tc else 'float32'} hD {m.group(3)}")
+            rows[name] = {
+                "threads": 32 * int(m.group(4)) if tc else 256,
+                "smem_bytes": smem(int(tc), int(m.group(3)), (
+                    "fwd", "bwd_dkv", "bwd_dq").index(m.group(1))), **res}
+    new_rows = {}
+    for line, res in _ptxas_entries(logs["flash_decode"]
+                                    + logs["fused_ce"]):
+        for kind, pattern in NEW_KERNELS:
+            m = pattern.search(line)
+            if m:
+                name, threads, dyn = _new_kernel_row(kind, m, build)
+                new_rows[name] = {"threads": threads,
+                                  "dynamic_smem_bytes": dyn, **res}
+                break
+    return rows, new_rows
 
 
 def _rates(times, bounds):
@@ -422,6 +504,8 @@ def kernel_phase(fd, cases=DECODE_CASES, phase="kernel"):
             "phase": phase, "name": name,
             "shape": f"B={B} W={W} T={T} nH={nH} nKV={nKV} hD={hD} "
                      f"{str(dt).split('.')[-1]}",
+            # the instance the call runs and, split-KV, its splits
+            "plan": fd.kernel_plan(q, k),
             "kernel_ms": _time_ms(
                 lambda: fd.flash_decode_attention(q, k, v, pos),
                 flush=flush),
@@ -533,6 +617,7 @@ def paged_kernel_phase(fd, kvq):
             "shape": f"B={B} W={W} T={T} nH={nH} nKV={nKV} hD={hD} q "
                      f"bfloat16, K/V {kv_name}"
                      + (f", paged bs={bs}, shuffled table" if paged else ""),
+            "plan": fd.kernel_plan(q, k, bt if paged else None),
             "kernel_ms": _time_ms(lambda: call(*args), flush=flush),
             "plain_ms": _time_ms(lambda: plain(*args), reps=5, flush=flush),
             "library_ms": _time_ms(
@@ -616,7 +701,7 @@ def serving_phase(gpt, Engine, fd):
     base = eng.metrics()
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 701, 12)
-    fd.LAUNCHES = 0
+    fd.reset_launches()
     t0 = time.perf_counter()
     rids = [eng.submit(rng.integers(0, cfg.vocab_size, (n,)), max_new=32)
             for n in lens]
@@ -624,6 +709,7 @@ def serving_phase(gpt, Engine, fd):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fd.LAUNCHES
+    instances = dict(fd.INSTANCE_LAUNCHES)
     m = eng.metrics()
     steps = m["decode_steps"] - base["decode_steps"]
     prefills = m["launches"]["prefill"] - base["launches"]["prefill"]
@@ -638,6 +724,10 @@ def serving_phase(gpt, Engine, fd):
         raise AssertionError(
             f"flash_decode launches {launches} != {L} x ({steps} decode "
             f"steps + {prefills} prefill programs)")
+    # decode steps on the split-KV instance, admissions on the tensor cores
+    if instances != {"split": L * steps, "tc": L * prefills, "simt": 0}:
+        raise AssertionError(f"flash_decode instances {instances}: want "
+                             f"split {L * steps}, tc {L * prefills}")
     ttft = [eng.request(r).first_token_at - eng.request(r).submitted_at
             for r in rids]
     e2e = [eng.request(r).finished_at - eng.request(r).submitted_at
@@ -645,8 +735,8 @@ def serving_phase(gpt, Engine, fd):
     dsec = m["decode_seconds"] - base["decode_seconds"]
     row = {"phase": "serving", "requests": len(rids),
            "prompt_lens": [int(n) for n in lens], "max_new": 32,
-           "launches": launches, "decode_steps": steps,
-           "prefill_programs": prefills,
+           "launches": launches, "instance_launches": instances,
+           "decode_steps": steps, "prefill_programs": prefills,
            "decode_rounds": m["launches"]["decode"]
            - base["launches"]["decode"],
            "tokens": 32 * len(rids), "wall_s": wall,
@@ -695,12 +785,16 @@ def compare_phase(gpt, cfg, params):
         _log({"phase": "flash_vs_xla", "max_abs_logit_diff": diff,
               "atol": SERVE_TOL, "logit_std": lx.float().std().item(),
               "argmax_agree": f"{agree}/{B}"})
+        rows = {}
         for kernel in ("flash", "xla"):
             prof = _step_profile(
                 lambda k=kernel: gpt.decode_step_multi(
                     params, cache, tok, pos, cfg, attn_kernel=k))
-            _log(dict(phase="decode_step", attn_kernel=kernel, slots=B,
-                      tok_s=B / prof["wall_ms"] * 1e3, **prof))
+            rows[kernel] = dict(phase="decode_step", attn_kernel=kernel,
+                                slots=B, tok_s=B / prof["wall_ms"] * 1e3,
+                                **prof)
+            _log(rows[kernel])
+    return rows
 
 
 def _step_profile(step, families=(("flash_decode", ("flash_decode",)),)):
@@ -872,7 +966,9 @@ def paged_serving_phase(gpt, Engine, PagedEngine, fd, cfg, params,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"contiguous": fd.LAUNCHES, "paged": fd.PAGED_LAUNCHES,
-                  **{f"mode_{k}": n for k, n in fd.MODE_LAUNCHES.items()}}
+                  **{f"mode_{k}": n for k, n in fd.MODE_LAUNCHES.items()},
+                  **{f"instance_{k}": n
+                     for k, n in fd.INSTANCE_LAUNCHES.items()}}
         m = eng.metrics()
         steps = m["decode_steps"] - base["decode_steps"]
         prefills = m["launches"]["prefill"] - base["launches"]["prefill"]
@@ -888,7 +984,11 @@ def paged_serving_phase(gpt, Engine, PagedEngine, fd, cfg, params,
         mode = "dense" if kd == "bf16" else kd
         want = {"contiguous": L * prefills + (0 if paged else L * steps),
                 "paged": L * steps if paged else 0,
-                "mode_dense": 0, "mode_int8": 0, "mode_fp8": 0}
+                "mode_dense": 0, "mode_int8": 0, "mode_fp8": 0,
+                # decode on the split-KV instance, admissions (bf16 K/V
+                # of the prompt) on the tensor cores
+                "instance_split": L * steps, "instance_tc": L * prefills,
+                "instance_simt": 0}
         want["mode_dense"] += L * prefills
         want[f"mode_{mode}"] += L * steps
         if counts != want or steps < 1 or prefills < 1:
@@ -972,6 +1072,7 @@ def paged_compare_phase(gpt, cfg, params):
     for b, k in enumerate(need):
         table[b, :k] = perm[sum(need[:b]):sum(need[:b]) + k]
     bt = torch.from_numpy(table).cuda()
+    rows = {}
     for kd in ("bf16", "int8", "fp8"):
         pools = gpt.init_decode_cache(cfg, nb, bs, kd, device="cuda")
         with torch.inference_mode():
@@ -997,12 +1098,15 @@ def paged_compare_phase(gpt, cfg, params):
                                      f"differ by {diff} > {SERVE_TOL}")
             prof = _step_profile(lambda: gpt.decode_step_paged(
                 params, pools, bt, tok, pos, cfg, attn_kernel="flash"))
-        _log(dict(phase="paged_decode_step", kv_dtype=kd, slots=B,
-                  pool_pages=nb, block_size=bs, max_abs_logit_diff=diff,
-                  atol=SERVE_TOL, argmax_agree=f"{agree}/{B}",
-                  tok_s=B / prof["wall_ms"] * 1e3, **prof))
+        rows[kd] = dict(phase="paged_decode_step", kv_dtype=kd, slots=B,
+                        pool_pages=nb, block_size=bs,
+                        max_abs_logit_diff=diff, atol=SERVE_TOL,
+                        argmax_agree=f"{agree}/{B}",
+                        tok_s=B / prof["wall_ms"] * 1e3, **prof)
+        _log(rows[kd])
         del pools, p2
     torch.cuda.empty_cache()
+    return rows
 
 
 def _err(got, want):
@@ -1153,6 +1257,9 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                matmul_f32out(h, W.t()), -1), reps=3, flush=flush),
            "library_calls": "matmul_f32out (torch.mm out_dtype=float32) "
                             "+ torch.logsumexp",
+           # vocabulary splits and tiles a split of the bf16 kernel
+           "plan": fce.ce_plan(N, V, torch.cuda.get_device_properties(
+               0).multi_processor_count),
            "max_abs_err": max(errs), "z_err": errs[0],
            "picked_err": errs[1], "atol": 1e-3,
            **_bound((N * H + V * H) * 2 + N * 12, 2 * N * V * H,
@@ -1318,6 +1425,12 @@ def training_phase(gpt, hybrid, TrainLoop, fa, fce):
     if ce_launches != 1 or not abs(ev - ref) <= LOSS_TOL:
         raise AssertionError(f"eval loss {ev} ({ce_launches} fused_ce "
                              f"launches) vs differentiated {ref}")
+    # where the eval loss's time goes (the fused head by family)
+    with torch.no_grad():
+        eval_prof = _step_profile(
+            lambda: gpt.loss_fn(params, ids, labels, cfg),
+            families=(("fused_ce", ("fused_ce",)),
+                      ("flash_fwd", ("flash_attention_fwd",))))
     # the same loss through the plain composition: no flash kernel
     with torch.no_grad():
         ev_plain = gpt.loss_fn(params, ids, labels, dataclasses.replace(
@@ -1351,8 +1464,12 @@ def training_phase(gpt, hybrid, TrainLoop, fa, fce):
     b.record()
     torch.cuda.synchronize()
     del grads
+    row["eval"] = {k: eval_prof[k] for k in (
+        "wall_ms", "device_ms", "device_busy_ms", "idle_share",
+        "sm_clock_power")}
     _log({"phase": "eval_and_remat", "differentiated_loss": ref,
           "eval_loss": ev, "fused_ce_launches": ce_launches,
+          "eval_profile": row["eval"],
           "remat_loss": rl, "remat_launches": remat_launches,
           "remat_step_ms": remat_ms, "atol": LOSS_TOL,
           "adamw_update_ms": a.elapsed_time(b),
@@ -3038,13 +3155,16 @@ def main(argv=None) -> int:
         libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
                              "fused_decode", "rms_norm"])
     except BaseException:
-        ptxas[0].kill()
-        ptxas[0].wait()
+        for proc, _ in ptxas.values():
+            proc.kill()
+            proc.wait()
         raise
-    _log({"phase": "build", "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    _log({"phase": "build", "seconds": build_s,
           "libraries": [p.name for p in libs.values()]})
-    resources = flash_resources(ptxas, _build)
+    resources, new_resources = flash_resources(ptxas, _build)
     _log({"phase": "flash_attention_resources", "kernels": resources})
+    _log({"phase": "kernel_resources", "kernels": new_resources})
 
     seconds = {}
 
@@ -3067,11 +3187,12 @@ def main(argv=None) -> int:
     timed("train_reference", train_reference_phase, gpt, hybrid)
     cfg, params, serving, launches, streams = timed(
         "serving", serving_phase, gpt, ContinuousBatchingEngine, fd)
-    timed("compare", compare_phase, gpt, cfg, params)
+    steps = timed("compare", compare_phase, gpt, cfg, params)
     kv_runs = timed("paged_serving", paged_serving_phase, gpt,
                     ContinuousBatchingEngine, PagedContinuousBatchingEngine,
                     fd, cfg, params, streams)
-    timed("paged_compare", paged_compare_phase, gpt, cfg, params)
+    paged_steps = timed("paged_compare", paged_compare_phase, gpt, cfg,
+                        params)
     qparams = gpt.quantize_decode_params(params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -3105,8 +3226,8 @@ def main(argv=None) -> int:
     llama_sp = timed("llama_sp", llama_sp_phase, llama, fa, *train_state)
     del train_state
     torch.cuda.empty_cache()
-    _log({"phase": "phase_seconds", **seconds,
-          "total_with_build": time.perf_counter() - t0})
+    seconds["total_with_build"] = time.perf_counter() - t0
+    _log({"phase": "phase_seconds", **seconds})
 
     src = "paddle_tpu_torch/incubate/nn/kernels/csrc/"
     ref = "paddle_tpu/incubate/nn/kernels/"
@@ -3118,7 +3239,14 @@ def main(argv=None) -> int:
         "launches": launches, "max_abs_err": dec["max_abs_err"],
         "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "shape": dec["shape"]}]
+        "library_ms": dec["library_ms"], "shape": dec["shape"],
+        "plan": dec["plan"],
+        "instance_launches": serving["instance_launches"],
+        # the window cases: verify (split-KV), prefill (tensor cores)
+        "cases": [{k: r[k] for k in (
+            "name", "shape", "plan", "max_abs_err", "limit_share",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in kernels[1:]]}]
     # the paged layout and the quantized modes: launches from the run of
     # the engine and kv_dtype that serves them
     for name, case, line, run, key in (
@@ -3140,7 +3268,7 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"], "plan": row["plan"]})
     for name, key, line, err in (
             ("flash_attention_fwd", "fwd", 342, "out"),
             ("flash_attention_bwd_dkv", "dkv", 475, "dk"),
@@ -3165,7 +3293,8 @@ def main(argv=None) -> int:
         "launches": ce_launches, "max_abs_err": ce["max_abs_err"],
         "ms": ce["ms"], "plain_ms": ce["plain_ms"],
         "bound_ms": ce["bound_ms"], "bound_by": ce["bound_by"],
-        "library_ms": ce["library_ms"], "shape": ce["shape"]})
+        "library_ms": ce["library_ms"], "shape": ce["shape"],
+        "plan": {"splits": ce["plan"][0], "tiles_per_split": ce["plan"][1]}})
     # the fused layer stack: launches from the full-width run of the
     # kv_dtype that serves each storage mode, time and bound at pos 512
     for name, kd in (("fused_decode_layers", "bf16"),
@@ -3190,8 +3319,9 @@ def main(argv=None) -> int:
     def at_llama(launches, *names):
         return {"launches": launches, "cases": [
             {k: llama_kernels[n][k] for k in (
-                "name", "shape", "max_abs_err", "limit_share", "kernel_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "name", "shape", "plan", "max_abs_err", "limit_share",
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if k in llama_kernels[n]}
             for n in names]}
 
     for e in entries:
@@ -3277,7 +3407,11 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": kernels,
+            {"card": card, "build_s": build_s, "phase_seconds": seconds,
+             "flash_attention_resources": resources,
+             "kernel_resources": new_resources,
+             "decode_steps": steps, "paged_decode_steps": paged_steps,
+             "kernels": kernels,
              "paged_kernels": paged_kernels,
              "serving_kv": {f"{a} {b}": r for (a, b), r in kv_runs.items()},
              "train_kernels": train_kernels,

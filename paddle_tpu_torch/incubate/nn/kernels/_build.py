@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``paddle_tpu_torch/_build/`` under a name that carries
-the source's hash, so a changed source rebuilds and an unchanged one is
-loaded as it is.  Nothing is built at import: the first launch of a
+a hash of the source and of the shared headers ``csrc/*.cuh``, so a
+changed source or header rebuilds and an unchanged one is loaded as it
+is.  Nothing is built at import: the first launch of a
 kernel builds it.  :func:`build` starts one ``nvcc`` per source, all at
 once, so a caller that needs several kernels pays for the slowest one.
 """
@@ -42,10 +43,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library path of ``csrc/<name>.cu``: its name carries a hash
+    of the source, of every header of ``csrc/`` (any source may include
+    one) and of the flags, so a change to any of them rebuilds."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

@@ -22,10 +22,23 @@ The kernel takes the slot (or page), row and head strides of q, K, V
 and the int8 scales, so the prefill path's q/k/v (strided slices of the
 packed qkv activation) reach it without a copy; only the last axis of
 q, K and V must be contiguous.
+
+On the card a call runs one of three instances (:func:`kernel_instance`,
+from shapes and dtypes, never from ``pos``): split-KV on the CUDA cores
+for small windows (decode, verify), the tensor cores for bf16 prefill
+windows, and the query-tile kernel for the rest.  The split plan
+(:func:`decode_plan`) depends on (B, nKV, T) and the card's SM count
+only, so the decode step reads ``pos`` on the device alone and the
+paged and contiguous layouts run the same plan.  Several splits leave
+float32 partials that a second kernel merges in a fixed order
+(:func:`flash_decode_split_plain` is that rule in plain PyTorch, for
+the tests).  The counts below add one per wrapper call, however many
+CUDA launches the call makes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,8 +48,9 @@ from . import _build
 
 __all__ = ["flash_decode_attention", "flash_decode_paged",
            "flash_decode_attention_plain", "flash_decode_paged_plain",
-           "kv_mode", "reset_launches", "LAUNCHES", "PAGED_LAUNCHES",
-           "MODE_LAUNCHES"]
+           "flash_decode_split_plain", "kernel_instance", "decode_plan",
+           "kernel_plan", "kv_mode", "reset_launches", "LAUNCHES",
+           "PAGED_LAUNCHES", "MODE_LAUNCHES", "INSTANCE_LAUNCHES"]
 
 #: kernel launches so far (CUDA tensors only; the plain versions and
 #: rejected calls do not count): contiguous-layout launches ...
@@ -46,11 +60,20 @@ PAGED_LAUNCHES = 0
 #: ... and every launch of either layout by K/V storage mode
 #: ("dense" = the model dtype, "int8", "fp8")
 MODE_LAUNCHES = {"dense": 0, "int8": 0, "fp8": 0}
+#: ... and by instance ("split", "tc", "simt": see kernel_instance)
+INSTANCE_LAUNCHES = {"split": 0, "tc": 0, "simt": 0}
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _NEG_INF = -1e30
+_INSTANCE_CODE = {"simt": 0, "split": 1, "tc": 2}
+#: KV rows a stage of the split-KV kernel; a split is a whole number
+SPLIT_ROWS = 32
+#: queries (nH/nKV heads x W window positions) a split-KV block serves
+MAX_SPLIT_QUERIES = 16
+#: split-KV blocks wanted on each SM before empty splits exit
+SPLIT_BLOCKS_PER_SM = 8
 _fn = None
 
 
@@ -59,8 +82,64 @@ def reset_launches():
     global LAUNCHES, PAGED_LAUNCHES
     LAUNCHES = 0
     PAGED_LAUNCHES = 0
-    for mode in MODE_LAUNCHES:
-        MODE_LAUNCHES[mode] = 0
+    for counts in (MODE_LAUNCHES, INSTANCE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def kernel_instance(q_dtype, kv_dtype, W: int, nH: int, nKV: int,
+                    hD: int) -> str:
+    """The instance a CUDA call runs: "split" (split-KV on the CUDA cores)
+    when a kv head's nH/nKV heads x W window positions are at most
+    ``MAX_SPLIT_QUERIES``; else "tc" (tensor cores) for bf16 q and bf16
+    K/V at hD >= 32, what every prefill path passes; else "simt" (the
+    query-tile kernel on the CUDA cores)."""
+    if nH // nKV * W <= MAX_SPLIT_QUERIES:
+        return "split"
+    if q_dtype == kv_dtype == torch.bfloat16 and hD >= 32:
+        return "tc"
+    return "simt"
+
+
+def decode_plan(B: int, nKV: int, T: int, n_sm: int):
+    """(n_split, split_len) of the split-KV instance: T cut into runs of
+    whole ``SPLIT_ROWS``-row stages, enough runs for some
+    ``SPLIT_BLOCKS_PER_SM`` blocks of (split, kv head, slot) an SM, and
+    at least two stages a run where T has them (a block's ring is two
+    stages deep).  Fixed by the shapes alone: never by pos, never by the
+    layout."""
+    stages = -(-T // SPLIT_ROWS)
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sm // (B * nKV))
+    per = min(stages, max(2, -(-stages // min(stages, max(1, want)))))
+    split_len = per * SPLIT_ROWS
+    return -(-T // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _history_len(keys, block_tables):
+    """T: the cache rows of a slot (paged: max_blocks * block_size)."""
+    k, _ = _split_kv(keys)
+    return k.shape[1] * (1 if block_tables is None
+                         else block_tables.shape[1])
+
+
+def kernel_plan(q, keys, block_tables=None) -> dict:
+    """What a CUDA call with these operands runs: its instance and, for
+    split-KV, the split count and length (``keys`` is the cache or the
+    pool, ``block_tables`` the paged layout's tables)."""
+    k, _ = _split_kv(keys)
+    B, W, nH, hD = q.shape
+    inst = kernel_instance(q.dtype, k.dtype, W, nH, k.shape[2], hD)
+    plan = {"instance": inst}
+    if inst == "split":
+        plan["splits"], plan["split_len"] = decode_plan(
+            B, k.shape[2], _history_len(keys, block_tables),
+            _sm_count(q.device))
+    return plan
 
 
 def _split_kv(x):
@@ -186,6 +265,49 @@ def flash_decode_attention_plain(q, keys, values, pos):
     return (out / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def flash_decode_split_plain(q, keys, values, pos, split_len: int,
+                             n_split=None):
+    """The split-KV rule in plain PyTorch, float32 math: split s covers
+    cache rows [s * split_len, (s + 1) * split_len) and yields, per query,
+    its max m_s of the visible scores (-1e30 when it sees none), l_s = sum
+    of exp(score - m_s) and acc_s = P_s . V; the merge, in split order,
+    is sum_s e^{m_s - M} acc_s / max(sum_s e^{m_s - M} l_s, 1e-30), a
+    split with l_s = 0 adding nothing.  ``n_split`` may exceed the splits
+    T needs: the extra ones are empty."""
+    B, W, nH, hD = q.shape
+    k = dequantize_kv(keys)
+    v = dequantize_kv(values)
+    T, nKV = k.shape[1], k.shape[2]
+    if n_split is None:
+        n_split = -(-T // split_len)
+    if nKV != nH:
+        k = k.repeat_interleave(nH // nKV, dim=2)
+        v = v.repeat_interleave(nH // nKV, dim=2)
+    s = torch.einsum("bwhd,bthd->bhwt",
+                     q.float() * (1.0 / math.sqrt(hD)), k)
+    rows = torch.arange(T, device=q.device)
+    allowed = (rows[None, None, :] <= pos[:, None, None].long()
+               + torch.arange(W, device=q.device)[None, :, None])[:, None]
+    ms, ls, accs = [], [], []
+    for sp in range(n_split):
+        inside = (rows >= sp * split_len) & (rows < (sp + 1) * split_len)
+        ok = allowed & inside
+        m = s.masked_fill(~ok, _NEG_INF).amax(-1)       # [B, nH, W]
+        p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhwt,bthd->bhwd", p, v))
+    M = torch.stack(ms).amax(0)
+    num = torch.zeros_like(accs[0])
+    den = torch.zeros_like(M)
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.where(l > 0, torch.exp(m - M), 0.0)
+        num = num + w[..., None] * acc
+        den = den + w * l
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def _gather_pages(pool, block_tables):
     """[B, mb*bs, ...] view of each slot's pages: ids clamped into the
     pool (-1 reads page 0, an id past the pool its last page, as an XLA
@@ -210,7 +332,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("flash_decode").pt_flash_decode
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                        + [ctypes.c_longlong] * 15
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -252,6 +374,16 @@ def _launch(q, k, ks, v, vs, pos, block_tables=None):
     out = torch.empty((B, W, nH, hD), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    plan = kernel_plan(q, k, block_tables)
+    n_split, split_len = plan.get("splits", 1), plan.get("split_len", 0)
+    part_acc = part_ml = None
+    if n_split > 1:
+        # one scratch: acc [n_split, B, W, nH, hD], then m and l
+        # [2, n_split, B, W, nH]
+        rows = n_split * B * W * nH
+        part = torch.empty((rows * (hD + 2),), dtype=torch.float32,
+                           device=q.device)
+        part_acc, part_ml = part[:rows * hD], part[rows * hD:]
     vec = 16 // k.element_size()
     qs = _strides(q, 16 // q.element_size())
     kst, vst = _strides(k, vec), _strides(v, vec)
@@ -270,6 +402,9 @@ def _launch(q, k, ks, v, vs, pos, block_tables=None):
         None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(),
         pos.data_ptr(), bt_ptr, out.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
+        _INSTANCE_CODE[plan["instance"]], n_split, split_len,
         _Q_CODE[q.dtype], kv_code, B, W, T, nH, nKV, hD, mb, bs, nb,
         *qs, *kst, *vst, *_scale_strides(ks), *_scale_strides(vs),
         1.0 / math.sqrt(hD), stream)
@@ -281,6 +416,7 @@ def _launch(q, k, ks, v, vs, pos, block_tables=None):
     else:
         PAGED_LAUNCHES += 1
     MODE_LAUNCHES[kv_mode(k)] += 1
+    INSTANCE_LAUNCHES[plan["instance"]] += 1
     return out
 
 

@@ -10,6 +10,13 @@ note says what bounds it on the H100.
 
 Dispatch: a CPU tensor runs :func:`fused_ce_fwd_plain`; a CUDA tensor
 launches the kernel or raises.  There is no fallback.
+
+bfloat16 runs on the tensor cores, split over the vocabulary: each
+split writes per-row partials (max, sum-exp, picked) and a second kernel
+merges them in a fixed order (:func:`ce_plan` fixes the splits,
+:func:`fused_ce_fwd_split_plain` is that rule in plain PyTorch, for the
+tests).  ``LAUNCHES`` counts one per call, however many CUDA launches
+the call makes.
 """
 from __future__ import annotations
 
@@ -20,14 +27,19 @@ import torch
 from ....models.common import matmul_f32out
 from . import _build
 
-__all__ = ["fused_ce_fwd", "fused_ce_fwd_plain", "fused_ce_supported",
-           "LAUNCHES"]
+__all__ = ["fused_ce_fwd", "fused_ce_fwd_plain", "fused_ce_fwd_split_plain",
+           "fused_ce_supported", "ce_plan", "LAUNCHES"]
 
-#: kernel launches so far (CUDA tensors only; the plain version and
-#: rejected calls do not count)
+#: kernel calls so far, one per wrapper call (CUDA tensors only; the
+#: plain version and rejected calls do not count)
 LAUNCHES = 0
 
+#: the bfloat16 kernel's tiles: rows of h a block, vocabulary rows a
+#: tile, and blocks resident on one SM
+ROW_TILE, VOCAB_TILE, BLOCKS_PER_SM = 128, 256, 1
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NEG_INF = -1e30
 _fn = None
 
 
@@ -67,11 +79,67 @@ def fused_ce_fwd_plain(h, W, local_labels):
     return z, torch.where(ok, got, 0.0)
 
 
+def ce_plan(N: int, V: int, n_sm: int):
+    """(splits, tiles_per_split) of the bfloat16 kernel: the vocabulary
+    in runs of whole 128-row tiles, as few runs as reach the least
+    (waves of ``BLOCKS_PER_SM * n_sm`` blocks) x (tiles a block).  At
+    N 8192, V 50304 on 132 SMs: 33 splits of 6 tiles."""
+    row_tiles = -(-N // ROW_TILE)
+    v_tiles = -(-V // VOCAB_TILE)
+    slots = BLOCKS_PER_SM * n_sm
+    best = None
+    for per in range(v_tiles, 0, -1):
+        splits = -(-v_tiles // per)
+        cost = -(-(row_tiles * splits) // slots) * per
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+def fused_ce_fwd_split_plain(h, W, local_labels, tiles_per_split: int,
+                             splits=None):
+    """The bfloat16 kernel's split-and-merge rule in plain PyTorch (float32
+    logits): split s covers vocabulary rows [s * tiles_per_split * 128,
+    (s + 1) * tiles_per_split * 128) and yields per row its max m_s
+    (-1e30 when it holds no row of W), sum-exp sse_s and picked logit;
+    the merge, in split order, is z = M + log(sum_s sse_s exp(m_s - M))
+    (a zero sum reads as 1) and picked = sum_s pick_s.  ``splits`` may
+    exceed the splits V needs: the extra ones are empty."""
+    V = W.shape[0]
+    per_rows = tiles_per_split * VOCAB_TILE
+    if splits is None:
+        splits = -(-V // per_rows)
+    logits = matmul_f32out(h, W.t())
+    lbl = local_labels.long()
+    m, sse, pick = [], [], []
+    for s in range(splits):
+        lo, hi = min(V, s * per_rows), min(V, (s + 1) * per_rows)
+        x = logits[:, lo:hi]
+        if hi > lo:
+            ms = x.amax(-1)
+            sse.append(torch.exp(x - ms[:, None]).sum(-1))
+        else:
+            ms = torch.full_like(logits[:, 0], _NEG_INF)
+            sse.append(torch.zeros_like(ms))
+        m.append(ms)
+        inside = (lbl >= lo) & (lbl < hi)
+        got = x.gather(1, (lbl - lo).clamp(0, max(hi - lo - 1, 0))[:, None]
+                       )[:, 0] if hi > lo else torch.zeros_like(ms)
+        pick.append(torch.where(inside, got, 0.0))
+    M = torch.stack(m).amax(0)
+    total = torch.zeros_like(M)
+    picked = torch.zeros_like(M)
+    for s in range(splits):
+        total = total + sse[s] * torch.exp(m[s] - M)
+        picked = picked + pick[s]
+    return M + torch.log(torch.where(total == 0, 1.0, total)), picked
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("fused_ce").pt_fused_ce_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -93,10 +161,17 @@ def _launch(h, W, local_labels):
                              f"16-byte aligned")
     z = torch.empty((N,), dtype=torch.float32, device=h.device)
     picked = torch.empty((N,), dtype=torch.float32, device=h.device)
+    splits, per, part = 0, 0, None
+    if h.dtype == torch.bfloat16:
+        splits, per = ce_plan(N, V, torch.cuda.get_device_properties(
+            h.device).multi_processor_count)
+        part = torch.empty((3, splits, N), dtype=torch.float32,
+                           device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     rc = _kernel()(h.data_ptr(), W.data_ptr(), local_labels.data_ptr(),
-                   z.data_ptr(), picked.data_ptr(), _DTYPE_CODE[h.dtype],
-                   N, V, H, stream)
+                   z.data_ptr(), picked.data_ptr(),
+                   None if part is None else part.data_ptr(),
+                   _DTYPE_CODE[h.dtype], N, V, H, splits, per, stream)
     if rc != 0:
         raise RuntimeError(f"fused_ce_fwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -112,7 +187,8 @@ def fused_ce_fwd(h, W, local_labels):
     id outside [0, V) never matches, so picked stays 0).  N must be a
     multiple of 128.  CPU tensors run the plain version; CUDA tensors
     launch the kernel (float32 or bfloat16, contiguous, H a multiple of
-    32) or raise."""
+    32: one count in ``LAUNCHES``, for the split kernel and its merge
+    alike) or raise."""
     _check(h, W, local_labels)
     if h.device.type == "cpu":
         return fused_ce_fwd_plain(h, W, local_labels)

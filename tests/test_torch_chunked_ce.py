@@ -109,3 +109,62 @@ def test_no_grad_primal_on_cpu_is_the_scan():
 def test_pick_num_chunks_matches_jax(n, v, monkeypatch):
     monkeypatch.delenv("PT_CE_CHUNKS", raising=False)
     assert tce.pick_num_chunks(n, v) == jce.pick_num_chunks(n, v)
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary split of the card's bf16 kernel: partials per split,
+# merged in a fixed order (the CUDA kernel itself is held to the plain
+# version in test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tiles_per_split,splits", [(1, None), (2, None),
+                                                    (1, 5)])
+def test_split_rule_matches_jax_kernel_and_unsplit(tiles_per_split, splits):
+    """V = 300 in the kernel's vocabulary tiles (fused_ce.VOCAB_TILE,
+    256): at one tile a split the last split holds only the ragged tail
+    (44 rows); splits 5 adds three empty ones.  Labels outside [0, V)
+    pick nothing.  Tolerance 1e-5: float32 logits, merged in another
+    order."""
+    N, V = 128, 300
+    h, W, lbl = _data(7, N, V, 128)
+    lbl[:5] = [-3, V, V + 7, 1000, V - 1]
+    jz, jp = jax_fused_ce_fwd(jnp.asarray(h), jnp.asarray(W),
+                              jnp.asarray(lbl))
+    z, picked = fce.fused_ce_fwd_split_plain(
+        torch.from_numpy(h), torch.from_numpy(W), torch.from_numpy(lbl),
+        tiles_per_split, splits)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), **TOL)
+    np.testing.assert_allclose(picked.numpy(), np.asarray(jp), **TOL)
+    uz, up = fce.fused_ce_fwd(torch.from_numpy(h), torch.from_numpy(W),
+                              torch.from_numpy(lbl))
+    np.testing.assert_allclose(z.numpy(), uz.numpy(), **TOL)
+    np.testing.assert_allclose(picked.numpy(), up.numpy(), **TOL)
+    assert (picked[:4] == 0).all()
+
+
+def test_split_rule_label_in_the_ragged_tail_split():
+    """A label on the last vocabulary row is picked from the split that
+    holds only the ragged tail, once."""
+    N, V = 128, 300
+    h, W, lbl = _data(8, N, V, 64)
+    lbl[:] = V - 1
+    z, picked = fce.fused_ce_fwd_split_plain(
+        torch.from_numpy(h), torch.from_numpy(W), torch.from_numpy(lbl), 1)
+    want = torch.from_numpy(h) @ torch.from_numpy(W)[V - 1]
+    torch.testing.assert_close(picked, want, **TOL)
+
+
+@pytest.mark.parametrize("N,V,want", [(8192, 50304, (33, 6)),
+                                      (128, 50304, (99, 2)),
+                                      (128, 300, (2, 1))])
+def test_ce_plan_at_the_eval_and_test_shapes(N, V, want):
+    assert fce.ce_plan(N, V, 132) == want
+
+
+@pytest.mark.parametrize("N,V", [(128, 300), (8192, 50304), (256, 1000),
+                                 (128, 50257), (4096, 128)])
+def test_ce_plan_covers_the_vocabulary(N, V):
+    """Every split holds at least one real tile; together they cover V."""
+    splits, per = fce.ce_plan(N, V, 132)
+    v_tiles = -(-V // fce.VOCAB_TILE)
+    assert (splits - 1) * per < v_tiles <= splits * per

@@ -110,6 +110,7 @@ def test_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
     def refuse(*_):
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(fd, "flash_decode_attention_plain", refuse)
+    monkeypatch.setattr(fd, "flash_decode_split_plain", refuse)
     qkv = torch.randn(2, 24, 3, 64, device=cuda)
     q, k, v = (qkv[:, :, i].view(2, 24, 4, 16) for i in range(3))
     out = fd.flash_decode_attention(
@@ -294,6 +295,151 @@ def test_flash_decode_paged_rejects(cuda, bad):
     with pytest.raises((TypeError, ValueError)):
         fd.flash_decode_paged(q, keys, values, bt, pos)
     assert (fd.LAUNCHES, fd.PAGED_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# flash_decode's instances: split-KV (small windows) and tensor cores (bf16
+# prefill windows), held to the plain version at their edges
+# ---------------------------------------------------------------------------
+
+def _decode_case(rng, B, W, T, nH, nKV, hD, mode, dtype, device, pos=None):
+    q = _rand(rng, (B, W, nH, hD), dtype, device)
+    k = _kv_store(rng, (B, T, nKV, hD), mode, dtype, device)
+    v = _kv_store(rng, (B, T, nKV, hD), mode, dtype, device)
+    if pos is None:
+        pos = rng.integers(0, T - W + 1, B)
+        pos[0], pos[-1] = 0, T - W
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device=device)
+
+
+def _instance_run(call, plain, args, q, keys, bt=None):
+    """Launch once, check the instance the plan names ran (one count in
+    INSTANCE_LAUNCHES) and that a second call is bit for bit the first;
+    returns (got, want, plan)."""
+    plan = fd.kernel_plan(q, keys, bt)
+    before = dict(fd.INSTANCE_LAUNCHES)
+    got = call(*args)
+    again = call(*args)
+    torch.cuda.synchronize()
+    assert fd.INSTANCE_LAUNCHES[plan["instance"]] == \
+        before[plan["instance"]] + 2
+    assert torch.equal(got, again)          # deterministic
+    return got, plain(*args), plan
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("hD", [32, 64, 128])
+def test_flash_decode_instances_at_their_window_boundary(cuda, rep, hD):
+    """bf16 at the last window split-KV takes (nH/nKV x W = 16 queries a
+    kv head) and the first the tensor cores take, GQA rep 1-8, T not a
+    multiple of the split, pos[-1] = T - W."""
+    rng = np.random.default_rng(rep * hD)
+    nKV, T = 2, 300
+    for W, want in ((16 // rep, "split"), (16 // rep + 1, "tc")):
+        q, k, v, pos = _decode_case(rng, 3, W, T, rep * nKV, nKV, hD,
+                                    "dense", torch.bfloat16, cuda)
+        got, ref, plan = _instance_run(fd.flash_decode_attention,
+                                       fd.flash_decode_attention_plain,
+                                       (q, k, v, pos), q, k)
+        assert plan["instance"] == want
+        _assert_kernel(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES)
+@pytest.mark.parametrize("B,W,T,nH,nKV,hD", [
+    (8, 1, 1000, 16, 16, 128),   # decode, T not a multiple of the split
+    (4, 1, 1024, 32, 32, 128),   # llama_7b heads
+    (3, 4, 257, 8, 2, 64),       # verify-shaped, GQA 4, a 1-row tail
+    (5, 2, 100, 16, 2, 32),      # GQA 8
+])
+def test_flash_decode_split_kv_matches_plain(cuda, mode, dtype, B, W, T, nH,
+                                             nKV, hD):
+    rng = np.random.default_rng(B * T + hD)
+    q, k, v, pos = _decode_case(rng, B, W, T, nH, nKV, hD, mode, dtype, cuda)
+    got, want, plan = _instance_run(fd.flash_decode_attention,
+                                    fd.flash_decode_attention_plain,
+                                    (q, k, v, pos), q, k)
+    assert plan["instance"] == "split" and plan["splits"] > 1
+    _assert_kernel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES)
+@pytest.mark.parametrize("hD", [16, 32, 64, 128])
+@pytest.mark.parametrize("W,nH,nKV", [
+    (1, 1, 1), (3, 1, 1), (4, 2, 1), (5, 1, 1), (8, 2, 2), (2, 8, 2),
+    (16, 1, 1), (1, 16, 1), (3, 10, 2)])
+def test_flash_decode_split_kv_every_query_count(cuda, mode, dtype, hD, W,
+                                                 nH, nKV):
+    """Queries a kv head (nH/nKV x W) from 1 to 16, both split instances
+    (at most 4 and at most 16 queries), T 4 (fewer rows than a stage: the
+    llama_tiny prefill of a 5-token prompt) and 100, pos 0 and T - W."""
+    for T in (max(4, W), 100):
+        rng = np.random.default_rng(T * W + nH + hD)
+        q, k, v, pos = _decode_case(rng, 2, W, T, nH, nKV, hD, mode, dtype,
+                                    cuda, pos=np.array([0, T - W]))
+        got, want, plan = _instance_run(fd.flash_decode_attention,
+                                        fd.flash_decode_attention_plain,
+                                        (q, k, v, pos), q, k)
+        assert plan["instance"] == "split"
+        _assert_kernel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES)
+def test_flash_decode_split_kv_first_split_only(cuda, mode, dtype):
+    """pos 0 and W 1 in every slot: every split but the first is empty
+    (l = 0 partials the merge weights by 0)."""
+    rng = np.random.default_rng(11)
+    q, k, v, pos = _decode_case(rng, 8, 1, 1024, 16, 16, 128, mode, dtype,
+                                cuda, pos=np.zeros(8, np.int64))
+    got, want, plan = _instance_run(fd.flash_decode_attention,
+                                    fd.flash_decode_attention_plain,
+                                    (q, k, v, pos), q, k)
+    assert plan["splits"] > 1
+    _assert_kernel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", _MODES)
+@pytest.mark.parametrize("W,nH,nKV", [(1, 16, 16), (4, 8, 2), (40, 4, 2)])
+def test_flash_decode_instances_paged(cuda, mode, dtype, W, nH, nKV):
+    """Both instances over shuffled pages with -1 tail pages against the
+    plain version, and over an identity table bit for bit the contiguous
+    call (the plan never depends on the layout)."""
+    rng = np.random.default_rng(W * nH + nKV)
+    B, T, hD, bs = 4, 320, 64, 16
+    q = _rand(rng, (B, W, nH, hD), dtype, cuda)
+    pk, pv, bt, pos = _paged_case(rng, B, W, T, nKV, hD, bs, mode, dtype,
+                                  cuda)
+    assert (bt < 0).any()
+    got, want, plan = _instance_run(fd.flash_decode_paged,
+                                    fd.flash_decode_paged_plain,
+                                    (q, pk, pv, bt, pos), q, pk, bt)
+    assert plan["instance"] == fd.kernel_instance(
+        dtype, kv_quant.kv_components(pk)[0].dtype, W, nH, nKV, hD)
+    _assert_kernel(got, want, 1e-4)
+    k = _kv_store(rng, (B, T, nKV, hD), mode, dtype, cuda)
+    v = _kv_store(rng, (B, T, nKV, hD), mode, dtype, cuda)
+
+    def pages(x):
+        return kv_quant.kv_map(
+            lambda a: a.reshape((B * T // bs, bs) + tuple(a.shape[2:])), x)
+
+    ident = torch.arange(B * T // bs, dtype=torch.int32,
+                         device=cuda).view(B, T // bs)
+    assert torch.equal(fd.flash_decode_paged(q, pages(k), pages(v), ident,
+                                             pos),
+                       fd.flash_decode_attention(q, k, v, pos))
+
+
+def test_flash_decode_split_kernel_follows_the_plain_rule(cuda):
+    """The card's split and merge against the same rule in plain PyTorch
+    (flash_decode_split_plain) at the kernel's own plan, float32."""
+    rng = np.random.default_rng(8)
+    q, k, v, pos = _decode_case(rng, 8, 2, 1000, 16, 4, 64, "dense",
+                                torch.float32, cuda)
+    plan = fd.kernel_plan(q, k)
+    got = fd.flash_decode_attention(q, k, v, pos)
+    want = fd.flash_decode_split_plain(q, k, v, pos, plan["split_len"])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -485,6 +631,50 @@ def test_fused_ce_kernel_matches_plain(cuda, dtype, N, V, H):
     torch.testing.assert_close(z, wz, rtol=0, atol=1e-3)
     torch.testing.assert_close(picked, wp, rtol=0, atol=1e-3)
     assert (picked[:4] == 0).all()
+
+
+@pytest.mark.parametrize("N,V,H", [(128, 50257, 2048), (128, 300, 128),
+                                   (256, 50304, 128), (384, 1000, 2048)])
+def test_fused_ce_tc_kernel_matches_plain(cuda, N, V, H):
+    """bf16 on the tensor cores, split over the vocabulary: ragged V,
+    N 128 (one row tile), H 128 and 2048, labels out of range and on the
+    last vocabulary row, deterministic (two calls bit for bit)."""
+    rng = np.random.default_rng(N + V + H)
+    h = _rand(rng, (N, H), torch.bfloat16, cuda)
+    W = (_rand(rng, (V, H), torch.float32, cuda) * 0.05).to(torch.bfloat16)
+    lbl = torch.tensor(rng.integers(0, V, N), dtype=torch.int32, device=cuda)
+    lbl[:6] = torch.tensor([-1, V, V + 5, -7, V - 1, V - 1],
+                           dtype=torch.int32)
+    before = fce.LAUNCHES
+    z, picked = fce.fused_ce_fwd(h, W, lbl)
+    z2, picked2 = fce.fused_ce_fwd(h, W, lbl)
+    torch.cuda.synchronize()
+    assert fce.LAUNCHES == before + 2        # one a call, merge included
+    assert torch.equal(z, z2) and torch.equal(picked, picked2)
+    wz, wp = fce.fused_ce_fwd_plain(h, W, lbl)
+    torch.testing.assert_close(z, wz, rtol=0, atol=1e-3)
+    torch.testing.assert_close(picked, wp, rtol=0, atol=1e-3)
+    assert (picked[:4] == 0).all() and (picked[4:6] != 0).all()
+    # the same split-and-merge rule in plain PyTorch, at the kernel's plan
+    splits, per = fce.ce_plan(N, V, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    sz, sp = fce.fused_ce_fwd_split_plain(h, W, lbl, per)
+    torch.testing.assert_close(z, sz, rtol=0, atol=1e-3)
+    torch.testing.assert_close(picked, sp, rtol=0, atol=1e-3)
+
+
+def test_fused_ce_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    def refuse(*_):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fce, "fused_ce_fwd_plain", refuse)
+    monkeypatch.setattr(fce, "fused_ce_fwd_split_plain", refuse)
+    monkeypatch.setattr(fce, "matmul_f32out", refuse)
+    for dtype in (torch.bfloat16, torch.float32):
+        h = torch.randn(128, 64, device=cuda).to(dtype)
+        W = torch.randn(200, 64, device=cuda).to(dtype)
+        z, picked = fce.fused_ce_fwd(h, W, torch.zeros(
+            128, dtype=torch.int32, device=cuda))
+        assert z.is_cuda and torch.isfinite(z).all()
 
 
 def test_chunked_nll_no_grad_runs_the_kernel(cuda):

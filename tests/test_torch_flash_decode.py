@@ -300,3 +300,108 @@ def test_paged_plain_clamps_ids_into_the_pool():
     clamped[:, 0] = torch.tensor([0, 15, 15], dtype=torch.int32)
     assert torch.equal(tfd.flash_decode_paged(q, pk, pv, bt, pos),
                        tfd.flash_decode_paged(q, pk, pv, clamped, pos))
+
+
+# ---------------------------------------------------------------------------
+# the split-KV rule (partials per split, merged in a fixed order), which
+# the card's decode instance implements; the CUDA kernel itself is held
+# to the plain version in test_torch_cuda.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("split_len,n_split", [(8, None), (16, None),
+                                               (32, None), (8, 9)])
+@pytest.mark.parametrize("W", [1, 3])
+def test_split_rule_matches_jax_kernel_and_unsplit(W, split_len, n_split):
+    """T = 40 is not a multiple of the split; slot 0 (pos 0, W 1) sees
+    only the first split, so every other split of it is empty; n_split 9
+    adds four splits past T.  Tolerance 1e-5: float32, the same math
+    merged in another order."""
+    q, k, v, pos = _inputs(W + split_len, 4, W, 40, 4, 2, 16)
+    ref = np.asarray(jax_flash_decode(*_j(q, k, v, pos)))
+    out = tfd.flash_decode_split_plain(*_t(q, k, v, pos), split_len,
+                                       n_split)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    unsplit = tfd.flash_decode_attention(*_t(q, k, v, pos))
+    np.testing.assert_allclose(out.numpy(), unsplit.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("kd", ["dense", "int8", "fp8"])
+def test_split_rule_paged_matches_jax_kernel(kd):
+    """The paged layout splits the slot's logical history the same way:
+    the rule on the gathered pages equals JAX's paged kernel (-1 tail
+    pages, a straddling position) at split 8 (one page a split)."""
+    rng = np.random.default_rng(14)
+    B, W, nH, nKV, hD, nb, bs = 3, 3, 4, 2, 16, 16, 8
+    q = rng.standard_normal((B, W, nH, hD)).astype(np.float32)
+    pk = rng.standard_normal((nb, bs, nKV, hD)).astype(np.float32)
+    pv = rng.standard_normal((nb, bs, nKV, hD)).astype(np.float32)
+    jk, tk = _quantized(pk, kd)
+    jv, tv = _quantized(pv, kd)
+    ref = np.asarray(jax_flash_decode_paged(
+        jnp.asarray(q), jk, jv, jnp.asarray(_BT), jnp.asarray(_POS)))
+    bt = torch.from_numpy(_BT)
+    out = tfd.flash_decode_split_plain(
+        torch.from_numpy(q), tfd._gather_pages(tk, bt),
+        tfd._gather_pages(tv, bt), torch.from_numpy(_POS), 8)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+def test_split_rule_empty_splits_add_nothing():
+    """Splits a slot cannot see (every split but the first at pos 0,
+    W 1) give l = 0 and leave the output bit for bit what the one split
+    that holds the slot's rows gives."""
+    q, k, v, _ = _inputs(21, 4, 1, 64, 4, 4, 32)
+    pos = torch.zeros(4, dtype=torch.int32)
+    one = tfd.flash_decode_split_plain(*_t(q, k, v), pos, 64)
+    many = tfd.flash_decode_split_plain(*_t(q, k, v), pos, 16, 6)
+    assert torch.equal(one, many)
+
+
+@pytest.mark.parametrize("B,nKV,T", [(8, 16, 1024), (8, 32, 1024),
+                                     (8, 4, 1024), (1, 32, 600), (4, 2, 64),
+                                     (2, 2, 20), (64, 16, 4096)])
+def test_decode_plan_covers_the_history_in_whole_stages(B, nKV, T):
+    """The split plan depends on (B, nKV, T) and the SM count only: the
+    splits are whole 32-row stages, cover T, and none starts past it."""
+    n_split, split_len = tfd.decode_plan(B, nKV, T, 132)
+    assert split_len % tfd.SPLIT_ROWS == 0
+    assert n_split * split_len >= T > (n_split - 1) * split_len
+    stages = -(-T // tfd.SPLIT_ROWS)
+    assert split_len // tfd.SPLIT_ROWS >= min(2, stages)
+
+
+def test_decode_plan_at_the_serving_shapes():
+    # GPT 8-slot decode (16 kv heads) and llama_7b's (32)
+    assert tfd.decode_plan(8, 16, 1024, 132) == (8, 128)
+    assert tfd.decode_plan(8, 32, 1024, 132) == (5, 224)
+
+
+@pytest.mark.parametrize("W,nH,nKV,qd,kd,hD,want", [
+    (1, 16, 16, torch.bfloat16, torch.bfloat16, 128, "split"),
+    (16, 4, 4, torch.bfloat16, torch.bfloat16, 128, "split"),
+    (17, 4, 4, torch.bfloat16, torch.bfloat16, 128, "tc"),
+    (4, 16, 4, torch.bfloat16, torch.bfloat16, 128, "split"),
+    (3, 16, 2, torch.bfloat16, torch.bfloat16, 64, "tc"),
+    (600, 32, 32, torch.bfloat16, torch.bfloat16, 128, "tc"),
+    (600, 32, 32, torch.bfloat16, torch.int8, 128, "simt"),
+    (600, 4, 2, torch.float32, torch.float32, 32, "simt"),
+    (24, 4, 4, torch.bfloat16, torch.bfloat16, 16, "simt"),
+    (1, 4, 2, torch.float32, torch.float8_e4m3fn, 32, "split"),
+])
+def test_kernel_instance_by_shape_and_dtype(W, nH, nKV, qd, kd, hD, want):
+    """Small windows (nH/nKV x W <= 16 queries a kv head) split the KV
+    axis; larger bf16 windows run on the tensor cores; the rest on the
+    query-tile kernel."""
+    assert tfd.kernel_instance(qd, kd, W, nH, nKV, hD) == want
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """A changed csrc/*.cuh changes every library's name, so a stale
+    build is never loaded after a header edit."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build._target("k")
+    assert _build._target("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k") != before
