@@ -9,10 +9,12 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    (nvidia-smi), build every CUDA kernel of the serving and training
    paths from the sources in the checkout (one nvcc per source, all
    started together, beside them ``nvcc -Xptxas -v`` of
-   flash_attention.cu, flash_decode.cu and fused_ce.cu) and print the
-   build seconds, then the registers, spills, threads and shared memory
-   of each flash-attention instance and of flash_decode's split-KV,
-   merge and tensor-core instances and fused_ce's bf16 kernel and merge.
+   flash_attention.cu, flash_decode.cu, fused_ce.cu and fused_decode.cu)
+   and print the build seconds, then the registers, spills, threads and
+   shared memory of each flash-attention instance, of flash_decode's
+   split-KV, merge and tensor-core instances, fused_ce's bf16 kernel and
+   merge, and fused_decode's four storage-mode instances (dynamic shared
+   memory at gpt3_1p3b).
 2. kernels (serving) — hold ``flash_decode`` against its plain PyTorch
    version on the card at the serving path's shapes (float32 at atol
    1e-4; bf16 per element, see below), each row naming the instance the
@@ -102,8 +104,9 @@ Phases; any failure is an uncaught exception and a non-zero exit:
 7. b1 int8 serving — the serving weights quantized by the port
    (``gpt.quantize_decode_params``).  ``fused_decode_layers`` against
    its plain version in four storage modes (an f32 cache at gpt_tiny
-   width; bf16, int8 and fp8 at gpt3_1p3b) at positions 0, 7, 8, 255,
-   256, 700 and 1023 of a seeded T 1024 cache: h_out row 0 within 2^-6
+   width; bf16, int8 and fp8 at gpt3_1p3b) at positions 0, 1, 7, 8,
+   255, 256, 257, 511, 700 and 1023 of a seeded T 1024 cache (the
+   attention items' edges among them): h_out row 0 within 2^-6
    of its largest value, the written rows within one step of their
    storage (bf16 step, int8 quantum, e4m3 step) plus 2^-16 of the row's
    largest value for the float32 sum order — layer 0 held to that, its
@@ -112,7 +115,10 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    ``_fused_errors``) and their scales 2^-7 — every other row bit for
    bit; the plain version on the card against the CPU at 24 layers (the
    witness of that carried difference); the kernel's time at positions
-   64, 512 and 1023 beside the byte bound, the plain version's at 512.
+   64, 512 and 1023 beside the byte bound and its share, the plain
+   version's at 512, the grid (blocks x threads), the ring's stages and
+   the grid barriers of a token as the kernel counted them (at most 6 a
+   layer).
    Then ``FusedB1Engine`` on the card against the CPU one (gpt_tiny f32,
    int8 weights, bf16/int8/fp8 caches: identical streams, one fused
    launch per decode step), and at full width: the serving workload's
@@ -277,7 +283,8 @@ def _nvidia_smi(query):
         timeout=60).stdout.strip().splitlines()[0]
 
 
-PTXAS_SOURCES = ("flash_attention", "flash_decode", "fused_ce")
+PTXAS_SOURCES = ("flash_attention", "flash_decode", "fused_ce",
+                 "fused_decode")
 
 
 def _flash_ptxas_start(build):
@@ -301,7 +308,7 @@ FLASH_KERNEL = re.compile(r"flash_attention_(fwd|bwd_dkv|bwd_dq)(_tc)?_kernel"
                           r"I(?:f)?Li(\d+)E(?:Li(\d+)E)?")
 # flash_decode.cu's split-KV <TQ, TKV, paged, hD, queries>, merge <TQ, hD>
 # and tensor-core <hD, paged> instances; fused_ce.cu's bf16 kernel and
-# merge
+# merge; fused_decode.cu's <storage mode> instances
 _TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8",
           "13__nv_fp8_e4m3": "fp8"}
 _Q_CODES = {"float32": 0, "bfloat16": 1}
@@ -314,7 +321,9 @@ NEW_KERNELS = (
                          r"Li(\d+)E")),
     ("tc", re.compile(r"flash_decode_tc_kernelILi(\d+)ELb([01])E")),
     ("ce_tc", re.compile(r"fused_ce_fwd_tc_kernel")),
-    ("ce_merge", re.compile(r"fused_ce_merge_kernel")))
+    ("ce_merge", re.compile(r"fused_ce_merge_kernel")),
+    ("fused", re.compile(r"fused_decode_kernelILi(\d)E")))
+FUSED_MODE_NAMES = ("float32", "bfloat16", "int8", "fp8")
 
 
 def _ptxas_entries(log):
@@ -338,7 +347,16 @@ def _ptxas_entries(log):
 
 
 def _new_kernel_row(kind, m, build):
-    """Name and launch facts of one flash_decode / fused_ce instance."""
+    """Name and launch facts of one flash_decode / fused_ce /
+    fused_decode instance (fused_decode's shared memory at
+    gpt3_1p3b)."""
+    if kind == "fused":
+        from paddle_tpu_torch.incubate.nn.kernels import fused_decode
+        plan = fused_decode.kernel_plan(
+            torch.device("cuda", torch.cuda.current_device()), 2048, 8192,
+            1024, 16)
+        return (f"fused_decode_layers {FUSED_MODE_NAMES[int(m.group(1))]} "
+                f"cache", plan["threads"], plan["smem"])
     fd_smem = build.load("flash_decode").pt_flash_decode_smem_bytes
     fd_smem.argtypes = [ctypes.c_int] * 5
     if kind == "split":
@@ -368,7 +386,7 @@ def flash_resources(procs, build):
     the ptxas reports of :func:`_flash_ptxas_start` and the libraries'
     own shared-memory queries: (the flash-attention instances, the
     flash_decode split-KV / merge / tensor-core instances and the
-    fused_ce bf16 kernel and merge)."""
+    fused_ce bf16 kernel and merge, fused_decode's instances)."""
     logs = {}
     for name, (proc, out) in procs.items():
         log, _ = proc.communicate()
@@ -391,8 +409,8 @@ def flash_resources(procs, build):
                 "smem_bytes": smem(int(tc), int(m.group(3)), (
                     "fwd", "bwd_dkv", "bwd_dq").index(m.group(1))), **res}
     new_rows = {}
-    for line, res in _ptxas_entries(logs["flash_decode"]
-                                    + logs["fused_ce"]):
+    for line, res in _ptxas_entries(logs["flash_decode"] + logs["fused_ce"]
+                                    + logs["fused_decode"]):
         for kind, pattern in NEW_KERNELS:
             m = pattern.search(line)
             if m:
@@ -1537,7 +1555,7 @@ def plain_training_phase(gpt, hybrid, fa, flash_losses):
     return row
 
 
-FUSED_POS = (0, 7, 8, 255, 256, 700, 1023)   # of a T 1024 cache
+FUSED_POS = (0, 1, 7, 8, 255, 256, 257, 511, 700, 1023)  # of a T 1024 cache
 FUSED_TIMED_POS = (64, 512, 1023)
 FUSED_H_REL = 2 ** -6                        # h_out row 0, of its max
 FUSED_SUM_ORDER = 2 ** -16     # of a written row's max: float32 sum order
@@ -1674,9 +1692,11 @@ def fused_kernel_phase(fdl, kvq, gpt, cfg, qparams):
     quantized) — at positions FUSED_POS of a T 1024 cache filled from a
     seed (``_fused_errors``); the plain version on the card against the
     CPU at FUSED_WITNESS_POS (bf16 cache); then the kernel's time at
-    FUSED_TIMED_POS beside its bound, and the plain version's at 512.  No single library call computes a
-    layer stack: the per-op int8 step's time stands in for it (the
-    fused serving phase)."""
+    FUSED_TIMED_POS beside its bound and its share, and the plain
+    version's at 512; the launch plan (grid, threads, ring stages) and
+    the grid barriers a token, as the kernel counted them (at most 6 a
+    layer).  No single library call computes a layer stack: the per-op
+    int8 step's time stands in for it (the fused serving phase)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     tiny = gpt.gpt_tiny(dtype=torch.float32)
     tq = gpt.quantize_decode_params(gpt.init_params(tiny, seed=1,
@@ -1726,8 +1746,16 @@ def fused_kernel_phase(fdl, kvq, gpt, cfg, qparams):
             p = torch.tensor([pos], dtype=torch.int32, device="cuda")
             nbytes, ops = _fused_work(c, pos, kv_elem,
                                       4 if mode == "int8" else 0, small_elem)
-            timed[str(pos)] = {"ms": _time_ms(lambda: call(p), flush=flush),
-                               **_bound(nbytes, ops, "bfloat16")}
+            ms = _time_ms(lambda: call(p), flush=flush)
+            bound = _bound(nbytes, ops, "bfloat16")
+            timed[str(pos)] = {"ms": ms, **bound,
+                               "bound_share": bound["bound_ms"] / ms}
+        barriers = fdl.last_barriers()
+        if not barriers == fdl.barriers_per_token(L) <= 6 * L:
+            raise AssertionError(f"fused_decode {mode}: {barriers} grid "
+                                 f"barriers a token, want "
+                                 f"{fdl.barriers_per_token(L)}")
+        plan = fdl.kernel_plan(h0.device, H, c.ffn_size, T, nH)
         p = torch.tensor([512], dtype=torch.int32, device="cuda")
         row = {"phase": "kernel_fused", "mode": mode,
                "shape": f"L={L} H={H} nH={nH} F={c.ffn_size} T={T} cache "
@@ -1735,6 +1763,10 @@ def fused_kernel_phase(fdl, kvq, gpt, cfg, qparams):
                "positions_checked": list(FUSED_POS), **worst,
                "max_abs_err": worst["h_max_abs_err"], "h_rel": h_rel,
                **witness, "timed": timed,
+               "grid": f"{plan['grid']} x {plan['threads']}",
+               "ring_stages": plan["stages"],
+               "dynamic_smem_bytes": plan["smem"],
+               "barriers_per_token": barriers,
                "plain_ms_at_512": _time_ms(
                    lambda: call(p, fdl.fused_decode_layers_plain), reps=3,
                    flush=flush)}
@@ -3308,7 +3340,8 @@ def main(argv=None) -> int:
             "launches": fused_runs[("fused", kd)]["launches"]["fused_decode"],
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": row["plain_ms_at_512"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
+            "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+            "barriers": row["barriers_per_token"], "grid": row["grid"],
             # no single library call computes a layer stack
             "library_ms": None,
             "per_op_int8_step_ms": b1_steps[kd]["per_op_int8_step_ms"],

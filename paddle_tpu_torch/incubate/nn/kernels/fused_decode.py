@@ -7,9 +7,15 @@ over the flat ``[L, T, H]`` cache with this token's K/V row written in
 place -> proj -> LN -> fc1 + tanh-GELU -> fc2, each with its residual.
 The TPU kernel ``_decode_kernel`` walks the layers as a sequential grid
 and carries ``h`` in VMEM; its CUDA counterpart in
-``csrc/fused_decode.cu`` is ONE cooperative launch whose blocks walk
-the layers together, separated by grid-wide barriers (the source note
-says how, and what bounds it).
+``csrc/fused_decode.cu`` is ONE cooperative launch (one block an SM)
+whose blocks walk the layers together, six grid barriers a layer: each
+block streams its own fixed share of every GEMV's int8 weights through
+a ring in shared memory that stays full across the barriers, the last
+block to finish a column tile applies its epilogue, and attention runs
+as (head, row tile) items over the whole grid (the source note says
+how, and what bounds it).  The plan functions below
+(:func:`gemv_parts`, :func:`attention_plan`, :func:`scratch_layout`, ...)
+mirror the kernel's own, so the CPU tests can check them.
 
 Dispatch: a CPU tensor runs :func:`fused_decode_layers_plain`; a CUDA
 tensor launches the kernel or raises.  There is no fallback from one to
@@ -42,7 +48,10 @@ from .flash_decode import kv_mode
 
 __all__ = ["fused_decode_layers", "fused_decode_layers_plain", "KV_CHUNK",
            "MAX_WIDTH", "SUPPORTED_HEAD_DIMS", "LAUNCHES", "MODE_LAUNCHES",
-           "reset_launches"]
+           "reset_launches", "GEMV_TILE", "MIN_TILE_ROWS", "gemv_plan",
+           "gemv_parts", "attention_plan", "attention_items",
+           "scratch_layout", "sync_ints", "barriers_per_token",
+           "kernel_plan", "last_barriers"]
 
 #: rows of one online-softmax chunk of the history (the TPU kernel's
 #: KV streaming chunk; p is rounded against each chunk's running max)
@@ -64,9 +73,122 @@ _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.float8_e4m3fn: 3}
 _SMALL = ("qkv_b", "proj_b", "fc1_b", "fc2_b", "ln1_g", "ln1_b", "ln2_g",
           "ln2_b")
-_fn = None
-_plan_fn = None
+_fns = None
 _PLANS = {}
+_SYNC = {}
+_LAST_SYNC = []
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan, mirrored (csrc/fused_decode.cu: gemv_plan,
+# smem_setup, layout, attn_plan)
+# ---------------------------------------------------------------------------
+
+#: int8 columns of a GEMV column tile (the bytes of one weight row that
+#: a ring stage holds)
+GEMV_TILE = 512
+#: fewest history rows of an attention item
+MIN_TILE_ROWS = 16
+_SYNC_TILE_COUNTERS = 4        # sync slots before the tile counters
+_BARRIERS_DONE = 2             # sync slot: barriers of the last launch
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _gemvs(H, F):
+    """(K, N) of qkv, proj, fc1 and fc2."""
+    return ((H, 3 * H), (H, H), (H, F), (F, H))
+
+
+def gemv_plan(K, N, grid):
+    """(column tiles, parts a tile) of a [K, N] GEMV on ``grid`` blocks:
+    tiles of GEMV_TILE int8 columns; with no more tiles than blocks,
+    each tile's K rows are cut into ``grid // tiles`` parts (at most K //
+    16: 16 rows or more a part), one a block, else every block takes
+    whole tiles."""
+    tiles = _ceil(N, GEMV_TILE)
+    m = grid // tiles if tiles <= grid else 1
+    return tiles, max(1, min(m, K // 16))
+
+
+def gemv_parts(K, N, grid):
+    """{tile: [(block, part, k0, k1)]} of a [K, N] GEMV: the K rows
+    ``k0:k1`` of each tile that each block sums, in part order (the order
+    the kernel adds the parts in).  Block b takes part b % m of tile
+    b // m (blocks from tiles * m on idle), or, with more tiles than
+    blocks, the whole tiles b, b + grid, ..."""
+    tiles, m = gemv_plan(K, N, grid)
+    out = {}
+    for b in range(grid):
+        if tiles <= grid:
+            if b < tiles * m:
+                t, j = divmod(b, m)
+                out.setdefault(t, []).append((b, j, K * j // m,
+                                              K * (j + 1) // m))
+        else:
+            for t in range(b, tiles, grid):
+                out.setdefault(t, []).append((b, 0, 0, K))
+    return out
+
+
+def attention_plan(pos, num_heads, grid):
+    """(rows of a tile, tiles of each head) of the attention items at
+    ``pos``: the shortest tile (a power of 2 from MIN_TILE_ROWS to
+    KV_CHUNK) whose ``num_heads * tiles`` items fit the grid."""
+    tr = MIN_TILE_ROWS
+    while tr < KV_CHUNK and num_heads * _ceil(pos, tr) > grid:
+        tr *= 2
+    return tr, _ceil(pos, tr)
+
+
+def attention_items(pos, num_heads, grid):
+    """[(block, head, tile, first row, end row)] of the attention items
+    at ``pos``, in the order the blocks take them (item i = tile i //
+    num_heads of head i % num_heads, on block i % grid): every history
+    row < pos of every head in exactly one item."""
+    tr, nt = attention_plan(pos, num_heads, grid)
+    return [(i % grid, i % num_heads, i // num_heads,
+             (i // num_heads) * tr, min(pos, (i // num_heads + 1) * tr))
+            for i in range(num_heads * nt)]
+
+
+def scratch_layout(H, F, T, num_heads, grid):
+    """{region: (offset, size)} of the kernel's float32 scratch and
+    "total": the layer carries h and h2, q/k/v, the GELU output, the new
+    V rows and scores, the history scores [nH, T], the tile maxima and
+    sums of p and the tiles' P.V [nH, tiles, hD] (tiles = T /
+    MIN_TILE_ROWS at most), and the GEMV parts [tile, part, GEMV_TILE]
+    of the GEMV with the most."""
+    mt = _ceil(T, MIN_TILE_ROWS)
+    parts = max(t * m for t, m in (gemv_plan(K, N, grid)
+                                   for K, N in _gemvs(H, F)))
+    sizes = (("hA", H), ("hB", H), ("qkv", 3 * H), ("g", F), ("vn", H),
+             ("sn", num_heads), ("s", num_heads * T),
+             ("tm", num_heads * mt), ("ls", num_heads * mt),
+             ("acc", mt * H))
+    out, off = {}, 0
+    for name, n in sizes:
+        out[name] = (off, n)
+        off += _ceil(n, 4) * 4
+    out["part"] = (off, parts * GEMV_TILE)
+    out["total"] = off + parts * GEMV_TILE
+    return out
+
+
+def sync_ints(H, F):
+    """int32 slots of the sync buffer: the grid barrier's 64-bit arrival
+    count, the barriers of the last launch, a spare slot, then one
+    counter per column tile."""
+    return _SYNC_TILE_COUNTERS + max(_ceil(3 * H, GEMV_TILE),
+                                     _ceil(F, GEMV_TILE))
+
+
+def barriers_per_token(num_layers):
+    """Grid barriers of one launch: six a layer (after qkv, the scores,
+    P.V, proj and fc1; after fc2 but for the last layer)."""
+    return 6 * num_layers - 1
 
 
 def reset_launches():
@@ -295,37 +417,71 @@ def _plain(h0, cache_k, cache_v, scales, pos, eps, w, small, L, H, F, nH,
 
 
 def _lib():
-    global _fn, _plan_fn
-    if _fn is None:
+    global _fns
+    if _fns is None:
         lib = _build.load("fused_decode")
         plan = lib.pt_fused_decode_plan
-        plan.argtypes = [ctypes.c_int, ctypes.c_int,
-                         ctypes.POINTER(ctypes.c_int),
-                         ctypes.POINTER(ctypes.c_longlong)]
+        plan.argtypes = [ctypes.c_int, ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)] * 4
         plan.restype = ctypes.c_int
+        scratch = lib.pt_fused_decode_scratch
+        scratch.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        scratch.restype = ctypes.c_int
         fn = lib.pt_fused_decode
-        fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn, _plan_fn = fn, plan
-    return _fn, _plan_fn
+        _fns = (fn, plan, scratch)
+    return _fns
 
 
-def _plan(device, H, F):
-    """(grid blocks, scratch floats) of the cooperative launch on this
-    device: as many blocks as can be resident at once (at most 2 an
-    SM), asked of the CUDA occupancy calculator once per shape."""
+def kernel_plan(device, H, F, T, num_heads):
+    """The launch on this device at these shapes: {grid, threads (a
+    block), stages (of the weight ring), smem (dynamic bytes a block),
+    scratch_floats, sync_ints, tile}, from the kernel's own plan
+    functions (the CUDA occupancy calculator, once per shape)."""
     key = (device.index, H, F)
+    _, plan, scratch = _lib()
     if key not in _PLANS:
-        _, plan = _lib()
-        grid, n = ctypes.c_int(), ctypes.c_longlong()
-        rc = plan(H, F, ctypes.byref(grid), ctypes.byref(n))
+        out = [ctypes.c_int() for _ in range(4)]
+        rc = plan(H, F, *(ctypes.byref(x) for x in out))
         if rc != 0:
             raise RuntimeError(f"fused_decode launch plan failed: CUDA "
                                f"error {rc}")
-        _PLANS[key] = (grid.value, n.value)
-    return _PLANS[key]
+        _PLANS[key] = dict(zip(("grid", "threads", "stages", "smem"),
+                               (x.value for x in out)))
+    got = dict(_PLANS[key])
+    n, ints, tile = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    rc = scratch(H, F, T, num_heads, got["grid"], ctypes.byref(n),
+                 ctypes.byref(ints), ctypes.byref(tile))
+    if rc != 0:
+        raise RuntimeError(f"fused_decode scratch plan failed: CUDA error "
+                           f"{rc}")
+    got.update(scratch_floats=n.value, sync_ints=ints.value, tile=tile.value)
+    return got
+
+
+def _sync(device, H, F, n):
+    """The zeroed int32 buffer of the barrier and tile counters for
+    launches on this device at these widths (every launch leaves its
+    counters at 0)."""
+    key = (device.index, H, F)
+    if key not in _SYNC:
+        _SYNC[key] = torch.zeros((n,), dtype=torch.int32, device=device)
+    return _SYNC[key]
+
+
+def last_barriers():
+    """Grid barriers the most recent launch went through, as the kernel
+    counted them (reads the card: a host sync); None before any
+    launch."""
+    if not _LAST_SYNC:
+        return None
+    return int(_LAST_SYNC[0][_BARRIERS_DONE].item())
 
 
 def _launch(h0, cache_k, cache_v, scales, pos, eps, w, small, L, H, F, nH,
@@ -354,11 +510,12 @@ def _launch(h0, cache_k, cache_v, scales, pos, eps, w, small, L, H, F, nH,
     mode = kv_mode(cache_k)
     ks, vs = scales if scales is not None else (None, None)
     with torch.cuda.device(h0.device):
-        grid, n_scratch = _plan(h0.device, H, F)
-        fn, _ = _lib()
+        plan = kernel_plan(h0.device, H, F, T, nH)
+        fn = _lib()[0]
         out = torch.empty((8, H), dtype=torch.float32, device=h0.device)
-        scratch = torch.empty((n_scratch,), dtype=torch.float32,
+        scratch = torch.empty((plan["scratch_floats"],), dtype=torch.float32,
                               device=h0.device)
+        sync = _sync(h0.device, H, F, plan["sync_ints"])
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         rc = fn(h0.data_ptr(),
                 *(w[n][0].data_ptr() for n in ("qkv_w", "proj_w", "fc1_w",
@@ -370,14 +527,17 @@ def _launch(h0, cache_k, cache_v, scales, pos, eps, w, small, L, H, F, nH,
                 None if ks is None else ks.data_ptr(),
                 None if vs is None else vs.data_ptr(),
                 pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                L, H, F, nH, T, int(small["ln1_g"].dtype == torch.bfloat16),
+                sync.data_ptr(), L, H, F, nH, T,
+                int(small["ln1_g"].dtype == torch.bfloat16),
                 _KV_CODE[cache_k.dtype], eps, 1.0 / (H // nH) ** 0.5,
-                grid, n_scratch, stream)
+                plan["grid"], plan["stages"], plan["scratch_floats"],
+                plan["sync_ints"], stream)
     if rc != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
+    _LAST_SYNC[:] = [sync]
     return (out, cache_k, cache_v) + (tuple(scales) if scales else ())
 
 

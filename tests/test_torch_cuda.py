@@ -848,7 +848,10 @@ def _assert_fused(got, want, before, pos, mode):
 
 
 @pytest.mark.parametrize("mode", _FUSED_MODES)
-@pytest.mark.parametrize("pos", [0, 7, 8, 255, 256, 700, 1023])
+@pytest.mark.parametrize("pos", [0, 7, 8, 255, 256, 700, 1023,
+                                 # the edges of the attention items: one
+                                 # row, a chunk and a row, tile sizes
+                                 1, 257, 511, 512, 767])
 def test_fused_decode_kernel_matches_plain(cuda, mode, pos):
     rng = np.random.default_rng(pos + 7)
     L, H, nH, F, T = 2, 256, 2, 1024, 1024
@@ -905,6 +908,82 @@ def test_fused_decode_cooperative_launch_at_the_limits(cuda, H, nH, F, T,
     got = fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, scales=sc)
     want = fdl.fused_decode_layers_plain(h0, ql, wk, wv, p, nH, scales=ws)
     _assert_fused(got, want, before, pos, "bf16")
+
+
+@pytest.mark.parametrize("mode", _FUSED_MODES)
+def test_fused_decode_two_launches_give_the_same_bits(cuda, mode):
+    """Deterministic: at a width where every column tile's sum has
+    several parts (and a different block may finish it last), two
+    launches from the same seeded state give bit-equal h_out, cache
+    and scale bytes."""
+    rng = np.random.default_rng(11)
+    L, H, nH, F, T, pos = 2, 2048, 16, 8192, 1024, 700
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, L, H, nH, F, T, mode,
+                                        torch.bfloat16, pos)
+    outs = []
+    for _ in range(2):
+        k, v, s = _clone_cache(ck, cv, sc)
+        got = fdl.fused_decode_layers(h0, ql, k, v, p, nH, scales=s)
+        torch.cuda.synchronize()
+        outs.append([got[0]] + [kv_quant.byte_view(t) for t in got[1:]])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert torch.isfinite(outs[0][0]).all()
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_fused_decode_gemv_takes_every_int8_value(cuda, mode):
+    """Weights that hold every int8 value from -128 to 127 (a seeded
+    shuffle of each in equal numbers), against the plain version with
+    chip_smoke's limits: layer 0's new K/V row comes straight from the
+    qkv GEMV, and is held to 2^-16 of its largest value (float32 sum
+    order only), so a byte converted wrongly shows."""
+    rng = np.random.default_rng(5)
+    L, H, nH, F, T, pos = 2, 512, 4, 2048, 256, 100
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, L, H, nH, F, T, mode,
+                                        torch.float32, pos)
+    for name, (q, s) in list(ql.items()):
+        if name.endswith("_w"):
+            full = np.resize(np.arange(-128, 128, dtype=np.int8), q.numel())
+            ql[name] = (torch.from_numpy(rng.permutation(full)).reshape(
+                q.shape).to(cuda), s)
+            assert set(ql[name][0].unique().tolist()) == set(range(-128, 128))
+    before = _clone_cache(ck, cv, sc)
+    wk, wv, ws = _clone_cache(ck, cv, sc)
+    got = fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, scales=sc)
+    want = fdl.fused_decode_layers_plain(h0, ql, wk, wv, p, nH, scales=ws)
+    torch.cuda.synchronize()
+    flat = [before[0], before[1], *(before[2] or ())]
+    errs = chip_smoke._fused_errors(kv_quant, got, want, flat, pos, mode)
+    assert errs["row_share_layer0"] <= 1
+
+
+@pytest.mark.parametrize("L,pos", [(1, 0), (3, 300), (24, 5)])
+def test_fused_decode_barrier_count_and_plan(cuda, L, pos):
+    """The kernel counts its grid barriers: barriers_per_token(L) = 6 L
+    - 1, at most 6 a layer; the plan is one block an SM, the scratch
+    and sync sizes equal the wrapper's mirror of the kernel's layout,
+    every column-tile counter is back at 0 after the launch and the
+    barrier's arrival count grew by grid x barriers."""
+    rng = np.random.default_rng(L)
+    H, nH, F, T = 256, 2, 1024, 512
+    h0, ql, ck, cv, sc, p = _fused_case(rng, cuda, L, H, nH, F, T, "bf16",
+                                        torch.bfloat16, pos)
+    fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, scales=sc)
+    count0 = fdl._SYNC[(h0.device.index, H, F)][:2].view(torch.int64).item()
+    fdl.fused_decode_layers(h0, ql, ck, cv, p, nH, scales=sc)
+    assert fdl.last_barriers() == fdl.barriers_per_token(L) <= 6 * L
+    plan = fdl.kernel_plan(h0.device, H, F, T, nH)
+    sms = torch.cuda.get_device_properties(h0.device).multi_processor_count
+    assert plan["grid"] == sms and plan["threads"] == 512
+    assert plan["stages"] >= 2 and plan["tile"] == fdl.GEMV_TILE
+    assert plan["scratch_floats"] == fdl.scratch_layout(
+        H, F, T, nH, plan["grid"])["total"]
+    assert plan["sync_ints"] == fdl.sync_ints(H, F)
+    sync = fdl._SYNC[(h0.device.index, H, F)].cpu()
+    count = sync[:2].view(torch.int64).item()
+    assert count - count0 == plan["grid"] * fdl.barriers_per_token(L)
+    assert count % plan["grid"] == 0 and not sync[4:].any()
 
 
 def test_fused_decode_cuda_tensor_never_reaches_plain(cuda, monkeypatch):

@@ -362,3 +362,109 @@ def test_fused_decode_wrapper_checks(tiny, bad):
         pos = T
     with pytest.raises((TypeError, ValueError)):
         tfd.fused_decode_layers(h0, ql, ck, cv, pos, nH, scales=scales)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan (mirrored in the wrapper): GEMV ownership, attention
+# items, scratch
+# ---------------------------------------------------------------------------
+
+GRIDS = (132, 264, 7, 1)
+WIDTHS = ((2048, 8192), (64, 256), (96, 160), (16384, 16384))
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("H,F", WIDTHS)
+def test_gemv_parts_cover_every_weight_row_once(H, F, grid):
+    """Every (column tile, K row) of each GEMV lies in exactly one part;
+    a tile's parts come in part order 0..m-1, cut its K rows evenly
+    (their sizes differ by at most one row) and fit the scratch's
+    [tile, part] slots; with no more tiles than blocks every block has
+    at most one part (so it finishes one tile), and all but fewer than
+    a tile's parts' worth of blocks have one, unless the parts are at
+    their floor of 16 rows."""
+    lay = tfd.scratch_layout(H, F, 1024, 16, grid)
+    for K, N in tfd._gemvs(H, F):
+        tiles, m = tfd.gemv_plan(K, N, grid)
+        parts = tfd.gemv_parts(K, N, grid)
+        assert sorted(parts) == list(range(tiles))
+        owners = {}
+        for t, ps in parts.items():
+            assert [j for _, j, _, _ in ps] == list(range(m))
+            bounds = [k for _, _, k0, k1 in ps for k in (k0, k1)]
+            assert bounds[0] == 0 and bounds[-1] == K
+            assert bounds[1:-1:2] == bounds[2:-1:2]      # contiguous
+            sizes = [k1 - k0 for *_, k0, k1 in ps]
+            assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 16
+            assert (t * m + m) * tfd.GEMV_TILE <= lay["part"][1]
+            for b, *_ in ps:
+                owners[b] = owners.get(b, 0) + 1
+        assert all(0 <= b < grid for b in owners)
+        if tiles <= grid:
+            assert set(owners.values()) == {1}
+            assert grid - len(owners) < tiles or m == K // 16
+        else:
+            assert len(owners) == grid
+
+
+@pytest.mark.parametrize("grid", (132, 7))
+@pytest.mark.parametrize("nH", (16, 2, 128))
+@pytest.mark.parametrize("T", (8, 256, 1024))
+def test_attention_items_cover_every_history_row_once(T, nH, grid):
+    """At every pos < T each (head, history row < pos) falls in exactly
+    one item, no item crosses a KV_CHUNK boundary, tiles are powers of 2
+    from MIN_TILE_ROWS to KV_CHUNK, and the items fill the grid without
+    exceeding it where a tile of KV_CHUNK rows allows."""
+    for pos in range(T):
+        tr, nt = tfd.attention_plan(pos, nH, grid)
+        assert tr in (16, 32, 64, 128, 256) and nt == -(-pos // tr)
+        assert nH * nt <= grid or tr == tfd.KV_CHUNK
+        assert tr == tfd.MIN_TILE_ROWS or nH * -(-pos // (tr // 2)) > grid
+        items = tfd.attention_items(pos, nH, grid)
+        seen = np.zeros((nH, T), np.int32)
+        for b, hh, j, r0, r1 in items:
+            assert 0 <= b < grid and 0 <= r0 < r1 <= pos
+            assert r0 == j * tr and r1 - r0 <= tr
+            assert r0 // tfd.KV_CHUNK == (r1 - 1) // tfd.KV_CHUNK
+            seen[hh, r0:r1] += 1
+        assert (seen[:, :pos] == 1).all() and not seen[:, pos:].any()
+
+
+@pytest.mark.parametrize("grid", (132, 7))
+@pytest.mark.parametrize("T", (8, 256, 1024))
+@pytest.mark.parametrize("H,nH,F", ((2048, 16, 8192), (64, 4, 256),
+                                    (96, 3, 160)))
+def test_scratch_covers_what_the_plan_writes(H, nH, F, T, grid):
+    """The regions of scratch_layout are disjoint, 16-byte aligned and
+    within "total", and each holds every index the kernel writes at any
+    pos < T: the scores [head, row], the tile maxima and sums [head,
+    tile], the tiles' P.V [head, tile, hD] and every block's GEMV parts
+    [block, tile index, GEMV_TILE]."""
+    lay = tfd.scratch_layout(H, F, T, nH, grid)
+    regions = sorted(v for k, v in lay.items() if k != "total")
+    for (a, n), (b, _) in zip(regions, regions[1:]):
+        assert a % 4 == 0 and a + n <= b
+    assert regions[-1][0] + regions[-1][1] == lay["total"]
+    hD = H // nH
+    most_tiles = max(tfd.attention_plan(pos, nH, grid)[1]
+                     for pos in range(T))
+    for hh in (0, nH - 1):
+        assert hh * T + T - 1 < lay["s"][1]
+        assert hh * -(-T // tfd.MIN_TILE_ROWS) + most_tiles - 1 \
+            < lay["tm"][1] == lay["ls"][1]
+        assert (hh * -(-T // tfd.MIN_TILE_ROWS) + most_tiles) * hD \
+            <= lay["acc"][1]
+    for K, N in tfd._gemvs(H, F):
+        tiles, m = tfd.gemv_plan(K, N, grid)
+        for t, ps in tfd.gemv_parts(K, N, grid).items():
+            for _, j, *_ in ps:
+                assert (t * m + j + 1) * tfd.GEMV_TILE <= lay["part"][1]
+    for name, n in (("qkv", 3 * H), ("g", F), ("vn", H), ("sn", nH)):
+        assert lay[name][1] == n
+    assert tfd.sync_ints(H, F) == 4 + max(-(-3 * H // tfd.GEMV_TILE),
+                                          -(-F // tfd.GEMV_TILE))
+
+
+@pytest.mark.parametrize("L", (1, 3, 24))
+def test_barriers_per_token_at_most_six_a_layer(L):
+    assert tfd.barriers_per_token(L) == 6 * L - 1 <= 6 * L

@@ -5,7 +5,8 @@ A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib`` and ``paddle_tpu``, imports every module of the port, serves
 one request (and one through the fused b1 engine on int8 weights),
 takes one train step and runs one llama_tiny ``generate`` on the CPU.  A source scan checks the import
-statements of the package and of ``chip_smoke.py``.
+statements of the package and of the chip scripts (``chip_smoke.py``,
+``chip_fused_ab.py``).
 """
 import ast
 import subprocess
@@ -93,7 +94,7 @@ def _imports(path):
 
 def test_source_imports_no_jax_or_paddle_tpu():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_fused_ab.py"]
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in BLOCKED]
     assert len(files) > 10
