@@ -37,7 +37,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    packed qkv) and at float32, non-causal and ragged (S 1000, hD 64)
    cases; ``fused_ce_fwd`` at N 8192, V 50304, H 2048, bf16, with
    labels out of range (bf16: the tensor-core kernel split over the
-   vocabulary, then its merge; one launch count).  float32 outputs are
+   vocabulary, then its merge; one launch count), and its float32
+   instance (the CUDA-core kernel) at N 2048.  float32 outputs are
    held at 1e-4 of the largest reference value, lse and z/picked at
    atol 1e-3.  Yardsticks:
    SDPA (``is_causal``) forward and its autograd backward;
@@ -60,7 +61,20 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    contiguous engines: identical streams; then three train steps of
    gpt_tiny f32 on the card (flash kernels) against the CPU (plain
    versions) at (num_micro 1, remat False) and (2, True): losses at
-   rel 1e-4.
+   rel 1e-4, the float32 flash kernels' launches counted; then the eval
+   loss on the card (one float32 ``fused_ce_fwd`` launch) against the
+   CPU's at rel 1e-4.
+4a. speculative reference (``speculative_reference_phase``) — greedy
+   speculative decoding, k 3, gpt_tiny f32 target with four drafts (a
+   smaller GPT, a LLaMA with GQA whose RMSNorms run the ``rms_norm``
+   kernel, the target itself, n-gram) on the contiguous and the paged
+   engine (18 pages: evictions re-prefill the draft), and the fused
+   engine on a tiny bf16 int8-weight model (GPT draft, n-gram): every
+   card stream equal to the card's non-speculative stream and to the
+   CPU's; launches exact (flash_decode L a target decode step, verify
+   round and prefill, the draft's layers a draft step and draft
+   prefill; fused_decode once a decode step and a verify position; RMS
+   "llama" 2 L + 1 a LLaMA draft step).
 5. serving — gpt3_1p3b at full width (24 layers, H 2048, 16 heads of
    128, V 50304, bf16, random weights from seed 0) behind
    ``ContinuousBatchingEngine(max_batch=8, max_len=1024,
@@ -83,6 +97,21 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    pool; agreement with the contiguous bf16 streams is reported, not
    asserted (bf16 near-ties, other GEMM shapes).  Then one paged decode
    step per kv_dtype, flash against xla, within atol 0.25, profiled.
+5a. speculative serving (``speculative_serving_phase``) — k 3 at that
+   width and load: the row check (each verify row's logits against a
+   decode step at the same position on a copy of one cache: largest
+   |delta|, rows not bitwise equal; contiguous bf16, paged bf16 and
+   int8) with one verify pass, one decode step and one self-draft round
+   profiled; the contiguous and paged bf16 engines with n-gram and with
+   the target as its own draft, the paged int8 engine with n-gram:
+   launches exact, every request DONE with 32 tokens, decode-loop tok/s,
+   acceptance, tokens per launch and rounds beside the plain run, the
+   streams equal to the plain run's, and each difference's first token
+   with the target's top-2 margin there, which must lie within the row
+   check's |delta| (a near-tie) or the phase fails; ``FusedB1Engine``
+   (int8 weights, 3 requests x 32) plain and with n-gram: equal streams
+   (a gate) and ``verify_fused`` equal to the fused decode steps bit
+   for bit, both profiled.
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -210,7 +239,10 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    layout and storage mode that the serving runs launch, the training
    kernels, fused_decode in each storage mode, rms_norm in each policy,
    the ring variant's three kernels, ``flash_attention_with_lse_*``,
-   with launches from phase 15 and times at its shape)
+   with launches from phase 15 and times at its shape; the float32
+   instances of the flash and CE kernels beside their bf16 rows, and
+   the speculative runs' launches and verify times beside rows 1, 2
+   and 9)
    and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
@@ -815,14 +847,14 @@ def compare_phase(gpt, cfg, params):
     return rows
 
 
-def _step_profile(step, families=(("flash_decode", ("flash_decode",)),)):
-    """Wall time of one eager decode step ``step()`` (synchronised)
-    against the device time the profiler sees in it, by kernel
-    family."""
+def _step_profile(step, families=(("flash_decode", ("flash_decode",)),),
+                  n=10):
+    """Wall time of one eager decode step ``step()`` (synchronised, the
+    median of 3 windows of ``n`` calls) against the device time the
+    profiler sees in ``n`` calls, by kernel family."""
     for _ in range(5):
         step()
     torch.cuda.synchronize()
-    n = 10
     windows = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1066,7 +1098,7 @@ def paged_serving_phase(gpt, Engine, PagedEngine, fd, cfg, params,
                                   for kd in ("int8", "fp8")},
           "paged_26_pages_vs_paged_64_pages_bf16": agree(
               ("paged_tight", "bf16"), ("paged", "bf16"))})
-    return results
+    return results, streams_of
 
 
 def paged_compare_phase(gpt, cfg, params):
@@ -1284,6 +1316,33 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                     "bfloat16")}
     _log(row)
     results["fused_ce"] = row
+    del h, W, lbl, z, picked, wz, wp
+    # the float32 instance (the CUDA-core kernel) at N 2048 of that head
+    N = 2048
+    h = torch.randn((N, H), generator=gen, device="cuda")
+    W = torch.randn((V, H), generator=gen, device="cuda") * 0.02
+    lbl = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    z, picked = fce.fused_ce_fwd(h, W, lbl)
+    torch.cuda.synchronize()
+    wz, wp = fce.fused_ce_fwd_plain(h, W, lbl)
+    err = max((z - wz).abs().max().item(), (picked - wp).abs().max().item())
+    if not err <= 1e-3:
+        raise AssertionError(f"fused_ce_fwd float32: z/picked error {err}")
+    row = {"phase": "kernel_training", "name": "fused_ce_f32",
+           "shape": f"N={N} V={V} H={H} float32",
+           "ms": _time_ms(lambda: fce.fused_ce_fwd(h, W, lbl), reps=3,
+                          flush=flush),
+           "plain_ms": _time_ms(lambda: fce.fused_ce_fwd_plain(h, W, lbl),
+                                reps=3, flush=flush),
+           "library_ms": _time_ms(lambda: torch.logsumexp(
+               matmul_f32out(h, W.t()), -1), reps=3, flush=flush),
+           "library_calls": "torch.mm (float32, TF32 off) + torch.logsumexp",
+           "max_abs_err": err, "atol": 1e-3,
+           **_bound((N * H + V * H) * 4 + N * 12, 2 * N * V * H,
+                    "float32")}
+    _log(row)
+    results["fused_ce_f32"] = row
     del h, W, lbl, z, picked, wz, wp, flush
     torch.cuda.empty_cache()
     return results
@@ -1338,14 +1397,19 @@ def rounding_witness_phase(fa):
     return row
 
 
-def train_reference_phase(gpt, hybrid):
+def train_reference_phase(gpt, hybrid, fa, fce):
     """gpt_tiny f32: three steps on the card (flash kernels) against the
-    CPU (plain versions) on the same weights and batch; rel 1e-4."""
+    CPU (plain versions) on the same weights and batch; rel 1e-4.  The
+    float32 instances of the flash kernels launch here (counted over the
+    card's steps), and so does the float32 ``fused_ce_fwd``: the eval
+    loss (no grad) on the card against the CPU's, rel 1e-4, one launch.
+    Returns the launches of the float32 instances."""
     cfg = gpt.gpt_tiny(dtype=torch.float32)
     params = gpt.init_params(cfg, seed=1, device="cpu")
     rng = np.random.default_rng(1)
     ids = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)))
     labels = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)))
+    launches = {}
     for num_micro, remat in ((1, False), (2, True)):
         losses = {}
         for dev in ("cpu", "cuda"):
@@ -1354,10 +1418,14 @@ def train_reference_phase(gpt, hybrid):
             p = shard(params)
             o = init_opt(p)
             out = []
+            fa.reset_launches()
             for _ in range(3):
                 loss, p, o = step(p, o, ids.to(dev), labels.to(dev))
                 out.append(loss.item())
             losses[dev] = out
+        for name, n in fa.LAUNCHES.items():
+            if n:
+                launches[name] = launches.get(name, 0) + n
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                        losses["cpu"]))
         if not rel <= 1e-4:
@@ -1368,6 +1436,22 @@ def train_reference_phase(gpt, hybrid):
               "num_micro": num_micro, "remat": remat,
               "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
               "max_rel_diff": rel, "rtol": 1e-4})
+    before = fce.LAUNCHES
+    with torch.no_grad():
+        evals = [gpt.loss_fn(_to_device(params, dev), ids.to(dev),
+                             labels.to(dev), cfg).item()
+                 for dev in ("cpu", "cuda")]
+    launches["fused_ce_fwd"] = fce.LAUNCHES - before
+    rel = abs(evals[1] - evals[0]) / abs(evals[0])
+    if not (rel <= 1e-4 and launches["fused_ce_fwd"] == 1):
+        raise AssertionError(f"eval loss f32: card {evals[1]} vs CPU "
+                             f"{evals[0]}, {launches['fused_ce_fwd']} "
+                             f"fused_ce launches")
+    _log({"phase": "reference_training_f32_launches",
+          "config": "gpt_tiny f32, 3 steps at (1, False) and (2, True), "
+                    "then one eval loss", "eval_loss_card_cpu": evals,
+          "launches": launches})
+    return launches
 
 
 def _train_batch(cfg, B=8, S=1024):
@@ -1941,6 +2025,509 @@ def fused_serving_phase(gpt, Engine, FusedEngine, fd, fdl, cfg, qparams):
         del cache, flat
         torch.cuda.empty_cache()
     return runs, steps
+
+
+SPEC_K = 3                   # draft tokens a round in every speculative run
+SPEC_REQS = ((5, 12), (40, 20), (17, 8), (90, 16), (3, 24))
+
+
+def _spec_counts(fd, fdl, fnr):
+    return {"flash_decode": fd.LAUNCHES,
+            "flash_decode_paged": fd.PAGED_LAUNCHES,
+            "split": fd.INSTANCE_LAUNCHES["split"],
+            "fused_decode": fdl.LAUNCHES, "rms_llama": fnr.LAUNCHES["llama"]}
+
+
+def _spec_reset(fd, fdl, fnr):
+    fd.reset_launches()
+    fdl.reset_launches()
+    fnr.reset_launches()
+
+
+def _spec_deltas(m, base):
+    """The scheduler counters of one run: metrics ``m`` less the
+    warm-up's ``base`` (every launch kind, decode and draft steps,
+    decode seconds, the speculative counters)."""
+    kinds = set(m["launches"]) | set(base["launches"])
+    out = {k: m["launches"].get(k, 0) - base["launches"].get(k, 0)
+           for k in kinds}
+    for key in ("decode_steps", "draft_steps", "decode_seconds"):
+        out[key] = m[key] - base[key]
+    s, b = m.get("speculative"), base.get("speculative")
+    if s is not None:
+        for key in ("proposed", "accepted", "emitted", "launches",
+                    "slot_launches", "rollbacks"):
+            out[f"spec_{key}"] = s[key] - b[key]
+    return out
+
+
+def _spec_want(kind, d, L, Ld, llama_draft=False):
+    """The launches a run must count, from its deltas ``d``: flash_decode
+    L a target decode step, verify round and prefill (paged: decode steps
+    and verify rounds in the paged layout; fused: the fused kernel once a
+    decode step and once a verify position, proposed + rounds), the
+    draft's Ld a draft step and a draft prefill; RMS "llama" 2 Ld + 1 a
+    LLaMA draft step and 2 Ld a draft prefill."""
+    steps, rounds = d["decode_steps"], d.get("verify", 0)
+    prefills = d.get("prefill", 0) + d.get("prefill_fused", 0)
+    draft = Ld * (d["draft_steps"] + d.get("draft_prefill", 0))
+    want = {"flash_decode": L * prefills + draft, "flash_decode_paged": 0,
+            "fused_decode": 0, "rms_llama": 0}
+    if kind == "contiguous":
+        want["flash_decode"] += L * (steps + rounds)
+    elif kind == "paged":
+        want["flash_decode_paged"] = L * (steps + rounds)
+    else:
+        want["fused_decode"] = steps + rounds + d.get("spec_proposed", 0)
+    if llama_draft:
+        want["rms_llama"] = ((2 * Ld + 1) * d["draft_steps"]
+                             + 2 * Ld * d.get("draft_prefill", 0))
+    return want
+
+
+def _spec_on(spec, dev):
+    """A SpeculativeConfig with its draft weights on ``dev``."""
+    if spec is None or spec is True or spec.draft_params is None:
+        return spec
+    return dataclasses.replace(spec, draft_params=_to_device(
+        spec.draft_params, dev))
+
+
+def speculative_reference_phase(gpt, llama, engines, Spec, fd, fdl, fnr):
+    """Greedy speculative decoding on the card against the CPU.  Target:
+    gpt_tiny f32 (hD 32); drafts: a smaller GPT (2 layers, H 64, hD
+    16), a LLaMA with GQA (2 layers, H 64, 4/2 heads, hD 16: the
+    rms_norm kernel's "llama" policy runs), the target itself and
+    n-gram, k 3, on the contiguous engine and the paged one (18 pages
+    of 8 rows: admissions defer, slots are evicted and their drafts
+    prefilled again); the fused engine on the tiny bf16 int8-weight
+    config of the JAX speculative tests (max_len 64) with a GPT draft
+    and n-gram.  Each card speculative stream must equal the card's
+    non-speculative stream and the CPU run of the same engine and
+    draft; every launch count, set to 0 before each card run, must be
+    exactly what its scheduler counters say (``_spec_want``)."""
+    Engine, PagedEngine, FusedEngine = engines
+    f32 = torch.float32
+    cfg = gpt.gpt_tiny(dtype=f32, use_flash=False)
+    target = gpt.init_params(cfg, seed=1, device="cpu")
+    dcfg = gpt.gpt_tiny(hidden_size=64, num_layers=2, num_heads=4,
+                        dtype=f32, use_flash=False)
+    lcfg = llama.llama_tiny(hidden_size=64, num_layers=2, num_heads=4,
+                            num_kv_heads=2, dtype=f32)
+    drafts = {
+        "gpt": Spec(k=SPEC_K, draft_params=gpt.init_params(
+            dcfg, seed=2, device="cpu"), draft_cfg=dcfg),
+        "llama": Spec(k=SPEC_K, family="llama", draft_params=
+                      llama.init_params(lcfg, seed=3, device="cpu"),
+                      draft_cfg=lcfg),
+        "self": Spec(k=SPEC_K, draft_params=target, draft_cfg=cfg),
+        "ngram": True}
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)), m) for n, m in SPEC_REQS]
+    fcfg = gpt.GPTConfig(vocab_size=128, hidden_size=32, num_layers=1,
+                         num_heads=2, max_position_embeddings=64,
+                         dtype=torch.bfloat16, use_flash=False)
+    fq = gpt.quantize_decode_params(gpt.init_params(fcfg, seed=0,
+                                                    device="cpu"), fcfg)
+    fdcfg = gpt.GPTConfig(vocab_size=128, hidden_size=32, num_layers=1,
+                          num_heads=2, max_position_embeddings=64,
+                          dtype=f32, use_flash=False)
+    frng = np.random.default_rng(1)
+    freqs = [(frng.integers(1, 128, (n,)), 8) for n in (5, 9, 12)]
+    cases = [(kind, name) for kind in ("contiguous", "paged")
+             for name in ("none", "gpt", "llama", "self", "ngram")]
+    cases += [("fused", name) for name in ("none", "gpt", "ngram")]
+    fdrafts = {"gpt": Spec(k=SPEC_K, draft_params=gpt.init_params(
+        fdcfg, seed=2, device="cpu"), draft_cfg=fdcfg), "ngram": True}
+    streams, rows = {}, []
+    for kind, name in cases:
+        fused = kind == "fused"
+        spec = None if name == "none" else \
+            (fdrafts if fused else drafts)[name]
+        for dev in ("cpu", "cuda"):
+            kw = dict(device=dev, attn_kernel="flash" if dev == "cuda"
+                      else "xla", speculative=_spec_on(spec, dev))
+            if fused:
+                eng = FusedEngine(_to_device(fq, dev), fcfg, max_len=64, **kw)
+            elif kind == "paged":
+                eng = PagedEngine(_to_device(target, dev), cfg, max_batch=3,
+                                  max_len=256, block_size=8, num_blocks=18,
+                                  **kw)
+            else:
+                eng = Engine(_to_device(target, dev), cfg, max_batch=3,
+                             max_len=256, **kw)
+            base = eng.metrics()
+            _spec_reset(fd, fdl, fnr)
+            rs = freqs if fused else reqs
+            rids = [eng.submit(p, max_new=m) for p, m in rs]
+            out = eng.run(steps_per_sync=8)
+            torch.cuda.synchronize()
+            counts = _spec_counts(fd, fdl, fnr)
+            streams[(kind, name, dev)] = [out[r] for r in rids]
+            for rid, (_, m) in zip(rids, rs):
+                if eng.request(rid).status != "DONE" or len(out[rid]) != m:
+                    raise AssertionError(f"speculative reference {kind} "
+                                         f"{name} {dev}: request {rid} "
+                                         f"{eng.request(rid).status}")
+            if dev == "cpu":
+                continue
+            d = _spec_deltas(eng.metrics(), base)
+            Ld = 0 if not isinstance(spec, Spec) else \
+                spec.draft_cfg.num_layers
+            want = _spec_want(kind, d, fcfg.num_layers if fused
+                              else cfg.num_layers, Ld, name == "llama")
+            got = {k: counts[k] for k in want}
+            if got != want:
+                raise AssertionError(f"speculative reference {kind} {name}: "
+                                     f"launches {got}, want {want} ({d})")
+            if name != "none" and d.get("verify", 0) < 1:
+                raise AssertionError(f"speculative reference {kind} {name}: "
+                                     f"no verify round ran")
+            if kind == "paged" and eng.free_blocks != eng.num_blocks:
+                raise AssertionError(f"speculative reference paged {name}: "
+                                     f"pages left claimed")
+            rows.append({**{k: v for k, v in d.items()
+                            if k != "decode_seconds"},
+                         "engine": kind, "draft": name, "launches": got})
+    for kind, name in cases:
+        card = streams[(kind, name, "cuda")]
+        for other in ((kind, "none", "cuda"), (kind, name, "cpu")):
+            if card != streams[other]:
+                raise AssertionError(f"speculative reference {kind} {name}: "
+                                     f"card stream {card} != {other} stream "
+                                     f"{streams[other]}")
+    row = {"phase": "speculative_reference",
+           "config": "gpt_tiny f32 target; drafts gpt (2 x 64, hD 16), "
+                     "llama GQA 4/2 (2 x 64, hD 16), self, ngram; fused: "
+                     "128 x 32, 1 layer, bf16 int8 weights", "k": SPEC_K,
+           "streams_identical": True, "runs": rows}
+    _log(row)
+    return row
+
+
+def _slot_state(gpt, params, cfg, kd, layout, k, seed=2, B=8, bs=64):
+    """The serving shape's state for the row check and the profiles: B
+    slots of random prompts (lengths 32..700) prefilled with the flash
+    kernels into a contiguous cache or, paged, shuffled pages that back
+    each slot's window; the window's tokens [B, k+1] and positions."""
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(32, 701, B)]
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, k + 1)),
+                        dtype=torch.int32, device="cuda")
+    pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ids = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    with torch.inference_mode():
+        if layout == "contiguous":
+            cache = gpt.init_decode_cache(cfg, B, 1024, kd, device="cuda")
+            for b, n in enumerate(lens):
+                gpt.prefill_into_slots(
+                    params, torch.tensor(ids[b], device="cuda")[None], cfg,
+                    cache, torch.tensor([b], device="cuda"),
+                    attn_kernel="flash")
+            return cache, None, toks, pos
+        need = [(n + k) // bs + 1 for n in lens]
+        perm = rng.permutation(sum(need)).astype(np.int32)
+        table = np.full((B, 1024 // bs), -1, np.int32)
+        for b, m in enumerate(need):
+            table[b, :m] = perm[sum(need[:b]):sum(need[:b]) + m]
+        bt = torch.from_numpy(table).cuda()
+        pools = gpt.init_decode_cache(cfg, sum(need), bs, kd, device="cuda")
+        for b, n in enumerate(lens):
+            nblk = -(-n // bs)
+            padded = np.zeros((1, nblk * bs), np.int64)
+            padded[0, :n] = ids[b]
+            gpt.prefill_paged_batched(params, torch.from_numpy(padded).cuda(),
+                                      cfg, pools, bt[b:b + 1, :nblk],
+                                      attn_kernel="flash")
+        return pools, bt, toks, pos
+
+
+def _verify_rows(gpt, params, cfg, state, layout, kd, k):
+    """Each verify row's logits against a W = 1 decode step at the same
+    position on a copy of the same cache (the GEMMs of the window see
+    M = B (k+1) rows, the decode's M = B): the largest |delta|, the rows
+    (of B (k+1)) not bitwise equal, and argmax disagreements; then the
+    device and wall ms of one verify pass, one decode step and, for the
+    bf16 cache the self-draft runs use, one self-draft round: k decode
+    steps on the second copy, then the verify."""
+    cache, bt, toks, pos = state
+    c2 = {n: a.clone() for n, a in cache.items()}
+    W = k + 1
+
+    def verify(c=cache):
+        if layout == "paged":
+            return gpt.verify_paged(params, c, bt, toks, pos, cfg,
+                                    attn_kernel="flash")[0]
+        return gpt.verify_into_slots(params, c, toks, pos, cfg,
+                                     attn_kernel="flash")[0]
+
+    def decode(c, tok, p):
+        if layout == "paged":
+            return gpt.decode_step_paged(params, c, bt, tok, p, cfg,
+                                         attn_kernel="flash")[0]
+        return gpt.decode_step_multi(params, c, tok, p, cfg,
+                                     attn_kernel="flash")[0]
+
+    with torch.inference_mode():
+        lv = verify()
+        ld = torch.stack([decode(c2, toks[:, j], pos + j) for j in range(W)],
+                         dim=1)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(lv).all() and torch.isfinite(ld).all()):
+            raise AssertionError(f"verify rows {layout} {kd}: non-finite")
+        diff = (lv - ld).abs()
+        rows_differ = int((diff.amax(-1) > 0).sum())
+        argmax_differ = int((lv.argmax(-1) != ld.argmax(-1)).sum())
+        # the window's K/V rows as the verify and the decode steps wrote
+        # them (fp8 compared as its bytes)
+        cache_differ = sum(int((_bits(a) != _bits(c2[n])).sum())
+                           for n, a in cache.items())
+
+        def round_self():
+            tok, p = toks[:, 0], pos
+            for _ in range(k):
+                tok = decode(c2, tok, p).argmax(-1).to(torch.int32)
+                p = p + 1
+            return verify()
+
+        # n 3: each profiled call is a whole model step (~1000 kernels),
+        # and the profiler's bookkeeping grows with the events
+        fam = (("flash_decode", ("flash_decode",)),)
+        prof = {"verify": _step_profile(verify, fam, n=3),
+                "decode_step": _step_profile(
+                    lambda: decode(c2, toks[:, 0], pos), fam, n=3)}
+        if kd == "bf16":
+            prof["self_draft_round"] = _step_profile(round_self, fam, n=3)
+    return {"layout": layout, "kv_dtype": kd, "W": W,
+            "rows": int(lv.shape[0] * W), "max_abs_logit_diff":
+            diff.max().item(), "rows_not_bitwise_equal": rows_differ,
+            "argmax_differ": argmax_differ,
+            "cache_elements_differ": cache_differ,
+            "logit_std": ld.std().item(), "profiles": prof}
+
+
+def _bits(a):
+    return a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a
+
+
+def _top2_margin(gpt, params, cfg, seq, kd):
+    """The target's top-2 logit margin for the token after ``seq``, as
+    the non-speculative engine computes it: ``seq[:-1]`` prefilled with
+    the flash kernels, then one decode step feeding ``seq[-1]``."""
+    cache = gpt.init_decode_cache(cfg, 1, 1024, kd, device="cuda")
+    ids = torch.tensor(np.asarray(seq), device="cuda")[None]
+    n = ids.shape[1]
+    with torch.inference_mode():
+        if n > 1:
+            gpt.prefill_into_slots(params, ids[:, :-1], cfg, cache,
+                                   torch.zeros(1, dtype=torch.long,
+                                               device="cuda"),
+                                   attn_kernel="flash")
+        logits, _ = gpt.decode_step_multi(
+            params, cache, ids[:, -1].to(torch.int32),
+            torch.tensor([n - 1], dtype=torch.int32, device="cuda"), cfg,
+            attn_kernel="flash")
+        top = torch.topk(logits[0], 2).values
+    return (top[0] - top[1]).item()
+
+
+def speculative_serving_phase(gpt, engines, Spec, fd, fdl, fnr, cfg, params,
+                              qparams, base_rows, base_streams):
+    """Speculative decoding at gpt3_1p3b's full width (bf16, seed-0
+    weights), k 3, on the serving phase's 12 requests (max_batch 8,
+    max_len 1024, max_new 32): the contiguous engine (bf16) and the paged
+    engine (bf16, 64 pages) each with n-gram and with the target as its
+    own draft (the acceptance upper bound), the paged engine at int8 with
+    n-gram; ``FusedB1Engine`` on int8 weights (3 requests x 32) with and
+    without n-gram.  Launch counts, set to 0 before each run, exact
+    (``_spec_want``); every request DONE with 32 tokens; decode-loop
+    tok/s, acceptance, tokens per launch and rounds beside the
+    non-speculative run of the same engine (from the serving phases).
+    The row check (``_verify_rows``) on each layout and kv_dtype, with
+    one verify pass, one decode step and one self-draft round profiled.
+    Gates: the fused engine's speculative streams equal its
+    non-speculative ones (by construction: the verify is the fused
+    decode step), and so do its verify rows, bit for bit; a contiguous
+    or paged stream that differs must differ at a near-tie: the target's
+    top-2 margin there within the row check's largest |delta|."""
+    Engine, PagedEngine, FusedEngine = engines
+    L = cfg.num_layers
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 701, 12)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    self_spec = Spec(k=SPEC_K, draft_params=params, draft_cfg=cfg)
+    checks = {(lay, kd): _verify_rows(gpt, params, cfg,
+                                      _slot_state(gpt, params, cfg, kd, lay,
+                                                  SPEC_K), lay, kd, SPEC_K)
+              for lay, kd in (("contiguous", "bf16"), ("paged", "bf16"),
+                              ("paged", "int8"))}
+    for c in checks.values():
+        _log({"phase": "speculative_verify_rows", **c})
+    torch.cuda.empty_cache()
+    runs = [("contiguous", "bf16", "ngram"), ("contiguous", "bf16", "self"),
+            ("paged", "bf16", "ngram"), ("paged", "bf16", "self"),
+            ("paged", "int8", "ngram")]
+    results = {}
+    for kind, kd, draft in runs:
+        spec = True if draft == "ngram" else self_spec
+        kw = dict(max_batch=8, max_len=1024, attn_kernel="flash",
+                  kv_dtype=kd, device="cuda", speculative=spec)
+        eng = (PagedEngine(params, cfg, block_size=64, **kw)
+               if kind == "paged" else Engine(params, cfg, **kw))
+        eng.submit(np.arange(40) % cfg.vocab_size, max_new=4)   # warm-up
+        eng.run()
+        base = eng.metrics()
+        _spec_reset(fd, fdl, fnr)
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new=32) for p in prompts]
+        out = eng.run(steps_per_sync=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _spec_counts(fd, fdl, fnr)
+        d = _spec_deltas(eng.metrics(), base)
+        Ld = L if draft == "self" else 0
+        want = _spec_want(kind, d, L, Ld)
+        got = {k: counts[k] for k in want}
+        split = L * (d["decode_steps"] + d["verify"]) + Ld * d["draft_steps"]
+        if got != want or counts["split"] != split or d["verify"] < 1:
+            raise AssertionError(f"speculative {kind} {kd} {draft}: launches "
+                                 f"{counts}, want {want}, split {split} "
+                                 f"({d})")
+        for rid in rids:
+            if eng.request(rid).status != "DONE" or len(out[rid]) != 32:
+                raise AssertionError(f"speculative {kind} {kd} {draft}: "
+                                     f"request {rid} "
+                                     f"{eng.request(rid).status}")
+        if kind == "paged" and eng.free_blocks != eng.num_blocks:
+            raise AssertionError(f"speculative paged {kd} {draft}: pages "
+                                 f"left claimed")
+        streams = [out[r] for r in rids]
+        plain = base_streams[(kind, kd)]
+        delta = checks[(kind, kd)]["max_abs_logit_diff"]
+        diverged = []
+        for i, (a, b) in enumerate(zip(streams, plain)):
+            if a == b:
+                continue
+            j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+            margin = _top2_margin(gpt, params, cfg, np.concatenate(
+                [prompts[i], np.asarray(b[:j], np.int64)]), kd)
+            diverged.append({"request": i, "token": j, "speculative": a[j],
+                             "plain": b[j], "top2_margin": margin,
+                             "row_check_max_abs_diff": delta})
+            if margin > delta:
+                raise AssertionError(
+                    f"speculative {kind} {kd} {draft}: request {i} leaves "
+                    f"the plain stream at token {j} with a top-2 margin "
+                    f"{margin} above the row check's |delta| {delta}")
+        prow = base_rows[(kind, kd)]
+        row = {"phase": "speculative_serving", "engine": kind, "kv_dtype": kd,
+               "draft": draft, "k": SPEC_K, "launches": got,
+               "verify_rounds": d["verify"], "decode_steps": d["decode_steps"],
+               "draft_steps": d["draft_steps"],
+               "accept_ratio": d["spec_accepted"] / d["spec_proposed"],
+               "tokens_per_launch": d["spec_emitted"] / d["spec_slot_launches"],
+               "rollbacks": d["spec_rollbacks"],
+               "tokens": 32 * len(rids), "wall_s": wall,
+               "decode_loop_s": d["decode_seconds"],
+               "decode_loop_tok_s": 32 * len(rids) / d["decode_seconds"],
+               "plain_decode_loop_tok_s": prow["decode_loop_tok_s"],
+               "streams_equal_to_plain": f"{len(rids) - len(diverged)}"
+                                         f"/{len(rids)}",
+               "tokens_equal_to_plain": f"""{sum(x == y for a, b in zip(
+                   streams, plain) for x, y in zip(a, b))}/{32 * len(rids)}""",
+               "divergences": diverged}
+        _log(row)
+        results[(kind, kd, draft)] = row
+        del eng
+        torch.cuda.empty_cache()
+    results["fused"] = _speculative_fused(gpt, FusedEngine, fd, fdl, fnr,
+                                          cfg, qparams, prompts[:3], lens[:3])
+    results["verify_rows"] = checks
+    return results
+
+
+def _speculative_fused(gpt, FusedEngine, fd, fdl, fnr, cfg, qparams, prompts,
+                       lens):
+    """The fused engine's part of ``speculative_serving_phase``: its
+    plain and n-gram runs (gate: equal streams), and at the first
+    prompt's state one ``verify_fused`` window against k+1
+    ``decode_step_fused`` calls on a copy (gate: bit for bit), both
+    profiled."""
+    L = cfg.num_layers
+    streams, rows = {}, {}
+    for draft in ("none", "ngram"):
+        eng = FusedEngine(qparams, cfg, max_len=1024, kv_dtype="bf16",
+                          attn_kernel="flash", device="cuda",
+                          speculative=None if draft == "none" else True)
+        eng.submit(np.arange(40) % cfg.vocab_size, max_new=4)   # warm-up
+        eng.run()
+        base = eng.metrics()
+        _spec_reset(fd, fdl, fnr)
+        rids = [eng.submit(p, max_new=32) for p in prompts]
+        out = eng.run(steps_per_sync=16)
+        torch.cuda.synchronize()
+        counts = _spec_counts(fd, fdl, fnr)
+        d = _spec_deltas(eng.metrics(), base)
+        want = _spec_want("fused", d, L, 0)
+        got = {k: counts[k] for k in want}
+        if got != want or (draft == "ngram" and d["verify"] < 1):
+            raise AssertionError(f"speculative fused {draft}: launches "
+                                 f"{got}, want {want} ({d})")
+        streams[draft] = [out[r] for r in rids]
+        rows[draft] = {
+            "launches": got, "decode_steps": d["decode_steps"],
+            "verify_rounds": d.get("verify", 0),
+            "decode_loop_s": d["decode_seconds"],
+            "decode_loop_tok_s": 32 * len(rids) / d["decode_seconds"]}
+        if draft == "ngram":
+            rows[draft].update(
+                accept_ratio=d["spec_accepted"] / d["spec_proposed"],
+                tokens_per_launch=d["spec_emitted"] / d["spec_slot_launches"],
+                rollbacks=d["spec_rollbacks"],
+                verify_launches=d["verify"] + d["spec_proposed"])
+        del eng
+        torch.cuda.empty_cache()
+    if streams["ngram"] != streams["none"]:
+        raise AssertionError(f"speculative fused: streams {streams['ngram']} "
+                             f"!= non-speculative {streams['none']}")
+    n0, W = int(lens[0]), SPEC_K + 1
+    cache = gpt.init_decode_cache(cfg, 1, 1024, "bf16", device="cuda")
+    with torch.inference_mode():
+        gpt.prefill_into_slots(qparams, torch.tensor(prompts[0], device="cuda")
+                               [None], cfg, cache,
+                               torch.zeros(1, dtype=torch.long, device="cuda"),
+                               attn_kernel="flash")
+        flat = gpt.flatten_decode_cache(cache, cfg)
+        copy = {n: a.clone() for n, a in flat.items()}
+        toks = torch.tensor(np.asarray(prompts[1][:W])[None],
+                            dtype=torch.int32, device="cuda")
+        pos = torch.tensor([n0], dtype=torch.int32, device="cuda")
+        lv, _ = gpt.verify_fused(qparams, flat, toks, pos, cfg)
+        ld = torch.stack([gpt.decode_step_fused(qparams, copy, toks[:, j],
+                                                pos + j, cfg)[0]
+                          for j in range(W)], dim=1)
+        torch.cuda.synchronize()
+        if not torch.equal(lv, ld) or any(
+                not torch.equal(_bits(a), _bits(copy[n]))
+                for n, a in flat.items()):
+            raise AssertionError("verify_fused rows are not the fused decode "
+                                 "steps bit for bit")
+        prof = {"verify": _step_profile(
+                    lambda: gpt.verify_fused(qparams, flat, toks, pos, cfg),
+                    FUSED_FAMILIES, n=3),
+                "decode_step": _step_profile(
+                    lambda: gpt.decode_step_fused(qparams, copy, toks[:, 0],
+                                                  pos, cfg), FUSED_FAMILIES,
+                    n=3)}
+    row = {"phase": "speculative_serving", "engine": "fused", "kv_dtype":
+           "bf16", "draft": "ngram", "k": SPEC_K,
+           "prompt_lens": [int(n) for n in lens], "runs": rows,
+           "streams_equal": True, "verify_rows_bitwise_equal": True,
+           "pos": n0, "profiles": prof}
+    _log(row)
+    del cache, flat, copy
+    torch.cuda.empty_cache()
+    return row
 
 
 RMS_CASES = ((8, 4096), (2048, 4096), (8, 128), (7, 11008))
@@ -3171,7 +3758,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingEngine, FusedB1Engine,
-        PagedContinuousBatchingEngine)
+        PagedContinuousBatchingEngine, SpeculativeConfig)
     from paddle_tpu_torch.jit.loop import TrainLoop
     from paddle_tpu_torch.models import common, gpt, llama
     from paddle_tpu_torch.models.common import matmul_f32out
@@ -3216,16 +3803,27 @@ def main(argv=None) -> int:
     timed("reference", reference_phase, gpt, ContinuousBatchingEngine)
     timed("paged_reference", paged_reference_phase, gpt,
           ContinuousBatchingEngine, PagedContinuousBatchingEngine)
-    timed("train_reference", train_reference_phase, gpt, hybrid)
+    f32_launches = timed("train_reference", train_reference_phase, gpt,
+                         hybrid, fa, fce)
+    engines = (ContinuousBatchingEngine, PagedContinuousBatchingEngine,
+               FusedB1Engine)
+    spec_reference = timed("speculative_reference",
+                           speculative_reference_phase, gpt, llama, engines,
+                           SpeculativeConfig, fd, fdl, fnr)
     cfg, params, serving, launches, streams = timed(
         "serving", serving_phase, gpt, ContinuousBatchingEngine, fd)
     steps = timed("compare", compare_phase, gpt, cfg, params)
-    kv_runs = timed("paged_serving", paged_serving_phase, gpt,
-                    ContinuousBatchingEngine, PagedContinuousBatchingEngine,
-                    fd, cfg, params, streams)
+    kv_runs, kv_streams = timed(
+        "paged_serving", paged_serving_phase, gpt, ContinuousBatchingEngine,
+        PagedContinuousBatchingEngine, fd, cfg, params, streams)
     paged_steps = timed("paged_compare", paged_compare_phase, gpt, cfg,
                         params)
     qparams = gpt.quantize_decode_params(params, cfg)
+    spec_runs = timed(
+        "speculative_serving", speculative_serving_phase, gpt, engines,
+        SpeculativeConfig, fd, fdl, fnr, cfg, params, qparams,
+        {("contiguous", "bf16"): serving, **kv_runs},
+        {("contiguous", "bf16"): streams, **kv_streams})
     del params
     torch.cuda.empty_cache()
     fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
@@ -3319,6 +3917,19 @@ def main(argv=None) -> int:
             "library_ms": tr["fwd_library_ms" if key == "fwd"
                              else "bwd_library_ms"],
             "shape": tr["shape"]})
+    # the float32 instances (CUDA cores): launched by the float32
+    # reference phase, timed at [2, 1024, 16x128]
+    f32 = train_kernels["train_f32"]
+    for e in entries[-3:]:
+        key = e["name"].replace("flash_attention_", "").replace("bwd_", "")
+        e["float32"] = {
+            "shape": f32["shape"], "launches": f32_launches.get(e["name"], 0),
+            "ms": f32[f"{key}_ms"], "plain_ms": f32[f"{key}_plain_ms"],
+            "bound_ms": f32["bounds"][key]["bound_ms"],
+            "bound_by": f32["bounds"][key]["bound_by"],
+            "library_ms": f32["fwd_library_ms" if key == "fwd"
+                              else "bwd_library_ms"]}
+    ce32 = train_kernels["fused_ce_f32"]
     entries.append({
         "name": "fused_ce_fwd", "route": "cuda",
         "source": src + "fused_ce.cu", "replaces": ref + "fused_ce.py:55",
@@ -3326,7 +3937,11 @@ def main(argv=None) -> int:
         "ms": ce["ms"], "plain_ms": ce["plain_ms"],
         "bound_ms": ce["bound_ms"], "bound_by": ce["bound_by"],
         "library_ms": ce["library_ms"], "shape": ce["shape"],
-        "plan": {"splits": ce["plan"][0], "tiles_per_split": ce["plan"][1]}})
+        "plan": {"splits": ce["plan"][0], "tiles_per_split": ce["plan"][1]},
+        "float32": {"launches": f32_launches["fused_ce_fwd"],
+                    **{k: ce32[k] for k in ("shape", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}}})
     # the fused layer stack: launches from the full-width run of the
     # kv_dtype that serves each storage mode, time and bound at pos 512
     for name, kd in (("fused_decode_layers", "bf16"),
@@ -3357,6 +3972,38 @@ def main(argv=None) -> int:
                 "library_ms") if k in llama_kernels[n]}
             for n in names]}
 
+    # the speculative runs (k 3): their launch counts, and the kernel's
+    # device ms in one profiled verify pass against one decode step
+    def spec_cell(kind, kd, family="flash_decode"):
+        rows = spec_runs["verify_rows"][(kind, kd)]["profiles"]
+        return {"launches": {f"{r['draft']}": r["launches"] for r in (
+                    spec_runs[(kind, kd, dr)] for dr in ("ngram", "self")
+                    if (kind, kd, dr) in spec_runs)},
+                "verify_rounds": {r["draft"]: r["verify_rounds"] for r in (
+                    spec_runs[(kind, kd, dr)] for dr in ("ngram", "self")
+                    if (kind, kd, dr) in spec_runs)},
+                "verify_pass_kernel_ms":
+                    rows["verify"]["device_ms"][family],
+                "decode_step_kernel_ms":
+                    rows["decode_step"]["device_ms"][family]}
+
+    fused_spec = spec_runs["fused"]
+    for e in entries:
+        if e["name"] == "flash_decode":
+            e["speculative"] = spec_cell("contiguous", "bf16")
+        elif e["name"] == "flash_decode_paged":
+            e["speculative"] = spec_cell("paged", "bf16")
+        elif e["name"] == "flash_decode_paged_int8":
+            e["speculative"] = spec_cell("paged", "int8")
+        elif e["name"] == "fused_decode_layers":
+            e["speculative"] = {
+                "launches": fused_spec["runs"]["ngram"]["launches"],
+                "verify_launches":
+                    fused_spec["runs"]["ngram"]["verify_launches"],
+                "verify_window_kernel_ms": fused_spec["profiles"][
+                    "verify"]["device_ms"]["fused_decode"],
+                "decode_step_kernel_ms": fused_spec["profiles"][
+                    "decode_step"]["device_ms"]["fused_decode"]}
     for e in entries:
         if e["name"] == "flash_decode":
             e["llama_7b"] = at_llama(llama_loop["launches"]["flash_decode"],
@@ -3460,7 +4107,13 @@ def main(argv=None) -> int:
              "ring_kernels": {f"{a} {b}": r
                               for (a, b), r in ring_kernels.items()},
              "ring_replay": ring_replays, "llama_training": llama_train,
-             "llama_sp": llama_sp},
+             "llama_sp": llama_sp, "speculative_reference": spec_reference,
+             "speculative_serving": {" ".join(k) if isinstance(k, tuple)
+                                     else k: v for k, v in spec_runs.items()
+                                     if k != "verify_rows"},
+             "speculative_verify_rows": {
+                 " ".join(k): v
+                 for k, v in spec_runs["verify_rows"].items()}},
             indent=1))
     _log({"kernels": entries})
     _log({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """Continuous-batching serving engines over the KV cache (port of
 ``paddle_tpu/inference/serving.py``: ``Request``, ``_derive_buckets``,
-the scheduler core of ``ContinuousBatchingEngine``,
-``PagedContinuousBatchingEngine`` and ``FusedB1Engine``).
+``SpeculativeConfig``, the scheduler core of
+``ContinuousBatchingEngine``, ``PagedContinuousBatchingEngine`` and
+``FusedB1Engine``, greedy speculative decoding on all three).
 
 The host runs the scheduler — admission, retirement, slot assignment —
 and the device runs two programs over one in-place KV cache:
@@ -28,9 +29,20 @@ The KV cache is stored as ``kv_dtype`` ("bf16" = the model dtype,
 "int8" with per-row scales, "fp8"); every write quantizes on the way
 in and the flash kernel dequantizes while it reads.
 
-Left out (ROADMAP Queue 1): prefix cache and host tier, handoff and
-reinstall hooks, speculative decoding (``verify_paged``,
-``verify_fused``), tensor-parallel mesh, retries/breaker/deadlines/
+Speculative decoding (``speculative=``, greedy): a round proposes k
+tokens a slot — k greedy steps of a small GPT or LLaMA draft over its
+own contiguous cache, or the host n-gram proposer — then ONE verify
+pass of the target over each slot's k+1-token window, and one host
+sync reads the fed window and the target's tokens together.  The
+accepted prefix plus the target's correction token are emitted; every
+emitted token is the target's own, so the stream equals the
+non-speculative one.  Rollback is host state: rows of a rejected suffix
+are never attended and the next fed token overwrites its row (paged:
+their pages stay claimed as headroom until retirement).
+
+Left out (ROADMAP Queue 1): prefix cache and host tier, seeded and
+sampled speculation, handoff and reinstall hooks, tensor-parallel mesh
+(and the draft's replication over it), retries/breaker/deadlines/
 cancel, observability, the ``PT_KV_DTYPE`` flag.
 """
 from __future__ import annotations
@@ -42,17 +54,52 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..incubate.nn.kernels.flash_decode import SUPPORTED_HEAD_DIMS
 from ..incubate.nn.kernels.fused_decode import KV_CHUNK
 from ..incubate.nn.kv_quant import (byte_view, kv_has_scales,
                                     kv_storage_dtype, kv_zeros,
                                     resolve_kv_dtype)
-from ..models import decoding, gpt
+from ..models import decoding, gpt, llama
 from .lifecycle import (AdmissionQueue, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
            "FusedB1Engine", "Request", "RequestStatus", "EngineState",
-           "QueueFullError", "EngineClosedError"]
+           "QueueFullError", "EngineClosedError", "SpeculativeConfig"]
+
+
+def _draft_family(name: str):
+    """The model module of a draft family: its ``init_decode_cache``,
+    ``decode_step_multi`` and ``prefill_into_slots`` are the draft-side
+    programs."""
+    if name == "llama":
+        return llama
+    if name != "gpt":
+        raise ValueError(f"unknown draft model family {name!r}")
+    return gpt
+
+
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """Draft-and-verify speculative decoding, greedy.
+
+    ``k`` — draft tokens proposed a scheduler round (the verify window is
+    k+1 positions).  ``draft_params`` / ``draft_cfg`` — a small model of
+    ``family`` ("gpt" or "llama") sharing the target's vocabulary, on
+    the engine's device; its cache lives beside the target's, contiguous
+    and in the engine's ``kv_dtype``.  With no draft model the host
+    n-gram proposer (the ``ngram`` trailing tokens matched against the
+    sequence's own history) guesses continuations, with no device
+    launch."""
+    k: int = 3
+    draft_params: Any = None
+    draft_cfg: Any = None
+    family: str = "gpt"
+    ngram: int = 2
+
+    @property
+    def has_model(self) -> bool:
+        return self.draft_params is not None
 
 
 @dataclasses.dataclass(eq=False)
@@ -111,7 +158,9 @@ class ContinuousBatchingEngine:
     (``reject`` policy: submit raises :class:`QueueFullError`).
     ``max_stall_rounds`` — consecutive scheduler rounds without
     progress after which the stalled request retires FAILED with a
-    capacity diagnostic (the livelock guard)."""
+    capacity diagnostic (the livelock guard).  ``speculative`` — a
+    :class:`SpeculativeConfig` (``True``: the n-gram proposer with
+    k = 3) turns on draft-and-verify rounds; None or False, off."""
 
     # the metrics()["launches"] key of an admission prefill
     _prefill_kind = "prefill"
@@ -120,7 +169,8 @@ class ContinuousBatchingEngine:
                  max_len: int = 1024, eos_token_id: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  attn_kernel: str = "flash", kv_dtype: str = "bf16",
-                 max_stall_rounds: int = 8, device=None):
+                 max_stall_rounds: int = 8, speculative: Any = None,
+                 device=None):
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"engine max_len={max_len} exceeds the model's "
@@ -161,13 +211,77 @@ class ContinuousBatchingEngine:
         self._decode_steps = 0
         # host clock around each decode loop, its one sync included
         self._decode_seconds = 0.0
+        if speculative is True:
+            speculative = SpeculativeConfig()
+        elif speculative is False:
+            speculative = None
+        self._spec: Optional[SpeculativeConfig] = speculative
+        # slot_launches = sum over rounds of launches x active slots: the
+        # per-sequence denominator of tokens_per_launch
+        self._spec_stats = {"proposed": 0, "accepted": 0, "emitted": 0,
+                            "launches": 0, "slot_launches": 0,
+                            "rollbacks": 0}
+        self._draft_steps = 0
+        if speculative is not None:
+            self._check_speculative(speculative, cfg, max_len)
         self._init_cache()
+        self._init_draft_cache()
+
+    def _check_speculative(self, spec: SpeculativeConfig, cfg, max_len: int):
+        if spec.k < 1:
+            raise ValueError("speculative.k must be >= 1")
+        _draft_family(spec.family)   # validate the name
+        if not spec.has_model:
+            return
+        dcfg = spec.draft_cfg
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size}: draft proposals must be target token "
+                "ids")
+        if dcfg.max_position_embeddings < max_len:
+            raise ValueError(
+                f"draft max_position_embeddings="
+                f"{dcfg.max_position_embeddings} cannot cover the "
+                f"engine's max_len={max_len}")
+        if self.attn_kernel == "flash" and \
+                dcfg.head_dim not in SUPPORTED_HEAD_DIMS:
+            raise ValueError(
+                f"draft head dim {dcfg.head_dim} is not one the flash_decode "
+                f"kernel takes {SUPPORTED_HEAD_DIMS}; serve with "
+                "attn_kernel='xla'")
+        wte = spec.draft_params["wte"]
+        where = (wte[0] if isinstance(wte, tuple) else wte).device
+        if where.type != self.device.type:
+            raise ValueError(f"draft params lie on {where}, the engine "
+                             f"runs on {self.device}")
 
     # -- cache strategy (overridden by the paged engine) ---------------------
     def _init_cache(self):
         self._cache = gpt.init_decode_cache(self.cfg, self.max_batch,
                                             self.max_len, self.kv_dtype,
                                             device=self.device)
+
+    def _init_draft_cache(self):
+        """The draft model's cache: contiguous ``[L, max_batch, max_len,
+        ...]`` in the engine's ``kv_dtype`` whatever the target's layout
+        (the draft is small), and for a LLaMA draft its rotary tables,
+        built once."""
+        self._draft_cache = None
+        self._draft_rope = None
+        spec = self._spec
+        if spec is None or not spec.has_model:
+            return
+        mod = _draft_family(spec.family)
+        self._draft_cache = mod.init_decode_cache(
+            spec.draft_cfg, self.max_batch, self.max_len, self.kv_dtype,
+            device=self.device)
+        if mod is llama:
+            dcfg = spec.draft_cfg
+            self._draft_rope = llama.rope_cos_sin(
+                dcfg.max_position_embeddings, dcfg.head_dim,
+                dcfg.rope_theta, spec.draft_params["wte"].dtype,
+                self.device)
 
     def cache_bytes(self) -> int:
         """Device bytes held by the KV cache allocation, scale planes
@@ -188,6 +302,19 @@ class ContinuousBatchingEngine:
                                          attn_kernel=ak)
 
         return step
+
+    def _verify_step_fn(self):
+        """The speculative verify (p, c, extra, toks [B, W], pos) ->
+        (logits [B, W, V], cache): the window analog of
+        :meth:`_decode_step_fn`."""
+        cfg, ak = self.cfg, self.attn_kernel
+
+        def vstep(p, c, extra, toks, pos):
+            del extra
+            return gpt.verify_into_slots(p, c, toks, pos, cfg,
+                                         attn_kernel=ak)
+
+        return vstep
 
     def _decode_extra(self):
         """Per-round extra device argument of the decode step."""
@@ -285,15 +412,19 @@ class ContinuousBatchingEngine:
         return len(self._queue)
 
     def metrics(self) -> Dict[str, Any]:
-        """Scheduler snapshot: device programs per kind (``launches``),
-        decode steps run and their host-clock seconds, queue and slot
-        gauges, the livelock guard's stalled rounds, deferred
-        admissions, KV storage format and cache bytes."""
-        return {
+        """Scheduler snapshot: device programs per kind (``launches``:
+        "prefill", "decode", and with speculation "verify", "draft" (a
+        k-step proposal) and "draft_prefill"), decode and draft steps
+        run, the host-clock seconds of the decode loops and speculative
+        rounds, queue and slot gauges, the livelock guard's stalled
+        rounds, deferred admissions, KV storage format and cache bytes;
+        with speculation, ``speculative``: the JAX engine's counters."""
+        out = {
             "attn_kernel": self.attn_kernel,
             "kv_dtype": self.kv_dtype,
             "launches": dict(self._launch_counts),
             "decode_steps": self._decode_steps,
+            "draft_steps": self._draft_steps,
             "decode_seconds": self._decode_seconds,
             "active_slots": self.active_slots,
             "queued": self.queued,
@@ -302,6 +433,31 @@ class ContinuousBatchingEngine:
             "deferred_admissions": self._deferred,
             "cache_bytes": self.cache_bytes(),
         }
+        if self._spec is not None:
+            out["speculative"] = {
+                "k": self._spec.k,
+                "draft": (self._spec.family if self._spec.has_model
+                          else "ngram"),
+                **self._spec_stats,
+                "accept_ratio": self._spec_accept_ratio(),
+                "tokens_per_launch": self._spec_tokens_per_launch(),
+            }
+        return out
+
+    def _spec_accept_ratio(self) -> Optional[float]:
+        """Accepted / proposed draft tokens (None before a speculative
+        round)."""
+        if self._spec is None or not self._spec_stats["proposed"]:
+            return None
+        return self._spec_stats["accepted"] / self._spec_stats["proposed"]
+
+    def _spec_tokens_per_launch(self) -> Optional[float]:
+        """Tokens emitted per device launch per active slot over the
+        speculative rounds: (1 + k * accept) / 2 for a model draft (two
+        launches a round), 1 + k * accept for n-gram."""
+        if self._spec is None or not self._spec_stats["slot_launches"]:
+            return None
+        return self._spec_stats["emitted"] / self._spec_stats["slot_launches"]
 
     # -- scheduler ---------------------------------------------------------
     def _has_work(self) -> bool:
@@ -347,6 +503,12 @@ class ContinuousBatchingEngine:
             self._prefill_batch([p[0] for p in group],
                                 [p[2] for p in group])
             self._note_launch(self._prefill_kind)
+            if self._draft_cache is not None:
+                # the draft must cover the admitted sequences before it
+                # can propose
+                self._draft_prefill([p[0] for p in group],
+                                    [p[2] for p in group])
+                self._note_launch("draft_prefill")
             for slot, req, seq in group:
                 self._finish_admit(slot, req, seq)
 
@@ -362,6 +524,25 @@ class ContinuousBatchingEngine:
             gpt.prefill_into_slots(
                 self.params, torch.from_numpy(ids).to(self.device),
                 self.cfg, self._cache,
+                torch.tensor(slots, dtype=torch.long, device=self.device),
+                attn_kernel=self.attn_kernel)
+
+    def _draft_prefill(self, slots: Sequence[int],
+                       seqs: Sequence[np.ndarray]):
+        """Bring the draft cache up to date for (re-)admitted slots in ONE
+        batched prefill of the full sequences so far, bucketed: the draft
+        has no prefix cache, and this keeps its state at the target's
+        slot positions."""
+        spec = self._spec
+        mod = _draft_family(spec.family)
+        ids = np.zeros((len(seqs), self._bucket(max(s.size for s in seqs))),
+                       np.int32)
+        for i, s in enumerate(seqs):
+            ids[i, :s.size] = s
+        with torch.inference_mode():
+            mod.prefill_into_slots(
+                spec.draft_params, torch.from_numpy(ids).to(self.device),
+                spec.draft_cfg, self._draft_cache,
                 torch.tensor(slots, dtype=torch.long, device=self.device),
                 attn_kernel=self.attn_kernel)
 
@@ -399,6 +580,42 @@ class ContinuousBatchingEngine:
         self._decode_steps += K
         return out.cpu().numpy()
 
+    def _propose(self, k: int, tok, pos):
+        """k greedy draft steps on the device, no host sync: drafts
+        [B, k] int32.  Inactive slots ride along pinned at the junk row
+        ``max_len - 1`` (JAX lets them run on and drops the writes past
+        the cache; a torch index there raises); an active slot's k - 1
+        steps stay below it (k < its headroom)."""
+        spec = self._spec
+        mod = _draft_family(spec.family)
+        kw = {} if self._draft_rope is None else \
+            {"rope_tables": self._draft_rope}
+        last = self.max_len - 1
+        out = torch.empty((self.max_batch, k), dtype=torch.int32,
+                          device=self.device)
+        for j in range(k):
+            logits, _ = mod.decode_step_multi(
+                spec.draft_params, self._draft_cache, tok, pos,
+                spec.draft_cfg, attn_kernel=self.attn_kernel, **kw)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out[:, j] = tok
+            pos = torch.clamp(pos + 1, max=last)
+        self._note_launch("draft")
+        self._draft_steps += k
+        return out
+
+    def _verify_many(self, tok, drafts, pos):
+        """The verify program: ONE pass of the target over each slot's
+        window [tok, drafts...] and the greedy target token at every
+        position.  Returns the fed window and the target tokens, both
+        [B, k + 1] on the device."""
+        toks = torch.cat([tok[:, None], drafts], dim=1)
+        logits, _ = self._verify_step_fn()(self.params, self._cache,
+                                           self._decode_extra(), toks, pos)
+        g = decoding.sample_window(logits, None, pos, 0.0)
+        self._note_launch("verify")
+        return toks, g
+
     def _decode_round(self, max_tokens: int, retired_before: int):
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not active:
@@ -407,7 +624,9 @@ class ContinuousBatchingEngine:
             if self._queue and len(self._pending_report) == retired_before:
                 self._note_stall()
             return
-        clamp = self._scan_clamp(active, max_tokens)
+        want = max_tokens if self._spec is None \
+            else max(max_tokens, self._spec.k + 1)
+        clamp = self._scan_clamp(active, want)
         if clamp < 1:
             # nobody can advance this iteration (paged eviction just
             # reshuffled); the next step() re-admits and retries —
@@ -416,6 +635,11 @@ class ContinuousBatchingEngine:
             return
         # _scan_clamp may have EVICTED slots (paged): refresh the view
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        if self._spec is not None and clamp >= 2:
+            # draft + one verify pass; near the cache lip (clamp < 2: no
+            # row for even one draft token) the plain loop runs instead
+            self._spec_round(active, clamp)
+            return
         # K bounded by headroom, rounded down to a power of two; slots
         # whose budget runs out mid-loop retire at the boundary and the
         # host drops their overshoot
@@ -448,6 +672,93 @@ class ContinuousBatchingEngine:
                 self._retire(req, RequestStatus.DONE, slot=i)
             else:
                 self._next_tok[i] = int(toks[-1, i])
+
+    def _spec_round(self, active: List[int], clamp: int):
+        """One draft-and-verify round: propose k tokens a slot (a draft
+        model: one launch sequence; n-gram: on the host), verify the k+1
+        positions of every slot in ONE pass, read the fed window and the
+        target tokens back in ONE host sync, and emit each slot's
+        accepted prefix plus the target's own next token.  Every emitted
+        token is the target's, so the stream equals the non-speculative
+        one; acceptance decides only how many land a round."""
+        spec = self._spec
+        k = min(spec.k, clamp - 1)
+        active_mask = np.array([r is not None for r in self._slot_req])
+        dev = self.device
+        pos = torch.from_numpy(np.where(active_mask, self._pos,
+                                        self.max_len - 1)
+                               .astype(np.int32)).to(dev)
+        tok = torch.from_numpy(self._next_tok.copy()).to(dev)
+        launches = 1                                  # the verify
+        t_scan = _now()
+        with torch.inference_mode():
+            if spec.has_model:
+                drafts = self._propose(k, tok, pos)
+                launches += 1
+            else:
+                drafts = torch.from_numpy(self._ngram_proposals(k)).to(dev)
+            feed, g = self._verify_many(tok, drafts, pos)
+            feed, g = torch.stack((feed, g)).cpu().numpy()
+        t_host = _now()
+        self._decode_seconds += t_host - t_scan
+        self._stall_rounds = 0
+        delivered = accepted = rollbacks = 0
+        for i in active:
+            req = self._slot_req[i]
+            for j in range(k + 1):
+                if j > 0 and feed[i, j] != g[i, j - 1]:
+                    # the draft left the target at window slot j: g[i, j]
+                    # saw a wrong context; the correction g[i, j - 1] is
+                    # already emitted
+                    rollbacks += 1
+                    break
+                if req.done:
+                    break
+                new = int(g[i, j])
+                if j > 0:
+                    accepted += 1
+                req.tokens.append(new)
+                delivered += 1
+                self._pos[i] += 1
+                self._next_tok[i] = new
+                if len(req.tokens) == 1:
+                    req.first_token_at = t_host
+                if len(req.tokens) >= req.max_new or new == self.eos:
+                    req.done = True
+            if req.done:
+                self._retire(req, RequestStatus.DONE, slot=i)
+        st = self._spec_stats
+        st["proposed"] += k * len(active)
+        st["accepted"] += accepted
+        st["emitted"] += delivered
+        st["launches"] += launches
+        st["slot_launches"] += launches * len(active)
+        st["rollbacks"] += rollbacks
+
+    def _ngram_proposals(self, k: int) -> np.ndarray:
+        """Host-side draft: for each active slot, the tokens that followed
+        the most recent earlier occurrence of the sequence's trailing
+        n-gram (padded by repeating the last token); zero launches."""
+        out = np.zeros((self.max_batch, k), np.int32)
+        for i, req in enumerate(self._slot_req):
+            if req is not None:
+                out[i] = self._ngram_one(req.prompt.tolist() + req.tokens, k)
+        return out
+
+    def _ngram_one(self, ctx: List[int], k: int) -> np.ndarray:
+        n = max(1, int(self._spec.ngram))
+        prop: List[int] = []
+        for m in range(min(n, len(ctx) - 1), 0, -1):
+            tail = ctx[-m:]
+            for s in range(len(ctx) - m - 1, -1, -1):
+                if ctx[s:s + m] == tail:
+                    prop = list(ctx[s + m:s + m + k])
+                    break
+            if prop:
+                break
+        while len(prop) < k:
+            prop.append(prop[-1] if prop else ctx[-1])
+        return np.asarray(prop[:k], np.int32)
 
     def _note_stall(self):
         """Livelock guard: count consecutive zero-progress rounds while
@@ -501,9 +812,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     reads the pool through the block table) and admission runs
     ``gpt.prefill_paged_batched`` into freshly claimed pages.
 
+    Speculative rounds verify through ``gpt.verify_paged`` (the flash
+    kernel reads the window's history off the pool); the pages behind a
+    rejected suffix stay claimed as decode headroom until retirement.
+
     Left out of this port: the prefix cache's shared pages (the per-page
-    refcount is kept for it), the host tier, handoff and reinstall
-    hooks, and speculative verify."""
+    refcount is kept for it), the host tier, and handoff and reinstall
+    hooks."""
 
     def __init__(self, params, cfg, max_batch: int = 4,
                  max_len: int = 1024, eos_token_id: Optional[int] = None,
@@ -595,6 +910,15 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                          attn_kernel=ak)
 
         return step
+
+    def _verify_step_fn(self):
+        cfg, ak = self.cfg, self.attn_kernel
+
+        def vstep(p, c, extra, toks, pos):
+            return gpt.verify_paged(p, c, extra, toks, pos, cfg,
+                                    attn_kernel=ak)
+
+        return vstep
 
     def _decode_extra(self):
         # the block tables, copied to the device once per decode round
@@ -717,8 +1041,12 @@ class FusedB1Engine(ContinuousBatchingEngine):
     cache, flattened, without a copy.  ``attn_kernel`` changes only the
     prefill; the fused kernel serves every decode step.
 
-    Left out of this port: ``verify_fused`` (speculative decoding), the
-    prefix-cache and handoff hooks, and tensor-parallel replication."""
+    Speculative rounds verify through ``gpt.verify_fused``: the window as
+    k+1 fused decode steps, so the verify tokens are the fused decode's
+    own, bit for bit.
+
+    Left out of this port: the prefix-cache and handoff hooks, and
+    tensor-parallel replication."""
 
     _prefill_kind = "prefill_fused"
 
@@ -756,6 +1084,15 @@ class FusedB1Engine(ContinuousBatchingEngine):
             return gpt.decode_step_fused(p, c, tok, pos, cfg)
 
         return step
+
+    def _verify_step_fn(self):
+        cfg = self.cfg
+
+        def vstep(p, c, extra, toks, pos):
+            del extra
+            return gpt.verify_fused(p, c, toks, pos, cfg)
+
+        return vstep
 
     def _prefill_batch(self, slots: Sequence[int],
                        seqs: Sequence[np.ndarray]):

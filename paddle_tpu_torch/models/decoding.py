@@ -4,7 +4,7 @@
 Seeded sampling keys each draw on JAX's threefry generator
 (``jax.random.categorical`` on ``fold_in(PRNGKey(seed), pos)`` or a split
 key), which needs a threefry port to give JAX's streams: until that
-lands (ROADMAP Queue 1 item 5), every function here takes
+lands (ROADMAP Queue 1 item 3), every function here takes
 ``temperature > 0`` as an error.
 """
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["sample_token", "sample_token_pos", "generate_loop"]
+__all__ = ["sample_token", "sample_token_pos", "sample_window",
+           "generate_loop"]
 
 
 def _greedy(logits, temperature):
@@ -21,7 +22,7 @@ def _greedy(logits, temperature):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     raise NotImplementedError(
         "seeded sampling (temperature > 0) needs the threefry port: "
-        "ROADMAP Queue 1 item 5")
+        "ROADMAP Queue 1 item 3")
 
 
 def sample_token(logits, temperature: float = 0.0, top_k: int = 0,
@@ -39,6 +40,16 @@ def sample_token_pos(logits, seeds, pos, temperature: float = 1.0,
     """Per-row token for logits [B, V], the serving engines' rule:
     greedy for temperature <= 0 (seeds and pos unused then); seeded
     sampling raises."""
+    del seeds, pos, top_k, top_p
+    return _greedy(logits, temperature)
+
+
+def sample_window(logits, seeds, pos, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 1.0):
+    """Window tokens [B, W] int32 from the speculative verify's logits
+    [B, W, V] (fed at positions pos..pos+W-1), by the
+    :func:`sample_token_pos` rule at each position: greedy for
+    temperature <= 0; seeded sampling raises."""
     del seeds, pos, top_k, top_p
     return _greedy(logits, temperature)
 

@@ -1,7 +1,8 @@
 """GPT — the flagship decoder-only LM (port of
-``paddle_tpu/models/gpt.py``: config, init, forward, the training loss
-and the KV-cache entry points of the serving path; dense weights, one
-device).
+``paddle_tpu/models/gpt.py``: config, init, forward, the training loss,
+the KV-cache entry points of the serving path with greedy
+:func:`generate`, and the speculative verify over a window; dense
+weights, one device).
 
 The parameter tree keeps the JAX layout exactly — per-layer weights
 stacked on a leading L axis, qkv packed as ``[L, H, 3, H]`` — so
@@ -20,6 +21,15 @@ the serving path takes such a tree (:func:`_wmm`, :func:`_embed_rows`,
 the int8 tied head).  :func:`decode_step_fused` runs the whole layer
 stack of a b1 step in the ``fused_decode`` kernel over the flat
 ``[L, T, H]`` cache of :func:`flatten_decode_cache`.
+
+Speculative verify (:func:`verify_into_slots`, :func:`verify_paged`,
+:func:`verify_fused`) feeds a window of W = k+1 tokens a slot at
+positions pos..pos+W-1 in one teacher-forced pass: query j attends rows
+<= pos + j, through the same ``flash_decode`` kernel that serves W = 1,
+so the window runs the decode block (:func:`_decode_layer_step`) on
+``[B, W, H]``.  Writes past the cache (an inactive slot fed at
+``max_len - 1``) or onto an unallocated page are dropped, as JAX's
+scatter drops them with ``mode="drop"``.
 
 Differences from the JAX functions, by design:
 
@@ -48,7 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..incubate.nn.functional import _decode_attention
+from ..incubate.nn.functional import (_decode_attention,
+                                      _window_decode_attention)
 from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
                                                  pick_num_chunks)
 from ..incubate.nn.kernels.flash_decode import (flash_decode_attention,
@@ -59,15 +70,17 @@ from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
                      _kv_write, _slot_rows_writer, _zero_cache, layer_slices,
                      matmul_f32out, param_count, params_from_numpy,
                      scan_layers_with_remat)
+from .decoding import generate_loop, sample_token
 
 __all__ = ["GPTConfig", "gpt3_1p3b", "gpt_tiny", "init_params",
            "params_from_numpy", "param_count", "embed",
            "logits_from_hidden", "forward_layers", "forward", "loss_fn",
            "init_decode_cache", "prefill", "prefill_into_slots",
-           "decode_step_multi", "decode_step_paged",
+           "decode_step", "decode_step_multi", "decode_step_paged",
            "prefill_paged_batched", "prefill_paged",
            "quantize_decode_params", "decode_step_fused",
-           "flatten_decode_cache"]
+           "flatten_decode_cache", "verify_into_slots", "verify_paged",
+           "verify_fused", "generate"]
 
 
 @dataclasses.dataclass
@@ -348,25 +361,60 @@ def prefill_into_slots(params, input_ids, cfg: GPTConfig, cache, slots,
 
 
 def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_kv, attend):
-    """One-token block of the decode paths: this token's K/V go through
-    ``write_kv(ck, cv, k, v)`` (the write strategy: per-slot row, or the
-    slot's page), then ``attend(q, ck, cv)`` gives the attention output
-    [B, nH, hD] — the flash kernel or the plain composition over the
-    cache or its page view.  The two are the only variation points, so
-    every decode path runs one implementation."""
-    B = h.shape[0]
+    """The block of the decode and verify paths over h [B, H] (one token
+    a slot) or [B, W, H] (a verify window): this step's K/V go through
+    ``write_kv(ck, cv, k, v)`` (the write strategy: per-slot row, the
+    slot's page, or the window's rows), then ``attend(q, ck, cv)`` gives
+    the attention output [..., nH, hD] — the flash kernel or the plain
+    composition over the cache or its page view.  The two are the only
+    variation points, so every decode and verify path runs one
+    implementation."""
+    lead = h.shape[:-1]
     nH, hD, H = cfg.num_heads, cfg.head_dim, cfg.hidden_size
     x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
-    qkv = _wmm(x, _qkv_weight(lp, H)).view(B, 3, H) + lp["qkv_b"]
-    q = qkv[:, 0].view(B, nH, hD)
-    k = qkv[:, 1].view(B, nH, hD)
-    v = qkv[:, 2].view(B, nH, hD)
+    qkv = _wmm(x, _qkv_weight(lp, H)).view(*lead, 3, H) + lp["qkv_b"]
+    q = qkv[..., 0, :].view(*lead, nH, hD)
+    k = qkv[..., 1, :].view(*lead, nH, hD)
+    v = qkv[..., 2, :].view(*lead, nH, hD)
     write_kv(ck, cv, k, v)
     attn = attend(q, ck, cv)
-    hh = h + _wmm(attn.reshape(B, H), lp["proj_w"]) + lp["proj_b"]
+    hh = h + _wmm(attn.reshape(*lead, H), lp["proj_w"]) + lp["proj_b"]
     x = _layer_norm(hh, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
     x = F.gelu(_wmm(x, lp["fc1_w"]) + lp["fc1_b"], approximate="tanh")
     return hh + _wmm(x, lp["fc2_w"]) + lp["fc2_b"]
+
+
+def _kv_writer(write):
+    """``write_kv(ck, cv, k, v)`` of :func:`_decode_layer_step` from one
+    row writer ``write(arr, rows)``."""
+    def write_kv(ck, cv, k, v):
+        _kv_write(ck, k, write)
+        _kv_write(cv, v, write)
+    return write_kv
+
+
+def decode_step(params, cache, token, pos: int, cfg: GPTConfig):
+    """One token at ONE position: token [B], pos an int -> (logits [B, V]
+    float32, cache updated in place).  Every row's K/V lands at
+    ``cache[l, :, pos]``; attention is the plain composition over rows
+    <= pos, as in JAX."""
+    B = token.shape[0]
+    h = _embed_rows(params["wte"], token, params["wpe"].dtype) \
+        + params["wpe"][pos]                                     # [B, H]
+    lens = torch.full((B,), pos + 1, dtype=torch.int32, device=token.device)
+
+    def write(arr, rows):
+        byte_view(arr)[:, pos] = byte_view(rows)
+
+    def attend(q, ck, cv):
+        return _decode_attention(q, ck, cv, lens)
+
+    write_kv = _kv_writer(write)
+    for l, lp in enumerate(layer_slices(params["layers"])):
+        ck, cv = _kv_layer(cache, l)
+        h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
+    logits = logits_from_hidden(params, h[:, None], cfg)[:, 0]
+    return logits, cache
 
 
 def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
@@ -386,10 +434,7 @@ def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
     def write(arr, rows):
         byte_view(arr)[write_at] = byte_view(rows)
 
-    def write_kv(ck, cv, k, v):
-        _kv_write(ck, k, write)
-        _kv_write(cv, v, write)
-
+    write_kv = _kv_writer(write)
     if attn_kernel == "flash":
         def attend(q, ck, cv):
             return flash_decode_attention(q[:, None], ck, cv, pos)[:, 0]
@@ -404,26 +449,56 @@ def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
     return logits, cache
 
 
-def _paged_write_target(block_tables, pos, block_size, num_blocks):
-    """Where each slot's decode row goes in a paged pool: (page, offset,
-    source slot, any_valid).  A slot whose page is -1 (or past the pool)
-    drops its write, as the JAX scatter does with ``mode="drop"``; an
-    in-place index_put cannot drop, so such a slot repeats the first
-    valid slot's write —
-    the same row with the same bytes, whatever order the duplicates land
-    in.  With no valid slot at all the writes rewrite page 0's row 0
-    with its own content (see :func:`decode_step_paged`)."""
-    B = pos.shape[0]
-    posl = pos.long()
-    page = block_tables.long().gather(1, (posl // block_size)[:, None])[:, 0]
-    off = posl % block_size
-    valid = (page >= 0) & (page < num_blocks)
+def _dropping_writer(cells, valid):
+    """``write(arr, rows)`` for N row writes, each dropped unless valid,
+    as the JAX scatter drops them with ``mode="drop"``: ``cells`` a
+    tuple of [N] index tensors naming each write's place in ``arr``
+    (slot and row, or page and offset), ``valid`` [N] bool, ``rows``
+    with N leading rows (flattened).  An in-place index_put cannot drop,
+    so an invalid write repeats the first valid one — the same place
+    with the same bytes, whatever order the duplicates land in; with no
+    valid write at all every write puts the first place (index 0 on each
+    axis) back with its own content."""
+    N = valid.shape[0]
     first = torch.argmax(valid.to(torch.int32))   # 0 when none is valid
-    src = torch.where(valid, torch.arange(B, device=pos.device), first)
+    src = torch.where(valid, torch.arange(N, device=valid.device), first)
     any_valid = valid.any()
-    zero = torch.zeros_like(page)
-    return (torch.where(any_valid, page[src], zero),
-            torch.where(any_valid, off[src], zero), src, any_valid)
+    at = tuple(torch.where(any_valid, c[src], torch.zeros_like(c))
+               for c in cells)
+
+    def write(arr, rows):
+        raw = byte_view(arr)
+        rows = byte_view(rows).reshape(
+            (N,) + tuple(raw.shape[len(cells):])).index_select(0, src)
+        raw[at] = torch.where(any_valid, rows, raw[at])
+
+    return write
+
+
+def _paged_cells(block_tables, rows, block_size, num_blocks):
+    """Where rows [B, W] of each slot land in a paged pool: (page,
+    offset) flattened to [B * W], and which of them are valid — a write
+    on a -1 page, past the table or past the pool is dropped."""
+    mb = block_tables.shape[1]
+    blk = (rows // block_size).clamp(max=mb - 1)
+    page = block_tables.long().gather(1, blk)
+    valid = (page >= 0) & (page < num_blocks) & (rows < mb * block_size)
+    return ((page.reshape(-1), (rows % block_size).reshape(-1)),
+            valid.reshape(-1))
+
+
+def _paged_plain_view(block_tables, num_blocks):
+    """The plain composition's history of each slot: its pages gathered
+    (ids clamped into the pool, as the JAX gather clamps) into
+    [B, mb * bs, ...]."""
+    B = block_tables.shape[0]
+    safe = block_tables.clamp(0, num_blocks - 1).long()
+
+    def view(a):
+        return byte_view(a)[safe].view(a.dtype).reshape(
+            (B, -1) + tuple(a.shape[2:]))
+
+    return view
 
 
 def decode_step_paged(params, pools, block_tables, token, pos,
@@ -440,33 +515,17 @@ def decode_step_paged(params, pools, block_tables, token, pos,
     gathered (ids clamped into the pool) and the plain composition
     attends them, masked to pos + 1."""
     _check_attn_kernel(attn_kernel)
-    B = token.shape[0]
     nb, bs = pools["k"].shape[1], pools["k"].shape[2]
     h = _embed_rows(params["wte"], token, params["wpe"].dtype) \
         + params["wpe"][pos]                                     # [B, H]
-    page, off, src, any_valid = _paged_write_target(block_tables, pos, bs,
-                                                    nb)
-
-    def write(arr, rows):
-        raw = byte_view(arr)
-        rows = byte_view(rows).index_select(0, src)
-        raw[page, off] = torch.where(any_valid, rows, raw[page, off])
-
-    def write_kv(ck, cv, k, v):
-        _kv_write(ck, k, write)
-        _kv_write(cv, v, write)
-
+    write_kv = _kv_writer(_dropping_writer(
+        *_paged_cells(block_tables, pos.long()[:, None], bs, nb)))
     if attn_kernel == "flash":
         def attend(q, ck, cv):
             return flash_decode_paged(q[:, None], ck, cv, block_tables,
                                       pos)[:, 0]
     else:
-        # ids clamped into the pool, as the JAX gather clamps
-        safe = block_tables.clamp(0, nb - 1).long()
-
-        def view(a):
-            return byte_view(a)[safe].view(a.dtype).reshape(
-                (B, -1) + tuple(a.shape[2:]))
+        view = _paged_plain_view(block_tables, nb)
 
         def attend(q, ck, cv):
             return _decode_attention(q, kv_map(view, ck), kv_map(view, cv),
@@ -603,3 +662,139 @@ def flatten_decode_cache(cache, cfg: GPTConfig):
     of the same storage."""
     L, T = cache["k"].shape[0], cache["k"].shape[2]
     return {k: v[:, 0].reshape(L, T, -1) for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify (serving path) and greedy generation
+# ---------------------------------------------------------------------------
+# One teacher-forced pass over a k+1-token WINDOW a slot — the token to
+# feed, then the k draft tokens — gives the target's logits at every
+# window position, each position's K/V written into the serving cache
+# exactly as decode_step_multi would write it.  Rolling back a rejected
+# suffix needs no device work: no query attends rows past its own
+# position, and the next fed token overwrites its row.
+
+def _window_rows(params, toks, pos, cfg: GPTConfig):
+    """The window's cache rows pos[:, None] + j [B, W] (int64) and its
+    input h [B, W, H]; positional rows clamp at the table's end, as the
+    JAX gather clamps (an inactive slot's window runs past it)."""
+    W = toks.shape[1]
+    rows = pos.long()[:, None] + torch.arange(W, device=toks.device)
+    prows = rows.clamp(max=cfg.max_position_embeddings - 1)
+    h = _embed_rows(params["wte"], toks, params["wpe"].dtype) \
+        + params["wpe"][prows]
+    return rows, h
+
+
+def verify_into_slots(params, cache, toks, pos, cfg: GPTConfig,
+                      attn_kernel: Optional[str] = None):
+    """Speculative verify against the contiguous cache: toks [B, W]
+    (the token to feed, then the k draft tokens), pos [B] int32 the
+    first position fed a slot.  Returns (logits [B, W, V] float32, cache
+    updated in place).  Row pos + j of slot b takes window token j's
+    K/V; rows past the cache are dropped (an inactive slot fed at
+    ``max_len - 1``).  Query j attends rows <= pos + j, through the
+    ``flash_decode`` kernel (``attn_kernel="flash"``, the instance W = 1
+    runs while nH * W <= 16) or the plain window composition, so W = 1
+    is :func:`decode_step_multi` bit for bit on the CPU."""
+    _check_attn_kernel(attn_kernel)
+    B, W = toks.shape
+    T = cache["k"].shape[2]
+    rows, h = _window_rows(params, toks, pos, cfg)
+    slot = torch.arange(B, device=toks.device)[:, None].expand(B, W)
+    write_kv = _kv_writer(_dropping_writer(
+        (slot.reshape(-1), rows.reshape(-1)), (rows < T).reshape(-1)))
+    if attn_kernel == "flash":
+        def attend(q, ck, cv):
+            return flash_decode_attention(q, ck, cv, pos)
+    else:
+        def attend(q, ck, cv):
+            return _window_decode_attention(q, ck, cv, pos)
+
+    for l, lp in enumerate(layer_slices(params["layers"])):
+        ck, cv = _kv_layer(cache, l)
+        h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
+    return logits_from_hidden(params, h, cfg), cache
+
+
+def verify_paged(params, pools, block_tables, toks, pos, cfg: GPTConfig,
+                 attn_kernel: Optional[str] = None):
+    """Speculative verify against the PAGED pools (layout of
+    :func:`decode_step_paged`): toks [B, W], pos [B] int32.  The
+    window's K/V land in each slot's pages; a row on a -1 page, past the
+    table or past the pool is dropped.  ``attn_kernel="flash"`` attends
+    straight off the pool through ``flash_decode_paged``; otherwise the
+    slot's gathered pages through the plain window composition.
+    Returns (logits [B, W, V] float32, pools updated in place)."""
+    _check_attn_kernel(attn_kernel)
+    nb, bs = pools["k"].shape[1], pools["k"].shape[2]
+    rows, h = _window_rows(params, toks, pos, cfg)
+    write_kv = _kv_writer(_dropping_writer(
+        *_paged_cells(block_tables, rows, bs, nb)))
+    if attn_kernel == "flash":
+        def attend(q, ck, cv):
+            return flash_decode_paged(q, ck, cv, block_tables, pos)
+    else:
+        view = _paged_plain_view(block_tables, nb)
+
+        def attend(q, ck, cv):
+            return _window_decode_attention(q, kv_map(view, ck),
+                                            kv_map(view, cv), pos)
+
+    for l, lp in enumerate(layer_slices(params["layers"])):
+        ck, cv = _kv_layer(pools, l)
+        h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
+    return logits_from_hidden(params, h, cfg), pools
+
+
+def verify_fused(qparams, cache, toks, pos, cfg: GPTConfig):
+    """Speculative verify for the fused b1 engine: the window [1, W] as W
+    successive :func:`decode_step_fused` calls at pos[0] + j (pos a
+    device tensor [1]: no host sync), each one launch of the fused
+    layer stack.  The fused kernel rounds differently from the per-op
+    stack, so a window through :func:`verify_into_slots` could disagree
+    with the fused decode on near-ties; running the decode step itself
+    makes the verify tokens bit-identical to it by construction.  JAX
+    scans the step inside one program; here it is W launches, each
+    reading every weight.  Returns (logits [1, W, V], cache)."""
+    out = []
+    for j in range(toks.shape[1]):
+        logits, cache = decode_step_fused(qparams, cache, toks[:, j],
+                                          pos[0] + j, cfg)
+        out.append(logits)
+    return torch.stack(out, dim=1), cache
+
+
+@torch.no_grad()
+def generate(params, input_ids, cfg: GPTConfig, max_new_tokens: int = 32,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+             eos_token_id: Optional[int] = None):
+    """Greedy generation: the prompt [B, S] (a tensor or an array, moved
+    to the weights' device) through :func:`prefill` into a model-dtype
+    cache of ``max_len`` rows (default: prompt + new tokens, at most
+    ``max_position_embeddings``), then ``max_new_tokens - 1``
+    :func:`decode_step` calls.  Returns the new tokens [B,
+    max_new_tokens] int32; after ``eos_token_id`` a row repeats it.
+    ``temperature > 0`` (seeded sampling) raises NotImplementedError;
+    ``seed`` is unused until then."""
+    del seed
+    dev = params["wpe"].device
+    ids = torch.as_tensor(input_ids, device=dev).long()
+    B, S = ids.shape
+    max_len = max_len or min(cfg.max_position_embeddings,
+                             S + max_new_tokens)
+    if S + max_new_tokens > cfg.max_position_embeddings:
+        raise ValueError("prompt + max_new_tokens exceeds "
+                         "max_position_embeddings")
+    if max_len < S + max_new_tokens:
+        raise ValueError(
+            f"max_len={max_len} cannot hold the prompt ({S}) plus "
+            f"{max_new_tokens} new tokens")
+    cache = init_decode_cache(cfg, B, max_len, device=dev)
+    logits, cache, pos = prefill(params, ids, cfg, cache)
+    first = sample_token(logits, temperature, top_k, top_p)
+    tokens, _ = generate_loop(
+        lambda c, t, p: decode_step(params, c, t, p, cfg), cache, first,
+        pos, max_new_tokens, temperature, top_k, top_p, eos_token_id)
+    return tokens

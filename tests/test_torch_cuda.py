@@ -1283,3 +1283,123 @@ def test_llama_sp_on_a_one_rank_nccl_group(cuda):
     row = chip_smoke.llama_sp_check(llama, fa, cfg, params, ids, ids)
     assert row["offset_launches"] == {
         n: cfg.num_layers for n in fa.launches("flash_attention_with_lse")}
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify window through the decode kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("mode", ["dense", "int8", "fp8"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_verify_rows_are_w1_calls_bit_for_bit(cuda, layout, mode, k):
+    """At gpt3_1p3b's decode shape (B 8, T 1024, 16 heads of 128, q
+    bf16), each row j of a W = k+1 window equals, bit for bit, a W = 1
+    call at pos + j on the same cache: the split plan depends on (B, nKV,
+    T) alone and a query's reduction order does not depend on W, so the
+    speculative verify gives the decode step's attention."""
+    rng = np.random.default_rng(k)
+    B, W, T, nH, hD, bs = 8, k + 1, 1024, 16, 128, 64
+    if layout == "paged":
+        kc, vc, bt, pos = _paged_case(rng, B, W, T, nH, hD, bs, mode,
+                                      torch.bfloat16, cuda)
+    else:
+        _, kc, vc, pos = _decode_case(rng, B, W, T, nH, nH, hD, mode,
+                                      torch.bfloat16, cuda)
+        bt = None
+    q = _rand(rng, (B, W, nH, hD), torch.bfloat16, cuda)
+
+    def call(qq, p):
+        if bt is None:
+            return fd.flash_decode_attention(qq, kc, vc, p)
+        return fd.flash_decode_paged(qq, kc, vc, bt, p)
+
+    assert fd.kernel_plan(q, kc, bt)["instance"] == "split"
+    assert fd.kernel_plan(q, kc, bt) == fd.kernel_plan(q[:, :1], kc, bt)
+    window = call(q, pos)
+    rows = torch.cat([call(q[:, j:j + 1].contiguous(), pos + j)
+                      for j in range(W)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(window, rows)
+
+
+def _spec_models(device):
+    """gpt_tiny f32 (hD 32) and a smaller GPT draft (hD 16) on
+    ``device``, from the same seeds on every device."""
+    cfg = gpt.gpt_tiny(use_flash=False)
+    dcfg = gpt.gpt_tiny(hidden_size=64, num_layers=2, num_heads=4,
+                        use_flash=False)
+    return (cfg, _to(gpt.init_params(cfg, seed=2, device="cpu"), device),
+            dcfg, _to(gpt.init_params(dcfg, seed=5, device="cpu"), device))
+
+
+@pytest.mark.parametrize("draft", ["gpt", "ngram"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_speculative_engine_on_card_matches_cpu(cuda, paged, draft):
+    """A speculative engine on the card (flash kernels) gives the CPU
+    engine's streams, which are the non-speculative streams; the verify
+    runs through flash_decode (paged: flash_decode_paged), L launches a
+    round."""
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine, PagedContinuousBatchingEngine,
+        SpeculativeConfig)
+    E = PagedContinuousBatchingEngine if paged else ContinuousBatchingEngine
+    kw = dict(block_size=8, num_blocks=40) if paged else {}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 1024, (n,)) for n in (4, 33, 17)]
+    streams = []
+    for device, ak in (("cpu", "xla"), (cuda, "flash")):
+        cfg, params, dcfg, dparams = _spec_models(device)
+        spec = True if draft == "ngram" else SpeculativeConfig(
+            k=3, draft_params=dparams, draft_cfg=dcfg)
+        for s in (None, spec):
+            eng = E(params, cfg, max_batch=2, max_len=64, device=device,
+                    attn_kernel=ak, speculative=s, **kw)
+            before = (fd.LAUNCHES, fd.PAGED_LAUNCHES)
+            rids = [eng.submit(p, max_new=10) for p in prompts]
+            out = eng.run(steps_per_sync=4)
+            streams.append([out[r] for r in rids])
+            if device == cuda and s is not None:
+                m = eng.metrics()
+                rounds = m["launches"]["verify"]
+                got = (fd.PAGED_LAUNCHES - before[1]) if paged else \
+                    (fd.LAUNCHES - before[0])
+                want = cfg.num_layers * (m["decode_steps"] + rounds)
+                if not paged:
+                    want += cfg.num_layers * m["launches"]["prefill"]
+                    want += dcfg.num_layers * (
+                        m["draft_steps"]
+                        + m["launches"].get("draft_prefill", 0))
+                assert rounds >= 1 and got == want
+    assert all(s == streams[0] for s in streams)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_verify_fused_rows_are_the_fused_steps(cuda, kv_dtype):
+    """verify_fused on the card equals successive decode_step_fused
+    calls on a copy of the cache, logits and written rows bit for bit
+    (gpt_tiny with int8 weights), one fused launch a window position."""
+    from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl
+    cfg = gpt.gpt_tiny(use_flash=False)
+    qp = _to(gpt.quantize_decode_params(
+        gpt.init_params(cfg, seed=2, device="cpu"), cfg), cuda)
+    rng = np.random.default_rng(4)
+    cache = gpt.init_decode_cache(cfg, 1, 256, kv_dtype, device=cuda)
+    ids = torch.tensor(rng.integers(0, 1024, (1, 40)), device=cuda)
+    gpt.prefill_into_slots(qp, ids, cfg, cache,
+                           torch.zeros(1, dtype=torch.long, device=cuda),
+                           attn_kernel="flash")
+    flat = gpt.flatten_decode_cache(cache, cfg)
+    copy = {n: a.clone() for n, a in flat.items()}
+    toks = torch.tensor(rng.integers(0, 1024, (1, 4)), dtype=torch.int32,
+                        device=cuda)
+    pos = torch.tensor([40], dtype=torch.int32, device=cuda)
+    before = fdl.LAUNCHES
+    got, _ = gpt.verify_fused(qp, flat, toks, pos, cfg)
+    assert fdl.LAUNCHES == before + 4
+    want = torch.stack([gpt.decode_step_fused(qp, copy, toks[:, j], pos + j,
+                                              cfg)[0] for j in range(4)], 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for n, a in flat.items():
+        assert torch.equal(kv_quant.byte_view(a), kv_quant.byte_view(copy[n]))
