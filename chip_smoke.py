@@ -31,6 +31,17 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    timed beside SDPA on the gathered, dequantized bf16 K/V (gather and
    dequantization untimed); and in each mode a paged call over an
    identity table must equal the contiguous kernel bit for bit.
+2a. row_gemm (``row_gemm_phase``) — the decode block's products at
+   gpt3_1p3b's shapes (qkv, proj, fc1, fc2 bf16; the tied head from
+   ``wte.t()`` with float32 output) for M 8, 32 and 64: each row bit for
+   bit the same at M 1, 8, 13, 32, 64, permuted and across 64-row
+   launches; held to its plain version and to the float32 product
+   (``row_gemm_check``: float32 sums of K products within 2 K 2^-24
+   (|x| @ |w|) of each other, bf16 output one rounding more, 2^-8 of the
+   product; against cuBLAS's bf16 output one step of the element and of
+   the output's rms); timed over rotating weight copies beside the plain
+   version, ``torch.matmul`` and the byte bound; the float32 instance at
+   gpt_tiny's shapes (checks only).
 3. kernels (training) — the flash-attention forward, dK/dV and dQ
    kernels against their plain versions at the training shape (B 8,
    S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
@@ -75,6 +86,11 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    round and prefill, the draft's layers a draft step and draft
    prefill; fused_decode once a decode step and a verify position; RMS
    "llama" 2 L + 1 a LLaMA draft step).
+4b. prefix reference (``prefix_reference_phase``) — the prefix cache on
+   gpt_tiny f32 (int8 weights for the fused engine): a primer, then a
+   shared-prefix load with hits, partial hits and a full hit on the
+   contiguous, paged and fused engines: the warm card streams equal the
+   cold card streams and the CPU's, with the CPU's hits.
 5. serving — gpt3_1p3b at full width (24 layers, H 2048, 16 heads of
    128, V 50304, bf16, random weights from seed 0) behind
    ``ContinuousBatchingEngine(max_batch=8, max_len=1024,
@@ -82,7 +98,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    32-700 and max_new 32, all DONE with 32 tokens; the kernel's launch
    count, reset just before, must equal 24 per decode step (all on the
    split-KV instance) plus 24 per prefill program (all on the tensor
-   cores).  Then one ``decode_step_multi`` at that width,
+   cores), and row_gemm's 97 per decode step (4 a layer and the head).
+   Then one ``decode_step_multi`` at that width,
    "flash" against "xla", logits finite and within atol 0.25, and a
    profile of where a decode step's time goes.  The same 12 requests
    then go through ``PagedContinuousBatchingEngine(block_size=64)``
@@ -105,13 +122,29 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    profiled; the contiguous and paged bf16 engines with n-gram and with
    the target as its own draft, the paged int8 engine with n-gram:
    launches exact, every request DONE with 32 tokens, decode-loop tok/s,
-   acceptance, tokens per launch and rounds beside the plain run, the
-   streams equal to the plain run's, and each difference's first token
-   with the target's top-2 margin there, which must lie within the row
-   check's |delta| (a near-tie) or the phase fails; ``FusedB1Engine``
+   acceptance, tokens per launch and rounds beside the plain run; gates:
+   the row check's rows and cache elements all bitwise equal (the
+   decode block's products run ``row_gemm``, the same bits at any M),
+   every stream equal to the plain run's (a difference is logged with
+   the target's top-2 margin there and fails the phase), a self-draft
+   round from the row check's state accepting every draft (the engines'
+   self-draft acceptance is reported: a fully accepted round leaves the
+   draft cache one row short, as in JAX); ``FusedB1Engine``
    (int8 weights, 3 requests x 32) plain and with n-gram: equal streams
    (a gate) and ``verify_fused`` equal to the fused decode steps bit
    for bit, both profiled.
+5b. prefix serving (``prefix_serving_phase``) — the device prefix cache
+   at that width: a primer, then 12 requests sharing a 512-token seeded
+   prefix (tails 16-128, 32 new tokens) through the contiguous engine
+   (bf16) and the paged engine (64-token pages, budget 24 pages) at bf16
+   and int8, cold and warm, and the fused engine (int8 weights, 3
+   requests): every warm request hits the prefix; launches exact
+   (flash_decode L a decode step, prefill and suffix pass, row_gemm
+   4 L + 1 a decode step and 4 L a suffix pass; fused_decode once a
+   decode step and a suffix token); TTFT cold against warm, hit tokens,
+   shared pages; warm streams equal cold, or each difference at a
+   near-tie (the cold path's top-2 margin within the warm/cold logit
+   |delta| of one prompt).
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -236,8 +269,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    within 1e-6 relative, each gradient leaf within 1e-3 in norm; a
    first call sets up the communicator, the second is counted and timed.
 16. the seconds of each phase, the kernels line (flash_decode in each
-   layout and storage mode that the serving runs launch, the training
-   kernels, fused_decode in each storage mode, rms_norm in each policy,
+   layout and storage mode that the serving runs launch, row_gemm, the
+   training kernels, fused_decode in each storage mode, rms_norm in each policy,
    the ring variant's three kernels, ``flash_attention_with_lse_*``,
    with launches from phase 15 and times at its shape; the float32
    instances of the flash and CE kernels beside their bf16 rows, and
@@ -316,7 +349,7 @@ def _nvidia_smi(query):
 
 
 PTXAS_SOURCES = ("flash_attention", "flash_decode", "fused_ce",
-                 "fused_decode")
+                 "fused_decode", "row_gemm")
 
 
 def _flash_ptxas_start(build):
@@ -354,7 +387,9 @@ NEW_KERNELS = (
     ("tc", re.compile(r"flash_decode_tc_kernelILi(\d+)ELb([01])E")),
     ("ce_tc", re.compile(r"fused_ce_fwd_tc_kernel")),
     ("ce_merge", re.compile(r"fused_ce_merge_kernel")),
-    ("fused", re.compile(r"fused_decode_kernelILi(\d)E")))
+    ("fused", re.compile(r"fused_decode_kernelILi(\d)E")),
+    ("row_gemm", re.compile(r"row_gemm_(bf16|f32)_kernelILi(\d)ELb([01])E"
+                            r"(f|13__nv_bfloat16)?")))
 FUSED_MODE_NAMES = ("float32", "bfloat16", "int8", "fp8")
 
 
@@ -382,6 +417,15 @@ def _new_kernel_row(kind, m, build):
     """Name and launch facts of one flash_decode / fused_ce /
     fused_decode instance (fused_decode's shared memory at
     gpt3_1p3b)."""
+    if kind == "row_gemm":
+        rows = 16 * int(m.group(2))
+        layout = "nk (wte.t())" if m.group(3) == "1" else "kn"
+        if m.group(1) == "f32":
+            return f"row_gemm float32 {layout} <= {rows} rows", 128, 0
+        smem = build.load("row_gemm").pt_row_gemm_smem_bytes
+        smem.argtypes = [ctypes.c_int]
+        return (f"row_gemm bfloat16 {layout} <= {rows} rows -> "
+                f"{_TYPES[m.group(4)]}", 128, smem(rows))
     if kind == "fused":
         from paddle_tpu_torch.incubate.nn.kernels import fused_decode
         plan = fused_decode.kernel_plan(
@@ -442,7 +486,8 @@ def flash_resources(procs, build):
                     "fwd", "bwd_dkv", "bwd_dq").index(m.group(1))), **res}
     new_rows = {}
     for line, res in _ptxas_entries(logs["flash_decode"] + logs["fused_ce"]
-                                    + logs["fused_decode"]):
+                                    + logs["fused_decode"]
+                                    + logs["row_gemm"]):
         for kind, pattern in NEW_KERNELS:
             m = pattern.search(line)
             if m:
@@ -709,6 +754,160 @@ def paged_kernel_phase(fd, kvq):
     return results
 
 
+# (name, K, N) of gpt3_1p3b's decode products; the head reads wte [N, K]
+ROW_GEMM_SHAPES = (("qkv", 2048, 6144), ("proj", 2048, 2048),
+                   ("fc1", 2048, 8192), ("fc2", 8192, 2048),
+                   ("head", 2048, 50304))
+ROW_GEMM_ROWS = (8, 32, 64)     # decode (8 slots), verify k 3, verify k 7
+
+
+def row_gemm_check(rg, x, w, out_dtype=None):
+    """``row_gemm`` against its plain version and the float32 product on
+    the card; raises past either limit.  Limits, per element: float32
+    sums of K products differ by at most 2 K 2^-24 (|x| @ |w|) between
+    two orders (``sum_tol``); a bfloat16 output adds one rounding, 2^-8
+    of the float32 product; against the plain version (cuBLAS, which
+    may reduce split-K partials in bfloat16) one bf16 step of the
+    element plus one of the output's rms."""
+    got = rg.row_gemm(x, w, out_dtype)
+    want = rg.row_gemm_plain(x, w, out_dtype)
+    xf, wf = x.float(), w.float()
+    ref = xf @ wf                                     # TF32 off: float32
+    sum_tol = 2 * x.shape[-1] * 2.0 ** -24 * (xf.abs() @ wf.abs())
+    g, p = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        ref_lim = 2.0 ** -8 * ref.abs() + sum_tol
+        rms = p.pow(2).mean().sqrt()
+        plain_lim = 2.0 ** -7 * (p.abs() + rms) + sum_tol
+    else:
+        ref_lim = sum_tol + 1e-30
+        plain_lim = 2 * sum_tol + 1e-30
+    share_ref = ((g - ref).abs() / ref_lim).max().item()
+    share_plain = ((g - p).abs() / plain_lim).max().item()
+    out = {"max_abs_err": (g - p).abs().max().item(),
+           "max_abs_err_f32": (g - ref).abs().max().item(),
+           "limit_share": share_plain, "limit_share_f32": share_ref}
+    if not (share_ref <= 1 and share_plain <= 1) \
+            or not torch.isfinite(g).all():
+        raise AssertionError(f"row_gemm {tuple(x.shape)} x {tuple(w.shape)}"
+                             f" {x.dtype}: {out}")
+    return out
+
+
+def row_gemm_rows_check(rg, x, w, out_dtype=None, seed=0):
+    """Each row of ``row_gemm`` bit for bit the same whatever M: x [64,
+    K]'s rows at M 1, 8, 13 and 32, in a permuted order, and 130 rows
+    (three launches) against the 64-row call."""
+    full = rg.row_gemm(x, w, out_dtype)
+    for M in (1, 8, 13, 32):
+        if not torch.equal(rg.row_gemm(x[:M], w, out_dtype), full[:M]):
+            raise AssertionError(f"row_gemm rows at M {M} differ from M 64")
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(x.shape[0], generator=gen).to(x.device)
+    if not torch.equal(rg.row_gemm(x[perm], w, out_dtype), full[perm]):
+        raise AssertionError("row_gemm rows move with their place")
+    big = torch.cat([x, x, x[:2]])
+    if not torch.equal(rg.row_gemm(big, w, out_dtype),
+                       torch.cat([full, full, full[:2]])):
+        raise AssertionError("row_gemm rows differ across 64-row launches")
+
+
+def _row_gemm_operands(gen, K, N, dtype, head, rows=64):
+    """x [rows, K] and w: a [K, N] weight, or for the head the [N, K]
+    table read as its transpose (seeded, the init's 0.02 scale)."""
+    x = torch.randn((rows, K), generator=gen, device="cuda").to(dtype)
+    if head:
+        w = (torch.randn((N, K), generator=gen, device="cuda")
+             * 0.02).to(dtype).t()
+    else:
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             * 0.02).to(dtype)
+    return x, w
+
+
+def _time_rotating(fns, reps=30):
+    """Median CUDA-event time of one call, cycling through ``fns`` (the
+    same product over copies of the weights, 160 MB or more together):
+    each call finds its weights cold and the L2 holding the clean lines
+    of the previous call's reads, as a decode step's layers do (a
+    ``flush.zero_()`` would leave dirty lines whose write-back doubles
+    the traffic of a read-bound call).  The device sleep of
+    :func:`_time_ms` keeps host dispatch out of the events."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    times = []
+    for r in range(reps):
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fns[r % len(fns)]()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def row_gemm_phase(rg):
+    """``row_gemm`` at gpt3_1p3b's five decode products (bf16; the head
+    with float32 output) for M 8, 32 and 64: held to its plain version
+    and the float32 product (``row_gemm_check``), rows bit for bit across
+    M (``row_gemm_rows_check``), timed over rotating weight copies
+    (``_time_rotating``) beside its plain version, ``torch.matmul`` (the
+    head: ``torch.mm`` with float32 output) and the byte bound; then the
+    float32 instance at gpt_tiny's shapes (checks only)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    for name, K, N in ROW_GEMM_SHAPES:
+        head = name == "head"
+        out_dtype = torch.float32 if head else None
+        copies = max(2, -(-160_000_000 // (2 * K * N)))
+        ops = [_row_gemm_operands(gen, K, N, torch.bfloat16, head)
+               for _ in range(copies)]
+        row_gemm_rows_check(rg, *ops[0], out_dtype)
+
+        def library(x, w, head=head):
+            return (torch.mm(x, w, out_dtype=torch.float32) if head
+                    else torch.matmul(x, w))
+
+        for M in ROW_GEMM_ROWS:
+            xs = [(x[:M].contiguous(), w) for x, w in ops]
+            chk = row_gemm_check(rg, *xs[0], out_dtype)
+            out_elem = 4 if head else 2
+            b = _bound(2 * K * N + 2 * M * K + out_elem * M * N,
+                       2 * M * K * N, "bfloat16")
+            ms = _time_rotating([lambda x=x, w=w: rg.row_gemm(x, w, out_dtype)
+                                 for x, w in xs])
+            row = {"name": name, "shape": f"M={M} K={K} N={N} bf16"
+                   + (" wte.t() -> f32" if head else ""),
+                   "plan": rg.row_gemm_plan(M, K, N, torch.bfloat16),
+                   **chk, "kernel_ms": ms,
+                   "plain_ms": _time_rotating(
+                       [lambda x=x, w=w: rg.row_gemm_plain(x, w, out_dtype)
+                        for x, w in xs]),
+                   "library_ms": _time_rotating(
+                       [lambda x=x, w=w: library(x, w) for x, w in xs]),
+                   **b, "bound_share": b["bound_ms"] / ms,
+                   "weight_copies": copies,
+                   "rows_bit_identical_across_m": True}
+            rows[(name, M)] = row
+            _log({"phase": "row_gemm", **row})
+        del ops, xs
+    for name, K, N, head in (("gpt_tiny qkv", 128, 384, False),
+                             ("gpt_tiny fc2", 512, 128, False),
+                             ("gpt_tiny head", 128, 1024, True)):
+        x64, w = _row_gemm_operands(gen, K, N, torch.float32, head)
+        row_gemm_rows_check(rg, x64, w)
+        chk = row_gemm_check(rg, x64[:8], w)
+        rows[(name, 8)] = {"name": name, "shape": f"M=8 K={K} N={N} f32",
+                           **chk}
+        _log({"phase": "row_gemm", **rows[(name, 8)],
+              "rows_bit_identical_across_m": True})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def reference_phase(gpt, Engine):
     """The card's flash engine against the CPU engine on gpt_tiny in
     float32: identical greedy streams."""
@@ -733,7 +932,7 @@ def reference_phase(gpt, Engine):
           "requests": len(reqs), "streams_identical": True})
 
 
-def serving_phase(gpt, Engine, fd):
+def serving_phase(gpt, Engine, fd, rg):
     cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = gpt.init_params(cfg, seed=0, device="cuda")
@@ -752,6 +951,7 @@ def serving_phase(gpt, Engine, fd):
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 701, 12)
     fd.reset_launches()
+    rg.reset_launches()
     t0 = time.perf_counter()
     rids = [eng.submit(rng.integers(0, cfg.vocab_size, (n,)), max_new=32)
             for n in lens]
@@ -759,6 +959,7 @@ def serving_phase(gpt, Engine, fd):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fd.LAUNCHES
+    gemm_launches = rg.LAUNCHES
     instances = dict(fd.INSTANCE_LAUNCHES)
     m = eng.metrics()
     steps = m["decode_steps"] - base["decode_steps"]
@@ -774,6 +975,11 @@ def serving_phase(gpt, Engine, fd):
         raise AssertionError(
             f"flash_decode launches {launches} != {L} x ({steps} decode "
             f"steps + {prefills} prefill programs)")
+    # every product of a decode step (4 a layer and the head) on row_gemm;
+    # the prefills keep torch.matmul
+    if gemm_launches != (4 * L + 1) * steps:
+        raise AssertionError(f"row_gemm launches {gemm_launches} != "
+                             f"{4 * L + 1} x {steps} decode steps")
     # decode steps on the split-KV instance, admissions on the tensor cores
     if instances != {"split": L * steps, "tc": L * prefills, "simt": 0}:
         raise AssertionError(f"flash_decode instances {instances}: want "
@@ -786,6 +992,7 @@ def serving_phase(gpt, Engine, fd):
     row = {"phase": "serving", "requests": len(rids),
            "prompt_lens": [int(n) for n in lens], "max_new": 32,
            "launches": launches, "instance_launches": instances,
+           "row_gemm_launches": gemm_launches,
            "decode_steps": steps, "prefill_programs": prefills,
            "decode_rounds": m["launches"]["decode"]
            - base["launches"]["decode"],
@@ -2252,6 +2459,7 @@ def _verify_rows(gpt, params, cfg, state, layout, kd, k):
     steps on the second copy, then the verify."""
     cache, bt, toks, pos = state
     c2 = {n: a.clone() for n, a in cache.items()}
+    c3 = {n: a.clone() for n, a in cache.items()}
     W = k + 1
 
     def verify(c=cache):
@@ -2282,6 +2490,24 @@ def _verify_rows(gpt, params, cfg, state, layout, kd, k):
         # them (fp8 compared as its bytes)
         cache_differ = sum(int((_bits(a) != _bits(c2[n])).sum())
                            for n, a in cache.items())
+        # one self-draft round from this state: k greedy decode steps of
+        # the target on a third copy, then the verify of [tok, drafts];
+        # with verify rows equal to decode rows it accepts all k drafts
+        d_tok, drafts = toks[:, 0], []
+        for j in range(k):
+            d_tok = decode(c3, d_tok, pos + j).argmax(-1).to(torch.int32)
+            drafts.append(d_tok)
+        drafts = torch.stack(drafts, dim=1)
+        if layout == "paged":
+            g = gpt.verify_paged(params, c3, bt, torch.cat(
+                [toks[:, :1], drafts], 1), pos, cfg,
+                attn_kernel="flash")[0].argmax(-1)
+        else:
+            g = gpt.verify_into_slots(params, c3, torch.cat(
+                [toks[:, :1], drafts], 1), pos, cfg,
+                attn_kernel="flash")[0].argmax(-1)
+        self_accepted = int((drafts == g[:, :k]).sum())
+        del c3
 
         def round_self():
             tok, p = toks[:, 0], pos
@@ -2303,6 +2529,7 @@ def _verify_rows(gpt, params, cfg, state, layout, kd, k):
             diff.max().item(), "rows_not_bitwise_equal": rows_differ,
             "argmax_differ": argmax_differ,
             "cache_elements_differ": cache_differ,
+            "self_draft_round_accepted": f"{self_accepted}/{k * lv.shape[0]}",
             "logit_std": ld.std().item(), "profiles": prof}
 
 
@@ -2345,11 +2572,19 @@ def speculative_serving_phase(gpt, engines, Spec, fd, fdl, fnr, cfg, params,
     non-speculative run of the same engine (from the serving phases).
     The row check (``_verify_rows``) on each layout and kv_dtype, with
     one verify pass, one decode step and one self-draft round profiled.
-    Gates: the fused engine's speculative streams equal its
+    Gates: every verify row and written cache element equal to the decode
+    steps', bit for bit (row_gemm carries every product of the decode
+    block), and a self-draft round from the row check's state accepting
+    all k drafts of every slot; every contiguous and paged speculative
+    stream equal to the plain run's (a difference is logged with the
+    target's top-2 margin there, then fails the phase).  The engines'
+    self-draft acceptance is reported, not gated: as in the JAX engine,
+    a round's k draft steps write the draft cache's rows pos .. pos+k-1
+    only, so after a fully accepted round the next round's draft attends
+    a row (pos+k) its cache never received, and may propose another
+    token; the fused engine's speculative streams equal its
     non-speculative ones (by construction: the verify is the fused
-    decode step), and so do its verify rows, bit for bit; a contiguous
-    or paged stream that differs must differ at a near-tie: the target's
-    top-2 margin there within the row check's largest |delta|."""
+    decode step), and so do its verify rows, bit for bit."""
     Engine, PagedEngine, FusedEngine = engines
     L = cfg.num_layers
     rng = np.random.default_rng(0)
@@ -2363,6 +2598,17 @@ def speculative_serving_phase(gpt, engines, Spec, fd, fdl, fnr, cfg, params,
                               ("paged", "int8"))}
     for c in checks.values():
         _log({"phase": "speculative_verify_rows", **c})
+        # every product of the decode block is row_gemm's: a verify row
+        # is the decode step's row, bit for bit
+        acc, total = map(int, c["self_draft_round_accepted"].split("/"))
+        if c["rows_not_bitwise_equal"] or c["cache_elements_differ"] \
+                or acc != total:
+            raise AssertionError(
+                f"speculative verify rows {c['layout']} {c['kv_dtype']}: "
+                f"{c['rows_not_bitwise_equal']} of {c['rows']} rows and "
+                f"{c['cache_elements_differ']} cache elements differ from "
+                f"the decode steps'; a self-draft round accepted "
+                f"{c['self_draft_round_accepted']}")
     torch.cuda.empty_cache()
     runs = [("contiguous", "bf16", "ngram"), ("contiguous", "bf16", "self"),
             ("paged", "bf16", "ngram"), ("paged", "bf16", "self"),
@@ -2414,11 +2660,6 @@ def speculative_serving_phase(gpt, engines, Spec, fd, fdl, fnr, cfg, params,
             diverged.append({"request": i, "token": j, "speculative": a[j],
                              "plain": b[j], "top2_margin": margin,
                              "row_check_max_abs_diff": delta})
-            if margin > delta:
-                raise AssertionError(
-                    f"speculative {kind} {kd} {draft}: request {i} leaves "
-                    f"the plain stream at token {j} with a top-2 margin "
-                    f"{margin} above the row check's |delta| {delta}")
         prow = base_rows[(kind, kd)]
         row = {"phase": "speculative_serving", "engine": kind, "kv_dtype": kd,
                "draft": draft, "k": SPEC_K, "launches": got,
@@ -2437,6 +2678,10 @@ def speculative_serving_phase(gpt, engines, Spec, fd, fdl, fnr, cfg, params,
                    streams, plain) for x, y in zip(a, b))}/{32 * len(rids)}""",
                "divergences": diverged}
         _log(row)
+        if diverged:
+            raise AssertionError(
+                f"speculative {kind} {kd} {draft}: {len(diverged)} of "
+                f"{len(rids)} streams leave the plain stream: {diverged}")
         results[(kind, kd, draft)] = row
         del eng
         torch.cuda.empty_cache()
@@ -2528,6 +2773,306 @@ def _speculative_fused(gpt, FusedEngine, fd, fdl, fnr, cfg, qparams, prompts,
     del cache, flat, copy
     torch.cuda.empty_cache()
     return row
+
+
+def _shared_prefix_load(rng, vocab, n, prefix_len, tails):
+    """n prompts of one seeded prefix plus a seeded tail of a length in
+    ``tails`` (inclusive range) each."""
+    prefix = rng.integers(0, vocab, prefix_len)
+    return [np.concatenate([prefix, rng.integers(0, vocab, int(t))])
+            for t in rng.integers(tails[0], tails[1] + 1, n)]
+
+
+def _prefix_engine(engines, kind, params, cfg, dev, budget, kd="bf16",
+                   **kw):
+    Engine, PagedEngine, FusedEngine = engines
+    common = dict(kv_dtype=kd, device=dev, prefix_cache_bytes=budget,
+                  attn_kernel="xla" if dev == "cpu" else "flash")
+    if kind == "fused":
+        return FusedEngine(params, cfg, max_len=kw.pop("max_len"), **common)
+    if kind == "paged":
+        return PagedEngine(params, cfg, **kw, **common)
+    return Engine(params, cfg, **kw, **common)
+
+
+def prefix_reference_phase(gpt, engines, rg):
+    """The prefix cache on the card against the CPU (gpt_tiny float32;
+    int8 weights for the fused engine): a primer request, then a shared
+    prefix load with hits, partial hits and a full hit, on the
+    contiguous, paged (8-row pages) and fused engines, each warm card
+    run equal to the cold card run and to the CPU run; the warm runs
+    must hit and must launch row_gemm for their suffix passes."""
+    cfg = gpt.gpt_tiny(dtype=torch.float32, use_flash=False)
+    cpu = gpt.init_params(cfg, seed=4, device="cpu")
+    trees = {"cpu": cpu, "cuda": _to_device(cpu, "cuda")}
+    qtrees = {dev: gpt.quantize_decode_params(t, cfg)
+              for dev, t in trees.items()}
+    rng = np.random.default_rng(4)
+    load = _shared_prefix_load(rng, cfg.vocab_size, 5, 40, (0, 21))
+    out = {}
+    for kind in ("contiguous", "paged", "fused"):
+        kw = dict(max_len=128)
+        if kind != "fused":
+            kw["max_batch"] = 3
+        if kind == "paged":
+            kw.update(block_size=8, num_blocks=60)
+        prompts = load[:3] if kind == "fused" else load
+        streams, hits = {}, {}
+        for dev, budget in (("cpu", 1 << 30), ("cuda", 0), ("cuda", 1 << 30)):
+            params = (qtrees if kind == "fused" else trees)[dev]
+            eng = _prefix_engine(engines, kind, params, cfg, dev, budget,
+                                 **dict(kw))
+            eng.submit(load[0][:45], max_new=6)            # the primer
+            eng.run()
+            before = rg.LAUNCHES
+            rids = [eng.submit(p, max_new=10) for p in prompts]
+            res = eng.run(steps_per_sync=4)
+            streams[(dev, budget)] = [res[r] for r in rids]
+            hits[(dev, budget)] = [eng.request(r).prefix_hit for r in rids]
+            if dev == "cuda" and rg.LAUNCHES == before:
+                raise AssertionError(f"prefix reference {kind}: no row_gemm "
+                                     f"launch on the card")
+        want = streams[("cpu", 1 << 30)]
+        if streams[("cuda", 0)] != want or streams[("cuda", 1 << 30)] != want:
+            raise AssertionError(f"prefix reference {kind}: card streams "
+                                 f"{streams} differ from the CPU's")
+        h = hits[("cuda", 1 << 30)]
+        if h != hits[("cpu", 1 << 30)] or sum(x > 0 for x in h) < 2:
+            raise AssertionError(f"prefix reference {kind}: hits {hits}")
+        out[kind] = {"hits": h, "streams_identical": True}
+    _log({"phase": "prefix_reference", "config": "gpt_tiny f32 (fused: int8 "
+          "weights)", **out})
+    return out
+
+
+PREFIX_LEN, PREFIX_TAILS, PREFIX_REQUESTS = 512, (16, 128), 12
+
+
+def _prefix_run(eng, prompts, primer, fd, rg, fdl):
+    """The primer alone, then the load: (streams, per-request TTFT and
+    hits, launch counts of the load's run)."""
+    eng.submit(primer, max_new=4)
+    eng.run()
+    base = eng.metrics()
+    fd.reset_launches()
+    rg.reset_launches()
+    fdl.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=32) for p in prompts]
+    out = eng.run(steps_per_sync=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for rid in rids:
+        if eng.request(rid).status != "DONE" or len(out[rid]) != 32:
+            raise AssertionError(f"prefix serving: request {rid} "
+                                 f"{eng.request(rid).status}")
+    m = eng.metrics()
+    d = _spec_deltas(m, base)
+    reqs = [eng.request(r) for r in rids]
+    return {"streams": [out[r] for r in rids],
+            "ttft_s": [r.first_token_at - r.submitted_at for r in reqs],
+            "hits": [r.prefix_hit for r in reqs],
+            "suffix_tokens": [len(p) - 1 - r.prefix_hit if r.prefix_hit
+                              else 0 for p, r in zip(prompts, reqs)],
+            "deltas": d, "wall_s": wall,
+            "counts": {"flash_decode": fd.LAUNCHES,
+                       "flash_decode_paged": fd.PAGED_LAUNCHES,
+                       "instances": dict(fd.INSTANCE_LAUNCHES),
+                       "row_gemm": rg.LAUNCHES, "fused_decode": fdl.LAUNCHES},
+            "metrics": m}
+
+
+def _prefix_logits(gpt, params, cfg, cache, token, pos, fused):
+    """One decode step's logits feeding ``token`` at ``pos``: the per-op
+    step, or the fused one over the cache's flat view."""
+    tok = torch.tensor([int(token)], dtype=torch.int32, device="cuda")
+    at = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    if fused:
+        return gpt.decode_step_fused(params, gpt.flatten_decode_cache(
+            cache, cfg), tok, at, cfg)[0]
+    return gpt.decode_step_multi(params, cache, tok, at, cfg,
+                                 attn_kernel="flash")[0]
+
+
+def _prefix_kv_delta(gpt, params, cfg, kd, primer, prompt, fused):
+    """How far the warm path's K/V and logits lie from the cold path's
+    for one prompt: the cold cache from one prefill of the prompt, the
+    warm one from the primer's prefill rows [0, P) (P the shared prefix)
+    and the suffix filled as an engine's hit fills it (one windowed pass;
+    fused: one fused step a token); then one decode step feeding the
+    last token on each.  Returns (max |K/V delta| over the rows and
+    layers, max |logit delta|)."""
+    S, P = len(prompt), PREFIX_LEN
+    slot0 = torch.zeros(1, dtype=torch.long, device="cuda")
+    caches = []
+    with torch.inference_mode():
+        for ids in (prompt[:-1], primer[:P]):
+            c = gpt.init_decode_cache(cfg, 1, 1024, kd, device="cuda")
+            gpt.prefill_into_slots(params, torch.tensor(ids, device="cuda")
+                                   [None], cfg, c, slot0, attn_kernel="flash")
+            caches.append(c)
+        cold, warm = caches
+        toks = torch.tensor(np.asarray(prompt[P:S - 1]), dtype=torch.int32,
+                            device="cuda")
+        if fused:
+            flat = gpt.flatten_decode_cache(warm, cfg)
+            for j in range(toks.shape[0]):
+                gpt.decode_step_fused(
+                    params, flat, toks[j:j + 1],
+                    torch.tensor([P + j], dtype=torch.int32, device="cuda"),
+                    cfg, logits=False)
+        else:
+            gpt.verify_into_slots(params, warm, toks[None],
+                                  torch.tensor([P], dtype=torch.int32,
+                                               device="cuda"), cfg,
+                                  attn_kernel="flash", logits=False)
+        kv = max((_dequant(cold, n)[:, :, :S - 1]
+                  - _dequant(warm, n)[:, :, :S - 1]).abs().max().item()
+                 for n in ("k", "v"))
+        lc = _prefix_logits(gpt, params, cfg, cold, prompt[-1], S - 1, fused)
+        lw = _prefix_logits(gpt, params, cfg, warm, prompt[-1], S - 1, fused)
+    return kv, (lc - lw).abs().max().item()
+
+
+def _prefix_margin(gpt, params, cfg, kd, seq, fused):
+    """The cold path's top-2 logit margin for the token after ``seq``:
+    ``seq[:-1]`` prefilled, then one decode step (fused: the fused
+    step) feeding ``seq[-1]``."""
+    cache = gpt.init_decode_cache(cfg, 1, 1024, kd, device="cuda")
+    with torch.inference_mode():
+        gpt.prefill_into_slots(params, torch.tensor(np.asarray(seq[:-1]),
+                                                    device="cuda")[None],
+                               cfg, cache, torch.zeros(1, dtype=torch.long,
+                                                       device="cuda"),
+                               attn_kernel="flash")
+        top = torch.topk(_prefix_logits(gpt, params, cfg, cache, seq[-1],
+                                        len(seq) - 1, fused)[0], 2).values
+    return (top[0] - top[1]).item()
+
+
+def _dequant(cache, name):
+    a = cache[name].float()
+    return a * cache[name + "s"] if name + "s" in cache else a
+
+
+def prefix_serving_phase(gpt, engines, fd, rg, fdl, cfg, params, qparams):
+    """The device prefix cache at gpt3_1p3b's full width (bf16, seed-0
+    weights): 12 requests sharing a 512-token seeded prefix with tails
+    of 16-128 tokens, 32 new tokens each, after one primer request (the
+    prefix and a tail), through the contiguous engine (bf16) and the
+    paged engine (64-token pages, 64 pages, the cache's budget 24 pages)
+    at bf16 and int8, each cold (no prefix cache) and warm; the fused
+    engine (int8 weights) on the first 3 requests.  TTFT with one decode
+    step a sync, hit tokens, pages shared, and the suffix passes'
+    launches: warm runs must hit every request, launch flash_decode L
+    times a decode step, prefill and suffix pass (paged: the paged
+    layout for both), row_gemm 4 L + 1 a decode step and 4 L a suffix
+    pass (fused: the fused kernel once a decode step and once a suffix
+    token).  Streams: warm equal to cold, or each difference at a
+    near-tie — the cold path's top-2 margin there within the first
+    decode step's logit |delta| between a warm and a cold cache of one
+    prompt (``_prefix_kv_delta``; cold is one full prefill on cuBLAS, so
+    bitwise equality is not promised)."""
+    L = cfg.num_layers
+    rng = np.random.default_rng(7)
+    load = _shared_prefix_load(rng, cfg.vocab_size, PREFIX_REQUESTS + 1,
+                               PREFIX_LEN, PREFIX_TAILS)
+    primer, prompts = load[0], load[1:]
+    results = {}
+    for kind, kd in (("contiguous", "bf16"), ("paged", "bf16"),
+                     ("paged", "int8"), ("fused", "bf16")):
+        use = prompts[:3] if kind == "fused" else prompts
+        tree = qparams if kind == "fused" else params
+        kw = dict(max_len=1024)
+        if kind != "fused":
+            kw["max_batch"] = 8
+        budget = None                       # unbounded
+        if kind == "paged":
+            kw.update(block_size=64, num_blocks=64)
+            page = gpt.init_decode_cache(cfg, 1, 64, kd, device="cuda")
+            budget = 24 * sum(a.numel() * a.element_size()
+                              for a in page.values())
+            del page
+        runs = {}
+        for label in ("cold", "warm"):
+            b = budget if label == "warm" else 0
+            eng = _prefix_engine(engines, kind, tree, cfg, "cuda", b, kd,
+                                 **dict(kw))
+            runs[label] = _prefix_run(eng, use, primer, fd, rg, fdl)
+            if kind == "paged" and eng.free_blocks + int(
+                    (np.asarray(eng._page_rc) > 0).sum()) != eng.num_blocks:
+                raise AssertionError(f"prefix serving {kind} {kd}: free + "
+                                     f"referenced != total pages")
+            del eng
+            torch.cuda.empty_cache()
+        w = runs["warm"]
+        d, c = w["deltas"], w["counts"]
+        steps, prefills = d["decode_steps"], d.get("prefill", 0) + d.get(
+            "prefill_fused", 0)
+        passes = sum(1 for s in w["suffix_tokens"] if s)
+        if min(w["hits"]) < PREFIX_LEN:
+            raise AssertionError(f"prefix serving {kind} {kd}: hits "
+                                 f"{w['hits']}")
+        if kind == "fused":
+            want = {"fused_decode": steps + sum(w["suffix_tokens"])}
+        else:
+            layout = "flash_decode_paged" if kind == "paged" \
+                else "flash_decode"
+            want = {layout: L * (steps + passes),
+                    "row_gemm": (4 * L + 1) * steps + 4 * L * passes}
+            if kind == "paged":
+                want["flash_decode"] = L * prefills
+            else:
+                want["flash_decode"] += L * prefills
+        got = {k: c[k] for k in want}
+        if got != want:
+            raise AssertionError(f"prefix serving {kind} {kd}: launches "
+                                 f"{got}, want {want} ({d})")
+        fused = kind == "fused"
+        kv_delta, logit_delta = _prefix_kv_delta(gpt, tree, cfg, kd, primer,
+                                                 use[0], fused)
+        diverged = []
+        for i, (a, b) in enumerate(zip(w["streams"],
+                                       runs["cold"]["streams"])):
+            if a == b:
+                continue
+            j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+            margin = _prefix_margin(gpt, tree, cfg, kd, np.concatenate(
+                [use[i], np.asarray(b[:j], np.int64)]), fused)
+            diverged.append({"request": i, "token": j, "warm": a[j],
+                             "cold": b[j], "top2_margin": margin})
+            if margin > logit_delta:
+                raise AssertionError(
+                    f"prefix serving {kind} {kd}: request {i} leaves the "
+                    f"cold stream at token {j} (top-2 margin {margin}, the "
+                    f"warm/cold logit |delta| {logit_delta})")
+        row = {"phase": "prefix_serving", "engine": kind, "kv_dtype": kd,
+               "requests": len(use), "prefix_len": PREFIX_LEN,
+               "prompt_lens": [len(p) for p in use], "max_new": 32,
+               "budget_bytes": budget, "hits": w["hits"],
+               "hit_tokens": sum(w["hits"]),
+               "pages_shared": (sum(w["hits"]) // 64 if kind == "paged"
+                                else None),
+               "suffix_passes": passes,
+               "suffix_tokens": sum(w["suffix_tokens"]),
+               "launches": got, "instances": c["instances"],
+               "prefix_cache": w["metrics"].get("prefix_cache"),
+               "deferred_admissions": {
+                   lab: r["metrics"]["deferred_admissions"]
+                   for lab, r in runs.items()},
+               "ttft_cold_mean_s": float(np.mean(runs["cold"]["ttft_s"])),
+               "ttft_warm_mean_s": float(np.mean(w["ttft_s"])),
+               "ttft_cold_median_s": float(np.median(runs["cold"]["ttft_s"])),
+               "ttft_warm_median_s": float(np.median(w["ttft_s"])),
+               "wall_cold_s": runs["cold"]["wall_s"],
+               "wall_warm_s": w["wall_s"],
+               "kv_delta_warm_cold": kv_delta,
+               "logit_delta_warm_cold": logit_delta,
+               "streams_equal": f"{len(use) - len(diverged)}/{len(use)}",
+               "divergences": diverged}
+        _log(row)
+        results[(kind, kd)] = row
+    return results
 
 
 RMS_CASES = ((8, 4096), (2048, 4096), (8, 128), (7, 11008))
@@ -3755,6 +4300,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl
     from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
     from paddle_tpu_torch.incubate.nn.kernels import ring_attention as ra
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingEngine, FusedB1Engine,
@@ -3772,7 +4318,7 @@ def main(argv=None) -> int:
     ptxas = _flash_ptxas_start(_build)
     try:
         libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
-                             "fused_decode", "rms_norm"])
+                             "fused_decode", "rms_norm", "row_gemm"])
     except BaseException:
         for proc, _ in ptxas.values():
             proc.kill()
@@ -3796,6 +4342,7 @@ def main(argv=None) -> int:
         return out
 
     kernels = timed("kernel", kernel_phase, fd)
+    gemm_rows = timed("row_gemm", row_gemm_phase, rg)
     paged_kernels = timed("paged_kernel", paged_kernel_phase, fd, kvq)
     train_kernels = timed("train_kernel", train_kernel_phase, fa, fce,
                           matmul_f32out)
@@ -3810,8 +4357,10 @@ def main(argv=None) -> int:
     spec_reference = timed("speculative_reference",
                            speculative_reference_phase, gpt, llama, engines,
                            SpeculativeConfig, fd, fdl, fnr)
+    prefix_reference = timed("prefix_reference", prefix_reference_phase,
+                             gpt, engines, rg)
     cfg, params, serving, launches, streams = timed(
-        "serving", serving_phase, gpt, ContinuousBatchingEngine, fd)
+        "serving", serving_phase, gpt, ContinuousBatchingEngine, fd, rg)
     steps = timed("compare", compare_phase, gpt, cfg, params)
     kv_runs, kv_streams = timed(
         "paged_serving", paged_serving_phase, gpt, ContinuousBatchingEngine,
@@ -3824,6 +4373,8 @@ def main(argv=None) -> int:
         SpeculativeConfig, fd, fdl, fnr, cfg, params, qparams,
         {("contiguous", "bf16"): serving, **kv_runs},
         {("contiguous", "bf16"): streams, **kv_streams})
+    prefix_runs = timed("prefix_serving", prefix_serving_phase, gpt, engines,
+                        fd, rg, fdl, cfg, params, qparams)
     del params
     torch.cuda.empty_cache()
     fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
@@ -3899,6 +4450,28 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "plan": row["plan"]})
+    # the port's own kernel: the decode block's products (no TPU kernel
+    # stands behind it); launches from the main serving run, times at
+    # M 8 (decode), the verify windows' M 32 and 64 beside
+    g8 = gemm_rows[("qkv", 8)]
+    entries.append({
+        "name": "row_gemm", "route": "cuda", "source": src + "row_gemm.cu",
+        "replaces": "none: paddle_tpu/models/gpt.py:520 (_wmm) and :300 "
+                    "(logits_from_hidden, the tied head) are XLA einsums, "
+                    "no Pallas kernel",
+        "launches": serving["row_gemm_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in gemm_rows.values()),
+        "ms": g8["kernel_ms"], "plain_ms": g8["plain_ms"],
+        "bound_ms": g8["bound_ms"], "bound_by": g8["bound_by"],
+        "library_ms": g8["library_ms"], "shape": g8["shape"],
+        "cases": [{k: r[k] for k in (
+            "name", "shape", "plan", "max_abs_err", "limit_share",
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share") if k in r} for r in gemm_rows.values()
+            if "kernel_ms" in r],
+        "prefix_serving_launches": {
+            f"{a} {b}": r["launches"].get("row_gemm")
+            for (a, b), r in prefix_runs.items()}})
     for name, key, line, err in (
             ("flash_attention_fwd", "fwd", 342, "out"),
             ("flash_attention_bwd_dkv", "dkv", 475, "dk"),
@@ -4108,6 +4681,10 @@ def main(argv=None) -> int:
                               for (a, b), r in ring_kernels.items()},
              "ring_replay": ring_replays, "llama_training": llama_train,
              "llama_sp": llama_sp, "speculative_reference": spec_reference,
+             "row_gemm": {f"{a} {b}": r for (a, b), r in gemm_rows.items()},
+             "prefix_reference": prefix_reference,
+             "prefix_serving": {f"{a} {b}": r
+                                for (a, b), r in prefix_runs.items()},
              "speculative_serving": {" ".join(k) if isinstance(k, tuple)
                                      else k: v for k, v in spec_runs.items()
                                      if k != "verify_rows"},

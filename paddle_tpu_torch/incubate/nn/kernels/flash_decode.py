@@ -180,8 +180,6 @@ def _check_kv(q, keys, values, what):
     if nKV < 1 or nH % nKV:
         raise ValueError(f"{nH} query heads are not a multiple of "
                          f"{nKV} kv heads")
-    if hD not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {hD} not in {SUPPORTED_HEAD_DIMS}")
     if q.dtype not in _Q_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != v.dtype or k.dtype not in (q.dtype, *_KV_CODE):
@@ -370,6 +368,11 @@ def _scale_strides(s):
 def _launch(q, k, ks, v, vs, pos, block_tables=None):
     global LAUNCHES, PAGED_LAUNCHES
     B, W, nH, hD = q.shape
+    if hD not in SUPPORTED_HEAD_DIMS:
+        # the kernel's instances; the plain versions take any head dim,
+        # as the JAX kernel does
+        raise ValueError(f"head dim {hD} not in {SUPPORTED_HEAD_DIMS}: the "
+                         f"flash_decode CUDA kernel has no instance for it")
     nKV = k.shape[2]
     out = torch.empty((B, W, nH, hD), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -439,9 +442,10 @@ def flash_decode_attention(q, keys, values, pos):
     causal prefill.  GQA via head grouping.  Returns [B, W, nH, hD] in
     q's dtype.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    (q float32 or bfloat16, hD in 16/32/64/128, last axis contiguous,
-    other strides and the bases 16-byte aligned) or raise."""
+    CPU tensors run the plain version (any head dim, as the JAX kernel);
+    CUDA tensors launch the kernel (q float32 or bfloat16, hD in
+    16/32/64/128, last axis contiguous, other strides and the bases
+    16-byte aligned) or raise."""
     k, ks, v, vs = _check(q, keys, values, pos)
     if _device_gate(q, "flash_decode_attention"):
         return flash_decode_attention_plain(q, keys, values, pos)

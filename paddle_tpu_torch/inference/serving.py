@@ -40,7 +40,17 @@ non-speculative one.  Rollback is host state: rows of a rejected suffix
 are never attended and the next fed token overwrites its row (paged:
 their pages stay claimed as headroom until retirement).
 
-Left out (ROADMAP Queue 1): prefix cache and host tier, seeded and
+Prefix cache (``prefix_cache_bytes``): a radix trie of prefilled
+prompts (``prefix_cache.RadixPrefixCache``).  An admission that finds
+its sequence's prefix cached installs those K/V rows into its slot
+(paged: shares the cached pages through its block table) and fills only
+the suffix, as ONE windowed pass of the decode block over the suffix
+(``gpt.verify_into_slots`` / ``verify_paged`` without the head; the
+fused engine runs its own decode step a token).  A DONE retirement
+extends the trie with the request's emitted output, so rejected
+speculative tokens never enter it.
+
+Left out (ROADMAP Queue 1): the prefix cache's host tier, seeded and
 sampled speculation, handoff and reinstall hooks, tensor-parallel mesh
 (and the draft's replication over it), retries/breaker/deadlines/
 cancel, observability, the ``PT_KV_DTYPE`` flag.
@@ -48,6 +58,7 @@ cancel, observability, the ``PT_KV_DTYPE`` flag.
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,12 +67,13 @@ import torch
 from ..device import resolve_device
 from ..incubate.nn.kernels.flash_decode import SUPPORTED_HEAD_DIMS
 from ..incubate.nn.kernels.fused_decode import KV_CHUNK
-from ..incubate.nn.kv_quant import (byte_view, kv_has_scales,
-                                    kv_storage_dtype, kv_zeros,
-                                    resolve_kv_dtype)
+from ..incubate.nn.kv_quant import (byte_view, kv_components,
+                                    kv_has_scales, kv_storage_dtype,
+                                    kv_zeros, resolve_kv_dtype)
 from ..models import decoding, gpt, llama
 from .lifecycle import (AdmissionQueue, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
+from .prefix_cache import KVSpanPayload, PagePayload, RadixPrefixCache
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
            "FusedB1Engine", "Request", "RequestStatus", "EngineState",
@@ -116,6 +128,8 @@ class Request:
     # first token, so a K-step decode loop stamps all K tokens at once
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # prompt tokens served from the prefix cache at the last admission
+    prefix_hit: int = 0
 
     def seq_so_far(self) -> np.ndarray:
         """prompt + already-generated tokens — what a re-admission
@@ -145,6 +159,37 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"prompt length {n} exceeds the largest bucket")
 
 
+@dataclasses.dataclass
+class _AdmitPlan:
+    """One admission's plan: the slot it targets, the sequence to
+    admit, and the prefix cache's outcome — ``hit`` usable cached tokens
+    and ``install`` the engine's install info (contiguous: the matched
+    payload spans to copy; paged: the shared page ids, consumed when the
+    pages are reserved)."""
+    slot: int
+    req: Request
+    seq: np.ndarray
+    hit: int = 0
+    install: Any = None
+
+
+def _span_rows(parts):
+    """Token-axis (1) concatenation of span parts, each a tensor or an
+    int8 ``(data, scale)`` pair: the components as byte views (fp8 rows
+    are copied as their bytes)."""
+    comps = [kv_components(p) for p in parts]
+    return tuple(torch.cat([byte_view(c[i]) for c in comps], dim=1)
+                 for i in range(len(comps[0])))
+
+
+def _span_copy(x):
+    """An owned copy of a cache slice (a tensor or a ``(data, scale)``
+    pair): the payload survives later writes into the cache."""
+    if isinstance(x, tuple):
+        return tuple(_span_copy(c) for c in x)
+    return byte_view(x).clone().view(x.dtype)
+
+
 class ContinuousBatchingEngine:
     """Greedy continuous-batching decoder for the GPT family.
 
@@ -160,7 +205,10 @@ class ContinuousBatchingEngine:
     progress after which the stalled request retires FAILED with a
     capacity diagnostic (the livelock guard).  ``speculative`` — a
     :class:`SpeculativeConfig` (``True``: the n-gram proposer with
-    k = 3) turns on draft-and-verify rounds; None or False, off."""
+    k = 3) turns on draft-and-verify rounds; None or False, off.
+    ``prefix_cache_bytes`` — byte budget of the radix prefix cache (0,
+    the default: off; None: unbounded): admissions reuse the longest
+    cached prefix of their sequence and fill only the suffix."""
 
     # the metrics()["launches"] key of an admission prefill
     _prefill_kind = "prefill"
@@ -170,7 +218,7 @@ class ContinuousBatchingEngine:
                  max_queue: Optional[int] = None,
                  attn_kernel: str = "flash", kv_dtype: str = "bf16",
                  max_stall_rounds: int = 8, speculative: Any = None,
-                 device=None):
+                 prefix_cache_bytes: Optional[int] = 0, device=None):
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"engine max_len={max_len} exceeds the model's "
@@ -224,6 +272,11 @@ class ContinuousBatchingEngine:
         self._draft_steps = 0
         if speculative is not None:
             self._check_speculative(speculative, cfg, max_len)
+        # prompt tokens served from the prefix cache
+        self._prefix_hit_tokens = 0
+        self._prefix: Optional[RadixPrefixCache] = None
+        if prefix_cache_bytes is None or prefix_cache_bytes > 0:
+            self._prefix = RadixPrefixCache(prefix_cache_bytes)
         self._init_cache()
         self._init_draft_cache()
 
@@ -244,11 +297,13 @@ class ContinuousBatchingEngine:
                 f"draft max_position_embeddings="
                 f"{dcfg.max_position_embeddings} cannot cover the "
                 f"engine's max_len={max_len}")
-        if self.attn_kernel == "flash" and \
+        if self.attn_kernel == "flash" and self.device.type == "cuda" and \
                 dcfg.head_dim not in SUPPORTED_HEAD_DIMS:
+            # the CPU's plain flash_decode takes any head dim; the CUDA
+            # kernel has instances for these only
             raise ValueError(
                 f"draft head dim {dcfg.head_dim} is not one the flash_decode "
-                f"kernel takes {SUPPORTED_HEAD_DIMS}; serve with "
+                f"CUDA kernel takes {SUPPORTED_HEAD_DIMS}; serve with "
                 "attn_kernel='xla'")
         wte = spec.draft_params["wte"]
         where = (wte[0] if isinstance(wte, tuple) else wte).device
@@ -261,6 +316,13 @@ class ContinuousBatchingEngine:
         self._cache = gpt.init_decode_cache(self.cfg, self.max_batch,
                                             self.max_len, self.kv_dtype,
                                             device=self.device)
+
+    def _reset_cache(self):
+        """Replace the cache storage (and the draft cache) wholesale.
+        Contiguous engines keep the prefix cache — its payloads are
+        owned copies; the paged engine flushes it first."""
+        self._init_cache()
+        self._init_draft_cache()
 
     def _init_draft_cache(self):
         """The draft model's cache: contiguous ``[L, max_batch, max_len,
@@ -327,10 +389,10 @@ class ContinuousBatchingEngine:
         del max_tokens
         return min(self.max_len - 1 - int(self._pos[i]) for i in active)
 
-    def _reserve_slot(self, slot: int, req: Request,
-                      seq: np.ndarray) -> bool:
+    def _reserve_slot(self, plan: _AdmitPlan) -> bool:
         """Claim per-slot capacity before any device work (paged:
-        pages).  Returns False when the engine cannot host the request
+        pages; a prefix hit's shared pages go straight into the block
+        table).  Returns False when the engine cannot host the request
         now."""
         return True
 
@@ -417,8 +479,10 @@ class ContinuousBatchingEngine:
         k-step proposal) and "draft_prefill"), decode and draft steps
         run, the host-clock seconds of the decode loops and speculative
         rounds, queue and slot gauges, the livelock guard's stalled
-        rounds, deferred admissions, KV storage format and cache bytes;
-        with speculation, ``speculative``: the JAX engine's counters."""
+        rounds, deferred admissions, KV storage format and cache bytes,
+        prompt tokens served from the prefix cache and spans it evicted;
+        with the prefix cache on, ``prefix_cache``: the trie's stats; with
+        speculation, ``speculative``: the JAX engine's counters."""
         out = {
             "attn_kernel": self.attn_kernel,
             "kv_dtype": self.kv_dtype,
@@ -432,7 +496,12 @@ class ContinuousBatchingEngine:
             "stalls": self._stalls_total,
             "deferred_admissions": self._deferred,
             "cache_bytes": self.cache_bytes(),
+            "prefix_hit_tokens": self._prefix_hit_tokens,
+            "prefix_evictions": (0 if self._prefix is None
+                                 else self._prefix.evictions),
         }
+        if self._prefix is not None:
+            out["prefix_cache"] = self._prefix.stats()
         if self._spec is not None:
             out["speculative"] = {
                 "k": self._spec.k,
@@ -476,41 +545,72 @@ class ContinuousBatchingEngine:
             self._queue.extendleft(reversed(list(reqs)))
 
     def _admit(self):
-        """Fill free slots in slot order from the queue head, reserve
-        their capacity (whatever the pool cannot back yet goes back to
-        the queue front, FIFO), then prefill every same-bucket group of
-        this round in one program."""
-        plans: List[Tuple[int, Request, np.ndarray]] = []
+        """Fill free slots in slot order from the queue head, plan each
+        admission against the prefix cache, reserve their capacity
+        (whatever the pool cannot back yet goes back to the queue front,
+        FIFO), then run them: every same-bucket group of this round's
+        misses in one prefill, each hit as an install plus its suffix."""
+        plans: List[_AdmitPlan] = []
         for slot in range(self.max_batch):
             if self._slot_req[slot] is not None:
                 continue
             if not self._queue:
                 break
-            req = self._queue.popleft()
-            plans.append((slot, req, req.seq_so_far()))
+            plans.append(self._plan_admission(slot, self._queue.popleft()))
         ready = []
         for idx, plan in enumerate(plans):
-            if self._reserve_slot(*plan):
+            if self._reserve_slot(plan):
                 ready.append(plan)
             else:
-                self._requeue_front([p[1] for p in plans[idx:]])
+                self._requeue_front([p.req for p in plans[idx:]])
                 self._deferred += len(plans) - idx
                 break
-        while ready:
-            b = self._bucket(ready[0][2].size)
-            group = [p for p in ready if self._bucket(p[2].size) == b]
-            ready = [p for p in ready if p not in group]
-            self._prefill_batch([p[0] for p in group],
-                                [p[2] for p in group])
-            self._note_launch(self._prefill_kind)
+        self._run_admission(ready)
+
+    def _plan_admission(self, slot: int, req: Request) -> _AdmitPlan:
+        plan = _AdmitPlan(slot=slot, req=req, seq=req.seq_so_far())
+        S = plan.seq.size
+        if self._prefix is not None and S > 1:
+            # only rows [0, S-1) are needed: priming recomputes the last
+            # position's K/V on the first decode step
+            length, spans = self._prefix.match(plan.seq[:S - 1])
+            plan.hit, plan.install = self._prefix_usable(length, spans,
+                                                         S - 1)
+        return plan
+
+    def _prefix_usable(self, length: int, spans, cap: int):
+        """How many matched tokens this engine can install, and the
+        install info.  Contiguous: every matched token (payload rows
+        copy at token granularity)."""
+        P = min(length, cap)
+        return (P, spans) if P > 0 else (0, None)
+
+    def _run_admission(self, plans: Sequence[_AdmitPlan]):
+        """Run the admission programs in plan order: a miss takes every
+        later miss of its bucket into one prefill; a hit runs alone."""
+        work = deque(plans)
+        while work:
+            head = work.popleft()
+            group = [head]
+            if not head.hit:
+                b = self._bucket(head.seq.size)
+                for p in [p for p in work
+                          if not p.hit and self._bucket(p.seq.size) == b]:
+                    group.append(p)
+                    work.remove(p)
+                self._prefill_batch([p.slot for p in group],
+                                    [p.seq for p in group])
+                self._note_launch(self._prefill_kind)
+            else:
+                self._admit_hit(head)
             if self._draft_cache is not None:
                 # the draft must cover the admitted sequences before it
-                # can propose
-                self._draft_prefill([p[0] for p in group],
-                                    [p[2] for p in group])
+                # can propose (it has no prefix cache)
+                self._draft_prefill([p.slot for p in group],
+                                    [p.seq for p in group])
                 self._note_launch("draft_prefill")
-            for slot, req, seq in group:
-                self._finish_admit(slot, req, seq)
+            for p in group:
+                self._finish_admit(p)
 
     def _prefill_batch(self, slots: Sequence[int],
                        seqs: Sequence[np.ndarray]):
@@ -546,15 +646,108 @@ class ContinuousBatchingEngine:
                 torch.tensor(slots, dtype=torch.long, device=self.device),
                 attn_kernel=self.attn_kernel)
 
-    def _finish_admit(self, slot: int, req: Request, seq: np.ndarray):
+    def _finish_admit(self, plan: _AdmitPlan):
+        slot, req, seq = plan.slot, plan.req, plan.seq
         self._slot_req[slot] = req
         req.status = RequestStatus.RUNNING
+        req.prefix_hit = plan.hit
+        self._prefix_hit_tokens += plan.hit
         # prime: feed the last REAL token at pos len-1 — the next decode
         # step's argmax continues the sequence (for a fresh request that
         # is generated token #1; after an eviction the next unconsumed
         # token)
         self._pos[slot] = seq.size - 1
         self._next_tok[slot] = int(seq[-1])
+        if self._prefix is not None and seq.size > 1:
+            self._prefix_insert(plan)
+
+    # -- prefix-cache hooks (contiguous layout; paged/fused override) --------
+    def _admit_hit(self, plan: _AdmitPlan):
+        """Install the cached prefix into the slot, then fill the
+        unmatched suffix through the engine's own decode block.  A full
+        hit (P == S-1) runs no suffix pass — and for the paged engine
+        not even an install (the block table already holds the shared
+        pages)."""
+        if plan.install is not None:
+            self._install_prefix(plan)
+            self._note_launch("prefix")
+        suffix = plan.seq[plan.hit:plan.seq.size - 1]
+        if suffix.size:
+            with torch.inference_mode():
+                self._suffix_fill(plan.slot, suffix, plan.hit)
+            self._note_launch("prefix")
+
+    def _read_span(self, slot: int, a: int, b: int) -> KVSpanPayload:
+        """Copy K/V rows [a, b) of ``slot`` out of the cache (the payload
+        of a prefix-cache insert); int8 caches copy the scale rows
+        beside the data as ``(data, scale)`` pairs."""
+        c = self._cache
+        k, v = c["k"][:, slot, a:b], c["v"][:, slot, a:b]
+        if "ks" in c:
+            k = (k, c["ks"][:, slot, a:b])
+            v = (v, c["vs"][:, slot, a:b])
+        return KVSpanPayload(_span_copy(k), _span_copy(v))
+
+    @staticmethod
+    def _write_span_update(cache, k, v, slot):
+        """Write span rows [0, P) into ``slot`` in place: k, v the
+        components of :func:`_span_rows` (data bytes, then the int8
+        scales)."""
+        for name, comps in (("k", k), ("v", v)):
+            P = comps[0].shape[1]
+            byte_view(cache[name])[:, slot, :P] = comps[0]
+            if len(comps) > 1:
+                cache[name + "s"][:, slot, :P] = comps[1]
+
+    def _install_prefix(self, plan: _AdmitPlan):
+        """Concatenate the matched payload spans and write rows [0, P)
+        into the slot."""
+        P = plan.hit
+        parts_k, parts_v, got = [], [], 0
+        for payload, m in plan.install:
+            take = min(m, P - got)
+            if take <= 0:
+                break
+            k, v = payload.take(take)
+            parts_k.append(k)
+            parts_v.append(v)
+            got += take
+        with torch.inference_mode():
+            self._write_span_update(self._cache, _span_rows(parts_k),
+                                    _span_rows(parts_v), plan.slot)
+
+    def _suffix_fill(self, slot: int, tokens: np.ndarray, start: int):
+        """Feed ``tokens`` at positions [start, start + n) of ``slot`` in
+        ONE windowed pass of the decode block (``verify_into_slots`` on
+        the slot's view of the cache, W = n, no head): the K/V land
+        where n decode steps would write them, and the flash_decode
+        kernel serves the window's attention (the chunked-prefill use
+        of it; its instances tile any W)."""
+        toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int32)
+                                [None]).to(self.device)
+        pos = torch.tensor([start], dtype=torch.int32, device=self.device)
+        view = {name: a[:, slot:slot + 1] for name, a in self._cache.items()}
+        gpt.verify_into_slots(self.params, view, toks, pos, self.cfg,
+                              attn_kernel=self.attn_kernel, logits=False)
+
+    def _prefix_insert(self, plan: _AdmitPlan):
+        """Cache the freshly written K/V of the sequence minus its last
+        token (that row is only written by the first decode step)."""
+        self._insert_spans(plan.seq[:plan.seq.size - 1], plan.slot)
+
+    def _prefix_extend(self, req: Request, slot: int):
+        """DONE retirement: extend the cached prefix with the request's
+        emitted output, so a request continuing this conversation skips
+        the generated span too."""
+        seq = req.seq_so_far()
+        self._insert_spans(seq[:seq.size - 1], slot, extend=True)
+
+    def _insert_spans(self, key: np.ndarray, slot: int,
+                      extend: bool = False):
+        """Insert ``key``'s uncovered tail into the trie, its K/V read
+        from ``slot`` (engine-layout specific, :meth:`_read_span`)."""
+        self._prefix.insert(key, lambda a, b: self._read_span(slot, a, b),
+                            extend=extend)
 
     def _decode_many(self, K: int, tok, pos, done) -> np.ndarray:
         """K greedy decode steps on the device; one host sync at the
@@ -791,6 +984,13 @@ class ContinuousBatchingEngine:
         if status == RequestStatus.DONE:
             req.done = True
         if slot is not None:
+            if status == RequestStatus.DONE and self._prefix is not None \
+                    and req.tokens:
+                # extend the trie with the EMITTED output before the
+                # slot's resources go: rows [0, S-1) hold prompt and
+                # emitted tokens only (a rejected speculative suffix
+                # never reaches host state)
+                self._prefix_extend(req, slot)
             self._slot_req[slot] = None
             self._release_slot(slot)
         self._pending_report.append(req)
@@ -816,8 +1016,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     kernel reads the window's history off the pool); the pages behind a
     rejected suffix stay claimed as decode headroom until retirement.
 
-    Left out of this port: the prefix cache's shared pages (the per-page
-    refcount is kept for it), the host tier, and handoff and reinstall
+    Prefix cache: spans are refcounted page ids (``PagePayload``).  A hit
+    shares the cached pages FULLY inside the matched prefix straight
+    through the slot's block table (refcount + 1, never written: the
+    slot writes only past the shared boundary) and fills the suffix
+    into private pages; a page's refcount counts its slot and every
+    span that pins it, and it is free again at zero.
+
+    Left out of this port: the host tier, and handoff and reinstall
     hooks."""
 
     def __init__(self, params, cfg, max_batch: int = 4,
@@ -863,11 +1069,23 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                             self.block_size, self.kv_dtype,
                                             device=self.device)
         self._free = list(range(self.num_blocks - 1, -1, -1))
-        # per-page refcount: 1 for the owning slot (a prefix cache would
-        # add one per span pinning it); a page is free again at zero
+        # per-page refcount: 1 for the owning slot, +1 per prefix-cache
+        # span pinning it; a page is free again at zero
         self._page_rc = np.zeros(self.num_blocks, np.int64)
+        # the pool's bytes a page, scale planes included: the unit the
+        # prefix cache's budget charges
+        self._page_bytes = sum(c.numel() * c.element_size()
+                               for c in self._cache.values()) \
+            // self.num_blocks
         self._tables = np.full((self.max_batch, self._max_blocks_per_slot),
                                -1, np.int32)
+
+    def _reset_cache(self):
+        if self._prefix is not None:
+            # cached page ids point into the old pool: drop them before
+            # the pool and every refcount are rebuilt
+            self._prefix.drop_device_entries()
+        super()._reset_cache()
 
     @property
     def free_blocks(self) -> int:
@@ -987,23 +1205,87 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 f"raise num_blocks or lower concurrency")
 
     # -- admission -----------------------------------------------------------
-    def _reserve_slot(self, slot: int, req: Request,
-                      seq: np.ndarray) -> bool:
+    def _reserve_slot(self, plan: _AdmitPlan) -> bool:
         """Claim the slot's pages before any device work: the pages the
         bucket's prefill writes, and at least one token of decode
         headroom (the first new write lands at pos S, page S // bs)
         — without it a sequence resumed exactly at a page boundary
         stalls at zero headroom and the evict/re-admit cycle
-        livelocks."""
-        S = seq.size
+        livelocks.  A prefix hit puts its shared page ids in the table
+        (refcount + 1) and claims private pages for the rest."""
+        S = plan.seq.size
         need = max(-(-self._bucket(S) // self.block_size),
                    S // self.block_size + 1)
-        got = self._claim(need)
+        shared = plan.install if plan.hit else None
+        shared = list(shared) if shared else []
+        got = self._claim(max(need - len(shared), 0))
         if got is None:
             return False
+        slot = plan.slot
         self._tables[slot] = -1
-        self._tables[slot, :need] = got
+        for j, pid in enumerate(shared):
+            self._tables[slot, j] = pid
+            self._page_rc[pid] += 1
+        self._tables[slot, len(shared):len(shared) + len(got)] = got
+        # the table holds everything: a hit needs no install program
+        plan.install = None
         return True
+
+    def _prefix_usable(self, length: int, spans, cap: int):
+        """Only pages FULLY covered by the matched prefix are shareable
+        (the slot must never write into a shared page), so the usable
+        prefix is the longest page-aligned run of cached pages from
+        position 0: (P, the run's page ids)."""
+        if not spans:
+            return 0, None
+        pages: Dict[int, int] = {}
+        for payload, m in spans:
+            pages.update(payload.usable_pages(m))
+        run = 0
+        while run in pages:
+            run += 1
+        shared_run = min(run * self.block_size, cap) // self.block_size
+        if shared_run <= 0:
+            return 0, None
+        return (shared_run * self.block_size,
+                [pages[j] for j in range(shared_run)])
+
+    def _suffix_fill(self, slot: int, tokens: np.ndarray, start: int):
+        """The suffix as ONE windowed pass of the decode block over the
+        slot's pages (``verify_paged`` without the head): ``start`` is
+        page-aligned, so every row lands in a private page."""
+        toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int32)
+                                [None]).to(self.device)
+        pos = torch.tensor([start], dtype=torch.int32, device=self.device)
+        table = torch.from_numpy(self._tables[slot:slot + 1].copy()).to(
+            self.device)
+        gpt.verify_paged(self.params, self._cache, table, toks, pos,
+                         self.cfg, attn_kernel=self.attn_kernel,
+                         logits=False)
+
+    def _insert_spans(self, key: np.ndarray, slot: int,
+                      extend: bool = False):
+        """Pin the slot's pages fully covered by ``key`` into the cache
+        (no copy: the payload is page ids with a refcount, and a later
+        hit installs them straight into another slot's table).  Only
+        pages fully inside ``key`` are pinned, so a retirement's
+        extension never pins a page holding rejected speculative rows
+        (they sit past the emitted length)."""
+        bs = self.block_size
+        table = self._tables[slot]
+
+        def make(a, b):
+            pages: Dict[int, int] = {}
+            for j in range(-(-a // bs), b // bs):
+                pid = int(table[j])
+                if pid < 0:
+                    break
+                pages[j] = pid
+                self._page_rc[pid] += 1
+            return PagePayload(a, b - a, pages, bs, self._page_bytes,
+                               self._unref_pages)
+
+        self._prefix.insert(key, make, extend=extend)
 
     def _prefill_batch(self, slots: Sequence[int],
                        seqs: Sequence[np.ndarray]):
@@ -1045,8 +1327,14 @@ class FusedB1Engine(ContinuousBatchingEngine):
     k+1 fused decode steps, so the verify tokens are the fused decode's
     own, bit for bit.
 
-    Left out of this port: the prefix-cache and handoff hooks, and
-    tensor-parallel replication."""
+    Prefix cache: spans are copies of the flat ``[L, span, H]`` rows; a
+    hit zeroes the recycled cache whole (the fused prefill replaces
+    rather than scatters), installs the prefix and feeds the suffix
+    through the fused decode step a token, as the JAX engine's suffix
+    program does, so the rows are the fused kernel's own.
+
+    Left out of this port: the handoff hooks and tensor-parallel
+    replication."""
 
     _prefill_kind = "prefill_fused"
 
@@ -1093,6 +1381,45 @@ class FusedB1Engine(ContinuousBatchingEngine):
             return gpt.verify_fused(p, c, toks, pos, cfg)
 
         return vstep
+
+    # -- prefix-cache hooks on the flat [L, T, H] layout ---------------------
+    def _read_span(self, slot: int, a: int, b: int) -> KVSpanPayload:
+        del slot                                    # b1: one sequence
+        c = self._cache
+        k, v = c["k"][:, a:b], c["v"][:, a:b]
+        if "ks" in c:
+            k = (k, c["ks"][:, a:b])
+            v = (v, c["vs"][:, a:b])
+        return KVSpanPayload(_span_copy(k), _span_copy(v))
+
+    @staticmethod
+    def _write_span_update(cache, k, v, slot):
+        del slot
+        for name, comps in (("k", k), ("v", v)):
+            P = comps[0].shape[1]
+            byte_view(cache[name])[:, :P] = comps[0]
+            if len(comps) > 1:
+                cache[name + "s"][:, :P] = comps[1]
+
+    def _admit_hit(self, plan: _AdmitPlan):
+        # the recycled slot holds the previous occupant's cache whole:
+        # zero it so stale rows past this prompt never alias real state
+        for a in self._cache.values():
+            byte_view(a).zero_()
+        super()._admit_hit(plan)
+
+    def _suffix_fill(self, slot: int, tokens: np.ndarray, start: int):
+        """One fused decode step a suffix token (no head), as the JAX
+        engine's suffix program scans its decode step."""
+        del slot
+        dev = self.device
+        toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int32)).to(
+            dev)
+        pos = torch.arange(start, start + tokens.size, dtype=torch.int32,
+                           device=dev)
+        for j in range(tokens.size):
+            gpt.decode_step_fused(self.params, self._cache, toks[j:j + 1],
+                                  pos[j:j + 1], self.cfg, logits=False)
 
     def _prefill_batch(self, slots: Sequence[int],
                        seqs: Sequence[np.ndarray]):

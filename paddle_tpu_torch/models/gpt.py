@@ -47,6 +47,12 @@ Differences from the JAX functions, by design:
 * Training attention (``use_flash``) is the hand-written flash kernel
   pair on the card and its plain forward/backward on the CPU; remat is
   ``torch.utils.checkpoint`` per layer (False and True only).
+* The products of the decode block (:func:`_decode_layer_step`) and the
+  head of the decode, verify and suffix paths run the ``row_gemm``
+  kernel on the card, whose rows are the same bits at any batch, so a
+  verify window's rows equal the decode steps' as they do under XLA on
+  the TPU; on the CPU they are ``x @ w`` and ``matmul_f32out`` as in the
+  rest of the module.  Training and full prefill keep ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
 from ..incubate.nn.kernels.flash_decode import (flash_decode_attention,
                                                 flash_decode_paged)
 from ..incubate.nn.kernels.fused_decode import fused_decode_layers
+from ..incubate.nn.kernels.row_gemm import row_gemm
 from ..incubate.nn.kv_quant import byte_view, kv_map, kv_zeros
 from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
                      _kv_write, _slot_rows_writer, _zero_cache, layer_slices,
@@ -183,14 +190,16 @@ def _layer_norm(x, g, b, eps):
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
 
 
-def _wmm(x, w):
+def _wmm(x, w, mm=torch.matmul):
     """``x @ w`` for a dense ``w`` [K, N] or an int8 pair (qw int8
     [K, N], scale float32 [N]): then the product is taken in x's dtype
-    and scaled in it, ``(x @ qw) * s``, as the JAX function does."""
+    and scaled in it, ``(x @ qw) * s``, as the JAX function does.  ``mm``
+    takes the product: ``torch.matmul`` for training and prefill,
+    ``row_gemm`` for the decode block."""
     if isinstance(w, tuple):
         qw, s = w
-        return (x @ qw.to(x.dtype)) * s.to(x.dtype)
-    return x @ w
+        return mm(x, qw.to(x.dtype)) * s.to(x.dtype)
+    return mm(x, w)
 
 
 def _qkv_weight(lp, H):
@@ -245,26 +254,34 @@ def embed(params, input_ids, cfg: GPTConfig):
         + params["wpe"][pos]
 
 
-def _tied_logits(x, wte):
+def _head_rows(a, b):
+    return row_gemm(a, b, out_dtype=torch.float32)
+
+
+def _tied_logits(x, wte, rows: bool = False):
     """The weight-tied head on normalised hidden states x [..., H]:
     float32 logits [..., V] from operands in the model dtype.  An int8
     table (qw, row scale) is dequantized to x's dtype for the product
     and its float32 logits are scaled per vocabulary row, as JAX's
-    einsum with ``preferred_element_type=float32`` then ``* s``."""
+    einsum with ``preferred_element_type=float32`` then ``* s``.
+    ``rows`` takes the product through ``row_gemm`` (the decode, verify
+    and suffix paths: each row's logits the same whatever the batch)
+    instead of ``matmul_f32out``."""
+    mm = _head_rows if rows else matmul_f32out
     if isinstance(wte, tuple):
         qw, s = wte
-        logits = matmul_f32out(x.reshape(-1, x.shape[-1]),
-                               qw.to(x.dtype).t()) * s
+        logits = mm(x.reshape(-1, x.shape[-1]), qw.to(x.dtype).t()) * s
     else:
-        logits = matmul_f32out(x.reshape(-1, x.shape[-1]), wte.t())
+        logits = mm(x.reshape(-1, x.shape[-1]), wte.t())
     return logits.view(*x.shape[:-1], logits.shape[-1])
 
 
-def logits_from_hidden(params, h, cfg: GPTConfig):
-    """Final LN + weight-tied head -> float32 logits [..., V]."""
+def logits_from_hidden(params, h, cfg: GPTConfig, rows: bool = False):
+    """Final LN + weight-tied head -> float32 logits [..., V] (``rows``:
+    see :func:`_tied_logits`)."""
     h = _layer_norm(h, params["lnf_g"], params["lnf_b"],
                     cfg.layer_norm_epsilon)
-    return _tied_logits(h, params["wte"])
+    return _tied_logits(h, params["wte"], rows)
 
 
 def forward_layers(h, layer_params, cfg: GPTConfig, remat=False):
@@ -368,20 +385,25 @@ def _decode_layer_step(h, lp, ck, cv, cfg: GPTConfig, write_kv, attend):
     the attention output [..., nH, hD] — the flash kernel or the plain
     composition over the cache or its page view.  The two are the only
     variation points, so every decode and verify path runs one
-    implementation."""
+    implementation.  Its four products run through ``row_gemm``, so a
+    row's bits do not depend on how many rows the step carries: a verify
+    window's row equals the decode step's on the card too."""
     lead = h.shape[:-1]
     nH, hD, H = cfg.num_heads, cfg.head_dim, cfg.hidden_size
     x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
-    qkv = _wmm(x, _qkv_weight(lp, H)).view(*lead, 3, H) + lp["qkv_b"]
+    qkv = _wmm(x, _qkv_weight(lp, H), row_gemm).view(*lead, 3, H) \
+        + lp["qkv_b"]
     q = qkv[..., 0, :].view(*lead, nH, hD)
     k = qkv[..., 1, :].view(*lead, nH, hD)
     v = qkv[..., 2, :].view(*lead, nH, hD)
     write_kv(ck, cv, k, v)
     attn = attend(q, ck, cv)
-    hh = h + _wmm(attn.reshape(*lead, H), lp["proj_w"]) + lp["proj_b"]
+    hh = h + _wmm(attn.reshape(*lead, H), lp["proj_w"], row_gemm) \
+        + lp["proj_b"]
     x = _layer_norm(hh, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
-    x = F.gelu(_wmm(x, lp["fc1_w"]) + lp["fc1_b"], approximate="tanh")
-    return hh + _wmm(x, lp["fc2_w"]) + lp["fc2_b"]
+    x = F.gelu(_wmm(x, lp["fc1_w"], row_gemm) + lp["fc1_b"],
+               approximate="tanh")
+    return hh + _wmm(x, lp["fc2_w"], row_gemm) + lp["fc2_b"]
 
 
 def _kv_writer(write):
@@ -413,7 +435,7 @@ def decode_step(params, cache, token, pos: int, cfg: GPTConfig):
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(cache, l)
         h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
-    logits = logits_from_hidden(params, h[:, None], cfg)[:, 0]
+    logits = logits_from_hidden(params, h[:, None], cfg, rows=True)[:, 0]
     return logits, cache
 
 
@@ -445,7 +467,7 @@ def decode_step_multi(params, cache, token, pos, cfg: GPTConfig,
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(cache, l)
         h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
-    logits = logits_from_hidden(params, h[:, None], cfg)[:, 0]
+    logits = logits_from_hidden(params, h[:, None], cfg, rows=True)[:, 0]
     return logits, cache
 
 
@@ -534,7 +556,7 @@ def decode_step_paged(params, pools, block_tables, token, pos,
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(pools, l)
         h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
-    logits = logits_from_hidden(params, h[:, None], cfg)[:, 0]
+    logits = logits_from_hidden(params, h[:, None], cfg, rows=True)[:, 0]
     return logits, pools
 
 
@@ -626,7 +648,8 @@ def quantize_decode_params(params, cfg: GPTConfig):
     return out
 
 
-def decode_step_fused(qparams, cache, token, pos, cfg: GPTConfig):
+def decode_step_fused(qparams, cache, token, pos, cfg: GPTConfig,
+                      logits: bool = True):
     """The b1 decode step through the fused layer-stack kernel
     (``incubate/nn/kernels/fused_decode.py``): ONE launch runs all L
     layers for this token.  ``qparams`` from
@@ -635,7 +658,8 @@ def decode_step_fused(qparams, cache, token, pos, cfg: GPTConfig):
     "vs"}: [L, T, nH]; token [1] int32; pos the position fed (an int or
     an int32 tensor of one element; a device tensor is read by the
     kernel, so the step never syncs the host).  Returns (logits [1, V]
-    float32, cache updated in place)."""
+    float32, cache updated in place); ``logits`` False skips the head
+    and returns (None, cache)."""
     H = cfg.hidden_size
     wte_q, wte_s = qparams["wte"]
     dev = wte_q.device
@@ -651,9 +675,11 @@ def decode_step_fused(qparams, cache, token, pos, cfg: GPTConfig):
                                cache["v"], pos1.to(torch.int32),
                                cfg.num_heads, eps=cfg.layer_norm_epsilon,
                                scales=scales)[0]
-    logits = logits_from_hidden(qparams, hout[0:1][None].to(cfg.dtype),
-                                cfg)[:, 0]
-    return logits, cache
+    if not logits:
+        return None, cache
+    out = logits_from_hidden(qparams, hout[0:1][None].to(cfg.dtype), cfg,
+                             rows=True)[:, 0]
+    return out, cache
 
 
 def flatten_decode_cache(cache, cfg: GPTConfig):
@@ -687,7 +713,8 @@ def _window_rows(params, toks, pos, cfg: GPTConfig):
 
 
 def verify_into_slots(params, cache, toks, pos, cfg: GPTConfig,
-                      attn_kernel: Optional[str] = None):
+                      attn_kernel: Optional[str] = None,
+                      logits: bool = True):
     """Speculative verify against the contiguous cache: toks [B, W]
     (the token to feed, then the k draft tokens), pos [B] int32 the
     first position fed a slot.  Returns (logits [B, W, V] float32, cache
@@ -696,7 +723,9 @@ def verify_into_slots(params, cache, toks, pos, cfg: GPTConfig,
     ``max_len - 1``).  Query j attends rows <= pos + j, through the
     ``flash_decode`` kernel (``attn_kernel="flash"``, the instance W = 1
     runs while nH * W <= 16) or the plain window composition, so W = 1
-    is :func:`decode_step_multi` bit for bit on the CPU."""
+    is :func:`decode_step_multi` bit for bit on the CPU.  ``logits``
+    False skips the head and returns (None, cache): the prefix cache's
+    suffix fill, which wants the window's K/V only."""
     _check_attn_kernel(attn_kernel)
     B, W = toks.shape
     T = cache["k"].shape[2]
@@ -714,18 +743,21 @@ def verify_into_slots(params, cache, toks, pos, cfg: GPTConfig,
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(cache, l)
         h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
-    return logits_from_hidden(params, h, cfg), cache
+    if not logits:
+        return None, cache
+    return logits_from_hidden(params, h, cfg, rows=True), cache
 
 
 def verify_paged(params, pools, block_tables, toks, pos, cfg: GPTConfig,
-                 attn_kernel: Optional[str] = None):
+                 attn_kernel: Optional[str] = None, logits: bool = True):
     """Speculative verify against the PAGED pools (layout of
     :func:`decode_step_paged`): toks [B, W], pos [B] int32.  The
     window's K/V land in each slot's pages; a row on a -1 page, past the
     table or past the pool is dropped.  ``attn_kernel="flash"`` attends
     straight off the pool through ``flash_decode_paged``; otherwise the
     slot's gathered pages through the plain window composition.
-    Returns (logits [B, W, V] float32, pools updated in place)."""
+    Returns (logits [B, W, V] float32, pools updated in place); with
+    ``logits`` False, (None, pools)."""
     _check_attn_kernel(attn_kernel)
     nb, bs = pools["k"].shape[1], pools["k"].shape[2]
     rows, h = _window_rows(params, toks, pos, cfg)
@@ -744,7 +776,9 @@ def verify_paged(params, pools, block_tables, toks, pos, cfg: GPTConfig,
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(pools, l)
         h = _decode_layer_step(h, lp, ck, cv, cfg, write_kv, attend)
-    return logits_from_hidden(params, h, cfg), pools
+    if not logits:
+        return None, pools
+    return logits_from_hidden(params, h, cfg, rows=True), pools
 
 
 def verify_fused(qparams, cache, toks, pos, cfg: GPTConfig):

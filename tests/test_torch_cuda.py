@@ -1403,3 +1403,152 @@ def test_verify_fused_rows_are_the_fused_steps(cuda, kv_dtype):
     assert torch.equal(got, want)
     for n, a in flat.items():
         assert torch.equal(kv_quant.byte_view(a), kv_quant.byte_view(copy[n]))
+
+
+# ---------------------------------------------------------------------------
+# row_gemm: the decode block's products, the same rows at any M
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,head", [(256, 200, False), (2048, 512, False),
+                                      (200, 136, True), (2048, 1024, True)])
+def test_row_gemm_rows_bit_identical_across_m(cuda, dtype, K, N, head):
+    """Every row of row_gemm is the same bits at M 1, 8, 13, 32 and 64, in
+    a permuted order and across 64-row launches, in both weight layouts
+    ([K, N] and wte.t()), one split and several (K 2048: 8 splits), and
+    within its limits of the plain version and the float32 product."""
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    x, w = chip_smoke._row_gemm_operands(gen, K, N, dtype, head)
+    out = torch.float32 if head else None
+    chip_smoke.row_gemm_rows_check(rg, x, w, out)
+    for M in (1, 8, 13, 32, 64):
+        chip_smoke.row_gemm_check(rg, x[:M], w, out)
+
+
+@pytest.mark.parametrize("name,K,N", chip_smoke.ROW_GEMM_SHAPES)
+def test_row_gemm_matches_plain_at_the_serving_shapes(cuda, name, K, N):
+    """gpt3_1p3b's five decode products at M 8 (bf16; the head with
+    float32 output) against the plain version and the float32 product
+    (``chip_smoke.row_gemm_check``'s limits)."""
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x, w = chip_smoke._row_gemm_operands(gen, K, N, torch.bfloat16,
+                                         name == "head", rows=8)
+    before = rg.LAUNCHES
+    chip_smoke.row_gemm_check(rg, x, w,
+                              torch.float32 if name == "head" else None)
+    assert rg.LAUNCHES == before + 1
+
+
+def test_row_gemm_rejects(cuda):
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    x = torch.zeros(4, 36, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rg.row_gemm(x, torch.zeros(36, 16, device=cuda))
+    with pytest.raises(ValueError, match="neither"):
+        rg.row_gemm(torch.zeros(4, 32, device=cuda),
+                    torch.zeros(32, 32, device=cuda)[:, ::2])
+    with pytest.raises(TypeError):
+        rg.row_gemm(x.half(), torch.zeros(36, 16, device=cuda).half())
+
+
+def test_row_gemm_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    monkeypatch.setattr(rg, "row_gemm_plain", lambda *a, **k: pytest.fail(
+        "a CUDA tensor reached the plain version"))
+    out = rg.row_gemm(torch.ones(3, 64, device=cuda),
+                      torch.ones(64, 16, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((3, 16), 64.0, device=cuda))
+
+
+def test_flash_decode_launch_raises_for_a_head_dim_without_instance(cuda):
+    """hD 8 runs on the CPU (the plain version, as the JAX kernel takes
+    it); the card's launch has no instance for it and raises."""
+    q = torch.zeros(2, 1, 2, 8, device=cuda)
+    k = torch.zeros(2, 16, 2, 8, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim 8"):
+        fd.flash_decode_attention(q, k, k, pos)
+    fd.flash_decode_attention(q.cpu(), k.cpu(), k.cpu(), pos.cpu())
+
+
+@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_rows_equal_decode_steps_bit_for_bit(cuda, paged, k):
+    """A verify window's row j equals, logits and written K/V included,
+    the decode step fed the same token at pos + j after steps 0..j-1:
+    the attention rows (flash_decode's split plan ignores W) and every
+    product (row_gemm) are the same bits whatever the rows a call
+    carries (gpt_tiny in bf16, 8 slots, ragged positions)."""
+    cfg = gpt.gpt_tiny(dtype=torch.bfloat16, use_flash=False)
+    params = _to(gpt.init_params(cfg, seed=3, device="cpu"), cuda)
+    rng = np.random.default_rng(k)
+    B, T, bs = 8, 256, 16
+    pos = torch.tensor(rng.integers(20, 200, B), dtype=torch.int32,
+                       device=cuda)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, k + 1)),
+                        dtype=torch.int32, device=cuda)
+    if paged:
+        pages = torch.randperm(B * T // bs, generator=torch.Generator()
+                               .manual_seed(k)).view(B, T // bs)
+        tables = pages.to(torch.int32).to(cuda)
+        cache = gpt.init_decode_cache(cfg, B * T // bs, bs, device=cuda)
+    else:
+        tables = None
+        cache = gpt.init_decode_cache(cfg, B, T, device=cuda)
+    for name, a in cache.items():
+        a.copy_(torch.randn(a.shape, generator=torch.Generator()
+                            .manual_seed(len(name))).to(a.dtype))
+    copy = {n: a.clone() for n, a in cache.items()}
+    if paged:
+        got, _ = gpt.verify_paged(params, cache, tables, toks, pos, cfg,
+                                  attn_kernel="flash")
+    else:
+        got, _ = gpt.verify_into_slots(params, cache, toks, pos, cfg,
+                                       attn_kernel="flash")
+    for j in range(k + 1):
+        if paged:
+            want, _ = gpt.decode_step_paged(params, copy, tables, toks[:, j],
+                                            pos + j, cfg, attn_kernel="flash")
+        else:
+            want, _ = gpt.decode_step_multi(params, copy, toks[:, j],
+                                            pos + j, cfg, attn_kernel="flash")
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, j], want), j
+    for n in cache:
+        assert torch.equal(cache[n], copy[n])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefix_hits_on_card_match_cold_and_cpu(cuda, paged):
+    """A shared-prefix load on the card's flash engine with the prefix
+    cache (hits, a partial hit and a full hit) gives the cold card
+    engine's streams and the CPU engine's (gpt_tiny f32)."""
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine, PagedContinuousBatchingEngine)
+    E = PagedContinuousBatchingEngine if paged else ContinuousBatchingEngine
+    kw = dict(block_size=8, num_blocks=64) if paged else {}
+    cfg = gpt.gpt_tiny(use_flash=False)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 1024, 40)
+    prompts = [np.concatenate([shared, rng.integers(0, 1024, n)])
+               for n in (7, 19, 0, 3)]
+    streams, hits = [], None
+    for device, budget in (("cpu", 0), (cuda, 0), (cuda, 1 << 30)):
+        params = _to(gpt.init_params(cfg, seed=2, device="cpu"), device)
+        eng = E(params, cfg, max_batch=2, max_len=128, device=device,
+                attn_kernel="xla" if device == "cpu" else "flash",
+                prefix_cache_bytes=budget, **kw)
+        before = rg.LAUNCHES
+        rids = [eng.submit(p, max_new=12) for p in prompts]
+        out = eng.run(steps_per_sync=4)
+        streams.append([out[r] for r in rids])
+        if budget:
+            hits = [eng.request(r).prefix_hit for r in rids]
+            assert eng.metrics()["launches"]["prefix"] >= 1
+            assert rg.LAUNCHES > before
+    assert streams[1] == streams[0] and streams[2] == streams[0]
+    assert sum(h > 0 for h in hits) >= 2

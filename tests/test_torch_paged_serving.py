@@ -40,6 +40,18 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 KV_DTYPES = ("bf16", "int8", "fp8")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's engines here run tiny products: one intra-op thread
+    keeps them from contending with the other test workers' threads
+    (the tier-1 run has six processes); the module leaves the setting as
+    it found it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     common = dict(vocab_size=128, hidden_size=32, num_layers=2,
@@ -244,7 +256,8 @@ def _drive(eng, prompts=None, budgets=_BUDGETS, k_tokens=4, stagger_from=3):
     return out
 
 
-def _engines(models, layout, attn_kernel, kd, **kw):
+def _engine(pkg, models, layout, attn_kernel, kd, **kw):
+    """The engine of ``pkg`` ("jax" or "port") for a layout and knobs."""
     jcfg, jp, tcfg, tp = models
     if layout == "contiguous":
         J, T = JaxEngine, ContinuousBatchingEngine
@@ -253,15 +266,36 @@ def _engines(models, layout, attn_kernel, kd, **kw):
         kw["block_size"] = int(layout.split("_")[1])
     common = dict(max_batch=2, max_len=64, attn_kernel=attn_kernel,
                   kv_dtype=kd, **kw)
-    return J(jp, jcfg, **common), T(tp, tcfg, device="cpu", **common)
+    if pkg == "jax":
+        return J(jp, jcfg, **common)
+    return T(tp, tcfg, device="cpu", **common)
+
+
+@pytest.fixture(scope="module")
+def jax_streams(models):
+    """The JAX engine's stream of each (layout, kv_dtype), driven once
+    for the module with JAX's default knob "xla": the JAX package holds
+    its "flash" engines to these streams bit for bit
+    (``tests/test_flash_decode_multi.py::test_engine_streams_bit_identical``),
+    so both port knobs compare against one JAX run."""
+    cache = {}
+
+    def get(layout, kd):
+        if (layout, kd) not in cache:
+            cache[(layout, kd)] = _drive(_engine("jax", models, layout,
+                                                 "xla", kd))
+        return cache[(layout, kd)]
+
+    return get
 
 
 @pytest.mark.parametrize("kd", KV_DTYPES)
 @pytest.mark.parametrize("attn_kernel", ["xla", "flash"])
 @pytest.mark.parametrize("layout", ["paged_16", "paged_8", "contiguous"])
-def test_streams_identical_to_jax_engines(models, layout, attn_kernel, kd):
-    jeng, teng = _engines(models, layout, attn_kernel, kd)
-    want = _drive(jeng)
+def test_streams_identical_to_jax_engines(models, jax_streams, layout,
+                                          attn_kernel, kd):
+    teng = _engine("port", models, layout, attn_kernel, kd)
+    want = jax_streams(layout, kd)
     got = _drive(teng)
     assert got == want
     assert all(teng.status(r) == RequestStatus.DONE for r in got)

@@ -24,6 +24,18 @@ from paddle_tpu_torch.models import decoding, gpt as tgpt
 _REQS = ((3, 5), (20, 12), (7, 9), (16, 4), (11, 12))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's engines here run tiny products: one intra-op thread
+    keeps them from contending with the other test workers' threads
+    (the tier-1 run has six processes); the module leaves the setting as
+    it found it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = jgpt.GPTConfig(vocab_size=128, hidden_size=32, num_layers=2,

@@ -7,8 +7,9 @@ with n-gram, the fused engine with both) on the same weights
 (``init_params`` in JAX, bridged by ``params_from_numpy``): each port
 speculative stream must equal the JAX speculative engine's stream and
 the port's own non-speculative stream, and the speculative counters
-must equal JAX's; the port runs both attention knobs where the draft's
-head dim is one the ``flash_decode`` kernel takes.  Then the verify functions
+must equal JAX's; the port runs both attention knobs (on the CPU the
+plain ``flash_decode`` takes the drafts' head dim 8, as JAX's kernel
+does).  Then the verify functions
 against JAX's in float32 (logits within rtol/atol 2e-5, written rows
 within one storage step), W = 1 against the decode steps bit for bit,
 a junk slot whose window runs past the cache, the n-gram proposer,
@@ -44,6 +45,18 @@ COUNTERS = ("proposed", "accepted", "emitted", "launches", "slot_launches",
 # (prompt length, max_new) of the JAX test's requests
 _REQS = ((5, 9), (16, 4), (9, 12), (3, 5))
 _PAGED = dict(block_size=8, num_blocks=24)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's engines here run tiny products: one intra-op thread
+    keeps them from contending with the other test workers' threads
+    (the tier-1 run has six processes); the module leaves the setting as
+    it found it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _torch(a):
@@ -156,11 +169,10 @@ def _serve(eng, case):
 
 CASES = ("model", "ngram", "self", "llama", "paged_model", "paged_ngram",
          "fused_model", "fused_ngram")
-# the JAX engines' knob is "xla"; the port runs both knobs, except that
-# the JAX test's drafts have head dim 8, which flash_decode does not take
-RUNS = [(case, "xla") for case in CASES] + [
-    (case, "flash") for case in ("ngram", "self", "paged_ngram",
-                                 "fused_ngram")]
+# the JAX engines' knob is "xla"; the port runs both knobs (the JAX
+# test's drafts have head dim 8, which the CPU's flash_decode takes as the
+# JAX kernel does)
+RUNS = [(case, ak) for ak in ("xla", "flash") for case in CASES]
 
 
 @pytest.fixture(scope="module")
@@ -455,12 +467,17 @@ def test_ngram_one_matches_jax(models, ngram):
 
 
 def test_flash_needs_a_draft_head_dim_the_kernel_takes(models):
+    """Under "flash" a CUDA engine refuses a draft whose head dim the
+    flash_decode kernel has no instance for; a CPU engine takes it (the
+    plain flash_decode takes any head dim, as the JAX kernel does)."""
     _, _, tcfg, tp = models["target"]
     spec = _specs(models, "model")[1]        # head dim 8
+    eng = ContinuousBatchingEngine(tp, tcfg, max_batch=1, max_len=64,
+                                   device="cpu", attn_kernel="flash",
+                                   speculative=spec)
+    eng.device = torch.device("cuda")        # the check reads only this
     with pytest.raises(ValueError, match="head dim 8"):
-        ContinuousBatchingEngine(tp, tcfg, max_batch=1, max_len=64,
-                                 device="cpu", attn_kernel="flash",
-                                 speculative=spec)
+        eng._check_speculative(spec, tcfg, 64)
 
 
 @pytest.mark.parametrize("bad,match", [
