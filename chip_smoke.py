@@ -33,15 +33,18 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    identity table must equal the contiguous kernel bit for bit.
 2a. row_gemm (``row_gemm_phase``) — the decode block's products at
    gpt3_1p3b's shapes (qkv, proj, fc1, fc2 bf16; the tied head from
-   ``wte.t()`` with float32 output) for M 8, 32 and 64: each row bit for
-   bit the same at M 1, 8, 13, 32, 64, permuted and across 64-row
-   launches; held to its plain version and to the float32 product
+   ``wte.t()`` with float32 output) for M 8, 32, 64, 128 and 256: each
+   row bit for bit the same at M 1 to 257 (group and chunk edges),
+   permuted and across 256-row launches (520 rows) as in one 256-row
+   call; held to its plain version and to the float32 product
    (``row_gemm_check``: float32 sums of K products within 2 K 2^-24
    (|x| @ |w|) of each other, bf16 output one rounding more, 2^-8 of the
    product; against cuBLAS's bf16 output one step of the element and of
    the output's rms); timed over rotating weight copies beside the plain
-   version, ``torch.matmul`` and the byte bound; the float32 instance at
-   gpt_tiny's shapes (checks only).
+   version, ``torch.matmul`` and the byte bound, with the plan on the
+   card (units an SM, cluster size, stages), the instance's registers
+   and shared memory, and the host time of one call; the float32
+   instance at gpt_tiny's shapes (checks only).
 3. kernels (training) — the flash-attention forward, dK/dV and dQ
    kernels against their plain versions at the training shape (B 8,
    S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
@@ -388,8 +391,8 @@ NEW_KERNELS = (
     ("ce_tc", re.compile(r"fused_ce_fwd_tc_kernel")),
     ("ce_merge", re.compile(r"fused_ce_merge_kernel")),
     ("fused", re.compile(r"fused_decode_kernelILi(\d)E")),
-    ("row_gemm", re.compile(r"row_gemm_(bf16|f32)_kernelILi(\d)ELb([01])E"
-                            r"(f|13__nv_bfloat16)?")))
+    ("row_gemm", re.compile(r"row_gemm_(?:bf16_kernelILi(\d)ELb([01])E"
+                            r"(f|13__nv_bfloat16)|f32_kernelILb([01])E)")))
 FUSED_MODE_NAMES = ("float32", "bfloat16", "int8", "fp8")
 
 
@@ -418,14 +421,14 @@ def _new_kernel_row(kind, m, build):
     fused_decode instance (fused_decode's shared memory at
     gpt3_1p3b)."""
     if kind == "row_gemm":
-        rows = 16 * int(m.group(2))
-        layout = "nk (wte.t())" if m.group(3) == "1" else "kn"
-        if m.group(1) == "f32":
-            return f"row_gemm float32 {layout} <= {rows} rows", 128, 0
         smem = build.load("row_gemm").pt_row_gemm_smem_bytes
         smem.argtypes = [ctypes.c_int]
-        return (f"row_gemm bfloat16 {layout} <= {rows} rows -> "
-                f"{_TYPES[m.group(4)]}", 128, smem(rows))
+        if m.group(4) is not None:
+            return (f"row_gemm float32 {_ROW_GEMM_LAYOUTS[m.group(4)]}", 256,
+                    smem(0))
+        return (row_gemm_instance(64 * int(m.group(1)),
+                                  _ROW_GEMM_LAYOUTS[m.group(2)],
+                                  _TYPES[m.group(3)]), 384, smem(1))
     if kind == "fused":
         from paddle_tpu_torch.incubate.nn.kernels import fused_decode
         plan = fused_decode.kernel_plan(
@@ -758,7 +761,16 @@ def paged_kernel_phase(fd, kvq):
 ROW_GEMM_SHAPES = (("qkv", 2048, 6144), ("proj", 2048, 2048),
                    ("fc1", 2048, 8192), ("fc2", 8192, 2048),
                    ("head", 2048, 50304))
-ROW_GEMM_ROWS = (8, 32, 64)     # decode (8 slots), verify k 3, verify k 7
+# decode (8 slots), verify k 3, verify k 7, suffix passes of 128 and 256
+# rows (one launch each)
+ROW_GEMM_ROWS = (8, 32, 64, 128, 256)
+_ROW_GEMM_LAYOUTS = {"0": "kn", "1": "nk (wte.t())"}
+
+
+def row_gemm_instance(rows, layout, out):
+    """The kernel_resources name of the bf16 instance for launches of at
+    most ``rows`` rows (64, 128 or 256)."""
+    return f"row_gemm bfloat16 {layout} <= {rows} rows -> {out}"
 
 
 def row_gemm_check(rg, x, w, out_dtype=None):
@@ -794,25 +806,37 @@ def row_gemm_check(rg, x, w, out_dtype=None):
     return out
 
 
+# row counts held against one 256-row call: one group, group edges, the
+# 256-row chunk edge
+ROW_GEMM_CHECK_ROWS = (1, 8, 13, 32, 63, 64, 65, 128, 200, 256, 257)
+
+
 def row_gemm_rows_check(rg, x, w, out_dtype=None, seed=0):
-    """Each row of ``row_gemm`` bit for bit the same whatever M: x [64,
-    K]'s rows at M 1, 8, 13 and 32, in a permuted order, and 130 rows
-    (three launches) against the 64-row call."""
+    """Each row of ``row_gemm`` bit for bit the same whatever M: x [256,
+    K]'s rows at each of ``ROW_GEMM_CHECK_ROWS`` (past 256, x's rows
+    again from the first), in a permuted order, and 520 rows (three
+    256-row launches) against the one 256-row call."""
     full = rg.row_gemm(x, w, out_dtype)
-    for M in (1, 8, 13, 32):
-        if not torch.equal(rg.row_gemm(x[:M], w, out_dtype), full[:M]):
-            raise AssertionError(f"row_gemm rows at M {M} differ from M 64")
+
+    def rows(n):
+        return torch.cat([x] * (n // len(x)) + [x[:n % len(x)]])
+
+    def want(n):
+        return torch.cat([full] * (n // len(x)) + [full[:n % len(x)]])
+
+    for M in ROW_GEMM_CHECK_ROWS:
+        if not torch.equal(rg.row_gemm(rows(M), w, out_dtype), want(M)):
+            raise AssertionError(f"row_gemm rows at M {M} differ from M "
+                                 f"{len(x)}")
     gen = torch.Generator().manual_seed(seed)
     perm = torch.randperm(x.shape[0], generator=gen).to(x.device)
     if not torch.equal(rg.row_gemm(x[perm], w, out_dtype), full[perm]):
         raise AssertionError("row_gemm rows move with their place")
-    big = torch.cat([x, x, x[:2]])
-    if not torch.equal(rg.row_gemm(big, w, out_dtype),
-                       torch.cat([full, full, full[:2]])):
-        raise AssertionError("row_gemm rows differ across 64-row launches")
+    if not torch.equal(rg.row_gemm(rows(520), w, out_dtype), want(520)):
+        raise AssertionError("row_gemm rows differ across 256-row launches")
 
 
-def _row_gemm_operands(gen, K, N, dtype, head, rows=64):
+def _row_gemm_operands(gen, K, N, dtype, head, rows=256):
     """x [rows, K] and w: a [K, N] weight, or for the head the [N, K]
     table read as its transpose (seeded, the init's 0.02 scale)."""
     x = torch.randn((rows, K), generator=gen, device="cuda").to(dtype)
@@ -849,15 +873,20 @@ def _time_rotating(fns, reps=30):
     return statistics.median(times)
 
 
-def row_gemm_phase(rg):
+def row_gemm_phase(rg, resources):
     """``row_gemm`` at gpt3_1p3b's five decode products (bf16; the head
-    with float32 output) for M 8, 32 and 64: held to its plain version
-    and the float32 product (``row_gemm_check``), rows bit for bit across
-    M (``row_gemm_rows_check``), timed over rotating weight copies
-    (``_time_rotating``) beside its plain version, ``torch.matmul`` (the
-    head: ``torch.mm`` with float32 output) and the byte bound; then the
-    float32 instance at gpt_tiny's shapes (checks only)."""
+    with float32 output) for each M of ``ROW_GEMM_ROWS``: held to its
+    plain version and the float32 product (``row_gemm_check``), rows bit
+    for bit across M (``row_gemm_rows_check``), timed over rotating
+    weight copies (``_time_rotating``) beside its plain version,
+    ``torch.matmul`` (the head: ``torch.mm`` with float32 output) and the
+    byte bound, with the plan on this card (units an SM, cluster size,
+    stages) and the instance's registers and shared memory
+    (``resources``: the ``kernel_resources`` rows); the host time of one
+    call (1000 calls at M 8, no sync); then the float32 instance at
+    gpt_tiny's shapes (checks only)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
+    card = rg.device_card(torch.device("cuda", torch.cuda.current_device()))
     rows = {}
     for name, K, N in ROW_GEMM_SHAPES:
         head = name == "head"
@@ -879,9 +908,18 @@ def row_gemm_phase(rg):
                        2 * M * K * N, "bfloat16")
             ms = _time_rotating([lambda x=x, w=w: rg.row_gemm(x, w, out_dtype)
                                  for x, w in xs])
+            plan = rg.row_gemm_plan(M, K, N, torch.bfloat16, card)
+            inst = row_gemm_instance(
+                64 * plan["groups"] if plan["groups"] < 3 else 256,
+                "nk (wte.t())" if head else "kn",
+                "float32" if head else "bfloat16")
             row = {"name": name, "shape": f"M={M} K={K} N={N} bf16"
                    + (" wte.t() -> f32" if head else ""),
-                   "plan": rg.row_gemm_plan(M, K, N, torch.bfloat16),
+                   "plan": plan,
+                   "units_per_sm": plan["tiles_per_cluster"],
+                   "cluster_size": plan["splits"],
+                   "stages_per_sm": plan["sm_stages"],
+                   "instance": inst, "resources": resources.get(inst),
                    **chk, "kernel_ms": ms,
                    "plain_ms": _time_rotating(
                        [lambda x=x, w=w: rg.row_gemm_plain(x, w, out_dtype)
@@ -891,15 +929,30 @@ def row_gemm_phase(rg):
                    **b, "bound_share": b["bound_ms"] / ms,
                    "weight_copies": copies,
                    "rows_bit_identical_across_m": True}
+            if M == ROW_GEMM_ROWS[0]:
+                # 1000 calls, in 4 windows of 250 queued behind a device
+                # sleep that outlasts them (no sync inside a window, the
+                # launch queue never full): the host's own time
+                x, w = xs[0]
+                secs = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(50_000_000)
+                    t = time.perf_counter()
+                    for _ in range(250):
+                        rg.row_gemm(x, w, out_dtype)
+                    secs.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+                row["host_us_per_call"] = sum(secs) / 1000 * 1e6
             rows[(name, M)] = row
             _log({"phase": "row_gemm", **row})
         del ops, xs
     for name, K, N, head in (("gpt_tiny qkv", 128, 384, False),
                              ("gpt_tiny fc2", 512, 128, False),
                              ("gpt_tiny head", 128, 1024, True)):
-        x64, w = _row_gemm_operands(gen, K, N, torch.float32, head)
-        row_gemm_rows_check(rg, x64, w)
-        chk = row_gemm_check(rg, x64[:8], w)
+        x, w = _row_gemm_operands(gen, K, N, torch.float32, head)
+        row_gemm_rows_check(rg, x, w)
+        chk = row_gemm_check(rg, x[:8], w)
         rows[(name, 8)] = {"name": name, "shape": f"M=8 K={K} N={N} f32",
                            **chk}
         _log({"phase": "row_gemm", **rows[(name, 8)],
@@ -1054,8 +1107,13 @@ def compare_phase(gpt, cfg, params):
     return rows
 
 
-def _step_profile(step, families=(("flash_decode", ("flash_decode",)),),
-                  n=10):
+# a decode step's or verify pass's kernels by family: row_gemm carries
+# every product of the decode block (the rest of "matmul" is cuBLAS)
+DECODE_FAMILIES = (("flash_decode", ("flash_decode",)),
+                   ("row_gemm", ("row_gemm",)))
+
+
+def _step_profile(step, families=DECODE_FAMILIES, n=10):
     """Wall time of one eager decode step ``step()`` (synchronised, the
     median of 3 windows of ``n`` calls) against the device time the
     profiler sees in ``n`` calls, by kernel family."""
@@ -2518,7 +2576,7 @@ def _verify_rows(gpt, params, cfg, state, layout, kd, k):
 
         # n 3: each profiled call is a whole model step (~1000 kernels),
         # and the profiler's bookkeeping grows with the events
-        fam = (("flash_decode", ("flash_decode",)),)
+        fam = DECODE_FAMILIES
         prof = {"verify": _step_profile(verify, fam, n=3),
                 "decode_step": _step_profile(
                     lambda: decode(c2, toks[:, 0], pos), fam, n=3)}
@@ -4342,7 +4400,7 @@ def main(argv=None) -> int:
         return out
 
     kernels = timed("kernel", kernel_phase, fd)
-    gemm_rows = timed("row_gemm", row_gemm_phase, rg)
+    gemm_rows = timed("row_gemm", row_gemm_phase, rg, new_resources)
     paged_kernels = timed("paged_kernel", paged_kernel_phase, fd, kvq)
     train_kernels = timed("train_kernel", train_kernel_phase, fa, fce,
                           matmul_f32out)
@@ -4452,8 +4510,23 @@ def main(argv=None) -> int:
             "shape": row["shape"], "plan": row["plan"]})
     # the port's own kernel: the decode block's products (no TPU kernel
     # stands behind it); launches from the main serving run, times at
-    # M 8 (decode), the verify windows' M 32 and 64 beside
+    # M 8 (decode), the verify windows' and suffix passes' M 32-256
+    # beside; a decode step's and a verify pass's device time and
+    # row_gemm's share of it, logged beside the kernel's first design
+    # (mma.sync, 64-row launches; measured the same way on an H100 80GB
+    # HBM3 at 700 W)
     g8 = gemm_rows[("qkv", 8)]
+    verify = spec_runs["verify_rows"][("contiguous", "bf16")]["profiles"]
+    step_ms = {
+        "decode_step_device_ms": steps["flash"]["device_busy_ms"],
+        "decode_step_row_gemm_ms": steps["flash"]["device_ms"]["row_gemm"],
+        "verify_pass_device_ms": verify["verify"]["device_busy_ms"],
+        "verify_pass_row_gemm_ms": verify["verify"]["device_ms"]["row_gemm"]}
+    _log({"phase": "row_gemm_step", **step_ms,
+          "first_design": {"decode_step_device_ms": 2.646,
+                                "decode_step_matmul_ms": 1.342,
+                                "verify_pass_device_ms": 3.665,
+                                "verify_pass_matmul_ms": 1.779}})
     entries.append({
         "name": "row_gemm", "route": "cuda", "source": src + "row_gemm.cu",
         "replaces": "none: paddle_tpu/models/gpt.py:520 (_wmm) and :300 "
@@ -4471,7 +4544,11 @@ def main(argv=None) -> int:
             if "kernel_ms" in r],
         "prefix_serving_launches": {
             f"{a} {b}": r["launches"].get("row_gemm")
-            for (a, b), r in prefix_runs.items()}})
+            for (a, b), r in prefix_runs.items()},
+        "host_us_per_call": {r["name"]: r["host_us_per_call"]
+                             for r in gemm_rows.values()
+                             if "host_us_per_call" in r},
+        **step_ms})
     for name, key, line, err in (
             ("flash_attention_fwd", "fwd", 342, "out"),
             ("flash_attention_bwd_dkv", "dkv", 475, "dk"),

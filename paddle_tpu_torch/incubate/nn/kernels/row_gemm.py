@@ -11,15 +11,16 @@ plain one.  :func:`row_gemm` is the hand-written kernel of
 ``csrc/row_gemm.cu`` for these products: every output row is a
 function of that row of x and of w alone, bit for bit, whatever M is.
 :func:`row_gemm_plan` fixes the K order and the split-K count from
-(K, N, dtype) only; the source note says what bounds the kernel.
+(K, N) and the card's SM and cluster counts only, never from M; the
+source note says what bounds the kernel and how it is built.
 
 Dispatch: a CPU tensor runs :func:`row_gemm_plain`, which is exactly
 what the CPU serving path computed before the kernel existed (``x @ w``
 for the layer weights, ``matmul_f32out`` for the head), so the CPU
 streams and the parity with JAX do not move.  A CUDA tensor launches
 the kernel or raises.  There is no fallback.  ``LAUNCHES`` counts one
-per wrapper call, however many CUDA launches the call makes (one per 64
-rows).
+per wrapper call, however many CUDA launches the call makes (one per
+256 rows).
 """
 from __future__ import annotations
 
@@ -31,21 +32,27 @@ from ....models.common import matmul_f32out
 from . import _build
 
 __all__ = ["row_gemm", "row_gemm_plain", "row_gemm_split_plain",
-           "row_gemm_plan", "weight_layout", "reset_launches", "LAUNCHES"]
+           "row_gemm_plan", "split_bounds", "device_card", "weight_layout",
+           "reset_launches", "LAUNCHES"]
 
 #: kernel calls so far, one per wrapper call (CUDA tensors only; the
 #: plain version and rejected calls do not count)
 LAUNCHES = 0
 
-#: output columns a block, K rows a stage, rows a launch
-BLOCK_N, BLOCK_K, MAX_ROWS = 64, 64, 64
-#: blocks the plan aims for (two on each of the H100's 132 SMs), and the
-#: fewest K stages a split keeps
-TARGET_BLOCKS, MIN_SPLIT_STAGES = 264, 4
+#: weight columns a tile, K rows a stage, rows a group (one wgmma chain),
+#: rows a launch
+BLOCK_N, BLOCK_K, GROUP_ROWS, MAX_ROWS = 128, 64, 64, 256
+#: the cluster sizes a plan may take (K splits of a tile)
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: (SMs, {cluster size: clusters that fit at once}) of an H100 SXM as
+#: ``pt_row_gemm_max_clusters`` reads it (a cluster stays inside one GPC),
+#: the card a plan is made for when no card is named (the CPU tests)
+H100 = (132, {1: 132, 2: 66, 4: 30, 8: 15})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
-_COUNTERS = {}
+_CARDS = {}
+_PLANS = {}
 
 
 def reset_launches():
@@ -54,25 +61,52 @@ def reset_launches():
     LAUNCHES = 0
 
 
-def row_gemm_plan(M: int, K: int, N: int, dtype) -> dict:
-    """How the kernel cuts y [M, N] = x [M, K] @ w: ``splits`` runs of
-    ``split_stages`` stages of ``BLOCK_K`` rows of K (ascending; the
-    last run may be shorter) over ``n_tiles`` tiles of ``BLOCK_N``
-    columns, the partials summed in split order.  Everything that
-    decides a row's arithmetic comes from (K, N, dtype); M sets only how
-    many launches of at most ``MAX_ROWS`` rows (``row_chunks``) and
-    16-row tiles (``m_tiles``) carry the rows."""
+def row_gemm_plan(M: int, K: int, N: int, dtype, card=None) -> dict:
+    """How the kernel cuts y [M, N] = x [M, K] @ w on ``card`` ((SMs,
+    {cluster size: clusters that fit}); default :data:`H100`).
+
+    A unit is (one tile of ``BLOCK_N`` columns, one K split).  The
+    ``splits`` K splits of a tile are the ranks of one thread-block
+    cluster, rank r owning stages [r ks / splits, (r + 1) ks / splits) of
+    the ``k_stages`` stages of ``BLOCK_K`` (lengths differ by at most
+    one); ``clusters`` clusters walk the tiles ``clusters`` apart, so
+    every SM of the grid streams the same weight bytes to within one
+    unit.  The plan takes the cluster size whose busiest SM streams the
+    fewest stages (``sm_stages``), then the smaller cluster (fewer
+    partials to sum).  Everything that decides a row's arithmetic
+    comes from (K, N) and the card; dtype picks the instance, M only the
+    launches of at most ``MAX_ROWS`` rows (``row_chunks``) and the row
+    groups of a launch (``groups``)."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"row_gemm takes float32 or bfloat16, got {dtype}")
+    sms, fits = card or H100
     n_tiles = -(-N // BLOCK_N)
     k_stages = -(-K // BLOCK_K)
-    want = min(-(-TARGET_BLOCKS // n_tiles),
-               max(1, k_stages // MIN_SPLIT_STAGES))
-    per = -(-k_stages // max(1, want))
-    return {"n_tiles": n_tiles, "k_stages": k_stages,
-            "splits": -(-k_stages // per), "split_stages": per,
+    cands = []
+    for c in CLUSTER_SIZES:
+        fit = fits.get(c, 0)
+        if c > k_stages or fit < 1:
+            continue
+        tiles_per_cluster = -(-n_tiles // min(fit, n_tiles))
+        clusters = -(-n_tiles // tiles_per_cluster)
+        cands.append({"splits": c, "clusters": clusters,
+                      "tiles_per_cluster": tiles_per_cluster,
+                      "sm_stages": tiles_per_cluster * -(-k_stages // c)})
+    best = min(cands, key=lambda p: (p["sm_stages"], p["splits"]))
+    plan = {"n_tiles": n_tiles, "k_stages": k_stages, **best,
+            "split_stages": -(-k_stages // best["splits"]),
+            "sms": sms, "sms_used": best["clusters"] * best["splits"],
             "row_chunks": -(-M // MAX_ROWS),
-            "m_tiles": -(-min(M, MAX_ROWS) // 16)}
+            "groups": -(-min(M, MAX_ROWS) // GROUP_ROWS)}
+    return plan
+
+
+def split_bounds(K, splits):
+    """The K ranges [k0, k1) of the splits, in order (stages of
+    ``BLOCK_K``; the last may end past K)."""
+    ks = -(-K // BLOCK_K)
+    return [(r * ks // splits * BLOCK_K, (r + 1) * ks // splits * BLOCK_K)
+            for r in range(splits)]
 
 
 def weight_layout(w) -> str:
@@ -115,18 +149,17 @@ def row_gemm_plain(x, w, out_dtype=None):
     return y.view(*x.shape[:-1], y.shape[-1])
 
 
-def row_gemm_split_plain(x, w, out_dtype=None):
+def row_gemm_split_plain(x, w, out_dtype=None, card=None):
     """The kernel's summation rule in plain PyTorch (float32 math, for
-    the tests): each split of :func:`row_gemm_plan` sums its run of K,
-    then the splits add in order, then one rounding to the output
-    dtype."""
+    the tests): each split of :func:`row_gemm_plan` on ``card`` sums its
+    run of K, then the splits add in rank order, then one rounding to the
+    output dtype."""
     K, N = w.shape
-    plan = row_gemm_plan(x.shape[0], K, N, x.dtype)
-    step = plan["split_stages"] * BLOCK_K
+    plan = row_gemm_plan(x.shape[0], K, N, x.dtype, card)
     xf, wf = x.float(), w.float()
     acc = None
-    for s in range(plan["splits"]):
-        part = xf[:, s * step:(s + 1) * step] @ wf[s * step:(s + 1) * step]
+    for k0, k1 in split_bounds(K, plan["splits"]):
+        part = xf[:, k0:k1] @ wf[k0:k1]
         acc = part if acc is None else acc + part
     return acc.to(out_dtype or x.dtype)
 
@@ -135,7 +168,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("row_gemm").pt_row_gemm
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -143,54 +176,69 @@ def _kernel():
     return _fn
 
 
-def _counters(device, n_tiles):
-    """The per-column-tile arrival counters of ``device``: zeroed once,
-    and left zeroed by every launch (the last block of a tile resets
-    its count)."""
-    have = _COUNTERS.get(device)
-    if have is None or have.numel() < n_tiles:
-        have = torch.zeros(max(n_tiles, 1024), dtype=torch.int32,
-                           device=device)
-        _COUNTERS[device] = have
-    return have
+def device_card(device) -> tuple:
+    """(SMs, {cluster size: clusters of the kernel that fit at once}) of
+    a CUDA device, queried once."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    card = _CARDS.get(idx)
+    if card is None:
+        query = _build.load("row_gemm").pt_row_gemm_max_clusters
+        query.argtypes = [ctypes.c_int]
+        query.restype = ctypes.c_int
+        with torch.cuda.device(idx):
+            fits = {c: query(c) for c in CLUSTER_SIZES}
+        bad = {c: n for c, n in fits.items() if n < 0}
+        if bad or fits[1] < 1:
+            raise RuntimeError(f"row_gemm: cluster occupancy query failed: "
+                               f"{fits} (minus a CUDA error)")
+        card = (torch.cuda.get_device_properties(idx).multi_processor_count,
+                fits)
+        _CARDS[idx] = card
+    return card
+
+
+def _plan(device, K, N):
+    """(splits, clusters) of (K, N) on ``device``, cached."""
+    key = (device.index, K, N)
+    got = _PLANS.get(key)
+    if got is None:
+        plan = row_gemm_plan(1, K, N, torch.bfloat16, device_card(device))
+        got = _PLANS[key] = (plan["splits"], plan["clusters"])
+    return got
 
 
 def _launch(x2, w, out_dtype):
     global LAUNCHES
     M, K = x2.shape
     N = w.shape[1]
-    layout = weight_layout(w)
+    nk = weight_layout(w) == "nk"
     if K % 8 or N % 8:
         raise ValueError(f"row_gemm: K={K} and N={N} must be multiples of 8 "
-                         f"(16-byte copies)")
-    for t in (x2, w):
-        if t.data_ptr() % 16:
-            raise ValueError("row_gemm: operands must be 16-byte aligned")
-    ldw = w.stride(0) if layout == "kn" else w.stride(1)
-    if ldw % 8:
-        raise ValueError(f"row_gemm: weight rows {ldw} elements apart are "
-                         f"not 16-byte aligned")
+                         f"(16-byte rows)")
+    ldw = w.stride(1) if nk else w.stride(0)
+    if ldw % 8 or x2.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"row_gemm: operands must be 16-byte aligned, "
+                         f"with weight rows a multiple of 8 elements apart "
+                         f"(got {ldw})")
     out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
     if M == 0:
         return out
-    plan = row_gemm_plan(M, K, N, x2.dtype)
-    splits = plan["splits"]
-    counters = _counters(x2.device, plan["n_tiles"]) if splits > 1 else None
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    splits, clusters = _plan(x2.device, K, N)
+    stream = torch._C._cuda_getCurrentRawStream(x2.device.index)
+    dtype = _DTYPE_CODE[x2.dtype]
+    f32out = int(out_dtype == torch.float32 and dtype == 1)
+    xp, op = x2.data_ptr(), out.data_ptr()
+    xrow, orow = K * x2.element_size(), N * out.element_size()
     for r0 in range(0, M, MAX_ROWS):
-        rows = min(MAX_ROWS, M - r0)
-        part = (torch.empty((splits, rows, N), dtype=torch.float32,
-                            device=x2.device) if splits > 1 else None)
-        rc = _kernel()(
-            x2[r0:].data_ptr(), w.data_ptr(), out[r0:].data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(),
-            _DTYPE_CODE[x2.dtype], int(layout == "nk"),
-            int(out_dtype == torch.float32 and x2.dtype != torch.float32),
-            rows, K, N, ldw, splits, plan["split_stages"], stream)
+        rc = _kernel()(xp + r0 * xrow, w.data_ptr(), op + r0 * orow, dtype,
+                       int(nk), f32out, min(MAX_ROWS, M - r0), K, N, ldw,
+                       splits, clusters, stream)
         if rc != 0:
-            raise RuntimeError(f"row_gemm kernel launch failed: CUDA error "
-                               f"{rc}")
+            raise RuntimeError(
+                f"row_gemm kernel launch failed: "
+                + (f"tensor map not made (code {rc})" if rc >= 100000
+                   else f"CUDA error {rc}"))
     LAUNCHES += 1
     return out
 

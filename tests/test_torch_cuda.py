@@ -1411,30 +1411,35 @@ def test_verify_fused_rows_are_the_fused_steps(cuda, kv_dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,N,head", [(256, 200, False), (2048, 512, False),
-                                      (200, 136, True), (2048, 1024, True)])
+                                      (96, 136, False), (200, 136, True),
+                                      (2048, 1024, True)])
 def test_row_gemm_rows_bit_identical_across_m(cuda, dtype, K, N, head):
-    """Every row of row_gemm is the same bits at M 1, 8, 13, 32 and 64, in
-    a permuted order and across 64-row launches, in both weight layouts
-    ([K, N] and wte.t()), one split and several (K 2048: 8 splits), and
-    within its limits of the plain version and the float32 product."""
+    """Every row of row_gemm is the same bits at each M of
+    ``chip_smoke.ROW_GEMM_CHECK_ROWS`` (1 to 257: group and chunk edges),
+    in a permuted order and across 256-row launches (520 rows), in both
+    weight layouts ([K, N] and wte.t(), float32 output), one split and
+    several (K 2048: 8), a ragged last tile (N 136, 200), and within its
+    limits of the plain version and the float32 product."""
     from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
     gen = torch.Generator(device=cuda).manual_seed(K + N)
     x, w = chip_smoke._row_gemm_operands(gen, K, N, dtype, head)
     out = torch.float32 if head else None
     chip_smoke.row_gemm_rows_check(rg, x, w, out)
-    for M in (1, 8, 13, 32, 64):
+    for M in (1, 8, 13, 32, 64, 65, 200, 256):
         chip_smoke.row_gemm_check(rg, x[:M], w, out)
 
 
+@pytest.mark.parametrize("M", [8, 64, 256])
 @pytest.mark.parametrize("name,K,N", chip_smoke.ROW_GEMM_SHAPES)
-def test_row_gemm_matches_plain_at_the_serving_shapes(cuda, name, K, N):
-    """gpt3_1p3b's five decode products at M 8 (bf16; the head with
-    float32 output) against the plain version and the float32 product
-    (``chip_smoke.row_gemm_check``'s limits)."""
+def test_row_gemm_matches_plain_at_the_serving_shapes(cuda, name, K, N, M):
+    """gpt3_1p3b's five decode products at M 8, 64 and 256 (bf16; the
+    head with float32 output) against the plain version and the float32
+    product (``chip_smoke.row_gemm_check``'s limits), one launch a
+    call."""
     from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
     gen = torch.Generator(device=cuda).manual_seed(1)
     x, w = chip_smoke._row_gemm_operands(gen, K, N, torch.bfloat16,
-                                         name == "head", rows=8)
+                                         name == "head", rows=M)
     before = rg.LAUNCHES
     chip_smoke.row_gemm_check(rg, x, w,
                               torch.float32 if name == "head" else None)
@@ -1449,18 +1454,60 @@ def test_row_gemm_rejects(cuda):
     with pytest.raises(ValueError, match="neither"):
         rg.row_gemm(torch.zeros(4, 32, device=cuda),
                     torch.zeros(32, 32, device=cuda)[:, ::2])
+    # rows 36 elements apart: no 16-byte tensor-map rows
+    with pytest.raises(ValueError, match="aligned"):
+        rg.row_gemm(torch.zeros(4, 32, device=cuda, dtype=torch.bfloat16),
+                    torch.zeros(32, 36, device=cuda,
+                                dtype=torch.bfloat16)[:, :32])
     with pytest.raises(TypeError):
         rg.row_gemm(x.half(), torch.zeros(36, 16, device=cuda).half())
 
 
 def test_row_gemm_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel: neither the plain version nor a
+    library product runs, in either dtype or layout."""
     from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
-    monkeypatch.setattr(rg, "row_gemm_plain", lambda *a, **k: pytest.fail(
-        "a CUDA tensor reached the plain version"))
-    out = rg.row_gemm(torch.ones(3, 64, device=cuda),
-                      torch.ones(64, 16, device=cuda))
-    torch.cuda.synchronize()
-    assert torch.equal(out, torch.full((3, 16), 64.0, device=cuda))
+
+    def fail(*a, **k):
+        pytest.fail("a CUDA tensor reached a plain or library product")
+
+    monkeypatch.setattr(rg, "row_gemm_plain", fail)
+    monkeypatch.setattr(rg, "matmul_f32out", fail)
+    monkeypatch.setattr(torch, "matmul", fail)
+    monkeypatch.setattr(torch, "mm", fail)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", fail)
+    before = rg.LAUNCHES
+    for dtype in (torch.float32, torch.bfloat16):
+        out = rg.row_gemm(torch.ones(3, 64, device=cuda, dtype=dtype),
+                          torch.ones(64, 16, device=cuda, dtype=dtype))
+        head = rg.row_gemm(torch.ones(3, 64, device=cuda, dtype=dtype),
+                           torch.ones(16, 64, device=cuda, dtype=dtype).t(),
+                           out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(out.float(),
+                           torch.full((3, 16), 64.0, device=cuda))
+        assert torch.equal(head, torch.full((3, 16), 64.0, device=cuda))
+    assert rg.LAUNCHES == before + 4
+
+
+def test_row_gemm_tensor_map_cache_follows_the_shape(cuda):
+    """Two weights at one address with other shapes get maps of their
+    own: the cache is keyed by address, shape and stride, so the second
+    product is right and the cache holds one map more."""
+    from paddle_tpu_torch.incubate.nn.kernels import _build
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(512 * 384, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    x = torch.randn(8, 512, generator=gen, device=cuda).to(torch.bfloat16)
+    cached = _build.load("row_gemm").pt_row_gemm_cached_maps
+    w1 = buf[:256 * 384].view(256, 384)
+    chip_smoke.row_gemm_check(rg, x[:, :256].contiguous(), w1)
+    n1 = cached()
+    w2 = buf.view(512, 384)
+    assert w2.data_ptr() == w1.data_ptr()
+    chip_smoke.row_gemm_check(rg, x, w2)
+    assert cached() == n1 + 2      # w2's map and the new x's
 
 
 def test_flash_decode_launch_raises_for_a_head_dim_without_instance(cuda):

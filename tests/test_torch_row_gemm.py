@@ -4,8 +4,10 @@
 as XLA einsums, ``paddle_tpu/models/gpt.py`` ``_wmm`` and the tied head).
 On the CPU its wrapper runs the plain version, which is exactly what the
 CPU serving path computed before the kernel: ``x @ w`` and
-``matmul_f32out``.  So these tests hold (1) the plan: the K order and the
-split count come from (K, N, dtype) only, never from M; (2) the plain
+``matmul_f32out``.  So these tests hold (1) the plan: the K order, the
+split count and the grid come from (K, N, dtype) and the card's SM and
+cluster counts only, never from M, and every SM streams an equal share
+of the weight bytes; (2) the plain
 version bit for bit against ``x @ w`` and ``matmul_f32out``, and against
 JAX's ``_wmm`` and tied head on the same numpy inputs (float32, rtol =
 atol = 1e-5: the same products in another summation order); (3) the
@@ -38,37 +40,118 @@ def _rand(rng, shape, dtype=torch.float32):
         rng.standard_normal(shape).astype(np.float32)).to(dtype)
 
 
+# (K, N) of llama_7b's decode products: qkv, o, gate/up, down, the head
+LLAMA_7B = ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096),
+            (4096, 32000))
+# a card with fewer SMs (an H100 PCIe's 114), clusters as on the SXM part
+SMALLER = (114, {c: 114 // c for c in rg.CLUSTER_SIZES})
+ROWS = (1, 8, 13, 32, 63, 64, 65, 128, 129, 200, 256, 257, 520, 1024)
+
+
 def _fixed(plan):
     return {k: v for k, v in plan.items()
-            if k not in ("row_chunks", "m_tiles")}
+            if k not in ("row_chunks", "groups")}
 
 
 @pytest.mark.parametrize("K,N", SERVING + ((32, 96), (128, 1024), (96, 40)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plan_does_not_depend_on_rows(K, N, dtype):
     """Every field that decides a row's arithmetic (column tiles, K
-    stages, splits and their length) is the same at every M; only the
-    launches that carry the rows change."""
-    plans = {M: rg.row_gemm_plan(M, K, N, dtype)
-             for M in (1, 8, 13, 32, 64, 65, 200)}
+    stages, the splits, the grid) is the same at every M from 1 to 1024;
+    only the launches and the row groups that carry the rows change."""
+    plans = {M: rg.row_gemm_plan(M, K, N, dtype) for M in ROWS}
     assert len({tuple(sorted(_fixed(p).items())) for p in plans.values()}) \
         == 1
     p = plans[1]
-    # the runs cover the K stages with no empty split
-    assert (p["splits"] - 1) * p["split_stages"] < p["k_stages"] \
-        <= p["splits"] * p["split_stages"]
-    assert [plans[M]["row_chunks"] for M in (1, 64, 65, 200)] == [1, 1, 2, 4]
-    assert [plans[M]["m_tiles"] for M in (1, 8, 13, 32, 64)] == \
-        [1, 1, 1, 2, 4]
+    # the splits cover the K stages in order, none empty, lengths within
+    # one stage of each other
+    bounds = rg.split_bounds(K, p["splits"])
+    assert bounds[0][0] == 0 and bounds[-1][1] == p["k_stages"] * 64
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    lens = {(k1 - k0) // 64 for k0, k1 in bounds}
+    assert min(lens) >= 1 and max(lens) - min(lens) <= 1
+    assert max(lens) == p["split_stages"]
+    assert [plans[M]["row_chunks"] for M in (1, 256, 257, 520, 1024)] == \
+        [1, 1, 2, 3, 4]
+    assert [plans[M]["groups"] for M in (1, 64, 65, 128, 129, 256, 1024)] \
+        == [1, 1, 2, 2, 3, 4, 4]
+
+
+@pytest.mark.parametrize("K,N", SERVING + LLAMA_7B)
+def test_plan_is_a_function_of_shape_and_card(K, N):
+    """The plan comes from (K, N, dtype) and the card's SM and cluster
+    counts alone: the same inputs give the same plan at any M, a card is
+    all it reads of the device, and float32 and bfloat16 share it."""
+    for card in (rg.H100, SMALLER):
+        plans = [rg.row_gemm_plan(M, K, N, dt, (card[0], dict(card[1])))
+                 for M in (1, 300) for dt in (torch.float32,
+                                              torch.bfloat16)]
+        assert len({tuple(sorted(_fixed(p).items())) for p in plans}) == 1
+        assert plans[0]["sms"] == card[0]
+        assert plans[0]["clusters"] <= card[1][plans[0]["splits"]]
+        assert plans[0]["sms_used"] <= card[0]
+    assert rg.row_gemm_plan(1, K, N, torch.bfloat16) == \
+        rg.row_gemm_plan(1, K, N, torch.bfloat16, rg.H100)
+
+
+def _sm_stages(plan):
+    """The K stages each SM of the plan's grid streams: rank r of cluster
+    q takes split r of tiles q, q + clusters, ..."""
+    out = []
+    for q in range(plan["clusters"]):
+        tiles = len(range(q, plan["n_tiles"], plan["clusters"]))
+        for r in range(plan["splits"]):
+            k0 = r * plan["k_stages"] // plan["splits"]
+            k1 = (r + 1) * plan["k_stages"] // plan["splits"]
+            out.append(tiles * (k1 - k0))
+    return out
+
+
+@pytest.mark.parametrize("card", [rg.H100, SMALLER], ids=["132", "114"])
+@pytest.mark.parametrize("K,N", SERVING + LLAMA_7B)
+def test_every_sm_streams_an_equal_share(card, K, N):
+    """Each SM of the grid streams the same weight bytes to within one
+    unit (one tile's split) of the grid's mean, the grid's clusters all
+    fit the card at once, and together they stream every weight once.
+    The SMs left idle are those no more cluster of the plan's size fits
+    (clusters stay inside a GPC) or that no tile is left for."""
+    plan = rg.row_gemm_plan(8, K, N, torch.bfloat16, card)
+    stages = _sm_stages(plan)
+    unit = plan["split_stages"]
+    assert len(stages) == plan["sms_used"] <= card[0]
+    assert plan["clusters"] <= card[1][plan["splits"]]
+    assert max(stages) == plan["sm_stages"]
+    mean = sum(stages) / len(stages)
+    assert all(abs(s - mean) <= unit for s in stages)
+    assert sum(stages) == plan["n_tiles"] * plan["k_stages"]
 
 
 def test_plan_at_the_serving_shapes():
-    got = [(rg.row_gemm_plan(8, K, N, torch.bfloat16)["splits"],
-            rg.row_gemm_plan(8, K, N, torch.bfloat16)["split_stages"])
+    got = [tuple(rg.row_gemm_plan(8, K, N, torch.bfloat16)[k]
+                 for k in ("splits", "clusters", "tiles_per_cluster",
+                           "sm_stages"))
            for K, N in SERVING]
-    # qkv, proj, fc1, fc2, head: at least ~2 blocks an SM where the
-    # columns alone give fewer
-    assert got == [(3, 11), (8, 4), (3, 11), (9, 15), (1, 32)]
+    # qkv, proj, fc1, fc2, head on the H100 (clusters of 4 and 8 fit 30
+    # and 15 times): 96, 64, 128, 64 and 131 SMs
+    assert got == [(2, 48, 1, 16), (4, 16, 1, 8), (2, 64, 1, 16),
+                   (4, 16, 1, 32), (1, 131, 3, 96)]
+
+
+@pytest.mark.parametrize("K,N", SERVING + LLAMA_7B + ((128, 128),))
+def test_plan_takes_the_fewest_stages_then_the_smallest_cluster(K, N):
+    """No cluster size that fits the card gives the busiest SM fewer K
+    stages, and no smaller one gives it as few: a larger cluster only
+    adds partials to sum."""
+    p = rg.row_gemm_plan(8, K, N, torch.bfloat16)
+    for c in rg.CLUSTER_SIZES:
+        if c > p["k_stages"]:
+            continue
+        fit = rg.H100[1][c]
+        tiles = -(-p["n_tiles"] // min(fit, p["n_tiles"]))
+        load = tiles * -(-p["k_stages"] // c)
+        assert load >= p["sm_stages"]
+        if c < p["splits"]:
+            assert load > p["sm_stages"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -108,17 +191,20 @@ def test_plain_matches_jax_products():
 
 
 @pytest.mark.parametrize("K,N", [(64, 64), (200, 72), (1024, 48),
-                                 (2048, 64)])
+                                 (2048, 64), (8192, 136)])
 def test_split_rule_matches_the_product(K, N):
-    """The kernel's rule (runs of K summed, then the splits in order)
-    is the product up to float32 summation order."""
+    """The kernel's rule (runs of K summed, then the splits in rank
+    order) is the product up to float32 summation order: against the
+    float64 product, and within 2 K 2^-24 (|x| @ |w|) an element of the
+    float32 product (the bound of two float32 sums of K products)."""
     rng = np.random.default_rng(K + N)
     x = _rand(rng, (7, K))
     w = _rand(rng, (K, N))
     got = rg.row_gemm_split_plain(x, w)
-    want = x.double() @ w.double()
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                               atol=1e-4 * np.sqrt(K))
+    np.testing.assert_allclose(got.numpy(), (x.double() @ w.double()).numpy(),
+                               rtol=1e-4, atol=1e-4 * np.sqrt(K))
+    tol = 2 * K * 2.0 ** -24 * (x.abs() @ w.abs())
+    assert bool(((got - x @ w).abs() <= tol).all())
 
 
 def test_weight_layouts():
