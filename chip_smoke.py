@@ -45,6 +45,19 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    card (units an SM, cluster size, stages), the instance's registers
    and shared memory, and the host time of one call; the float32
    instance at gpt_tiny's shapes (checks only).
+2b. sampling kernel (``sampling_kernel_phase``) — the sampler
+   (``csrc/sampling.cu``: a keyed Gumbel-max draw on JAX's threefry
+   stream) against its plain version (``models/prng.py`` on CUDA
+   tensors) at [8, 50304] (a decode step, seeds and positions a slot),
+   [32, 50304] (a k 3 verify pass, 4 window rows a slot), [4, 32000]
+   and [8, 50304] (LLaMA and GPT ``generate``: one key over the draw),
+   20 times each with fresh N(0, 9) logits and keys under two filters
+   (temperature 0.8, top-k 20, top-p 0.95; temperature 1): 2080 rows,
+   tokens equal or a near-tie (perturbed scores within 2e-6, counted);
+   edge rows (one finite logit among -inf, a whole -inf row, +inf, NaN
+   and exact ties: the first index); times over rotating logits beside
+   the plain version, the filter and ``torch.argmax`` (a reading floor:
+   no PyTorch call draws JAX's stream), bound by int32 operations.
 3. kernels (training) — the flash-attention forward, dK/dV and dQ
    kernels against their plain versions at the training shape (B 8,
    S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
@@ -94,6 +107,13 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    shared-prefix load with hits, partial hits and a full hit on the
    contiguous, paged and fused engines: the warm card streams equal the
    cold card streams and the CPU's, with the CPU's hits.
+4c. sampled reference (``sampled_reference_phase``) — seeded sampling
+   (temperature 0.8, top-k 20, top-p 0.95, seeds a request) on gpt_tiny
+   f32 (contiguous, paged with 18 pages) and the tiny int8-weight fused
+   model, at steps_per_sync 1 and 8 and with n-gram and model drafts:
+   every card and CPU stream equal to the CPU plain stream, or first
+   different at a reported near-tie; the sampler launched once a decode
+   step and a verify pass on the card, never on the CPU.
 5. serving — gpt3_1p3b at full width (24 layers, H 2048, 16 heads of
    128, V 50304, bf16, random weights from seed 0) behind
    ``ContinuousBatchingEngine(max_batch=8, max_len=1024,
@@ -148,6 +168,14 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    shared pages; warm streams equal cold, or each difference at a
    near-tie (the cold path's top-2 margin within the warm/cold logit
    |delta| of one prompt).
+5c. sampled serving (``sampled_serving_phase``) — the serving phase's
+   12 requests with seeds 1-12 at temperature 0.8, top-k 20, top-p 0.95
+   through the contiguous and paged bf16 engines, plain and n-gram k 3:
+   sampler launches exact (one a decode step or verify pass), decode-loop
+   tok/s beside the greedy runs', speculative streams equal plain bit
+   for bit, two seeds of one prompt diverging; one sampled decode step,
+   one draw (filter and sampler) and the sampler alone profiled
+   (family "sampling").
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -278,7 +306,7 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    with launches from phase 15 and times at its shape; the float32
    instances of the flash and CE kernels beside their bf16 rows, and
    the speculative runs' launches and verify times beside rows 1, 2
-   and 9)
+   and 9; the sampler, launches from the sampled contiguous run)
    and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
@@ -4337,6 +4365,527 @@ def llama_sp_phase(llama, fa, cfg, params, ids, labels):
     return row
 
 
+# -- seeded sampling: the sampler kernel and the sampled engines -----------
+
+# H100 SXM, 132 SMs at the 1.98 GHz behind the 67 TFLOP/s float32
+# figure.  An SM issues one warp instruction a clock in each of its four
+# sub-partitions (128 thread instructions), and its pipes take, a clock:
+# ALU 64 (logic, shifts, compares, selects, integer adds), FMA-heavy 64
+# (IMAD, float32), FMA-lite 64 (float32), XU 16 (MUFU, conversions).
+# IADD3 and VIADD are integer adds that the compiler may place on the ALU
+# or, as IMAD.IADD, on FMA-heavy: both count as either.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+SASS_PIPES = {
+    "alu": {"LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP", "FSETP",
+            "SEL", "FSEL", "FMNMX", "IMNMX", "VIMNMX", "PRMT", "PLOP3",
+            "MOV", "IABS", "I2FP", "F2FP", "P2R", "R2P", "BMSK", "SGXT"},
+    "int_add": {"IADD3", "VIADD", "IADD"},
+    "fma_heavy": {"IMAD", "IMUL"},
+    "fp32": {"FADD", "FMUL", "FFMA"},
+    "xu": {"MUFU", "I2F", "F2I", "FRND", "POPC", "FLO", "BREV"},
+}
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)[^;]*?(?:\s(0x[0-9a-f]+))?\s*;")
+SAMPLE_TIE = 2e-6          # perturbed scores closer than this: a near-tie
+SAMPLE_SERVE = dict(temperature=0.8, top_k=20, top_p=0.95)
+SAMPLINGS = (("t0.8 k20 p0.95", SAMPLE_SERVE), ("t1.0", dict(temperature=1.0)))
+# (name, rows, V, rule): an 8-slot decode step (engines' rule), a k 3
+# verify pass (8 slots x 4 window rows), LLaMA generate (B 4, V 32000)
+# and GPT generate (B 8), both one key for the whole draw
+SAMPLE_CASES = (("decode", 8, 50304, "pos"), ("verify", 32, 50304, "window"),
+                ("llama_generate", 4, 32000, "key"),
+                ("generate", 8, 50304, "key"))
+SAMPLE_REPS = 20           # x 2 samplings x 52 rows = 2080 rows
+SAMPLE_FAMILIES = (("sampling", ("sampling",)),) + DECODE_FAMILIES
+
+
+def _sample_args(prng, rule, R, gen, rep, dev="cuda"):
+    """The keying of one draw of R rows: one key of a split (generate
+    rule), or seeds (the whole int32 range) and positions (0..1023) for
+    each slot, 4 window rows a slot for the verify."""
+    if rule == "key":
+        return {"key": prng.split(prng.PRNGKey(1000 + rep, dev), 3)[rep % 3]}
+    W = 4 if rule == "window" else 1
+    B = R // W
+    return {"seeds": torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen,
+                                   device=dev, dtype=torch.int32),
+            "pos": torch.randint(0, 1024, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32),
+            "window": W}
+
+
+def sampling_check(sm, filt, args):
+    """The sampler kernel against its plain version on the same filtered
+    logits and keys: equal tokens, or a near-tie — the two tokens'
+    perturbed scores (the plain version's, logits + g) within
+    ``SAMPLE_TIE`` of each other; never a -inf logit unless its whole
+    row is -inf.  Returns the rows, the near-ties and the largest
+    margin (0 when every token is equal)."""
+    got = sm.gumbel_argmax(filt, **args)
+    want = sm.gumbel_argmax_plain(filt, **args)
+    scores = sm.perturbed_scores(filt, **args)
+    rows = torch.arange(filt.shape[0], device=filt.device)
+    margin = torch.where(got == want, 0.0, (
+        scores[rows, want.long()] - scores[rows, got.long()]).abs())
+    worst = margin.max().item()
+    ties = int((got != want).sum())
+    if not worst < SAMPLE_TIE:
+        r = int(margin.argmax())
+        raise AssertionError(
+            f"sampler row {r}: kernel token {int(got[r])}, plain "
+            f"{int(want[r])}, perturbed scores {margin[r].item()} apart "
+            f"(a near-tie is < {SAMPLE_TIE})")
+    dead = torch.isneginf(filt[rows, got.long()]) & \
+        ~torch.isneginf(filt).all(dim=-1)
+    if dead.any():
+        raise AssertionError(f"sampler drew a -inf logit in rows "
+                             f"{dead.nonzero().flatten().tolist()}")
+    return {"rows": int(filt.shape[0]), "near_ties": ties,
+            "max_margin": worst}
+
+
+def sampling_edge_check(sm, prng, dev="cuda"):
+    """Rows the random cases never build, kernel and plain alike: one
+    finite logit among -inf (drawn), a whole -inf row (index 0), +inf
+    at two indices (the first), NaN at two (the first, as argmax
+    treats NaN), and two equal finite perturbed scores (the first).
+    The finite tie holds under any log: its two indices are two whose
+    uniforms are the same float32 (a row of 50304 has ~150 such pairs
+    on the 2^23-point grid), so their noise is the same whatever log
+    computes it; both get logit 0.5, every other logit is -inf.  Row 4
+    takes its first such pair, row 5 the pair farthest apart (so the
+    two lie in different blocks of the draw)."""
+    V = 50304
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    logits = torch.full((6, V), float("-inf"), device=dev)
+    logits[0, 31337] = 0.5
+    logits[2, 7], logits[2, 4000] = float("inf"), float("inf")
+    logits[3] = torch.randn(V, generator=gen, device=dev)
+    logits[3, 90], logits[3, 12] = float("nan"), float("nan")
+    seeds = torch.tensor([3, -1, 5, 6, 7, 2 ** 31 - 1], dtype=torch.int32,
+                         device=dev)
+    pos = torch.tensor([0, 1, 2, 3, 4, 1023], dtype=torch.int32, device=dev)
+    args = {"seeds": seeds, "pos": pos, "window": 1}
+    u = prng.uniform(prng.fold_in(prng.PRNGKey(seeds[4:]), pos[4:]), (V,),
+                     prng.TINY, 1.0)
+    want = [31337, 0, 7, 12]
+    for r in (4, 5):
+        vals, order = torch.sort(u[r - 4], stable=True)
+        same = torch.nonzero(vals[1:] == vals[:-1]).flatten()
+        pairs = [sorted((int(order[i]), int(order[i + 1]))) for i in same]
+        a, b = (min(pairs) if r == 4 else
+                max(pairs, key=lambda p: p[1] - p[0]))
+        logits[r, a] = logits[r, b] = 0.5
+        want.append(a)
+    got = sm.gumbel_argmax(logits, **args).tolist()
+    plain = sm.gumbel_argmax_plain(logits, **args).tolist()
+    if plain != want:
+        raise AssertionError(f"sampler edge rows: plain {plain}, want {want}")
+    report = sampling_check(sm, logits, args)
+    if got != want:
+        raise AssertionError(f"sampler edge rows: kernel {got}, want {want}")
+    return {"kernel": got, "want": want, **report}
+
+
+def sass_loop_issue(lib, kernel):
+    """What each trip of ``kernel``'s hot loop issues, from the SASS of
+    the built library (``cuobjdump -sass``): the loop is the shortest
+    backward branch's body that loads from global memory, and one trip
+    handles one element a global load.  Returns the instructions an
+    element by opcode and by pipe (``SASS_PIPES``; "other": loads,
+    branches and the like, which only take issue slots), and the
+    fewest SM clocks an element needs: the larger of its instructions
+    over the 128 issue slots and each pipe's (or pair of pipes') load
+    over its lanes, the integer adds and float32 placed where they
+    balance best."""
+    from paddle_tpu_torch.incubate.nn.kernels import _build
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    body = sass.split(kernel, 1)[1].split("Function :", 1)[0]
+    code = [(int(m[1], 16), m[2], m[3]) for m in _SASS_LINE.finditer(body)]
+    loops = [(at, int(to, 16)) for at, op, to in code
+             if op == "BRA" and to and int(to, 16) < at]
+    hot = []
+    for at, start in sorted(loops, key=lambda lp: lp[0] - lp[1]):
+        hot = [op for a, op, _ in code if start <= a <= at]
+        if "LDG" in hot:
+            break
+    trips = hot.count("LDG")
+    if not trips:
+        raise AssertionError(f"{kernel}: no loop with a global load")
+    ops = {}
+    for op in hot:
+        ops[op] = ops.get(op, 0) + 1
+    pipes = {p: 0 for p in (*SASS_PIPES, "other")}
+    for op, n in ops.items():
+        pipe = next((p for p, names in SASS_PIPES.items() if op in names),
+                    "other")
+        pipes[pipe] += n
+    a, x, m = pipes["alu"], pipes["int_add"], pipes["fma_heavy"]
+    f, u = pipes["fp32"], pipes["xu"]
+    clocks = {"issue": len(hot) / 128, "alu": a / 64, "fma_heavy": m / 64,
+              "alu+fma_heavy": (a + x + m) / 128, "fma": (m + f) / 128,
+              "alu+fma": (a + x + m + f) / 192, "xu": u / 16}
+    clocks = {k: v / trips for k, v in clocks.items()}
+    binds = max(clocks, key=clocks.get)
+    return {"instructions": len(hot) / trips,
+            "opcodes": {k: v / trips for k, v in sorted(ops.items())},
+            "pipes": {k: v / trips for k, v in pipes.items()},
+            "sm_clocks": clocks, "binds": binds,
+            "clocks_an_element": clocks[binds]}
+
+
+def sampling_kernel_phase(sm, decoding, prng, lib):
+    """The sampler kernel on the card against its plain version (the
+    prng composition on CUDA tensors): at each case of ``SAMPLE_CASES``,
+    ``SAMPLE_REPS`` times with fresh logits (N(0, 9)) and keys, under
+    both ``SAMPLINGS`` (the filter runs once, both sides draw from its
+    output); near-ties counted; then the edge rows; then each case's
+    kernel time over rotating copies of the logits (64 MB or more, as a
+    decode step finds them after the head), the plain version's, the
+    filter's at the serving setting and ``torch.argmax`` over the same
+    [R, V] (a reading floor: no PyTorch call draws JAX's stream), with
+    the bound: bytes (logits read, tokens written) against operations,
+    the SM clocks a logit needs from the built kernel's SASS
+    (:func:`sass_loop_issue` of ``lib``) over every SM's clock."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    agg = {}
+    sm.reset_launches()
+    checks = 0
+    for rep in range(SAMPLE_REPS):
+        for name, R, V, rule in SAMPLE_CASES:
+            logits = torch.randn(R, V, generator=gen, device="cuda") * 3
+            args = _sample_args(prng, rule, R, gen, rep)
+            for label, kw in SAMPLINGS:
+                filt = decoding._filter_logits(
+                    logits, kw["temperature"], kw.get("top_k", 0),
+                    kw.get("top_p", 1.0))
+                r = sampling_check(sm, filt, args)
+                checks += 1
+                a = agg.setdefault((name, label), {
+                    "rows": 0, "near_ties": 0, "max_margin": 0.0})
+                a["rows"] += r["rows"]
+                a["near_ties"] += r["near_ties"]
+                a["max_margin"] = max(a["max_margin"], r["max_margin"])
+    torch.cuda.synchronize()
+    if sm.LAUNCHES != checks:
+        raise AssertionError(f"sampler launches {sm.LAUNCHES} != {checks}")
+    rows_total = sum(a["rows"] for a in agg.values())
+    edge = sampling_edge_check(sm, prng)
+    issue = sass_loop_issue(lib, "sampling_gumbel_argmax_kernel")
+    out = {"checks": {f"{n} {lbl}": a for (n, lbl), a in agg.items()},
+           "sass_a_logit": issue,
+           "rows": rows_total,
+           "near_ties": sum(a["near_ties"] for a in agg.values()),
+           "max_margin": max(a["max_margin"] for a in agg.values()),
+           "edge": edge, "cases": {}}
+    for name, R, V, rule in SAMPLE_CASES:
+        copies = max(2, -(-64 * 2 ** 20 // (R * V * 4)))
+        filts = [torch.randn(R, V, generator=gen, device="cuda") * 3
+                 for _ in range(copies)]
+        args = _sample_args(prng, rule, R, gen, 0)
+        ms = _time_rotating([lambda f=f: sm.gumbel_argmax(f, **args)
+                             for f in filts], reps=60)
+        argmax_ms = _time_rotating([lambda f=f: torch.argmax(f, dim=-1)
+                                    for f in filts], reps=60)
+        plain_ms = _time_ms(lambda: sm.gumbel_argmax_plain(filts[0], **args),
+                            reps=10)
+        filter_ms = _time_ms(lambda: decoding._filter_logits(
+            filts[0], 0.8, 20, 0.95), reps=10)
+        nbytes = R * V * 4 + R * 4 + (8 if rule == "key"
+                                      else 8 * (R // args["window"]))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = R * V * issue["clocks_an_element"] / SM_CLOCKS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        row = {"name": name, "shape": f"[{R}, {V}] f32, {rule} rule",
+               "plan": sm.sampling_plan(R, V), "kernel_ms": ms,
+               "plain_ms": plain_ms, "argmax_ms": argmax_ms,
+               "filter_ms_t0.8_k20_p0.95": filter_ms, "library_ms": None,
+               "bound_ms": bound,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "sm_clocks": R * V * issue[
+                   "clocks_an_element"],
+               "bound_share": bound / ms,
+               "max_abs_err": max(a["max_margin"] for (n, _), a in agg.items()
+                                  if n == name)}
+        out["cases"][name] = row
+        del filts
+    _log({"phase": "sampling_kernel", **out})
+    return out
+
+
+def _seq_logits(gpt, params, cfg, seq, dev):
+    """Last-position float32 logits [V] of ``seq`` through ``gpt.prefill``
+    on ``dev`` (dense or int8 weights)."""
+    cache = gpt.init_decode_cache(cfg, 1, len(seq), device=dev)
+    with torch.inference_mode():
+        logits, _, _ = gpt.prefill(params, torch.tensor(
+            np.asarray(seq)[None], device=dev), cfg, cache)
+    return logits[0].float()
+
+
+def _stream_tie(gpt, decoding, prng, models, cfg, prompt, seed, got, want,
+                samp):
+    """Where two sampled streams of one request first differ: the
+    position, both tokens, and their perturbed scores' margin under the
+    request's key at that position, from prefill logits of the common
+    prefix on the card and on the CPU (``models``: {device: params}),
+    with the two logit tokens' card/CPU |delta|.  A near-tie when the
+    smaller margin is below ``SAMPLE_TIE`` plus that delta."""
+    t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = list(map(int, prompt)) + list(map(int, want[:t]))
+    a, b = int(got[t]), int(want[t])
+    margins, logits = {}, {}
+    for dev, params in models.items():
+        lg = _seq_logits(gpt, params, cfg, seq, dev)
+        filt = decoding._filter_logits(lg[None], samp["temperature"],
+                                       samp.get("top_k", 0),
+                                       samp.get("top_p", 1.0))[0]
+        key = prng.fold_in(prng.PRNGKey(seed, dev), len(seq) - 1)
+        s = filt + prng.gumbel(key, filt.shape)
+        margins[dev] = abs((s[a] - s[b]).item())
+        logits[dev] = lg[[a, b]].cpu()
+    delta = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    margin = min(margins.values())
+    return {"index": t, "position": len(seq) - 1, "tokens": [a, b],
+            "margin": margin, "margins": margins, "logit_delta": delta,
+            "near_tie": margin < SAMPLE_TIE + delta}
+
+
+def sampled_reference_phase(gpt, decoding, prng, engines, Spec, sm):
+    """Sampled serving (``SAMPLE_SERVE``) on the card against the CPU:
+    gpt_tiny f32 (seed 1) on the contiguous and paged engines (18 pages
+    of 8 rows: admissions defer, slots are evicted) and the tiny bf16
+    int8-weight model on the fused engine, each with steps_per_sync 1
+    and 8 and speculative k 3 with n-gram and a model draft (the target
+    itself; the fused engine a small GPT).  Requests carry seeds 1..5.
+    Every stream, card and CPU, must equal the CPU plain run at
+    steps_per_sync 8 of its engine, or first differ at a near-tie
+    (``_stream_tie``, reported); each card run launches the sampler once
+    a decode step and a verify pass (count reset before the run) and
+    never falls back."""
+    Engine, PagedEngine, FusedEngine = engines
+    f32 = torch.float32
+    cfg = gpt.gpt_tiny(dtype=f32, use_flash=False)
+    target = gpt.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)), m, i + 1)
+            for i, (n, m) in enumerate(SPEC_REQS)]
+    fcfg = gpt.GPTConfig(vocab_size=128, hidden_size=32, num_layers=1,
+                         num_heads=2, max_position_embeddings=64,
+                         dtype=torch.bfloat16, use_flash=False)
+    fq = gpt.quantize_decode_params(gpt.init_params(fcfg, seed=0,
+                                                    device="cpu"), fcfg)
+    fdcfg = gpt.GPTConfig(vocab_size=128, hidden_size=32, num_layers=1,
+                          num_heads=2, max_position_embeddings=64,
+                          dtype=f32, use_flash=False)
+    fdraft = Spec(k=SPEC_K, draft_params=gpt.init_params(
+        fdcfg, seed=2, device="cpu"), draft_cfg=fdcfg)
+    frng = np.random.default_rng(1)
+    freqs = [(frng.integers(1, 128, (n,)), 8, i + 1)
+             for i, n in enumerate((5, 9, 12))]
+    variants = (("plain 1", 1, None), ("plain 8", 8, None),
+                ("ngram", 8, "ngram"), ("model", 8, "model"))
+    streams, rows, ties = {}, [], []
+    for kind in ("contiguous", "paged", "fused"):
+        fused = kind == "fused"
+        rs = freqs if fused else reqs
+        for label, steps, draft in variants:
+            spec = None if draft is None else True if draft == "ngram" \
+                else fdraft if fused else Spec(k=SPEC_K, draft_params=target,
+                                               draft_cfg=cfg)
+            for dev in ("cpu", "cuda"):
+                kw = dict(device=dev, attn_kernel="flash" if dev == "cuda"
+                          else "xla", speculative=_spec_on(spec, dev),
+                          **SAMPLE_SERVE)
+                if fused:
+                    eng = FusedEngine(_to_device(fq, dev), fcfg, max_len=64,
+                                      **kw)
+                elif kind == "paged":
+                    eng = PagedEngine(_to_device(target, dev), cfg,
+                                      max_batch=3, max_len=256, block_size=8,
+                                      num_blocks=18, **kw)
+                else:
+                    eng = Engine(_to_device(target, dev), cfg, max_batch=3,
+                                 max_len=256, **kw)
+                sm.reset_launches()
+                rids = [eng.submit(p, max_new=m, seed=s) for p, m, s in rs]
+                out = eng.run(steps_per_sync=steps)
+                torch.cuda.synchronize()
+                for rid, (_, m, _) in zip(rids, rs):
+                    if eng.request(rid).status != "DONE" or \
+                            len(out[rid]) != m:
+                        raise AssertionError(
+                            f"sampled reference {kind} {label} {dev}: "
+                            f"request {rid} {eng.request(rid).status}")
+                streams[(kind, label, dev)] = [out[r] for r in rids]
+                if dev == "cpu":
+                    if sm.LAUNCHES:
+                        raise AssertionError("the CPU engine launched the "
+                                             "sampler kernel")
+                    continue
+                m = eng.metrics()
+                draws = m["decode_steps"] + m["launches"].get("verify", 0)
+                if sm.LAUNCHES != draws:
+                    raise AssertionError(
+                        f"sampled reference {kind} {label}: sampler "
+                        f"launches {sm.LAUNCHES} != {draws} draws")
+                rows.append({"engine": kind, "variant": label,
+                             "sampler_launches": sm.LAUNCHES,
+                             "decode_steps": m["decode_steps"],
+                             "verify": m["launches"].get("verify", 0)})
+        ref = streams[(kind, "plain 8", "cpu")]
+        models = {"cpu": fq if fused else target,
+                  "cuda": _to_device(fq if fused else target, "cuda")}
+        for (k2, label, dev), got in streams.items():
+            if k2 != kind:
+                continue
+            for i, (g, w) in enumerate(zip(got, ref)):
+                if g == w:
+                    continue
+                p, _, seed = rs[i]
+                tie = _stream_tie(gpt, decoding, prng, models,
+                                  fcfg if fused else cfg, p, seed, g, w,
+                                  SAMPLE_SERVE)
+                tie.update(engine=kind, variant=label, device=dev,
+                           request=i)
+                ties.append(tie)
+                if not tie["near_tie"]:
+                    raise AssertionError(f"sampled reference: {tie}")
+    row = {"phase": "sampled_reference", "sampling": SAMPLE_SERVE,
+           "config": "gpt_tiny f32 (seed 1), 5 requests, seeds 1-5; fused: "
+                     "128 x 32, 1 layer, bf16 int8 weights, 3 requests",
+           "k": SPEC_K, "streams": len(streams), "near_ties": ties,
+           "runs": rows}
+    _log(row)
+    return row
+
+
+def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
+                          greedy):
+    """The serving cell sampled: gpt3_1p3b at full width, the 12
+    requests of ``serving_phase`` (same prompts) with seeds 1..12 at
+    ``SAMPLE_SERVE``, through the contiguous and the paged engine (bf16,
+    64-token pages, the default pool), plain and with n-gram k 3: every
+    request DONE with 32 tokens; the sampler launched exactly once a
+    decode step and a verify pass (count set to 0 before each run; the
+    plain composition never runs on the card); decode-loop tok/s beside
+    the greedy run's (``greedy``: {engine: row}); speculative streams
+    equal to the plain streams bit for bit (row_gemm gives verify rows
+    the decode rows' bits and the kernel is row-wise); one prompt under
+    two seeds must diverge.  Then one sampled decode step of the slot
+    state profiled (families sampling, flash_decode, row_gemm), the
+    filter and the sampler alone profiled over its logits."""
+    Engine, PagedEngine, _ = engines
+    L = cfg.num_layers
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 701, 12)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    runs, streams = {}, {}
+    for kind in ("contiguous", "paged"):
+        for draft in ("none", "ngram"):
+            kw = dict(max_batch=8, max_len=1024, attn_kernel="flash",
+                      device="cuda", speculative=draft == "ngram",
+                      **SAMPLE_SERVE)
+            eng = (PagedEngine(params, cfg, block_size=64, **kw)
+                   if kind == "paged" else Engine(params, cfg, **kw))
+            eng.submit(np.arange(40) % cfg.vocab_size, max_new=4, seed=99)
+            eng.run()
+            base = eng.metrics()
+            sm.reset_launches()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, max_new=32, seed=i + 1)
+                    for i, p in enumerate(prompts)]
+            out = eng.run(steps_per_sync=16)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = sm.LAUNCHES
+            m = eng.metrics()
+            d = _spec_deltas(m, base)
+            for rid in rids:
+                req = eng.request(rid)
+                if req.status != "DONE" or len(out[rid]) != 32:
+                    raise AssertionError(f"sampled serving {kind} {draft}: "
+                                         f"request {rid} {req.status}")
+            draws = d["decode_steps"] + d.get("verify", 0)
+            if launches != draws or draws < 1:
+                raise AssertionError(
+                    f"sampled serving {kind} {draft}: sampler launches "
+                    f"{launches} != {draws} (decode steps + verify passes)")
+            if kind == "paged" and eng.free_blocks != eng.num_blocks:
+                raise AssertionError("sampled serving paged: pages left "
+                                     "claimed")
+            streams[(kind, draft)] = [out[r] for r in rids]
+            row = {"engine": kind, "kv_dtype": "bf16", "draft": draft,
+                   "sampler_launches": launches,
+                   "decode_steps": d["decode_steps"],
+                   "verify_rounds": d.get("verify", 0),
+                   "decode_loop_s": d["decode_seconds"],
+                   "decode_loop_tok_s": 32 * len(rids) / d["decode_seconds"],
+                   "e2e_tok_s": 32 * len(rids) / wall, "wall_s": wall,
+                   "greedy_decode_loop_tok_s":
+                       greedy[(kind, draft)]["decode_loop_tok_s"]
+                       if (kind, draft) in greedy else None}
+            if draft == "ngram":
+                s = m["speculative"]
+                row.update(accept_ratio=s["accept_ratio"],
+                           tokens_per_launch=s["tokens_per_launch"])
+            runs[(kind, draft)] = row
+            _log({"phase": "sampled_serving", **row})
+            if kind == "contiguous" and draft == "none":
+                a = eng.submit(prompts[0], max_new=32, seed=1)
+                b = eng.submit(prompts[0], max_new=32, seed=2)
+                two = eng.run(steps_per_sync=16)
+                if two[a] == two[b]:
+                    raise AssertionError("sampled serving: seeds 1 and 2 "
+                                         "gave the same stream")
+                # reported: alone, its prefill batch (cuBLAS) differs
+                row["resubmitted_equal"] = two[a] == streams[(kind, draft)][0]
+            del eng
+            torch.cuda.empty_cache()
+    for kind in ("contiguous", "paged"):
+        if streams[(kind, "ngram")] != streams[(kind, "none")]:
+            bad = [i for i, (x, y) in enumerate(zip(
+                streams[(kind, "ngram")], streams[(kind, "none")])) if x != y]
+            raise AssertionError(f"sampled serving {kind}: speculative "
+                                 f"streams {bad} left the plain streams")
+    agree = sum(x == y for x, y in zip(streams[("paged", "none")],
+                                       streams[("contiguous", "none")]))
+    # where a sampled step's device time goes, and the draw alone
+    cache, _, toks, pos = _slot_state(gpt, params, cfg, "bf16",
+                                      "contiguous", 0)
+    tok = toks[:, 0].contiguous()
+    seeds = torch.arange(1, 9, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        logits, _ = gpt.decode_step_multi(params, cache, tok, pos, cfg,
+                                          attn_kernel="flash")
+
+        def step():
+            lg, _ = gpt.decode_step_multi(params, cache, tok, pos, cfg,
+                                          attn_kernel="flash")
+            return decoding.sample_token_pos(lg, seeds, pos, **SAMPLE_SERVE)
+
+        prof = {"sampled_decode_step": _step_profile(step, SAMPLE_FAMILIES),
+                "draw": _step_profile(lambda: decoding.sample_token_pos(
+                    logits, seeds, pos, **SAMPLE_SERVE), SAMPLE_FAMILIES),
+                "sampler_alone": _step_profile(lambda: sm.gumbel_argmax(
+                    logits.float(), seeds=seeds, pos=pos), SAMPLE_FAMILIES)}
+    for name, p in prof.items():
+        _log({"phase": "sampled_profile", "name": name, **p})
+    out = {"runs": runs, "profiles": prof,
+           "paged_equal_contiguous": f"{agree}/12",
+           "speculative_equal_plain": True}
+    _log({"phase": "sampled_serving_summary",
+          "speculative_equal_plain": True,
+          "paged_equal_contiguous": f"{agree}/12",
+          "sampling_ms_a_step": prof["sampled_decode_step"]["device_ms"][
+              "sampling"]})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON")
@@ -4359,12 +4908,13 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
     from paddle_tpu_torch.incubate.nn.kernels import ring_attention as ra
     from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingEngine, FusedB1Engine,
         PagedContinuousBatchingEngine, SpeculativeConfig)
     from paddle_tpu_torch.jit.loop import TrainLoop
-    from paddle_tpu_torch.models import common, gpt, llama
+    from paddle_tpu_torch.models import common, decoding, gpt, llama, prng
     from paddle_tpu_torch.models.common import matmul_f32out
 
     card = _nvidia_smi("name,power.limit")
@@ -4376,7 +4926,8 @@ def main(argv=None) -> int:
     ptxas = _flash_ptxas_start(_build)
     try:
         libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
-                             "fused_decode", "rms_norm", "row_gemm"])
+                             "fused_decode", "rms_norm", "row_gemm",
+                             "sampling"])
     except BaseException:
         for proc, _ in ptxas.values():
             proc.kill()
@@ -4401,6 +4952,8 @@ def main(argv=None) -> int:
 
     kernels = timed("kernel", kernel_phase, fd)
     gemm_rows = timed("row_gemm", row_gemm_phase, rg, new_resources)
+    sampler = timed("sampling_kernel", sampling_kernel_phase, sm, decoding,
+                    prng, libs["sampling"])
     paged_kernels = timed("paged_kernel", paged_kernel_phase, fd, kvq)
     train_kernels = timed("train_kernel", train_kernel_phase, fa, fce,
                           matmul_f32out)
@@ -4417,6 +4970,9 @@ def main(argv=None) -> int:
                            SpeculativeConfig, fd, fdl, fnr)
     prefix_reference = timed("prefix_reference", prefix_reference_phase,
                              gpt, engines, rg)
+    sampled_reference = timed("sampled_reference", sampled_reference_phase,
+                              gpt, decoding, prng, engines,
+                              SpeculativeConfig, sm)
     cfg, params, serving, launches, streams = timed(
         "serving", serving_phase, gpt, ContinuousBatchingEngine, fd, rg)
     steps = timed("compare", compare_phase, gpt, cfg, params)
@@ -4433,6 +4989,14 @@ def main(argv=None) -> int:
         {("contiguous", "bf16"): streams, **kv_streams})
     prefix_runs = timed("prefix_serving", prefix_serving_phase, gpt, engines,
                         fd, rg, fdl, cfg, params, qparams)
+    sampled = timed(
+        "sampled_serving", sampled_serving_phase, gpt, decoding, engines, sm,
+        fd, rg, cfg, params, {
+            ("contiguous", "none"): serving,
+            ("paged", "none"): kv_runs[("paged", "bf16")],
+            ("contiguous", "ngram"): spec_runs[("contiguous", "bf16",
+                                                "ngram")],
+            ("paged", "ngram"): spec_runs[("paged", "bf16", "ngram")]})
     del params
     torch.cuda.empty_cache()
     fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
@@ -4734,6 +5298,38 @@ def main(argv=None) -> int:
             "shape": at_train["shape"],
             "timed_under": f"{RING} at offset 0",
             **ring_cell(at_train, key, err)}
+    # the port's sampler (no TPU kernel behind it): launches from the
+    # sampled serving cell's plain contiguous run, time and bound at a
+    # decode step's [8, 50304], the other cases beside; max_abs_err is
+    # the largest gap of perturbed scores where a kernel token differed
+    # from the plain version's (0: every token equal)
+    dec_s = sampler["cases"]["decode"]
+    draws = sampled["profiles"]
+    entries.append({
+        "name": "gumbel_argmax", "route": "cuda",
+        "source": src + "sampling.cu",
+        "replaces": "none: paddle_tpu/models/decoding.py:52 (sample_token) "
+                    "and :62 (_sample_one) draw with jax.random.categorical "
+                    "in XLA, no Pallas kernel",
+        "launches": sampled["runs"][("contiguous", "none")][
+            "sampler_launches"],
+        "max_abs_err": sampler["max_margin"], "ms": dec_s["kernel_ms"],
+        "plain_ms": dec_s["plain_ms"], "bound_ms": dec_s["bound_ms"],
+        "bound_by": dec_s["bound_by"], "library_ms": None,
+        "shape": dec_s["shape"], "argmax_ms": dec_s["argmax_ms"],
+        "rows_checked": sampler["rows"], "near_ties": sampler["near_ties"],
+        "cases": [{k: r[k] for k in (
+            "name", "shape", "plan", "kernel_ms", "plain_ms", "argmax_ms",
+            "filter_ms_t0.8_k20_p0.95", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err")}
+            for r in sampler["cases"].values()],
+        "serving_launches": {f"{k} {d}": r["sampler_launches"]
+                             for (k, d), r in sampled["runs"].items()},
+        "sampled_step_device_ms": draws["sampled_decode_step"][
+            "device_busy_ms"],
+        "sampled_step_sampling_ms": draws["sampled_decode_step"][
+            "device_ms"]["sampling"],
+        "draw_device_ms": draws["draw"]["device_busy_ms"]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -4760,6 +5356,12 @@ def main(argv=None) -> int:
              "llama_sp": llama_sp, "speculative_reference": spec_reference,
              "row_gemm": {f"{a} {b}": r for (a, b), r in gemm_rows.items()},
              "prefix_reference": prefix_reference,
+             "sampling_kernel": sampler,
+             "sampled_reference": sampled_reference,
+             "sampled_serving": {
+                 "runs": {f"{a} {b}": r
+                          for (a, b), r in sampled["runs"].items()},
+                 **{k: v for k, v in sampled.items() if k != "runs"}},
              "prefix_serving": {f"{a} {b}": r
                                 for (a, b), r in prefix_runs.items()},
              "speculative_serving": {" ".join(k) if isinstance(k, tuple)

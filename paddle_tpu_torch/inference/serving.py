@@ -2,7 +2,8 @@
 ``paddle_tpu/inference/serving.py``: ``Request``, ``_derive_buckets``,
 ``SpeculativeConfig``, the scheduler core of
 ``ContinuousBatchingEngine``, ``PagedContinuousBatchingEngine`` and
-``FusedB1Engine``, greedy speculative decoding on all three).
+``FusedB1Engine``, seeded sampling and speculative decoding on all
+three).
 
 The host runs the scheduler — admission, retirement, slot assignment —
 and the device runs two programs over one in-place KV cache:
@@ -12,33 +13,44 @@ and the device runs two programs over one in-place KV cache:
   padded with 0 to the bucket, each sequence's K/V written straight
   into its slot (``gpt.prefill_into_slots``) or its pages
   (``gpt.prefill_paged_batched``);
-* a K-step decode loop (the engine's decode step + greedy argmax per
-  step) advancing every slot at its own position, with ONE host sync
-  per K steps.
+* a K-step decode loop (the engine's decode step + the token draw per
+  step: greedy argmax, or the position-keyed sampler) advancing every
+  slot at its own position, with ONE host sync per K steps.
 
 Priming follows the JAX engine: sequences pad to a bucket, so an
 admitted slot starts at ``pos = S-1`` feeding its last real token; the
-first decode step recomputes that row and its argmax is the next
+first decode step recomputes that row and its draw is the next
 token.  Inactive slots decode at ``max_len-1`` with ``done`` set: the
 contiguous engine writes junk rows that no query attends, the paged
 engine drops their writes (their block tables are all -1).  The
 scheduler makes the same choices as the JAX one step for step, so
-greedy streams match it.
+greedy and sampled streams match it.
+
+Sampling (``temperature`` > 0, with ``top_k`` / ``top_p``): the token
+fed at position p of a request is drawn with ``fold_in(PRNGKey(seed),
+p)`` (``decoding.sample_token_pos``; the seed is ``submit(seed=...)``,
+kept per slot on the device), so a stream is a function of (seed,
+positions) and the same under any ``steps_per_sync``, with or without
+speculation, on all three engines.  On the card the draw is the
+sampler kernel (``incubate/nn/kernels/sampling.py``), one launch a
+decode step or verify pass.
 
 The KV cache is stored as ``kv_dtype`` ("bf16" = the model dtype,
 "int8" with per-row scales, "fp8"); every write quantizes on the way
 in and the flash kernel dequantizes while it reads.
 
-Speculative decoding (``speculative=``, greedy): a round proposes k
+Speculative decoding (``speculative=``): a round proposes k
 tokens a slot — k greedy steps of a small GPT or LLaMA draft over its
 own contiguous cache, or the host n-gram proposer — then ONE verify
 pass of the target over each slot's k+1-token window, and one host
 sync reads the fed window and the target's tokens together.  The
 accepted prefix plus the target's correction token are emitted; every
-emitted token is the target's own, so the stream equals the
-non-speculative one.  Rollback is host state: rows of a rejected suffix
-are never attended and the next fed token overwrites its row (paged:
-their pages stay claimed as headroom until retirement).
+emitted token is the target's own (argmax, or its draw at that absolute
+position: ``decoding.sample_window``), so the stream equals the
+non-speculative one, sampled or greedy.  Rollback is host state: rows
+of a rejected suffix are never attended and the next fed token
+overwrites its row (paged: their pages stay claimed as headroom until
+retirement).
 
 Prefix cache (``prefix_cache_bytes``): a radix trie of prefilled
 prompts (``prefix_cache.RadixPrefixCache``).  An admission that finds
@@ -50,10 +62,10 @@ fused engine runs its own decode step a token).  A DONE retirement
 extends the trie with the request's emitted output, so rejected
 speculative tokens never enter it.
 
-Left out (ROADMAP Queue 1): the prefix cache's host tier, seeded and
-sampled speculation, handoff and reinstall hooks, tensor-parallel mesh
-(and the draft's replication over it), retries/breaker/deadlines/
-cancel, observability, the ``PT_KV_DTYPE`` flag.
+Left out (ROADMAP Queue 1): the prefix cache's host tier, handoff and
+reinstall hooks, tensor-parallel mesh (and the draft's replication over
+it), retries/breaker/deadlines/cancel, observability, the
+``PT_KV_DTYPE`` flag.
 """
 from __future__ import annotations
 
@@ -93,7 +105,8 @@ def _draft_family(name: str):
 
 @dataclasses.dataclass
 class SpeculativeConfig:
-    """Draft-and-verify speculative decoding, greedy.
+    """Draft-and-verify speculative decoding (the drafts propose
+    greedily; the target's own greedy or sampled tokens are emitted).
 
     ``k`` — draft tokens proposed a scheduler round (the verify window is
     k+1 positions).  ``draft_params`` / ``draft_cfg`` — a small model of
@@ -130,6 +143,9 @@ class Request:
     finished_at: Optional[float] = None
     # prompt tokens served from the prefix cache at the last admission
     prefix_hit: int = 0
+    # sampling seed: with engine temperature > 0, the token fed at
+    # position p is drawn with key fold_in(PRNGKey(seed), p)
+    seed: int = 0
 
     def seq_so_far(self) -> np.ndarray:
         """prompt + already-generated tokens — what a re-admission
@@ -191,7 +207,7 @@ def _span_copy(x):
 
 
 class ContinuousBatchingEngine:
-    """Greedy continuous-batching decoder for the GPT family.
+    """Continuous-batching decoder for the GPT family.
 
     ``attn_kernel`` ("flash" default | "xla") — "flash" serves decode
     and prefill attention from the flash_decode kernel; "xla" runs the
@@ -208,7 +224,11 @@ class ContinuousBatchingEngine:
     k = 3) turns on draft-and-verify rounds; None or False, off.
     ``prefix_cache_bytes`` — byte budget of the radix prefix cache (0,
     the default: off; None: unbounded): admissions reuse the longest
-    cached prefix of their sequence and fill only the suffix."""
+    cached prefix of their sequence and fill only the suffix.
+    ``temperature`` / ``top_k`` / ``top_p`` — engine-level sampling (the
+    JAX engine's defaults 0.0 / 0 / 1.0): temperature <= 0 is greedy;
+    else each request draws with its ``submit(seed=...)`` at each
+    absolute position (the module note)."""
 
     # the metrics()["launches"] key of an admission prefill
     _prefill_kind = "prefill"
@@ -218,7 +238,9 @@ class ContinuousBatchingEngine:
                  max_queue: Optional[int] = None,
                  attn_kernel: str = "flash", kv_dtype: str = "bf16",
                  max_stall_rounds: int = 8, speculative: Any = None,
-                 prefix_cache_bytes: Optional[int] = 0, device=None):
+                 prefix_cache_bytes: Optional[int] = 0,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, device=None):
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"engine max_len={max_len} exceeds the model's "
@@ -240,6 +262,9 @@ class ContinuousBatchingEngine:
         self.attn_kernel = attn_kernel
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
         self.max_stall_rounds = int(max_stall_rounds)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         self._stall_rounds = 0
         self._stalls_total = 0
         # admissions sent back to the queue front because their capacity
@@ -249,6 +274,9 @@ class ContinuousBatchingEngine:
         self._slot_req: List[Optional[Request]] = [None] * max_batch
         self._pos = np.zeros(max_batch, np.int32)     # pos being fed
         self._next_tok = np.zeros(max_batch, np.int32)
+        # each slot's request seed, on the device (set at admission)
+        self._seeds = torch.zeros(max_batch, dtype=torch.int32,
+                                  device=self.device)
         self._queue = AdmissionQueue(max_queue)
         self.state = EngineState.SERVING
         self._requests: Dict[int, Request] = {}
@@ -406,8 +434,9 @@ class ContinuousBatchingEngine:
                 f"max_len {self.max_len})")
 
     # -- client surface ----------------------------------------------------
-    def submit(self, prompt, max_new: int = 32) -> int:
-        """Enqueue a greedy generation request; returns its rid."""
+    def submit(self, prompt, max_new: int = 32, seed: int = 0) -> int:
+        """Enqueue a generation request; returns its rid.  ``seed`` (an
+        int32) keys its draws when the engine samples."""
         if self.state != EngineState.SERVING:
             raise EngineClosedError(
                 f"engine is {self.state}; submissions are closed")
@@ -422,11 +451,14 @@ class ContinuousBatchingEngine:
                 f"can prefill (max_len={self.max_len})")
         if prompt.size + max_new > self.max_len:
             raise ValueError("prompt + max_new exceeds engine max_len")
+        if not -2 ** 31 <= int(seed) < 2 ** 31:
+            raise ValueError(f"seed {seed} is not an int32")
         # the rid is used up before the offer, so a rejected request
         # (QueueFullError) still takes one, as in the JAX engine
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, prompt, max_new, submitted_at=_now())
+        req = Request(rid, prompt, max_new, submitted_at=_now(),
+                      seed=int(seed))
         self._queue.offer(req)
         self._requests[req.rid] = req
         return req.rid
@@ -658,6 +690,7 @@ class ContinuousBatchingEngine:
         # token)
         self._pos[slot] = seq.size - 1
         self._next_tok[slot] = int(seq[-1])
+        self._seeds[slot] = req.seed
         if self._prefix is not None and seq.size > 1:
             self._prefix_insert(plan)
 
@@ -750,10 +783,11 @@ class ContinuousBatchingEngine:
                             extend=extend)
 
     def _decode_many(self, K: int, tok, pos, done) -> np.ndarray:
-        """K greedy decode steps on the device; one host sync at the
-        end.  Done slots keep their position (their writes land on a
-        row they own, or on a junk row) and feed the eos id.  Returns
-        tokens [K, B]."""
+        """K decode steps on the device, each drawing its token (greedy,
+        or the position-keyed sampler with the slots' seeds); one host
+        sync at the end.  Done slots keep their position (their writes
+        land on a row they own, or on a junk row) and feed the eos id.
+        Returns tokens [K, B]."""
         eos = -1 if self.eos is None else self.eos
         step_fn = self._decode_step_fn()
         extra = self._decode_extra()
@@ -763,7 +797,9 @@ class ContinuousBatchingEngine:
             for s in range(K):
                 logits, _ = step_fn(self.params, self._cache, extra, tok,
                                     pos)
-                nxt = decoding.sample_token_pos(logits, None, pos, 0.0)
+                nxt = decoding.sample_token_pos(
+                    logits, self._seeds, pos, self.temperature, self.top_k,
+                    self.top_p)
                 nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
                 done = done | (nxt == eos)
                 pos = torch.where(done, pos, pos + 1)
@@ -799,13 +835,15 @@ class ContinuousBatchingEngine:
 
     def _verify_many(self, tok, drafts, pos):
         """The verify program: ONE pass of the target over each slot's
-        window [tok, drafts...] and the greedy target token at every
-        position.  Returns the fed window and the target tokens, both
-        [B, k + 1] on the device."""
+        window [tok, drafts...] and the target's token at every position
+        (greedy, or the sampler at that absolute position).  Returns the
+        fed window and the target tokens, both [B, k + 1] on the
+        device."""
         toks = torch.cat([tok[:, None], drafts], dim=1)
         logits, _ = self._verify_step_fn()(self.params, self._cache,
                                            self._decode_extra(), toks, pos)
-        g = decoding.sample_window(logits, None, pos, 0.0)
+        g = decoding.sample_window(logits, self._seeds, pos,
+                                   self.temperature, self.top_k, self.top_p)
         self._note_launch("verify")
         return toks, g
 
@@ -1046,7 +1084,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         super().__init__(params, cfg, max_batch=max_batch,
                          max_len=max_len, eos_token_id=eos_token_id, **kw)
 
-    def submit(self, prompt, max_new: int = 32) -> int:
+    def submit(self, prompt, max_new: int = 32, seed: int = 0) -> int:
         arr = np.asarray(prompt, np.int32).reshape(-1)
         # the base submit owns the empty/max_new/over-long errors; only
         # a valid request gets the worst-case page check
@@ -1059,7 +1097,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     f"request needs up to {worst} pages but the pool "
                     f"only has {self.num_blocks}; raise num_blocks or "
                     "lower max_new")
-        return super().submit(arr, max_new=max_new)
+        return super().submit(arr, max_new=max_new, seed=seed)
 
     # -- cache strategy ------------------------------------------------------
     def _init_cache(self):

@@ -1,11 +1,24 @@
 """Token selection and the generate loop (port of
-``paddle_tpu/models/decoding.py``, greedy branch).
+``paddle_tpu/models/decoding.py``).
 
-Seeded sampling keys each draw on JAX's threefry generator
-(``jax.random.categorical`` on ``fold_in(PRNGKey(seed), pos)`` or a split
-key), which needs a threefry port to give JAX's streams: until that
-lands (ROADMAP Queue 1 item 3), every function here takes
-``temperature > 0`` as an error.
+Greedy (``temperature <= 0`` or None) is ``torch.argmax``, the first
+index among equal maxima as in JAX, and uses no key.  Sampling
+transforms the logits with temperature / top-k / top-p
+(:func:`_filter_logits`) and draws with JAX's threefry stream: one key
+for a [B, V] draw (:func:`sample_token`, ``jax.random.categorical``) or
+the serving engines' rule, ``fold_in(PRNGKey(seed), pos)`` a row, which
+makes a stream a function of (seed, absolute position) and so the same
+under any partition of the decode into steps, K-step loops or
+speculative verify windows.  The draw is the sampler kernel
+(``incubate/nn/kernels/sampling.py``: its plain version on the CPU, the
+CUDA kernel on the card).
+
+Against JAX: keys, bits and uniforms are JAX's bit for bit; the Gumbel
+noise is within an ulp of JAX's (XLA:CPU's ``log`` is not correctly
+rounded), and torch's softmax and cumsum may round the top-p mass
+unlike XLA's, so a token can differ only where two candidates'
+perturbed scores, or the top-p mass and ``top_p``, lie within rounding
+of each other.
 """
 from __future__ import annotations
 
@@ -13,67 +26,110 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..incubate.nn.kernels.sampling import gumbel_argmax
+from . import prng
+
 __all__ = ["sample_token", "sample_token_pos", "sample_window",
            "generate_loop"]
 
 
-def _greedy(logits, temperature):
-    if temperature is None or temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    raise NotImplementedError(
-        "seeded sampling (temperature > 0) needs the threefry port: "
-        "ROADMAP Queue 1 item 3")
+def _greedy(temperature) -> bool:
+    return temperature is None or temperature <= 0.0
 
 
-def sample_token(logits, temperature: float = 0.0, top_k: int = 0,
+def _filter_logits(logits, temperature: float, top_k: int, top_p: float):
+    """Temperature / top-k / top-p transform of the last axis, in
+    float32 (JAX ``decoding._filter_logits``): top-k keeps the values at
+    or above the k-th largest; top-p keeps the smallest prefix of the
+    descending values whose softmax mass reaches ``top_p`` (always one
+    token), cut at the value there.  Dropped logits become -inf."""
+    logits = logits.to(torch.float32) / temperature
+    V = logits.shape[-1]
+    if top_k and 0 < top_k < V:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        desc = torch.sort(logits, dim=-1, descending=True).values
+        e = torch.exp(desc - desc[..., :1])
+        cum = torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)
+        # a cutoff past the end (the whole mass below top_p by rounding)
+        # cuts nothing, as JAX's out-of-range take does
+        idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=V - 1)
+        cutoff = torch.gather(desc, -1, idx)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+def _int32(x, device):
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+def sample_token(logits, key, temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0):
     """Next tokens [B] int32 from logits [B, V]: temperature <= 0 (or
-    None) is greedy argmax, the first index among equal maxima as in
-    JAX.  The JAX function also takes a PRNG key for sampling; sampling
-    raises here."""
-    del top_k, top_p
-    return _greedy(logits, temperature)
+    None) is greedy argmax; else one ``key`` (int64 [2], a
+    :mod:`~paddle_tpu_torch.models.prng` key) draws the whole filtered
+    [B, V] array, as ``jax.random.categorical(key, logits)``."""
+    if _greedy(temperature):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    filt = _filter_logits(logits, temperature, top_k, top_p)
+    return gumbel_argmax(filt, key=key.to(filt.device))
 
 
 def sample_token_pos(logits, seeds, pos, temperature: float = 1.0,
                      top_k: int = 0, top_p: float = 1.0):
     """Per-row token for logits [B, V], the serving engines' rule:
-    greedy for temperature <= 0 (seeds and pos unused then); seeded
-    sampling raises."""
-    del seeds, pos, top_k, top_p
-    return _greedy(logits, temperature)
+    greedy for temperature <= 0 (seeds and pos unused then); else row b
+    draws with ``fold_in(PRNGKey(seeds[b]), pos[b])``, pos being the
+    position the row is fed at."""
+    if _greedy(temperature):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    filt = _filter_logits(logits, temperature, top_k, top_p)
+    return gumbel_argmax(filt, seeds=_int32(seeds, filt.device),
+                         pos=_int32(pos, filt.device))
 
 
 def sample_window(logits, seeds, pos, temperature: float = 1.0,
                   top_k: int = 0, top_p: float = 1.0):
     """Window tokens [B, W] int32 from the speculative verify's logits
     [B, W, V] (fed at positions pos..pos+W-1), by the
-    :func:`sample_token_pos` rule at each position: greedy for
-    temperature <= 0; seeded sampling raises."""
-    del seeds, pos, top_k, top_p
-    return _greedy(logits, temperature)
+    :func:`sample_token_pos` rule at each position (``pos[b] + w``), so
+    the target tokens equal what the decode steps would draw."""
+    if _greedy(temperature):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    B, W, V = logits.shape
+    filt = _filter_logits(logits, temperature, top_k, top_p)
+    toks = gumbel_argmax(filt.reshape(B * W, V),
+                         seeds=_int32(seeds, filt.device),
+                         pos=_int32(pos, filt.device), window=W)
+    return toks.view(B, W)
 
 
 def generate_loop(decode_step: Callable, cache: Any, first_token, start_pos,
-                  max_new_tokens: int, temperature: float = 0.0,
+                  max_new_tokens: int, key, temperature: float = 1.0,
                   top_k: int = 0, top_p: float = 1.0,
                   eos_token_id: Optional[int] = None):
     """Run ``decode_step(cache, token, pos) -> (logits, cache)`` and
     return the NEW tokens [B, max_new_tokens], starting with
     ``first_token`` (already chosen from the prefill logits), and the
     cache.  Exactly max_new_tokens - 1 decode steps run, each emitting
-    the token it picks.  After ``eos_token_id`` a row keeps emitting it.
+    the token it picks; step i samples with ``split(key, max_new_tokens
+    - 1)[i]`` (``key`` unused when greedy).  After ``eos_token_id`` a
+    row keeps emitting it.
 
-    The JAX loop is one ``lax.scan`` over split PRNG keys; this one is a
-    Python loop whose positions are host integers (``start_pos`` + i), so
-    no step waits for the device."""
+    The JAX loop is one ``lax.scan`` over the split keys; this one is a
+    Python loop whose positions are host integers (``start_pos`` + i),
+    so no step waits for the device."""
     if max_new_tokens <= 1:
         return first_token[:, None], cache
+    keys = None if _greedy(temperature) else prng.split(key,
+                                                         max_new_tokens - 1)
     done = None if eos_token_id is None else first_token == eos_token_id
     token, out = first_token, [first_token]
     for i in range(max_new_tokens - 1):
         logits, cache = decode_step(cache, token, start_pos + i)
-        token = sample_token(logits, temperature, top_k, top_p)
+        token = sample_token(logits, None if keys is None else keys[i],
+                             temperature, top_k, top_p)
         if done is not None:
             token = torch.where(done, torch.full_like(token, eos_token_id),
                                 token)

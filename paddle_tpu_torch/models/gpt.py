@@ -1,6 +1,6 @@
 """GPT — the flagship decoder-only LM (port of
 ``paddle_tpu/models/gpt.py``: config, init, forward, the training loss,
-the KV-cache entry points of the serving path with greedy
+the KV-cache entry points of the serving path with greedy and seeded
 :func:`generate`, and the speculative verify over a window; dense
 weights, one device).
 
@@ -77,6 +77,7 @@ from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
                      _kv_write, _slot_rows_writer, _zero_cache, layer_slices,
                      matmul_f32out, param_count, params_from_numpy,
                      scan_layers_with_remat)
+from . import prng
 from .decoding import generate_loop, sample_token
 
 __all__ = ["GPTConfig", "gpt3_1p3b", "gpt_tiny", "init_params",
@@ -691,7 +692,7 @@ def flatten_decode_cache(cache, cfg: GPTConfig):
 
 
 # ---------------------------------------------------------------------------
-# Speculative verify (serving path) and greedy generation
+# Speculative verify (serving path) and generation
 # ---------------------------------------------------------------------------
 # One teacher-forced pass over a k+1-token WINDOW a slot — the token to
 # feed, then the k draft tokens — gives the target's logits at every
@@ -804,15 +805,17 @@ def generate(params, input_ids, cfg: GPTConfig, max_new_tokens: int = 32,
              max_len: Optional[int] = None, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 1.0, seed: int = 0,
              eos_token_id: Optional[int] = None):
-    """Greedy generation: the prompt [B, S] (a tensor or an array, moved
-    to the weights' device) through :func:`prefill` into a model-dtype
-    cache of ``max_len`` rows (default: prompt + new tokens, at most
+    """Generation (greedy when temperature <= 0): the prompt [B, S] (a
+    tensor or an array, moved to the weights' device) through
+    :func:`prefill` into a model-dtype cache of ``max_len`` rows
+    (default: prompt + new tokens, at most
     ``max_position_embeddings``), then ``max_new_tokens - 1``
     :func:`decode_step` calls.  Returns the new tokens [B,
     max_new_tokens] int32; after ``eos_token_id`` a row repeats it.
-    ``temperature > 0`` (seeded sampling) raises NotImplementedError;
-    ``seed`` is unused until then."""
-    del seed
+    ``temperature > 0`` samples as JAX's ``generate``: ``PRNGKey(seed)``
+    split into (k0, kr), the first token drawn from the prefill logits
+    with k0 and step i with ``split(kr, max_new_tokens - 1)[i]``
+    (:func:`~paddle_tpu_torch.models.decoding.generate_loop`)."""
     dev = params["wpe"].device
     ids = torch.as_tensor(input_ids, device=dev).long()
     B, S = ids.shape
@@ -827,8 +830,11 @@ def generate(params, input_ids, cfg: GPTConfig, max_new_tokens: int = 32,
             f"{max_new_tokens} new tokens")
     cache = init_decode_cache(cfg, B, max_len, device=dev)
     logits, cache, pos = prefill(params, ids, cfg, cache)
-    first = sample_token(logits, temperature, top_k, top_p)
+    k0 = kr = None
+    if temperature is not None and temperature > 0.0:
+        k0, kr = prng.split(prng.PRNGKey(seed, dev))
+    first = sample_token(logits, k0, temperature, top_k, top_p)
     tokens, _ = generate_loop(
         lambda c, t, p: decode_step(params, c, t, p, cfg), cache, first,
-        pos, max_new_tokens, temperature, top_k, top_p, eos_token_id)
+        pos, max_new_tokens, kr, temperature, top_k, top_p, eos_token_id)
     return tokens

@@ -71,6 +71,7 @@ from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
                      _kv_write, _slot_rows_writer, _zero_cache, layer_slices,
                      matmul_f32out, param_count, params_from_numpy,
                      scan_layers_with_remat)
+from . import prng
 from .decoding import generate_loop, sample_token
 
 __all__ = ["LlamaConfig", "llama_7b", "llama_tiny", "init_params",
@@ -462,15 +463,16 @@ def generate(params, input_ids, cfg: LlamaConfig, max_new_tokens: int = 32,
              max_len: Optional[int] = None, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 1.0, seed: int = 0,
              eos_token_id: Optional[int] = None):
-    """Greedy generation: the prompt [B, S] (a tensor or an array,
-    moved to the weights' device) through :func:`prefill` into a
-    model-dtype cache of ``max_len`` rows (default: prompt + new tokens,
-    at most ``max_position_embeddings``), then ``max_new_tokens - 1``
-    :func:`decode_step` calls.  Returns the new tokens [B,
+    """Generation (greedy when temperature <= 0): the prompt [B, S] (a
+    tensor or an array, moved to the weights' device) through
+    :func:`prefill` into a model-dtype cache of ``max_len`` rows
+    (default: prompt + new tokens, at most ``max_position_embeddings``),
+    then ``max_new_tokens - 1`` :func:`decode_step` calls.  Returns the new tokens [B,
     max_new_tokens] int32; after ``eos_token_id`` a row repeats it.
-    ``temperature > 0`` (seeded sampling) raises NotImplementedError;
-    ``seed`` is unused until then."""
-    del seed
+    ``temperature > 0`` samples as JAX's ``generate``: ``PRNGKey(seed)``
+    split into (k0, kr), the first token drawn from the prefill logits
+    with k0 and step i with ``split(kr, max_new_tokens - 1)[i]``
+    (:func:`~paddle_tpu_torch.models.decoding.generate_loop`)."""
     dev = params["wte"].device
     ids = torch.as_tensor(input_ids, device=dev).long()
     B, S = ids.shape
@@ -485,9 +487,13 @@ def generate(params, input_ids, cfg: LlamaConfig, max_new_tokens: int = 32,
             f"{max_new_tokens} new tokens")
     cache = init_decode_cache(cfg, B, max_len, device=dev)
     logits, cache, pos = prefill(params, ids, cfg, cache)
-    first = sample_token(logits, temperature, top_k, top_p)
+    k0 = kr = None
+    if temperature is not None and temperature > 0.0:
+        k0, kr = prng.split(prng.PRNGKey(seed, dev))
+    first = sample_token(logits, k0, temperature, top_k, top_p)
     tables = _tables(params, cfg, None)
     tokens, _ = generate_loop(
         lambda c, t, p: decode_step(params, c, t, p, cfg, tables), cache,
-        first, pos, max_new_tokens, temperature, top_k, top_p, eos_token_id)
+        first, pos, max_new_tokens, kr, temperature, top_k, top_p,
+        eos_token_id)
     return tokens

@@ -1599,3 +1599,144 @@ def test_prefix_hits_on_card_match_cold_and_cpu(cuda, paged):
             assert rg.LAUNCHES > before
     assert streams[1] == streams[0] and streams[2] == streams[0]
     assert sum(h > 0 for h in hits) >= 2
+
+
+# ---------------------------------------------------------------------------
+# the sampler: keyed Gumbel-max draws on JAX's threefry stream
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("label", [s[0] for s in chip_smoke.SAMPLINGS])
+@pytest.mark.parametrize("name,R,V,rule", chip_smoke.SAMPLE_CASES)
+def test_sampling_kernel_matches_plain(cuda, name, R, V, rule, label):
+    """The kernel against its plain version at the shapes of the serving
+    and generate paths, both keyings: equal tokens, or near-ties of the
+    perturbed scores (``chip_smoke.sampling_check``)."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.models import decoding, prng
+    kw = dict(chip_smoke.SAMPLINGS)[label]
+    gen = torch.Generator(device=cuda).manual_seed(R + V)
+    for rep in range(3):
+        logits = torch.randn(R, V, generator=gen, device=cuda) * 3
+        args = chip_smoke._sample_args(prng, rule, R, gen, rep)
+        filt = decoding._filter_logits(logits, kw["temperature"],
+                                       kw.get("top_k", 0),
+                                       kw.get("top_p", 1.0))
+        chip_smoke.sampling_check(sm, filt, args)
+
+
+def test_sampling_kernel_edge_rows(cuda):
+    """One finite logit among -inf, a whole -inf row, +inf and NaN ties,
+    and an exact tie of two finite perturbed scores: the first index
+    (``chip_smoke.sampling_edge_check``)."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.models import prng
+    chip_smoke.sampling_edge_check(sm, prng)
+
+
+def test_sampling_streams_keep_their_own_scratch(cuda):
+    """Draws on two streams of one device, released together by one
+    event so that they run at once, give the tokens the same draws give
+    alone; the streams hold distinct row slots and tickets, which read
+    zero after the draws."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.models import prng
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    draws = []
+    for _ in range(2):
+        logits = torch.randn(256, 50304, generator=gen, device=cuda) * 3
+        draws.append((logits, chip_smoke._sample_args(prng, "window", 256,
+                                                      gen, 0)))
+    want = [sm.gumbel_argmax(logits, **args) for logits, args in draws]
+    for logits, args in draws:
+        chip_smoke.sampling_check(sm, logits, args)
+    streams = [torch.cuda.Stream(device=cuda) for _ in draws]
+    go = torch.cuda.Event()
+    torch.cuda._sleep(4_000_000)
+    go.record()
+    for s in streams:
+        s.wait_event(go)
+    got = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            logits, args = draws[i]
+            with torch.cuda.stream(s):
+                got[i].append(sm.gumbel_argmax(logits, **args))
+    torch.cuda.synchronize()
+    for i, outs in enumerate(got):
+        for out in outs:
+            assert torch.equal(out, want[i]), i
+    dev = torch.cuda.current_device()
+    scratch = [sm._SCRATCH[(dev, s.cuda_stream)] for s in streams]
+    assert scratch[0][0].data_ptr() != scratch[1][0].data_ptr()
+    for best, ticket in scratch:
+        assert not best.any() and not ticket.any()
+
+
+def test_sampling_generate_rule_counts_over_the_whole_draw(cuda):
+    """A key draws [B, V] with counters b V + j (``jax.random.
+    categorical(key, logits)``): the kernel gives the plain version's
+    tokens, and not the tokens of each row drawn alone from counter 0."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.models import prng
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    logits = torch.randn(16, 50304, generator=gen, device=cuda)
+    key = prng.split(prng.PRNGKey(3, cuda))[1]
+    got = sm.gumbel_argmax(logits, key=key)
+    want = sm.gumbel_argmax_plain(logits, key=key)
+    alone = torch.stack([sm.gumbel_argmax_plain(logits[b:b + 1], key=key)[0]
+                         for b in range(16)])
+    assert torch.equal(got, want)
+    assert not torch.equal(got[1:], alone[1:])
+    assert int(got[0]) == int(alone[0])
+
+
+def test_sampling_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel, one count a draw; the plain
+    composition never runs."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.models import decoding
+
+    def fail(*a, **k):
+        pytest.fail("a CUDA tensor reached the plain sampler")
+
+    monkeypatch.setattr(sm, "gumbel_argmax_plain", fail)
+    monkeypatch.setattr(sm, "perturbed_scores", fail)
+    logits = torch.zeros(8, 4, 1000, device=cuda)
+    logits[..., 17] = 50.0
+    seeds = torch.arange(8, dtype=torch.int32, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    before = sm.LAUNCHES
+    a = decoding.sample_token_pos(logits[:, 0], seeds, pos, 1.0)
+    b = decoding.sample_window(logits, seeds, pos, 0.9, 5, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, torch.full((8,), 17, dtype=torch.int32,
+                                     device=cuda))
+    assert torch.equal(b, torch.full((8, 4), 17, dtype=torch.int32,
+                                     device=cuda))
+    assert sm.LAUNCHES == before + 2
+    with pytest.raises(ValueError, match="int32"):
+        sm.gumbel_argmax(logits[:, 0], seeds=seeds.long(), pos=pos)
+    with pytest.raises(TypeError, match="float32"):
+        sm.gumbel_argmax(logits[:, 0].half(), seeds=seeds, pos=pos)
+
+
+def test_sampled_engine_on_card_is_partition_invariant(cuda):
+    """The sampled contiguous engine on the card gives the same streams
+    at steps_per_sync 1 and 8, the sampler launched once a decode
+    step."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    cfg, params, _, _ = _spec_models(cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 1024, (n,)) for n in (4, 33, 17, 9)]
+    streams = []
+    for steps in (1, 8):
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=2, max_len=64,
+                                       device=cuda, **chip_smoke.SAMPLE_SERVE)
+        before = sm.LAUNCHES
+        rids = [eng.submit(p, max_new=12, seed=i + 1)
+                for i, p in enumerate(prompts)]
+        out = eng.run(steps_per_sync=steps)
+        streams.append([out[r] for r in rids])
+        assert sm.LAUNCHES - before == eng.metrics()["decode_steps"]
+    assert streams[0] == streams[1]

@@ -210,8 +210,13 @@ def test_generate_checks(gqa):
         tl.generate(tp, ids, tcfg, max_new_tokens=250)
     with pytest.raises(ValueError, match="max_len"):
         tl.generate(tp, ids, tcfg, max_new_tokens=8, max_len=12)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tl.generate(tp, ids, tcfg, max_new_tokens=4, temperature=0.7)
+    # sampled generate is ported: JAX's tokens for the same seed
+    jcfg, jp = gqa[0], gqa[1]
+    want = jl.generate(jp, jnp.asarray(ids), jcfg, max_new_tokens=4,
+                       temperature=0.7, seed=2)
+    got = tl.generate(tp, ids, tcfg, max_new_tokens=4, temperature=0.7,
+                      seed=2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert tl.generate(tp, ids, tcfg, max_new_tokens=1).shape == (1, 1)
 
 

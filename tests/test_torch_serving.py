@@ -113,9 +113,19 @@ def test_default_device_without_cuda_raises(models):
 
 
 def test_temperature_raises_not_implemented():
-    logits = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        decoding.sample_token_pos(logits, None, None, temperature=0.7)
+    """Sampling is ported (it raised before the threefry port): the
+    position-keyed draw gives JAX's tokens; greedy ignores seeds and
+    positions."""
+    import jax.numpy as jnp
+    from paddle_tpu.models import decoding as jdec
+    logits = np.random.default_rng(3).standard_normal((2, 8)).astype(
+        np.float32)
+    seeds, pos = np.asarray([5, -9], np.int32), np.asarray([0, 40], np.int32)
+    got = decoding.sample_token_pos(torch.from_numpy(logits), seeds, pos,
+                                    temperature=0.7)
+    want = jdec.sample_token_pos(jnp.asarray(logits), jnp.asarray(seeds),
+                                 jnp.asarray(pos), temperature=0.7)
+    assert got.tolist() == np.asarray(want).tolist()
     assert decoding.sample_token_pos(
         torch.tensor([[0., 2., 2.]]), None, None, 0.0).tolist() == [1]
 

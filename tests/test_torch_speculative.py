@@ -441,8 +441,13 @@ def test_sample_window_is_greedy_per_position():
     logits = torch.randn(3, 4, 50)
     g = decoding.sample_window(logits, None, torch.zeros(3), 0.0)
     assert g.dtype == torch.int32 and torch.equal(g, logits.argmax(-1).int())
-    with pytest.raises(NotImplementedError, match="threefry"):
-        decoding.sample_window(logits, None, torch.zeros(3), 0.7)
+    # sampled: each window position draws by the sample_token_pos rule
+    seeds = torch.tensor([1, 2, 3], dtype=torch.int32)
+    pos = torch.tensor([0, 10, 20], dtype=torch.int32)
+    s = decoding.sample_window(logits, seeds, pos, 0.7)
+    for w in range(4):
+        assert torch.equal(s[:, w], decoding.sample_token_pos(
+            logits[:, w], seeds, pos + w, 0.7))
 
 
 # ---------------------------------------------------------------------------
@@ -554,11 +559,15 @@ def test_generate_streams_identical(models, eos):
 
 
 def test_generate_checks(models):
-    _, _, tcfg, tp = models["target"]
+    jcfg, jp, tcfg, tp = models["target"]
     ids = np.zeros((1, 5), np.int32)
     with pytest.raises(ValueError, match="max_position_embeddings"):
         tgpt.generate(tp, ids, tcfg, max_new_tokens=200)
     with pytest.raises(ValueError, match="cannot hold"):
         tgpt.generate(tp, ids, tcfg, max_new_tokens=8, max_len=10)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tgpt.generate(tp, ids, tcfg, max_new_tokens=4, temperature=0.8)
+    # sampled generate is ported: JAX's tokens for the same seed
+    want = jgpt.generate(jp, ids, jcfg, max_new_tokens=4, temperature=0.8,
+                         seed=5)
+    got = tgpt.generate(tp, ids, tcfg, max_new_tokens=4, temperature=0.8,
+                        seed=5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
