@@ -46,18 +46,25 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    and shared memory, and the host time of one call; the float32
    instance at gpt_tiny's shapes (checks only).
 2b. sampling kernel (``sampling_kernel_phase``) — the sampler
-   (``csrc/sampling.cu``: a keyed Gumbel-max draw on JAX's threefry
-   stream) against its plain version (``models/prng.py`` on CUDA
-   tensors) at [8, 50304] (a decode step, seeds and positions a slot),
-   [32, 50304] (a k 3 verify pass, 4 window rows a slot), [4, 32000]
-   and [8, 50304] (LLaMA and GPT ``generate``: one key over the draw),
-   20 times each with fresh N(0, 9) logits and keys under two filters
-   (temperature 0.8, top-k 20, top-p 0.95; temperature 1): 2080 rows,
-   tokens equal or a near-tie (perturbed scores within 2e-6, counted);
-   edge rows (one finite logit among -inf, a whole -inf row, +inf, NaN
-   and exact ties: the first index); times over rotating logits beside
-   the plain version, the filter and ``torch.argmax`` (a reading floor:
-   no PyTorch call draws JAX's stream), bound by int32 operations.
+   (``csrc/sampling.cu``: temperature, top-k, top-p with exact
+   thresholds and a keyed Gumbel-max draw on JAX's threefry stream, one
+   launch on raw logits) against its plain version (the torch filter
+   and ``models/prng.py`` on CUDA tensors) at [8, 50304] (a decode
+   step, seeds and positions a slot), [32, 50304] (a k 3 verify pass, 4
+   window rows a slot), [4, 32000] and [8, 50304] (LLaMA and GPT
+   ``generate``: one key over the draw), 10 times each with fresh
+   N(0, 9) logits and keys under six settings (the serving one,
+   temperature alone, top-p alone, top-k alone, top-k at V, top-p
+   1e-6): 3120 rows, the kernel's token the plain draw over the exact
+   rule's kept values or a draw near-tie (perturbed scores within
+   2e-6), kept sets the float filter's or a top-p near-tie (mass within
+   n 2^-24 of top_p), both counted; edge rows exact; every row drawn
+   alone equal to the same row among R 8 / 32 / 64; times over
+   rotating logits beside the plain version and ``torch.argmax`` (a
+   reading floor: no PyTorch call draws JAX's stream), with the bound:
+   bytes against the SASS-counted clocks of the work the function needs
+   (a division, a key and a histogram step a logit, a compare a logit
+   under a filter, a mass a value under top-p, the draw a kept value).
 3. kernels (training) — the flash-attention forward, dK/dV and dQ
    kernels against their plain versions at the training shape (B 8,
    S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
@@ -172,10 +179,12 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    12 requests with seeds 1-12 at temperature 0.8, top-k 20, top-p 0.95
    through the contiguous and paged bf16 engines, plain and n-gram k 3:
    sampler launches exact (one a decode step or verify pass), decode-loop
-   tok/s beside the greedy runs', speculative streams equal plain bit
-   for bit, two seeds of one prompt diverging; one sampled decode step,
-   one draw (filter and sampler) and the sampler alone profiled
-   (family "sampling").
+   tok/s of 4 sampled runs against 4 greedy runs of a greedy engine, in
+   turns (the median of the pairs' ratios), repeated sampled runs
+   drawing the same streams, speculative streams equal plain bit
+   for bit, two seeds of one prompt diverging; one sampled decode step
+   (no topk, sort, cumsum or softmax kernel in it), one draw (one
+   kernel) and the draw alone profiled (family "sampling").
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -343,8 +352,17 @@ PLAIN_TRAJ_TOL = 1e-2                      # per gradient leaf; 5 losses
 HOST_LEAD_CYCLES = 2_000_000               # ~1 ms of device sleep
 
 
+#: where ``--out`` keeps every logged line as it is printed (a run that
+#: fails midway keeps the phases before the fault)
+_LOG_FILE = None
+
+
 def _log(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _LOG_FILE is not None:
+        with open(_LOG_FILE, "a") as f:
+            f.write(line + "\n")
 
 
 def _time_ms(fn, reps=20, flush=None):
@@ -380,7 +398,7 @@ def _nvidia_smi(query):
 
 
 PTXAS_SOURCES = ("flash_attention", "flash_decode", "fused_ce",
-                 "fused_decode", "row_gemm")
+                 "fused_decode", "row_gemm", "sampling")
 
 
 def _flash_ptxas_start(build):
@@ -420,7 +438,8 @@ NEW_KERNELS = (
     ("ce_merge", re.compile(r"fused_ce_merge_kernel")),
     ("fused", re.compile(r"fused_decode_kernelILi(\d)E")),
     ("row_gemm", re.compile(r"row_gemm_(?:bf16_kernelILi(\d)ELb([01])E"
-                            r"(f|13__nv_bfloat16)|f32_kernelILb([01])E)")))
+                            r"(f|13__nv_bfloat16)|f32_kernelILb([01])E)")),
+    ("sampler", re.compile(r"sampling_filter_draw_kernel")))
 FUSED_MODE_NAMES = ("float32", "bfloat16", "int8", "fp8")
 
 
@@ -447,7 +466,14 @@ def _ptxas_entries(log):
 def _new_kernel_row(kind, m, build):
     """Name and launch facts of one flash_decode / fused_ce /
     fused_decode instance (fused_decode's shared memory at
-    gpt3_1p3b)."""
+    gpt3_1p3b; the sampler's at a decode step's [8, 50304])."""
+    if kind == "sampler":
+        from paddle_tpu_torch.incubate.nn.kernels import sampling
+        dev = torch.device("cuda", torch.cuda.current_device())
+        plan = sampling.sampling_plan(8, 50304,
+                                      sampling.device_fits(dev, 50304),
+                                      SAMPLE_SERVE["top_k"])
+        return "sampling_filter_draw", sampling.THREADS, plan["smem"]
     if kind == "row_gemm":
         smem = build.load("row_gemm").pt_row_gemm_smem_bytes
         smem.argtypes = [ctypes.c_int]
@@ -518,7 +544,7 @@ def flash_resources(procs, build):
     new_rows = {}
     for line, res in _ptxas_entries(logs["flash_decode"] + logs["fused_ce"]
                                     + logs["fused_decode"]
-                                    + logs["row_gemm"]):
+                                    + logs["row_gemm"] + logs["sampling"]):
         for kind, pattern in NEW_KERNELS:
             m = pattern.search(line)
             if m:
@@ -1141,10 +1167,11 @@ DECODE_FAMILIES = (("flash_decode", ("flash_decode",)),
                    ("row_gemm", ("row_gemm",)))
 
 
-def _step_profile(step, families=DECODE_FAMILIES, n=10):
+def _step_profile(step, families=DECODE_FAMILIES, n=10, names=False):
     """Wall time of one eager decode step ``step()`` (synchronised, the
     median of 3 windows of ``n`` calls) against the device time the
-    profiler sees in ``n`` calls, by kernel family."""
+    profiler sees in ``n`` calls, by kernel family (``names``: and every
+    kernel's name)."""
     for _ in range(5):
         step()
     torch.cuda.synchronize()
@@ -1157,10 +1184,10 @@ def _step_profile(step, families=DECODE_FAMILIES, n=10):
         windows.append((time.perf_counter() - t0) / n * 1e3)
     wall_ms = statistics.median(windows)
     return dict(wall_ms=wall_ms, wall_ms_windows=windows,
-                **_profile(step, n, wall_ms, list(families)))
+                **_profile(step, n, wall_ms, list(families), names=names))
 
 
-def _profile(fn, n, wall_ms, families, top_n=8):
+def _profile(fn, n, wall_ms, families, top_n=8, names=False):
     """Device time of ``n`` calls of ``fn`` under torch.profiler, per
     call, by kernel family: each (family, name substrings) in order,
     then cuBLAS GEMMs (Hopper's are named nvjet_*), then the rest; the
@@ -1177,7 +1204,7 @@ def _profile(fn, n, wall_ms, families, top_n=8):
         torch.cuda.synchronize()
     fam = {name: 0.0 for name, _ in families}
     fam.update(matmul=0.0, other=0.0)
-    kernels, top, host = 0, [], []
+    kernels, top, host, seen = 0, [], [], set()
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -1190,6 +1217,7 @@ def _profile(fn, n, wall_ms, families, top_n=8):
             continue
         name = ev.key.lower()
         kernels += ev.count
+        seen.add(ev.key)
         top.append((us / n / 1e3, ev.count // n, ev.key[:70]))
         hit = next((f for f, subs in families
                     if any(x in name for x in subs)), None)
@@ -1200,7 +1228,8 @@ def _profile(fn, n, wall_ms, families, top_n=8):
         fam[hit or "other"] += us
     dev_ms = {k: v / n / 1e3 for k, v in fam.items()}
     busy = sum(dev_ms.values())
-    return {"sm_clock_power": clocks, "device_ms": dev_ms,
+    out = {} if not names else {"kernel_names": sorted(seen)}
+    return {**out, "sm_clock_power": clocks, "device_ms": dev_ms,
             "device_busy_ms": busy, "kernels_per_step": kernels / n,
             "idle_share": (1 - busy / wall_ms) if busy else None,
             "top_kernels_ms_count_name": sorted(top, reverse=True)[:top_n],
@@ -4385,18 +4414,33 @@ SASS_PIPES = {
     "xu": {"MUFU", "I2F", "F2I", "FRND", "POPC", "FLO", "BREV"},
 }
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                        r"([A-Z][A-Z0-9_]*)[^;]*?(?:\s(0x[0-9a-f]+))?\s*;")
+                        r"([A-Z][A-Z0-9_.]*)[^;]*?(?:\s(0x[0-9a-f]+))?\s*;")
 SAMPLE_TIE = 2e-6          # perturbed scores closer than this: a near-tie
 SAMPLE_SERVE = dict(temperature=0.8, top_k=20, top_p=0.95)
-SAMPLINGS = (("t0.8 k20 p0.95", SAMPLE_SERVE), ("t1.0", dict(temperature=1.0)))
+# the settings the kernel is held at: the serving one, temperature alone
+# (the draw over every logit), top-p alone, top-k alone, top-k at or
+# above V (no top-k), top-p 1e-6 (the maximum alone)
+SAMPLINGS = (("t0.8 k20 p0.95", SAMPLE_SERVE), ("t1.0", dict(temperature=1.0)),
+             ("t0.7 p0.9", dict(temperature=0.7, top_p=0.9)),
+             ("t1.3 k50", dict(temperature=1.3, top_k=50)),
+             ("t0.9 k>=V p0.95", dict(temperature=0.9, top_k=1 << 20,
+                                      top_p=0.95)),
+             ("t0.8 k20 p1e-6", dict(temperature=0.8, top_k=20, top_p=1e-6)))
 # (name, rows, V, rule): an 8-slot decode step (engines' rule), a k 3
 # verify pass (8 slots x 4 window rows), LLaMA generate (B 4, V 32000)
 # and GPT generate (B 8), both one key for the whole draw
 SAMPLE_CASES = (("decode", 8, 50304, "pos"), ("verify", 32, 50304, "window"),
                 ("llama_generate", 4, 32000, "key"),
                 ("generate", 8, 50304, "key"))
-SAMPLE_REPS = 20           # x 2 samplings x 52 rows = 2080 rows
+SAMPLE_REPS = 10           # x 6 samplings x 52 rows = 3120 rows
+TOK_S_PAIRS = 4            # greedy / sampled serving runs in turns
 SAMPLE_FAMILIES = (("sampling", ("sampling",)),) + DECODE_FAMILIES
+# kernels of the torch filter that the sampled step must no longer run
+FILTER_KERNELS = ("topk", "sort", "cumsum", "softmax", "scan")
+
+
+def _samp(kw):
+    return kw["temperature"], kw.get("top_k", 0), kw.get("top_p", 1.0)
 
 
 def _sample_args(prng, rule, R, gen, rep, dev="cuda"):
@@ -4414,47 +4458,93 @@ def _sample_args(prng, rule, R, gen, rep, dev="cuda"):
             "window": W}
 
 
-def sampling_check(sm, filt, args):
-    """The sampler kernel against its plain version on the same filtered
-    logits and keys: equal tokens, or a near-tie — the two tokens'
-    perturbed scores (the plain version's, logits + g) within
-    ``SAMPLE_TIE`` of each other; never a -inf logit unless its whole
-    row is -inf.  Returns the rows, the near-ties and the largest
-    margin (0 when every token is equal)."""
-    got = sm.gumbel_argmax(filt, **args)
-    want = sm.gumbel_argmax_plain(filt, **args)
-    scores = sm.perturbed_scores(filt, **args)
-    rows = torch.arange(filt.shape[0], device=filt.device)
-    margin = torch.where(got == want, 0.0, (
-        scores[rows, want.long()] - scores[rows, got.long()]).abs())
+def _topp_gap(sm, row, t, kth, p, n_float, n_exact):
+    """A top-p near-tie: the row's float64 cumulative softmax mass over
+    its descending values at or above ``kth``, at the indices between
+    the float rule's and the exact rule's cuts (kept counts ``n_float``,
+    ``n_exact``), lies within n 2^-24 of float32 ``p`` (n: the values
+    summed).  Returns (is a near-tie, the smallest gap)."""
+    x = sm.apply_cuts(row[None], t, kth[None], torch.full_like(kth[None],
+                                                              float("-inf")))
+    desc = torch.sort(x[0][torch.isfinite(x[0])].double(),
+                      descending=True).values
+    e = torch.exp(desc - desc[0])
+    gap = (torch.cumsum(e, 0) / e.sum() - float(np.float32(p))).abs()
+    lo, hi = min(n_float, n_exact) - 1, max(n_float, n_exact)
+    n = torch.arange(1, desc.numel() + 1, device=desc.device,
+                     dtype=torch.float64)
+    ok = bool((gap[lo:hi] <= n[lo:hi] * 2.0 ** -24).any())
+    return ok, float(gap[lo:hi].min()) if hi > lo else 0.0
+
+
+def sampling_check(sm, logits, args, kw):
+    """The sampler kernel (``sample_rows`` on raw logits) against its
+    plain version on the same logits and keys.  The kernel keeps what
+    ``cut_values_plain`` (exact counts and fixed-point masses) keeps:
+    where that differs from the float filter (``filter_logits_plain``),
+    the float rule's cumulative mass at the cut must lie within n 2^-24
+    of top_p (a top-p near-tie, counted).  The kernel's token is the
+    plain draw over the exact rule's kept values, or a draw near-tie:
+    the two tokens' perturbed scores within ``SAMPLE_TIE`` (counted);
+    never a dropped value unless the whole row is -inf.  Returns the
+    rows, both near-tie counts, the largest margin (0 when every token
+    is equal) and the rows equal to the plain version's token."""
+    t, k, p = _samp(kw)
+    got = sm.sample_rows(logits, t, k, p, **args)
+    want = sm.sample_rows_plain(logits, t, k, p, **args)
+    kth, cut = sm.cut_values_plain(logits, t, k, p)
+    exact = sm.apply_cuts(logits, t, kth, cut)
+    filt = sm.filter_logits_plain(logits, t, k, p)
+    same = (exact == filt) | (torch.isnan(exact) & torch.isnan(filt))
+    topp, gaps = 0, []
+    for r in torch.nonzero(~same.all(-1)).flatten().tolist():
+        n_f = int(torch.isfinite(filt[r]).sum())
+        n_e = int(torch.isfinite(exact[r]).sum())
+        ok, gap = _topp_gap(sm, logits[r], t, kth[r], p, n_f, n_e)
+        if not (p < 1.0 and ok):
+            raise AssertionError(
+                f"sampler row {r} ({kw}): the exact rule keeps {n_e} "
+                f"values, the float filter {n_f}, mass gap {gap}")
+        topp += 1
+        gaps.append(gap)
+    ref = sm.gumbel_argmax_plain(exact, **args)
+    scores = sm.perturbed_scores(exact, **args)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    margin = torch.where(got == ref, 0.0, (
+        scores[rows, ref.long()] - scores[rows, got.long()]).abs())
     worst = margin.max().item()
-    ties = int((got != want).sum())
     if not worst < SAMPLE_TIE:
         r = int(margin.argmax())
         raise AssertionError(
-            f"sampler row {r}: kernel token {int(got[r])}, plain "
-            f"{int(want[r])}, perturbed scores {margin[r].item()} apart "
+            f"sampler row {r} ({kw}): kernel token {int(got[r])}, plain "
+            f"{int(ref[r])}, perturbed scores {margin[r].item()} apart "
             f"(a near-tie is < {SAMPLE_TIE})")
-    dead = torch.isneginf(filt[rows, got.long()]) & \
-        ~torch.isneginf(filt).all(dim=-1)
+    dead = torch.isneginf(exact[rows, got.long()]) & \
+        ~torch.isneginf(exact).all(dim=-1)
     if dead.any():
-        raise AssertionError(f"sampler drew a -inf logit in rows "
+        raise AssertionError(f"sampler drew a dropped logit in rows "
                              f"{dead.nonzero().flatten().tolist()}")
-    return {"rows": int(filt.shape[0]), "near_ties": ties,
-            "max_margin": worst}
+    return {"rows": int(logits.shape[0]),
+            "near_ties": int((got != ref).sum()), "topp_near_ties": topp,
+            "topp_min_gap": min(gaps) if gaps else None,
+            "max_margin": worst, "equal_plain": int((got == want).sum())}
 
 
 def sampling_edge_check(sm, prng, dev="cuda"):
-    """Rows the random cases never build, kernel and plain alike: one
-    finite logit among -inf (drawn), a whole -inf row (index 0), +inf
-    at two indices (the first), NaN at two (the first, as argmax
-    treats NaN), and two equal finite perturbed scores (the first).
-    The finite tie holds under any log: its two indices are two whose
-    uniforms are the same float32 (a row of 50304 has ~150 such pairs
-    on the 2^23-point grid), so their noise is the same whatever log
-    computes it; both get logit 0.5, every other logit is -inf.  Row 4
-    takes its first such pair, row 5 the pair farthest apart (so the
-    two lie in different blocks of the draw)."""
+    """Rows the random cases never build, kernel and plain alike.  The
+    draw alone (temperature 1): one finite logit among -inf (drawn), a
+    whole -inf row (index 0), +inf at two indices (the first), NaN at
+    two (the first, as argmax treats NaN), and two equal finite
+    perturbed scores (the first).  The finite tie holds under any log:
+    its two indices are two whose uniforms are the same float32 (a row
+    of 50304 has ~150 such pairs on the 2^23-point grid), so their
+    noise is the same whatever log computes it; both get logit 0.5,
+    every other logit is -inf.  Row 4 takes its first such pair, row 5
+    the pair farthest apart (so the two lie in different blocks of the
+    draw).  Then the filter's edge rows under top-k and top-p (NaN,
+    +inf, -0 and +0 tied at the k-th value, ties at the k-th value, an
+    all -inf row, all values equal): the kernel's token equals the
+    plain version's exactly."""
     V = 50304
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -4482,74 +4572,206 @@ def sampling_edge_check(sm, prng, dev="cuda"):
     plain = sm.gumbel_argmax_plain(logits, **args).tolist()
     if plain != want:
         raise AssertionError(f"sampler edge rows: plain {plain}, want {want}")
-    report = sampling_check(sm, logits, args)
+    report = sampling_check(sm, logits, args, dict(temperature=1.0))
     if got != want:
         raise AssertionError(f"sampler edge rows: kernel {got}, want {want}")
-    return {"kernel": got, "want": want, **report}
+    rows = torch.randn(6, V, generator=gen, device=dev) * 2
+    rows[0, [3, 40000]] = float("nan")
+    rows[1, [2, 9000]] = float("inf")
+    rows[2] = -torch.rand(V, generator=gen, device=dev) - 0.5
+    rows[2, 100:130:2], rows[2, 101:131:2] = -0.0, 0.0
+    rows[2, [5, 50000]] = 1.0
+    rows[3] = float("-inf")
+    rows[4, [1, 2, 3, 30000, 50303]] = 9.0
+    rows[4, 4] = 10.0
+    rows[5] = 0.25
+    filt = {}
+    for kw in (SAMPLE_SERVE, dict(temperature=1.0, top_k=3),
+               dict(temperature=1.0, top_k=8, top_p=0.5),
+               dict(temperature=0.5, top_p=0.9)):
+        args = {"seeds": seeds, "pos": pos, "window": 1}
+        t, k, p = _samp(kw)
+        k_got = sm.sample_rows(rows, t, k, p, **args).tolist()
+        k_want = sm.sample_rows_plain(rows, t, k, p, **args).tolist()
+        r = sampling_check(sm, rows, args, kw)
+        if k_got != k_want or r["topp_near_ties"]:
+            raise AssertionError(f"sampler filter edge rows {kw}: kernel "
+                                 f"{k_got}, plain {k_want}, {r}")
+        filt[str(kw)] = k_got
+    return {"kernel": got, "want": want, **report, "filter_rows": filt}
 
 
-def sass_loop_issue(lib, kernel):
-    """What each trip of ``kernel``'s hot loop issues, from the SASS of
-    the built library (``cuobjdump -sass``): the loop is the shortest
-    backward branch's body that loads from global memory, and one trip
-    handles one element a global load.  Returns the instructions an
-    element by opcode and by pipe (``SASS_PIPES``; "other": loads,
-    branches and the like, which only take issue slots), and the
-    fewest SM clocks an element needs: the larger of its instructions
-    over the 128 issue slots and each pipe's (or pair of pipes') load
-    over its lanes, the integer adds and float32 placed where they
-    balance best."""
+def sampling_rows_alone_check(sm, dev="cuda"):
+    """A row's token does not depend on the rows drawn with it: at R 8,
+    32 (4 window rows a slot) and 64, V 50304 and 32000, under the
+    serving setting and top-p alone, every row drawn alone (R 1, its
+    seed and position) gives the token it got among the others, bit
+    for bit (exact counts and masses, whatever the plan)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    plans, rows = {}, 0
+    for V in (50304, 32000):
+        for R, W in ((8, 1), (32, 4), (64, 1)):
+            logits = torch.randn(R, V, generator=gen, device=dev) * 3
+            B = R // W
+            seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            pos = torch.randint(0, 1024, (B,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            one_pos = (pos[:, None] + torch.arange(W, device=dev,
+                                                   dtype=torch.int32))
+            for kw in (SAMPLE_SERVE, dict(temperature=0.7, top_p=0.9)):
+                t, k, p = _samp(kw)
+                many = sm.sample_rows(logits, t, k, p, seeds=seeds, pos=pos,
+                                      window=W)
+                alone = torch.cat([sm.sample_rows(
+                    logits[r:r + 1], t, k, p, seeds=seeds[r // W:r // W + 1],
+                    pos=one_pos.reshape(-1)[r:r + 1]) for r in range(R)])
+                if not torch.equal(many, alone):
+                    bad = torch.nonzero(many != alone).flatten().tolist()
+                    raise AssertionError(f"sampler rows {bad} of R {R} V {V} "
+                                         f"{kw} moved with R")
+                rows += R
+            plans[f"R {R} V {V}"] = sm.sampling_plan(
+                R, V, sm.device_fits(logits.device, V), SAMPLE_SERVE["top_k"])
+    plans["R 1 V 50304"] = sm.sampling_plan(
+        1, 50304, sm.device_fits(torch.device(dev), 50304),
+        SAMPLE_SERVE["top_k"])
+    return {"rows": rows, "plans": plans}
+
+
+def sass_loops(lib, kernel):
+    """The loops of ``kernel``'s SASS in the built library
+    (``cuobjdump -sass``): for each backward branch, its body's address
+    range and full mnemonics (opcode with its modifiers) in order."""
     from paddle_tpu_torch.incubate.nn.kernels import _build
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     body = sass.split(kernel, 1)[1].split("Function :", 1)[0]
     code = [(int(m[1], 16), m[2], m[3]) for m in _SASS_LINE.finditer(body)]
-    loops = [(at, int(to, 16)) for at, op, to in code
-             if op == "BRA" and to and int(to, 16) < at]
-    hot = []
-    for at, start in sorted(loops, key=lambda lp: lp[0] - lp[1]):
-        hot = [op for a, op, _ in code if start <= a <= at]
-        if "LDG" in hot:
-            break
-    trips = hot.count("LDG")
-    if not trips:
-        raise AssertionError(f"{kernel}: no loop with a global load")
-    ops = {}
-    for op in hot:
-        ops[op] = ops.get(op, 0) + 1
+    return [{"start": int(to, 16), "end": at,
+             "ops": [op for a, op, _ in code if int(to, 16) <= a <= at]}
+            for at, op, to in code
+            if op.split(".")[0] == "BRA" and to and int(to, 16) < at]
+
+
+def _loop_clocks(ops):
+    """The fewest SM clocks one element of a loop body needs: its
+    instructions over the 128 issue slots, or a pipe's (or pair of
+    pipes') load over its lanes, whichever binds; an element is a
+    32-bit shared-memory load of the body (``LDS``: the slice's value;
+    the 64-bit ones are histogram bins)."""
+    trips = max(1, ops.count("LDS"))
     pipes = {p: 0 for p in (*SASS_PIPES, "other")}
-    for op, n in ops.items():
-        pipe = next((p for p, names in SASS_PIPES.items() if op in names),
-                    "other")
-        pipes[pipe] += n
+    for op in ops:
+        base = op.split(".")[0]
+        pipes[next((p for p, names in SASS_PIPES.items() if base in names),
+                   "other")] += 1
     a, x, m = pipes["alu"], pipes["int_add"], pipes["fma_heavy"]
     f, u = pipes["fp32"], pipes["xu"]
-    clocks = {"issue": len(hot) / 128, "alu": a / 64, "fma_heavy": m / 64,
+    clocks = {"issue": len(ops) / 128, "alu": a / 64, "fma_heavy": m / 64,
               "alu+fma_heavy": (a + x + m) / 128, "fma": (m + f) / 128,
               "alu+fma": (a + x + m + f) / 192, "xu": u / 16}
-    clocks = {k: v / trips for k, v in clocks.items()}
     binds = max(clocks, key=clocks.get)
-    return {"instructions": len(hot) / trips,
-            "opcodes": {k: v / trips for k, v in sorted(ops.items())},
+    return {"instructions": len(ops) / trips, "elements": trips,
             "pipes": {k: v / trips for k, v in pipes.items()},
-            "sm_clocks": clocks, "binds": binds,
-            "clocks_an_element": clocks[binds]}
+            "binds": binds, "clocks_an_element": clocks[binds] / trips}
+
+
+def _has(ops, *prefixes):
+    return any(op.startswith(prefixes) for op in ops)
+
+
+# each loop of the sampler kernel over the slice, told apart by what
+# its body issues: the division in place (the division's MUFU.RCP, the
+# slice stored back; under top-k it also builds the first count pass),
+# a count pass (shared atomics), the gather of the
+# candidates (shared atomics and stores into rank 0's shared memory
+# through a generic address), a mass pass (expf's MUFU.EX2 and shared
+# atomics), the draw (threefry's funnel-shift rotates)
+SAMPLER_LOOPS = (
+    ("divide", lambda ops: "MUFU.RCP" in ops and _has(ops, "STS")),
+    ("count", lambda ops: _has(ops, "ATOMS")
+     and not _has(ops, "ST.E", "MUFU.EX2", "MUFU.RCP", "SHF.L.W")),
+    ("gather", lambda ops: _has(ops, "ATOMS") and _has(ops, "ST.E")),
+    ("mass", lambda ops: "MUFU.EX2" in ops and _has(ops, "ATOMS")),
+    ("draw", lambda ops: _has(ops, "SHF.L.W")))
+
+
+def sampler_sass(lib):
+    """Per-element SM clocks of the sampler kernel's loops over the
+    slice: of the loops whose body matches (``SAMPLER_LOOPS``) and holds
+    a slice load, those that hold no other such loop, and of those the
+    most instructions an element (a loop that only encloses another
+    matching one elsewhere counts its whole body over many loads).  A
+    loop not found is listed under "missing" and adds nothing to the
+    bound (which stays a least time)."""
+    loops = [lp for lp in sass_loops(lib, "sampling_filter_draw_kernel")
+             if "LDS" in lp["ops"]]
+    out, missing = {}, []
+    for name, match in SAMPLER_LOOPS:
+        hits = [lp for lp in loops if match(lp["ops"])]
+        inner = [lp for lp in hits if not any(
+            o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
+            for o in hits)]
+        if inner:
+            out[name] = max((_loop_clocks(lp["ops"]) for lp in inner),
+                            key=lambda c: c["instructions"])
+        else:
+            missing.append(name)
+    return {"loops": out, "missing": missing}
+
+
+def sampler_bound(sm, logits, kw, rule, sass):
+    """The least time of one draw: bytes (logits read once, tokens
+    written, keys read) at 3.35 TB/s against the SM clocks of the work
+    the function needs on this draw's data, on every SM at 1.98 GHz.
+    The work, in clocks an element of :func:`sampler_sass`: a logit's
+    division, key and histogram step (the kernel's division loop); under
+    a filter, one compare a logit (an ALU instruction) to pick the
+    candidates; under top-p, a value's mass (the mass loop: ``expf`` and
+    a histogram step) for each value not below the k-th; the draw
+    (threefry and the two logs) for each kept value.  The kernel's own
+    extra passes (its second count pass, the gather, the radix select's
+    repeated mass passes) are its algorithm's cost, not the function's,
+    and are left out."""
+    R, V = logits.shape
+    t, k, p = _samp(kw)
+    kth, cut = sm.cut_values_plain(logits, t, k, p)
+    x = sm.apply_cuts(logits, t, kth, torch.full_like(cut, float("-inf")))
+    in_play = int(torch.isfinite(x).sum())
+    kept = int(torch.isfinite(sm.apply_cuts(logits, t, kth, cut)).sum())
+    c = {n: sass["loops"].get(n, {}).get("clocks_an_element", 0.0)
+         for n, _ in SAMPLER_LOOPS}
+    clocks = R * V * c["divide"] + kept * c["draw"]
+    if 0 < k < V or p < 1.0:
+        clocks += R * V / 64
+    if p < 1.0:
+        clocks += in_play * c["mass"]
+    keys = 16 if rule == "key" else 8 * (R // (4 if rule == "window"
+                                              else 1))
+    nbytes = R * V * 4 + R * 4 + keys
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = clocks / SM_CLOCKS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "sm_clocks": clocks, "kept": kept,
+            "in_play": in_play}
 
 
 def sampling_kernel_phase(sm, decoding, prng, lib):
-    """The sampler kernel on the card against its plain version (the
-    prng composition on CUDA tensors): at each case of ``SAMPLE_CASES``,
-    ``SAMPLE_REPS`` times with fresh logits (N(0, 9)) and keys, under
-    both ``SAMPLINGS`` (the filter runs once, both sides draw from its
-    output); near-ties counted; then the edge rows; then each case's
-    kernel time over rotating copies of the logits (64 MB or more, as a
-    decode step finds them after the head), the plain version's, the
-    filter's at the serving setting and ``torch.argmax`` over the same
-    [R, V] (a reading floor: no PyTorch call draws JAX's stream), with
-    the bound: bytes (logits read, tokens written) against operations,
-    the SM clocks a logit needs from the built kernel's SASS
-    (:func:`sass_loop_issue` of ``lib``) over every SM's clock."""
+    """The sampler kernel on the card against its plain version: at each
+    case of ``SAMPLE_CASES``, ``SAMPLE_REPS`` times with fresh raw
+    logits (N(0, 9)) and keys, under every setting of ``SAMPLINGS``
+    (:func:`sampling_check`: draw and top-p near-ties counted apart);
+    then the edge rows; then rows drawn alone against the same rows in
+    R 8 / 32 / 64; then each case's kernel time over rotating copies of
+    the logits (64 MB or more, as a decode step finds them after the
+    head) under the serving setting and temperature alone, the plain
+    version's (the torch filter and the prng composition) and
+    ``torch.argmax`` over the same [R, V] (a reading floor: no PyTorch
+    call draws JAX's stream), with the bound (:func:`sampler_bound`)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     agg = {}
@@ -4560,59 +4782,53 @@ def sampling_kernel_phase(sm, decoding, prng, lib):
             logits = torch.randn(R, V, generator=gen, device="cuda") * 3
             args = _sample_args(prng, rule, R, gen, rep)
             for label, kw in SAMPLINGS:
-                filt = decoding._filter_logits(
-                    logits, kw["temperature"], kw.get("top_k", 0),
-                    kw.get("top_p", 1.0))
-                r = sampling_check(sm, filt, args)
+                r = sampling_check(sm, logits, args, kw)
                 checks += 1
                 a = agg.setdefault((name, label), {
-                    "rows": 0, "near_ties": 0, "max_margin": 0.0})
-                a["rows"] += r["rows"]
-                a["near_ties"] += r["near_ties"]
+                    "rows": 0, "near_ties": 0, "topp_near_ties": 0,
+                    "max_margin": 0.0, "equal_plain": 0})
+                for key in ("rows", "near_ties", "topp_near_ties",
+                            "equal_plain"):
+                    a[key] += r[key]
                 a["max_margin"] = max(a["max_margin"], r["max_margin"])
     torch.cuda.synchronize()
     if sm.LAUNCHES != checks:
         raise AssertionError(f"sampler launches {sm.LAUNCHES} != {checks}")
-    rows_total = sum(a["rows"] for a in agg.values())
     edge = sampling_edge_check(sm, prng)
-    issue = sass_loop_issue(lib, "sampling_gumbel_argmax_kernel")
+    alone = sampling_rows_alone_check(sm)
+    sass = sampler_sass(lib)
     out = {"checks": {f"{n} {lbl}": a for (n, lbl), a in agg.items()},
-           "sass_a_logit": issue,
-           "rows": rows_total,
+           "sass": sass,
+           "rows": sum(a["rows"] for a in agg.values()),
            "near_ties": sum(a["near_ties"] for a in agg.values()),
+           "topp_near_ties": sum(a["topp_near_ties"] for a in agg.values()),
            "max_margin": max(a["max_margin"] for a in agg.values()),
-           "edge": edge, "cases": {}}
+           "edge": edge, "rows_alone": alone, "cases": {}}
     for name, R, V, rule in SAMPLE_CASES:
         copies = max(2, -(-64 * 2 ** 20 // (R * V * 4)))
-        filts = [torch.randn(R, V, generator=gen, device="cuda") * 3
-                 for _ in range(copies)]
+        logits = [torch.randn(R, V, generator=gen, device="cuda") * 3
+                  for _ in range(copies)]
         args = _sample_args(prng, rule, R, gen, 0)
-        ms = _time_rotating([lambda f=f: sm.gumbel_argmax(f, **args)
-                             for f in filts], reps=60)
-        argmax_ms = _time_rotating([lambda f=f: torch.argmax(f, dim=-1)
-                                    for f in filts], reps=60)
-        plain_ms = _time_ms(lambda: sm.gumbel_argmax_plain(filts[0], **args),
-                            reps=10)
-        filter_ms = _time_ms(lambda: decoding._filter_logits(
-            filts[0], 0.8, 20, 0.95), reps=10)
-        nbytes = R * V * 4 + R * 4 + (8 if rule == "key"
-                                      else 8 * (R // args["window"]))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = R * V * issue["clocks_an_element"] / SM_CLOCKS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
         row = {"name": name, "shape": f"[{R}, {V}] f32, {rule} rule",
-               "plan": sm.sampling_plan(R, V), "kernel_ms": ms,
-               "plain_ms": plain_ms, "argmax_ms": argmax_ms,
-               "filter_ms_t0.8_k20_p0.95": filter_ms, "library_ms": None,
-               "bound_ms": bound,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes, "sm_clocks": R * V * issue[
-                   "clocks_an_element"],
-               "bound_share": bound / ms,
+               "plan": sm.sampling_plan(R, V, sm.device_fits(
+                   logits[0].device, V), SAMPLE_SERVE["top_k"]),
+               "argmax_ms": _time_rotating([
+                   lambda x=x: torch.argmax(x, dim=-1) for x in logits],
+                   reps=60),
+               "library_ms": None,
                "max_abs_err": max(a["max_margin"] for (n, _), a in agg.items()
                                   if n == name)}
+        for label, kw in SAMPLINGS[:2]:
+            t, k, p = _samp(kw)
+            ms = _time_rotating([lambda x=x: sm.sample_rows(
+                x, t, k, p, **args) for x in logits], reps=60)
+            plain_ms = _time_ms(lambda: sm.sample_rows_plain(
+                logits[0], t, k, p, **args), reps=10)
+            b = sampler_bound(sm, logits[0], kw, rule, sass)
+            row[label] = {"kernel_ms": ms, "plain_ms": plain_ms, **b,
+                          "bound_share": b["bound_ms"] / ms}
         out["cases"][name] = row
-        del filts
+        del logits
     _log({"phase": "sampling_kernel", **out})
     return out
 
@@ -4773,38 +4989,78 @@ def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
     request DONE with 32 tokens; the sampler launched exactly once a
     decode step and a verify pass (count set to 0 before each run; the
     plain composition never runs on the card); decode-loop tok/s beside
-    the greedy run's (``greedy``: {engine: row}); speculative streams
+    the serving phase's greedy run (``greedy``: {engine: row}) and, for
+    the plain runs, ``TOK_S_PAIRS`` pairs of a greedy and a sampled run
+    on two engines in turns, each sampled run drawing the first one's
+    streams; speculative streams
     equal to the plain streams bit for bit (row_gemm gives verify rows
     the decode rows' bits and the kernel is row-wise); one prompt under
     two seeds must diverge.  Then one sampled decode step of the slot
-    state profiled (families sampling, flash_decode, row_gemm), the
-    filter and the sampler alone profiled over its logits."""
+    state profiled (families sampling, flash_decode, row_gemm) beside a
+    greedy one, the draw and the sampler alone profiled over its
+    logits."""
     Engine, PagedEngine, _ = engines
     L = cfg.num_layers
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 701, 12)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
     runs, streams = {}, {}
+
+    def engine(kind, **kw):
+        kw = dict(max_batch=8, max_len=1024, attn_kernel="flash",
+                  device="cuda", **kw)
+        eng = (PagedEngine(params, cfg, block_size=64, **kw)
+               if kind == "paged" else Engine(params, cfg, **kw))
+        eng.submit(np.arange(40) % cfg.vocab_size, max_new=4, seed=99)
+        eng.run()
+        return eng
+
+    def timed(eng):
+        # one run of the 12 requests (seeds 1..12; greedy ignores them)
+        base = eng.metrics()
+        sm.reset_launches()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new=32, seed=i + 1)
+                for i, p in enumerate(prompts)]
+        out = eng.run(steps_per_sync=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = _spec_deltas(eng.metrics(), base)
+        return {"rids": rids, "out": out, "wall": wall, "d": d,
+                "launches": sm.LAUNCHES,
+                "tok_s": 32 * len(rids) / d["decode_seconds"]}
+
     for kind in ("contiguous", "paged"):
         for draft in ("none", "ngram"):
-            kw = dict(max_batch=8, max_len=1024, attn_kernel="flash",
-                      device="cuda", speculative=draft == "ngram",
-                      **SAMPLE_SERVE)
-            eng = (PagedEngine(params, cfg, block_size=64, **kw)
-                   if kind == "paged" else Engine(params, cfg, **kw))
-            eng.submit(np.arange(40) % cfg.vocab_size, max_new=4, seed=99)
-            eng.run()
-            base = eng.metrics()
-            sm.reset_launches()
-            t0 = time.perf_counter()
-            rids = [eng.submit(p, max_new=32, seed=i + 1)
-                    for i, p in enumerate(prompts)]
-            out = eng.run(steps_per_sync=16)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = sm.LAUNCHES
-            m = eng.metrics()
-            d = _spec_deltas(m, base)
+            eng = engine(kind, speculative=draft == "ngram", **SAMPLE_SERVE)
+            pairs = []
+            if draft == "none":
+                # greedy and sampled runs of the same requests in turns
+                # (greedy first, then sampled first, ...): the loop is
+                # host-bound and the host's speed drifts over a call, so
+                # one pair does not tell the two apart
+                greedy_eng = engine(kind)
+                for i in range(TOK_S_PAIRS):
+                    pair = {}
+                    for sampled in ((False, True) if i % 2 == 0
+                                    else (True, False)):
+                        r = timed(eng if sampled else greedy_eng)
+                        pair["sampled" if sampled else "greedy"] = r
+                    if i == 0:
+                        first = pair["sampled"]
+                    elif [pair["sampled"]["out"][x]
+                          for x in pair["sampled"]["rids"]] != \
+                            [first["out"][x] for x in first["rids"]]:
+                        raise AssertionError(f"sampled serving {kind}: a "
+                                             f"repeated run drew other "
+                                             f"streams")
+                    pairs.append((pair["greedy"]["tok_s"],
+                                  pair["sampled"]["tok_s"]))
+                del greedy_eng
+            else:
+                first = timed(eng)
+            rids, out, d = first["rids"], first["out"], first["d"]
+            launches = first["launches"]
             for rid in rids:
                 req = eng.request(rid)
                 if req.status != "DONE" or len(out[rid]) != 32:
@@ -4824,13 +5080,24 @@ def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
                    "decode_steps": d["decode_steps"],
                    "verify_rounds": d.get("verify", 0),
                    "decode_loop_s": d["decode_seconds"],
-                   "decode_loop_tok_s": 32 * len(rids) / d["decode_seconds"],
-                   "e2e_tok_s": 32 * len(rids) / wall, "wall_s": wall,
+                   "decode_loop_tok_s": first["tok_s"],
+                   "e2e_tok_s": 32 * len(rids) / first["wall"],
+                   "wall_s": first["wall"],
                    "greedy_decode_loop_tok_s":
                        greedy[(kind, draft)]["decode_loop_tok_s"]
                        if (kind, draft) in greedy else None}
+            if pairs:
+                ratios = [s_ / g for g, s_ in pairs]
+                row.update(
+                    tok_s_pairs=pairs,
+                    greedy_median_tok_s=statistics.median(
+                        g for g, _ in pairs),
+                    sampled_median_tok_s=statistics.median(
+                        s_ for _, s_ in pairs),
+                    sampled_over_greedy=statistics.median(ratios),
+                    sampled_over_greedy_range=[min(ratios), max(ratios)])
             if draft == "ngram":
-                s = m["speculative"]
+                s = eng.metrics()["speculative"]
                 row.update(accept_ratio=s["accept_ratio"],
                            tokens_per_launch=s["tokens_per_launch"])
             runs[(kind, draft)] = row
@@ -4868,13 +5135,28 @@ def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
                                           attn_kernel="flash")
             return decoding.sample_token_pos(lg, seeds, pos, **SAMPLE_SERVE)
 
-        prof = {"sampled_decode_step": _step_profile(step, SAMPLE_FAMILIES),
+        def greedy_step():
+            lg, _ = gpt.decode_step_multi(params, cache, tok, pos, cfg,
+                                          attn_kernel="flash")
+            return decoding.sample_token_pos(lg, seeds, pos, 0.0)
+
+        prof = {"greedy_decode_step": _step_profile(greedy_step,
+                                                    SAMPLE_FAMILIES),
+                "sampled_decode_step": _step_profile(step, SAMPLE_FAMILIES,
+                                                     names=True),
                 "draw": _step_profile(lambda: decoding.sample_token_pos(
                     logits, seeds, pos, **SAMPLE_SERVE), SAMPLE_FAMILIES),
                 "sampler_alone": _step_profile(lambda: sm.gumbel_argmax(
                     logits.float(), seeds=seeds, pos=pos), SAMPLE_FAMILIES)}
+        prof["draw"]["event_ms"] = _time_ms(lambda: decoding.sample_token_pos(
+            logits, seeds, pos, **SAMPLE_SERVE), reps=50)
+    filters = sorted({n for n in prof["sampled_decode_step"].pop(
+        "kernel_names") if any(f in n.lower() for f in FILTER_KERNELS)})
     for name, p in prof.items():
         _log({"phase": "sampled_profile", "name": name, **p})
+    if filters:
+        raise AssertionError(f"sampled decode step: filter kernels "
+                             f"{filters}")
     out = {"runs": runs, "profiles": prof,
            "paged_equal_contiguous": f"{agree}/12",
            "speculative_equal_plain": True}
@@ -4882,7 +5164,22 @@ def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
           "speculative_equal_plain": True,
           "paged_equal_contiguous": f"{agree}/12",
           "sampling_ms_a_step": prof["sampled_decode_step"]["device_ms"][
-              "sampling"]})
+              "sampling"],
+          "draw_device_ms": prof["draw"]["device_busy_ms"],
+          "draw_event_ms": prof["draw"]["event_ms"],
+          "draw_kernels": prof["draw"]["kernels_per_step"],
+          "sampled_step_kernels": prof["sampled_decode_step"][
+              "kernels_per_step"],
+          "sampled_step_device_ms": prof["sampled_decode_step"][
+              "device_busy_ms"],
+          "greedy_step_kernels": prof["greedy_decode_step"][
+              "kernels_per_step"],
+          "greedy_step_device_ms": prof["greedy_decode_step"][
+              "device_busy_ms"],
+          "sampled_over_greedy_tok_s": {
+              k: (r["sampled_over_greedy"], r["sampled_over_greedy_range"],
+                  r["sampled_median_tok_s"], r["greedy_median_tok_s"])
+              for (k, d), r in runs.items() if d == "none"}})
     return out
 
 
@@ -4899,6 +5196,11 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global _LOG_FILE
+    if args.out:
+        _LOG_FILE = Path(args.out).with_suffix(".log.jsonl")
+        _LOG_FILE.parent.mkdir(parents=True, exist_ok=True)
+        _LOG_FILE.write_text("")
     from paddle_tpu_torch.distributed import hybrid
     from paddle_tpu_torch.incubate.nn.kernels import _build
     from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
@@ -5300,36 +5602,45 @@ def main(argv=None) -> int:
             **ring_cell(at_train, key, err)}
     # the port's sampler (no TPU kernel behind it): launches from the
     # sampled serving cell's plain contiguous run, time and bound at a
-    # decode step's [8, 50304], the other cases beside; max_abs_err is
-    # the largest gap of perturbed scores where a kernel token differed
-    # from the plain version's (0: every token equal)
-    dec_s = sampler["cases"]["decode"]
+    # decode step's [8, 50304] under the serving setting, the other cases
+    # and temperature alone beside; max_abs_err is the largest gap of
+    # perturbed scores where a kernel token differed from the plain draw
+    # over the exact rule's kept values (0: every token equal)
+    dec_s = sampler["cases"]["decode"][SAMPLINGS[0][0]]
     draws = sampled["profiles"]
     entries.append({
-        "name": "gumbel_argmax", "route": "cuda",
+        "name": "sampling_filter_draw", "route": "cuda",
         "source": src + "sampling.cu",
-        "replaces": "none: paddle_tpu/models/decoding.py:52 (sample_token) "
-                    "and :62 (_sample_one) draw with jax.random.categorical "
-                    "in XLA, no Pallas kernel",
+        "replaces": "none: paddle_tpu/models/decoding.py:25 (_filter_logits) "
+                    "and :52 / :62 (jax.random.categorical in sample_token "
+                    "and _sample_one) run in XLA, no Pallas kernel",
         "launches": sampled["runs"][("contiguous", "none")][
             "sampler_launches"],
         "max_abs_err": sampler["max_margin"], "ms": dec_s["kernel_ms"],
         "plain_ms": dec_s["plain_ms"], "bound_ms": dec_s["bound_ms"],
         "bound_by": dec_s["bound_by"], "library_ms": None,
-        "shape": dec_s["shape"], "argmax_ms": dec_s["argmax_ms"],
+        "shape": f"{sampler['cases']['decode']['shape']}, "
+                 f"{SAMPLINGS[0][0]}",
+        "argmax_ms": sampler["cases"]["decode"]["argmax_ms"],
         "rows_checked": sampler["rows"], "near_ties": sampler["near_ties"],
-        "cases": [{k: r[k] for k in (
-            "name", "shape", "plan", "kernel_ms", "plain_ms", "argmax_ms",
-            "filter_ms_t0.8_k20_p0.95", "bound_ms", "bound_by",
-            "bound_share", "max_abs_err")}
-            for r in sampler["cases"].values()],
+        "topp_near_ties": sampler["topp_near_ties"],
+        "cases": [{"name": r["name"], "shape": r["shape"], "plan": r["plan"],
+                   "argmax_ms": r["argmax_ms"],
+                   "max_abs_err": r["max_abs_err"],
+                   **{lbl: {k: r[lbl][k] for k in (
+                       "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                       "bound_share", "kept")} for lbl, _ in SAMPLINGS[:2]}}
+                  for r in sampler["cases"].values()],
         "serving_launches": {f"{k} {d}": r["sampler_launches"]
                              for (k, d), r in sampled["runs"].items()},
         "sampled_step_device_ms": draws["sampled_decode_step"][
             "device_busy_ms"],
+        "sampled_step_kernels": draws["sampled_decode_step"][
+            "kernels_per_step"],
         "sampled_step_sampling_ms": draws["sampled_decode_step"][
             "device_ms"]["sampling"],
-        "draw_device_ms": draws["draw"]["device_busy_ms"]})
+        "draw_device_ms": draws["draw"]["device_busy_ms"],
+        "draw_kernels": draws["draw"]["kernels_per_step"]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -3,15 +3,16 @@
 
 Greedy (``temperature <= 0`` or None) is ``torch.argmax``, the first
 index among equal maxima as in JAX, and uses no key.  Sampling
-transforms the logits with temperature / top-k / top-p
-(:func:`_filter_logits`) and draws with JAX's threefry stream: one key
+transforms the logits with temperature / top-k / top-p (JAX's
+``_filter_logits``) and draws with JAX's threefry stream: one key
 for a [B, V] draw (:func:`sample_token`, ``jax.random.categorical``) or
 the serving engines' rule, ``fold_in(PRNGKey(seed), pos)`` a row, which
 makes a stream a function of (seed, absolute position) and so the same
 under any partition of the decode into steps, K-step loops or
-speculative verify windows.  The draw is the sampler kernel
-(``incubate/nn/kernels/sampling.py``: its plain version on the CPU, the
-CUDA kernel on the card).
+speculative verify windows.  Filter and draw are one call of the
+sampler (``incubate/nn/kernels/sampling.py`` ``sample_rows`` on the raw
+logits: its plain version on the CPU, one CUDA kernel launch on the
+card, whose thresholds are exact).
 
 Against JAX: keys, bits and uniforms are JAX's bit for bit; the Gumbel
 noise is within an ulp of JAX's (XLA:CPU's ``log`` is not correctly
@@ -26,7 +27,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..incubate.nn.kernels.sampling import gumbel_argmax
+from ..incubate.nn.kernels.sampling import filter_logits_plain, sample_rows
 from . import prng
 
 __all__ = ["sample_token", "sample_token_pos", "sample_window",
@@ -37,27 +38,11 @@ def _greedy(temperature) -> bool:
     return temperature is None or temperature <= 0.0
 
 
-def _filter_logits(logits, temperature: float, top_k: int, top_p: float):
-    """Temperature / top-k / top-p transform of the last axis, in
-    float32 (JAX ``decoding._filter_logits``): top-k keeps the values at
-    or above the k-th largest; top-p keeps the smallest prefix of the
-    descending values whose softmax mass reaches ``top_p`` (always one
-    token), cut at the value there.  Dropped logits become -inf."""
-    logits = logits.to(torch.float32) / temperature
-    V = logits.shape[-1]
-    if top_k and 0 < top_k < V:
-        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = logits.masked_fill(logits < kth, float("-inf"))
-    if top_p < 1.0:
-        desc = torch.sort(logits, dim=-1, descending=True).values
-        e = torch.exp(desc - desc[..., :1])
-        cum = torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)
-        # a cutoff past the end (the whole mass below top_p by rounding)
-        # cuts nothing, as JAX's out-of-range take does
-        idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=V - 1)
-        cutoff = torch.gather(desc, -1, idx)
-        logits = logits.masked_fill(logits < cutoff, float("-inf"))
-    return logits
+# the float filter of JAX's ``_filter_logits``: on the CPU the sampled
+# paths run it before the draw; on the card the sampler kernel applies
+# its exact rule (``sampling.cut_values_plain``) and the two differ only
+# at a top-p near-tie
+_filter_logits = filter_logits_plain
 
 
 def _int32(x, device):
@@ -72,8 +57,8 @@ def sample_token(logits, key, temperature: float = 1.0, top_k: int = 0,
     [B, V] array, as ``jax.random.categorical(key, logits)``."""
     if _greedy(temperature):
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    filt = _filter_logits(logits, temperature, top_k, top_p)
-    return gumbel_argmax(filt, key=key.to(filt.device))
+    x = logits.to(torch.float32)
+    return sample_rows(x, temperature, top_k, top_p, key=key.to(x.device))
 
 
 def sample_token_pos(logits, seeds, pos, temperature: float = 1.0,
@@ -84,9 +69,10 @@ def sample_token_pos(logits, seeds, pos, temperature: float = 1.0,
     position the row is fed at."""
     if _greedy(temperature):
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    filt = _filter_logits(logits, temperature, top_k, top_p)
-    return gumbel_argmax(filt, seeds=_int32(seeds, filt.device),
-                         pos=_int32(pos, filt.device))
+    x = logits.to(torch.float32)
+    return sample_rows(x, temperature, top_k, top_p,
+                       seeds=_int32(seeds, x.device),
+                       pos=_int32(pos, x.device))
 
 
 def sample_window(logits, seeds, pos, temperature: float = 1.0,
@@ -98,10 +84,10 @@ def sample_window(logits, seeds, pos, temperature: float = 1.0,
     if _greedy(temperature):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     B, W, V = logits.shape
-    filt = _filter_logits(logits, temperature, top_k, top_p)
-    toks = gumbel_argmax(filt.reshape(B * W, V),
-                         seeds=_int32(seeds, filt.device),
-                         pos=_int32(pos, filt.device), window=W)
+    x = logits.to(torch.float32).reshape(B * W, V)
+    toks = sample_rows(x, temperature, top_k, top_p,
+                       seeds=_int32(seeds, x.device),
+                       pos=_int32(pos, x.device), window=W)
     return toks.view(B, W)
 
 

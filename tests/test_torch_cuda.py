@@ -1602,42 +1602,53 @@ def test_prefix_hits_on_card_match_cold_and_cpu(cuda, paged):
 
 
 # ---------------------------------------------------------------------------
-# the sampler: keyed Gumbel-max draws on JAX's threefry stream
+# the sampler: temperature, top-k, top-p and the keyed Gumbel-max draw of
+# JAX's threefry stream in one launch
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("label", [s[0] for s in chip_smoke.SAMPLINGS])
-@pytest.mark.parametrize("name,R,V,rule", chip_smoke.SAMPLE_CASES)
-def test_sampling_kernel_matches_plain(cuda, name, R, V, rule, label):
-    """The kernel against its plain version at the shapes of the serving
-    and generate paths, both keyings: equal tokens, or near-ties of the
-    perturbed scores (``chip_smoke.sampling_check``)."""
+@pytest.mark.parametrize("rule", ["pos", "key"])
+@pytest.mark.parametrize("V", [50304, 32000])
+@pytest.mark.parametrize("R", [1, 8, 32, 64])
+def test_sampling_kernel_matches_plain(cuda, R, V, rule, label):
+    """The kernel against its plain version on raw logits, both keyings
+    (the engines' rule with 4 window rows a slot at R 32): the exact
+    rule's kept values, the plain draw's token, or a reported near-tie
+    (``chip_smoke.sampling_check``)."""
     from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
-    from paddle_tpu_torch.models import decoding, prng
+    from paddle_tpu_torch.models import prng
     kw = dict(chip_smoke.SAMPLINGS)[label]
+    if rule == "pos" and R == 32:
+        rule = "window"
     gen = torch.Generator(device=cuda).manual_seed(R + V)
-    for rep in range(3):
+    for rep in range(2):
         logits = torch.randn(R, V, generator=gen, device=cuda) * 3
         args = chip_smoke._sample_args(prng, rule, R, gen, rep)
-        filt = decoding._filter_logits(logits, kw["temperature"],
-                                       kw.get("top_k", 0),
-                                       kw.get("top_p", 1.0))
-        chip_smoke.sampling_check(sm, filt, args)
+        chip_smoke.sampling_check(sm, logits, args, kw)
 
 
 def test_sampling_kernel_edge_rows(cuda):
-    """One finite logit among -inf, a whole -inf row, +inf and NaN ties,
-    and an exact tie of two finite perturbed scores: the first index
-    (``chip_smoke.sampling_edge_check``)."""
+    """The draw alone: one finite logit among -inf, a whole -inf row,
+    +inf and NaN ties, an exact tie of two finite perturbed scores (the
+    first index); the filter's edge rows (NaN, +inf, -0 / +0 and ties
+    at the k-th value, all -inf, all equal) exactly as the plain
+    version (``chip_smoke.sampling_edge_check``)."""
     from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
     from paddle_tpu_torch.models import prng
     chip_smoke.sampling_edge_check(sm, prng)
 
 
-def test_sampling_streams_keep_their_own_scratch(cuda):
+def test_sampling_rows_do_not_move_with_r(cuda):
+    """Each row drawn alone gives its token among R 8 / 32 / 64
+    (``chip_smoke.sampling_rows_alone_check``)."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    chip_smoke.sampling_rows_alone_check(sm)
+
+
+def test_sampling_concurrent_streams_give_the_draws_alone(cuda):
     """Draws on two streams of one device, released together by one
     event so that they run at once, give the tokens the same draws give
-    alone; the streams hold distinct row slots and tickets, which read
-    zero after the draws."""
+    alone: a launch holds nothing outside its own blocks."""
     from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
     from paddle_tpu_torch.models import prng
     gen = torch.Generator(device=cuda).manual_seed(13)
@@ -1646,9 +1657,10 @@ def test_sampling_streams_keep_their_own_scratch(cuda):
         logits = torch.randn(256, 50304, generator=gen, device=cuda) * 3
         draws.append((logits, chip_smoke._sample_args(prng, "window", 256,
                                                       gen, 0)))
-    want = [sm.gumbel_argmax(logits, **args) for logits, args in draws]
+    kw = chip_smoke.SAMPLE_SERVE
+    want = [sm.sample_rows(logits, **kw, **args) for logits, args in draws]
     for logits, args in draws:
-        chip_smoke.sampling_check(sm, logits, args)
+        chip_smoke.sampling_check(sm, logits, args, kw)
     streams = [torch.cuda.Stream(device=cuda) for _ in draws]
     go = torch.cuda.Event()
     torch.cuda._sleep(4_000_000)
@@ -1660,16 +1672,11 @@ def test_sampling_streams_keep_their_own_scratch(cuda):
         for i, s in enumerate(streams):
             logits, args = draws[i]
             with torch.cuda.stream(s):
-                got[i].append(sm.gumbel_argmax(logits, **args))
+                got[i].append(sm.sample_rows(logits, **kw, **args))
     torch.cuda.synchronize()
     for i, outs in enumerate(got):
         for out in outs:
             assert torch.equal(out, want[i]), i
-    dev = torch.cuda.current_device()
-    scratch = [sm._SCRATCH[(dev, s.cuda_stream)] for s in streams]
-    assert scratch[0][0].data_ptr() != scratch[1][0].data_ptr()
-    for best, ticket in scratch:
-        assert not best.any() and not ticket.any()
 
 
 def test_sampling_generate_rule_counts_over_the_whole_draw(cuda):
@@ -1690,17 +1697,29 @@ def test_sampling_generate_rule_counts_over_the_whole_draw(cuda):
     assert int(got[0]) == int(alone[0])
 
 
-def test_sampling_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
-    """A CUDA tensor launches the kernel, one count a draw; the plain
-    composition never runs."""
+def _fail_plain(monkeypatch):
+    """Make every plain piece of the sampler fail if it runs."""
     from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
     from paddle_tpu_torch.models import decoding
 
     def fail(*a, **k):
         pytest.fail("a CUDA tensor reached the plain sampler")
 
-    monkeypatch.setattr(sm, "gumbel_argmax_plain", fail)
-    monkeypatch.setattr(sm, "perturbed_scores", fail)
+    for name in ("gumbel_argmax_plain", "perturbed_scores",
+                 "filter_logits_plain", "sample_rows_plain"):
+        monkeypatch.setattr(sm, name, fail)
+    monkeypatch.setattr(decoding, "_filter_logits", fail)
+
+
+def test_sampling_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel, one count a draw, in the three
+    decoding functions and in a sampled engine with and without
+    speculation; the plain filter and draw never run."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import decoding, prng
+    cfg, params, _, _ = _spec_models(cuda)
+    _fail_plain(monkeypatch)
     logits = torch.zeros(8, 4, 1000, device=cuda)
     logits[..., 17] = 50.0
     seeds = torch.arange(8, dtype=torch.int32, device=cuda)
@@ -1708,16 +1727,75 @@ def test_sampling_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
     before = sm.LAUNCHES
     a = decoding.sample_token_pos(logits[:, 0], seeds, pos, 1.0)
     b = decoding.sample_window(logits, seeds, pos, 0.9, 5, 0.5)
+    c = decoding.sample_token(logits[:, 1], prng.PRNGKey(2, cuda), 0.8, 20,
+                              0.95)
     torch.cuda.synchronize()
-    assert torch.equal(a, torch.full((8,), 17, dtype=torch.int32,
-                                     device=cuda))
-    assert torch.equal(b, torch.full((8, 4), 17, dtype=torch.int32,
-                                     device=cuda))
-    assert sm.LAUNCHES == before + 2
+    for got in (a, b, c):
+        assert (got == 17).all() and got.dtype == torch.int32
+    assert sm.LAUNCHES == before + 3
     with pytest.raises(ValueError, match="int32"):
-        sm.gumbel_argmax(logits[:, 0], seeds=seeds.long(), pos=pos)
+        sm.sample_rows(logits[:, 0], 1.0, seeds=seeds.long(), pos=pos)
     with pytest.raises(TypeError, match="float32"):
-        sm.gumbel_argmax(logits[:, 0].half(), seeds=seeds, pos=pos)
+        sm.sample_rows(logits[:, 0].half(), 1.0, seeds=seeds, pos=pos)
+    rng = np.random.default_rng(4)
+    for spec in (None, True):
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=2, max_len=64,
+                                       device=cuda, speculative=spec,
+                                       **chip_smoke.SAMPLE_SERVE)
+        before = sm.LAUNCHES
+        rids = [eng.submit(rng.integers(0, 1024, (n,)), max_new=6, seed=n)
+                for n in (5, 12)]
+        out = eng.run()
+        m = eng.metrics()
+        assert all(len(out[r]) == 6 for r in rids)
+        assert sm.LAUNCHES - before == m["decode_steps"] + m[
+            "launches"].get("verify", 0)
+
+
+def test_sampling_raises_no_sync_and_replays_in_a_graph(cuda):
+    """A sampled draw raises nothing under ``set_sync_debug_mode("error")``
+    (no host sync: the launch allocates only its output), and one draw
+    captured in a CUDA graph, replayed on new logits and positions,
+    equals the eager draw."""
+    from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
+    from paddle_tpu_torch.models import decoding, prng
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    R, V = 8, 50304
+    logits = torch.randn(R, V, generator=gen, device=cuda) * 3
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (R,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    pos = torch.randint(0, 1024, (R,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    key = prng.PRNGKey(5, cuda)
+    kw = chip_smoke.SAMPLE_SERVE
+    decoding.sample_token_pos(logits, seeds, pos, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decoding.sample_token_pos(logits, seeds, pos, **kw)
+        decoding.sample_window(logits.view(2, 4, V), seeds[:2], pos[:2],
+                               **kw)
+        decoding.sample_token(logits, key, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    static_l, static_p = logits.clone(), pos.clone()
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sm.sample_rows(static_l, **kw, seeds=seeds, pos=static_p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sm.LAUNCHES
+    with torch.cuda.graph(graph):
+        static_out = sm.sample_rows(static_l, **kw, seeds=seeds, pos=static_p)
+    for _ in range(3):
+        static_l.copy_(torch.randn(R, V, generator=gen, device=cuda) * 3)
+        static_p.copy_(torch.randint(0, 1024, (R,), generator=gen,
+                                     device=cuda, dtype=torch.int32))
+        graph.replay()
+        eager = sm.sample_rows(static_l, **kw, seeds=seeds, pos=static_p)
+        assert torch.equal(static_out, eager)
+    assert sm.LAUNCHES == before + 4
 
 
 def test_sampled_engine_on_card_is_partition_invariant(cuda):
