@@ -68,13 +68,18 @@ Phases; any failure is an uncaught exception and a non-zero exit:
 3. kernels (training) — the flash-attention forward, dK/dV and dQ
    kernels against their plain versions at the training shape (B 8,
    S 1024, 16 heads of 128, bf16, causal, q/k/v strided slices of a
-   packed qkv) and at float32, non-causal and ragged (S 1000, hD 64)
-   cases; ``fused_ce_fwd`` at N 8192, V 50304, H 2048, bf16, with
-   labels out of range (bf16: the tensor-core kernel split over the
-   vocabulary, then its merge; one launch count), and its float32
-   instance (the CUDA-core kernel) at N 2048.  float32 outputs are
-   held at 1e-4 of the largest reference value, lse and z/picked at
-   atol 1e-3.  Yardsticks:
+   packed qkv) and at float32 ([2, 1024, 16x128]; ragged S 1000, hD
+   64), non-causal and ragged bf16 cases; ``fused_ce_fwd`` at N 8192,
+   V 50304, H 2048, bf16, with labels out of range (the tensor-core
+   kernel split over the vocabulary, then its merge; one launch count),
+   and its float32 instance at N 2048.  float32 outputs are held at
+   1e-4 of the largest reference value, lse and z/picked at atol 1e-3;
+   the float32 forward and CE (three TF32 products a product on the
+   tensor cores) also against their own arithmetic
+   (``flash_attention_fwd_tf32x3_plain``, ``fused_ce_fwd_tf32x3_plain``:
+   TF32X3_REL, TF32X3_ATOL), with both bounds (the TF32 rate x 3, the
+   CUDA cores'); then ``tf32_witness``: inputs on which one TF32 pass
+   leaves those limits and the kernels do not.  Yardsticks:
    SDPA (``is_causal``) forward and its autograd backward;
    ``matmul_f32out`` + ``torch.logsumexp`` (two calls).  Each flash
    time has its achieved TFLOP/s and share of the bound beside it.
@@ -203,6 +208,18 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    ||g_flash - g_plain|| within 5e-2 of ||g_plain||), and its own
    5-step trajectory from that init (each loss within 1e-2 of the flash
    run's).
+6a. float32 training (``float32_training_phase``) — gpt3_1p3b at its
+   default dtype (float32, ``use_flash=None``: the float32 flash
+   kernels and the float32 ``fused_ce_fwd``) at full width, B 2, S 1024,
+   1 warm + 4 AdamW steps through ``TrainLoop`` (the loss must fall; 24
+   launches of each flash kernel a step), then the no-grad eval loss
+   (one ``fused_ce_fwd`` at N 2048, 24 forward launches) with its
+   per-token (z, picked) held to ``fused_ce_fwd_plain`` on the same
+   hidden states (atol 1e-3); TF32 matmuls must be off.  Step ms (host
+   clock and CUDA events), peak memory, a step's and an eval's device
+   ms by family (flash forward, dK/dV, dQ, fused_ce, GEMMs, other) and
+   idle share.  ``--phases train_kernel,float32_training`` runs phases
+   3 and 6a alone (two sources built).
 7. b1 int8 serving — the serving weights quantized by the port
    (``gpt.quantize_decode_params``).  ``fused_decode_layers`` against
    its plain version in four storage modes (an f32 cache at gpt_tiny
@@ -313,7 +330,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    training kernels, fused_decode in each storage mode, rms_norm in each policy,
    the ring variant's three kernels, ``flash_attention_with_lse_*``,
    with launches from phase 15 and times at its shape; the float32
-   instances of the flash and CE kernels beside their bf16 rows, and
+   instances of the flash and CE kernels beside their bf16 rows
+   (launches from phase 6a, both bounds, the witness), and
    the speculative runs' launches and verify times beside rows 1, 2
    and 9; the sampler, launches from the sampled contiguous run)
    and, last, the device line.
@@ -342,7 +360,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,            # dense tensor-core bf16
-            "float32": 67e12}              # CUDA-core float32
+            "float32": 67e12,              # CUDA-core float32
+            "tf32": 495e12}                # dense tensor-core TF32
 SERVE_TOL = 0.25                           # flash vs xla logits, bf16
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-3       # kernel vs plain, per element
 F32_REL = 1e-4                             # training kernels, f32, of max
@@ -401,13 +420,13 @@ PTXAS_SOURCES = ("flash_attention", "flash_decode", "fused_ce",
                  "fused_decode", "row_gemm", "sampling")
 
 
-def _flash_ptxas_start(build):
-    """Start ``nvcc -Xptxas -v`` on each of ``PTXAS_SOURCES`` with the
+def _flash_ptxas_start(build, sources=PTXAS_SOURCES):
+    """Start ``nvcc -Xptxas -v`` on each of ``sources`` with the
     build's own flags, beside the build (the libraries are thrown away):
     {source: (process, library path)}."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in PTXAS_SOURCES:
+    for name in sources:
         out = build.BUILD_DIR / f"{name}_ptxas.so"
         procs[name] = (subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -416,10 +435,11 @@ def _flash_ptxas_start(build):
     return procs
 
 
-# mangled names: the float32 kernels <float, hD>, the bf16 tensor-core
-# kernels <hD, warps>
-FLASH_KERNEL = re.compile(r"flash_attention_(fwd|bwd_dkv|bwd_dq)(_tc)?_kernel"
-                          r"I(?:f)?Li(\d+)E(?:Li(\d+)E)?")
+# mangled names: the float32 CUDA-core kernels <float, hD>, the float32
+# forward on TF32 <hD>, the bf16 tensor-core kernels <hD, warps>
+FLASH_KERNEL = re.compile(r"flash_attention_(fwd|bwd_dkv|bwd_dq)"
+                          r"(_tc|_tf32x3)?_kernelI(?:f)?Li(\d+)E(?:Li(\d+)E)?")
+F32_FWD_THREADS = 256                      # flash_attention.cu kF32Warps
 # flash_decode.cu's split-KV <TQ, TKV, paged, hD, queries>, merge <TQ, hD>
 # and tensor-core <hD, paged> instances; fused_ce.cu's bf16 kernel and
 # merge; fused_decode.cu's <storage mode> instances
@@ -435,6 +455,7 @@ NEW_KERNELS = (
                          r"Li(\d+)E")),
     ("tc", re.compile(r"flash_decode_tc_kernelILi(\d+)ELb([01])E")),
     ("ce_tc", re.compile(r"fused_ce_fwd_tc_kernel")),
+    ("ce_tf32x3", re.compile(r"fused_ce_fwd_tf32x3_kernel")),
     ("ce_merge", re.compile(r"fused_ce_merge_kernel")),
     ("fused", re.compile(r"fused_decode_kernelILi(\d)E")),
     ("row_gemm", re.compile(r"row_gemm_(?:bf16_kernelILi(\d)ELb([01])E"
@@ -508,9 +529,12 @@ def _new_kernel_row(kind, m, build):
         return (f"flash_decode_tc bfloat16 "
                 f"{'paged' if m.group(2) == '1' else 'contiguous'} hD "
                 f"{m.group(1)}", 128, fd_smem(2, 1, 1, int(m.group(1)), 0))
-    if kind == "ce_tc":
+    if kind in ("ce_tc", "ce_tf32x3"):
         ce = build.load("fused_ce").pt_fused_ce_smem_bytes
-        return "fused_ce_fwd_tc bfloat16", 256, ce()
+        ce.argtypes = [ctypes.c_int]
+        if kind == "ce_tc":
+            return "fused_ce_fwd_tc bfloat16", 256, ce(1)
+        return "fused_ce_fwd_tf32x3 float32", 256, ce(0)
     return "fused_ce_merge", 256, 0
 
 
@@ -527,24 +551,29 @@ def flash_resources(procs, build):
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{log}")
         out.unlink(missing_ok=True)
         logs[name] = log
+        warnings = [x for x in log.splitlines() if "warning" in x.lower()]
+        if warnings:
+            _log({"phase": "ptxas_warnings", "source": name,
+                  "lines": warnings})
     smem = build.load("flash_attention").pt_flash_attention_smem_bytes
     smem.argtypes = [ctypes.c_int] * 3
     rows = {}
     for line, res in _ptxas_entries(logs["flash_attention"]):
         m = FLASH_KERNEL.search(line)
         if m:
-            tc = bool(m.group(2))
-            name = (f"flash_attention_{m.group(1)}"
-                    f"{'_tc' if tc else ''} "
+            tc = m.group(2) == "_tc"
+            name = (f"flash_attention_{m.group(1)}{m.group(2) or ''} "
                     f"{'bfloat16' if tc else 'float32'} hD {m.group(3)}")
             rows[name] = {
-                "threads": 32 * int(m.group(4)) if tc else 256,
+                "threads": 32 * int(m.group(4)) if tc else (
+                    F32_FWD_THREADS if m.group(2) else 256),
                 "smem_bytes": smem(int(tc), int(m.group(3)), (
                     "fwd", "bwd_dkv", "bwd_dq").index(m.group(1))), **res}
     new_rows = {}
-    for line, res in _ptxas_entries(logs["flash_decode"] + logs["fused_ce"]
-                                    + logs["fused_decode"]
-                                    + logs["row_gemm"] + logs["sampling"]):
+    for line, res in _ptxas_entries("".join(
+            logs.get(n, "") for n in ("flash_decode", "fused_ce",
+                                      "fused_decode", "row_gemm",
+                                      "sampling"))):
         for kind, pattern in NEW_KERNELS:
             m = pattern.search(line)
             if m:
@@ -1510,6 +1539,7 @@ def train_kernel_phase(fa, fce, matmul_f32out):
         ("train_f32", 2, 1024, 16, 128, torch.float32, True),
         ("noncausal", 2, 1024, 16, 128, torch.bfloat16, False),
         ("ragged", 2, 1000, 16, 64, torch.bfloat16, True),
+        ("ragged_f32", 2, 1000, 16, 64, torch.float32, True),
     ]
     results = {}
     for name, B, S, nH, hD, dt, causal in cases:
@@ -1535,15 +1565,19 @@ def train_kernel_phase(fa, fce, matmul_f32out):
         errs = {"out": _err(out, w_out), "dk": _err(dk, w_dk),
                 "dv": _err(dv, w_dv), "dq": _err(dq, w_dq)}
         lse_err = (lse - w_lse).abs().max().item()
+        # float32: the forward against its own arithmetic too
+        emu = None if dt != torch.float32 else tf32x3_forward_share(
+            fa, q, k, v, out, lse, causal, 0)
         _log({"phase": "kernel_training_check", "name": name,
               "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
-              "lse_max_abs_err": lse_err})
+              "lse_max_abs_err": lse_err, "tf32x3_emulation": emu})
         for key, (err, _, _, share) in errs.items():
             if not share <= 1:
                 raise AssertionError(f"flash_attention {name} {key}: max abs "
                                      f"err {err}, {share} of its limit")
-        if not lse_err <= 1e-3:
-            raise AssertionError(f"flash_attention {name} lse: {lse_err}")
+        if not lse_err <= 1e-3 or (emu and not max(emu.values()) <= 1):
+            raise AssertionError(f"flash_attention {name} lse: {lse_err}, "
+                                 f"against the tf32x3 emulation {emu}")
         del w_out, w_lse, w_dk, w_dv, w_dq
         # the yardstick: SDPA forward and its autograd backward
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1588,6 +1622,11 @@ def train_kernel_phase(fa, fce, matmul_f32out):
             "bwd_pair": _bound(7 * n_el * e + 2 * stats,
                                10 * hD * pairs * B * nH, dts),
         }
+        if dt == torch.float32:
+            # the forward as three TF32 products a product: the lower bound
+            bounds["fwd_ffma"] = bounds["fwd"]
+            bounds["fwd"] = _bound(4 * n_el * e + stats,
+                                   3 * 4 * hD * pairs * B * nH, "tf32")
         row = {"phase": "kernel_training", "name": name,
                "shape": f"B={B} S={S} nH={nH} hD={hD} {dts} "
                         f"causal={causal} packed qkv",
@@ -1596,9 +1635,12 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                "max_ref": {k2: v2[1] for k2, v2 in errs.items()},
                "share_differing": {k2: v2[2] for k2, v2 in errs.items()},
                "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
-               "lse_max_abs_err": lse_err,
+               "lse_max_abs_err": lse_err, "tf32x3_emulation": emu,
                "library_fwd_max_abs_err": lib_err,
                "bounds": bounds}
+        if dt == torch.float32:
+            row["bound_share_ffma"] = {"fwd": bounds["fwd_ffma"]["bound_ms"]
+                                       / times["fwd_ms"]}
         _log(row)
         results[name] = row
         del qkv, q, k, v, dout, out, lse, delta, dk, dv, dq
@@ -1639,20 +1681,30 @@ def train_kernel_phase(fa, fce, matmul_f32out):
     _log(row)
     results["fused_ce"] = row
     del h, W, lbl, z, picked, wz, wp
-    # the float32 instance (the CUDA-core kernel) at N 2048 of that head
+    # the float32 instance (three TF32 products a product) at N 2048 of
+    # that head, the eval shape of gpt3_1p3b's default-dtype training
     N = 2048
     h = torch.randn((N, H), generator=gen, device="cuda")
     W = torch.randn((V, H), generator=gen, device="cuda") * 0.02
     lbl = torch.randint(0, V, (N,), generator=gen, device="cuda",
                         dtype=torch.int32)
+    lbl[:64:4], lbl[1:64:4], lbl[2:64:4] = -1, V, V + 100
     z, picked = fce.fused_ce_fwd(h, W, lbl)
     torch.cuda.synchronize()
     wz, wp = fce.fused_ce_fwd_plain(h, W, lbl)
     err = max((z - wz).abs().max().item(), (picked - wp).abs().max().item())
-    if not err <= 1e-3:
-        raise AssertionError(f"fused_ce_fwd float32: z/picked error {err}")
+    ez, ep = fce.fused_ce_fwd_tf32x3_plain(h, W, lbl)
+    emu = max((z - ez).abs().max().item(), (picked - ep).abs().max().item())
+    if not (err <= 1e-3 and emu <= TF32X3_ATOL
+            and bool((picked[:64:4] == 0).all())):
+        raise AssertionError(f"fused_ce_fwd float32: z/picked error {err}, "
+                             f"{emu} against the tf32x3 emulation")
+    del ez, ep
     row = {"phase": "kernel_training", "name": "fused_ce_f32",
-           "shape": f"N={N} V={V} H={H} float32",
+           "shape": f"N={N} V={V} H={H} float32, 48 labels out of range",
+           "plan": fce.ce_plan(N, V, torch.cuda.get_device_properties(
+               0).multi_processor_count, fce.VOCAB_TILES[torch.float32]),
+           "tf32x3_emulation_err": emu, "tf32x3_atol": TF32X3_ATOL,
            "ms": _time_ms(lambda: fce.fused_ce_fwd(h, W, lbl), reps=3,
                           flush=flush),
            "plain_ms": _time_ms(lambda: fce.fused_ce_fwd_plain(h, W, lbl),
@@ -1661,13 +1713,87 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                matmul_f32out(h, W.t()), -1), reps=3, flush=flush),
            "library_calls": "torch.mm (float32, TF32 off) + torch.logsumexp",
            "max_abs_err": err, "atol": 1e-3,
-           **_bound((N * H + V * H) * 4 + N * 12, 2 * N * V * H,
-                    "float32")}
+           # three TF32 products a product: the lower bound; FFMA beside
+           **_bound((N * H + V * H) * 4 + N * 12, 3 * 2 * N * V * H, "tf32"),
+           "ffma": _bound((N * H + V * H) * 4 + N * 12, 2 * N * V * H,
+                          "float32")}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["bound_share_ffma"] = row["ffma"]["bound_ms"] / row["ms"]
     _log(row)
     results["fused_ce_f32"] = row
     del h, W, lbl, z, picked, wz, wp, flush
     torch.cuda.empty_cache()
+    results["tf32_witness"] = tf32_witness(fa, fce, gen)
+    _log({"phase": "tf32_witness", **results["tf32_witness"]})
+    w = results["tf32_witness"]
+    if not all(w[k]["kernel"] <= 1 < w[k]["one_pass"] for k in w):
+        raise AssertionError(f"single-pass TF32 witness: {w}")
     return results
+
+
+# The float32 kernels against their tf32x3 emulation: the same split
+# products, but the tensor cores add k8 steps into float32 with
+# truncation where the emulation rounds (the CE kernel in chains of 12,
+# the forward's S in one of 3 hD / 8 and P V in chains of 12 a tile),
+# and the forward's online softmax rescales P tile by tile.  A dropped hi.lo or
+# lo.hi product moves a logit by ~2^-12 of its terms (~6e-4 at the CE
+# shape), so the limits sit an order below that and below the float32
+# limits (1e-3, 1e-4 of max).
+TF32X3_ATOL = 1e-4     # CE z and picked
+TF32X3_REL = 5e-5      # forward out (of max |out|) and lse (relative)
+
+
+def tf32x3_forward_share(fa, q, k, v, out, lse, causal, offset):
+    """The share of its limit the float32 forward's worst element uses
+    against ``flash_attention_fwd_tf32x3_plain`` (the same split products,
+    another summation order and the online softmax's rescaling): out
+    within TF32X3_REL of max |out|, lse within TF32X3_REL relative."""
+    e_out, e_lse = fa.flash_attention_fwd_tf32x3_plain(q, k, v, offset,
+                                                       causal=causal)
+    lse_lim = TF32X3_REL * e_lse.abs().clamp_min(1.0)
+    return {"out": _limit_share(out, e_out, TF32X3_REL, of_max=True),
+            "lse": ((lse - e_lse).abs() / lse_lim).max().item()}
+
+
+def tf32_witness(fa, fce, gen):
+    """Inputs on which one TF32 pass (each operand rounded to TF32 once)
+    leaves the float32 limits and the kernels (three products of split
+    operands) stay within them; the share of its limit each takes
+    against the float32 plain version (a passing witness: kernel <= 1 <
+    one pass).  CE at [2048, 50304, 2048] with W at 0.1 N(0, 1) (logits
+    ~4.5 wide: one pass moves a logit by ~1e-3), atol 1e-3; the forward
+    at [2, 1024, 16x128] causal with q and k at 3 N(0, 1) (scores ~9
+    wide, sharp rows), out 1e-4 of max |out|."""
+    from paddle_tpu_torch.incubate.nn.kernels.tf32x3 import tf32_round
+    N, V, H = 2048, 50304, 2048
+    h = torch.randn((N, H), generator=gen, device="cuda")
+    W = torch.randn((V, H), generator=gen, device="cuda") * 0.1
+    lbl = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    wz, wp = fce.fused_ce_fwd_plain(h, W, lbl)
+
+    def ce_share(z, p):
+        return max((z - wz).abs().max().item(),
+                   (p - wp).abs().max().item()) / 1e-3
+
+    out = {"fused_ce": {"kernel": ce_share(*fce.fused_ce_fwd(h, W, lbl)),
+                        "one_pass": ce_share(*fce.fused_ce_fwd_plain(
+                            tf32_round(h), tf32_round(W), lbl))}}
+    del h, W, wz, wp
+    B, S, nH, hD = 2, 1024, 16, 128
+    q, k = (3 * torch.randn((B, S, nH, hD), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((B, S, nH, hD), generator=gen, device="cuda")
+    got, _ = fa.flash_attention_fwd(q, k, v, True)
+    want, _ = fa.flash_attention_with_lse_plain(q, k, v, 0)
+    one, _ = fa.flash_attention_with_lse_plain(
+        tf32_round(q * hD ** -0.5), tf32_round(k), tf32_round(v), 0,
+        scale=1.0)
+    out["flash_attention_fwd"] = {
+        "kernel": _limit_share(got, want, F32_REL, of_max=True),
+        "one_pass": _limit_share(one, want, F32_REL, of_max=True)}
+    torch.cuda.empty_cache()
+    return out
 
 
 def _rounded_once_bwd(q, k, v, dout, lse, delta, dt):
@@ -1958,6 +2084,125 @@ def plain_training_phase(gpt, hybrid, fa, flash_losses):
     if not max(diffs) <= PLAIN_TRAJ_TOL:
         raise AssertionError(f"trajectory: plain {losses} vs flash "
                              f"{flash_losses}")
+    return row
+
+
+F32_FAMILIES = (("flash_f32_fwd", ("flash_attention_fwd",)),
+                ("flash_f32_dkv", ("flash_attention_bwd_dkv",)),
+                ("flash_f32_dq", ("flash_attention_bwd_dq",)),
+                ("fused_ce", ("fused_ce",)))
+
+
+def float32_training_phase(gpt, hybrid, TrainLoop, fa, fce):
+    """gpt3_1p3b at its default dtype (float32, ``use_flash=None``: the
+    float32 flash kernels in training, the float32 ``fused_ce_fwd`` in
+    the no-grad loss) at full width: 1 warm + 4 AdamW steps through
+    ``TrainLoop`` at B 2, S 1024, the loss falling; then the eval loss on
+    the same batch (one ``fused_ce_fwd`` at N 2048) with its per-token
+    (z, picked) held to ``fused_ce_fwd_plain`` on the same hidden states
+    (atol 1e-3).  Step ms (host clock and CUDA events), peak memory, a
+    one-step profile by family (idle share), the float32 launches a step
+    and an eval, the eval's device ms and the CE's share of it."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 phase entered with TF32 matmuls on")
+    cfg = gpt.gpt3_1p3b()
+    if cfg.dtype != torch.float32 or cfg.use_flash is not None:
+        raise AssertionError(f"gpt3_1p3b defaults: {cfg.dtype}, "
+                             f"use_flash={cfg.use_flash}")
+    B, S, L = 2, 1024, cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, shard, init_opt = hybrid.build_train_step(
+        cfg, num_micro=1, remat=False, device="cuda")
+    params = shard(gpt.init_params(cfg, seed=0, device="cuda"))
+    opt = init_opt(params)
+    ids, labels = _train_batch(cfg, B, S)
+    first, params, opt = step(params, opt, ids, labels)     # warm
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    a.record()
+    loop = TrainLoop(step, max_inflight=2)
+    handles = []
+    for _ in range(4):
+        d, params, opt = loop.step(params, opt, ids, labels)
+        handles.append(d)
+    loop.drain()
+    b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_event_ms = a.elapsed_time(b) / 4
+    launches = fa.launches()
+    losses = [first.item()] + [float(d) for d in handles]
+    if not all(np.isfinite(losses)) or not losses[4] < losses[0]:
+        raise AssertionError(f"float32 training losses {losses}")
+    if launches != {name: 4 * L for name in launches}:
+        raise AssertionError(f"float32 flash launches {launches} != {L} "
+                             f"per step x 4 steps")
+
+    def one_step():
+        step(params, opt, ids, labels)
+
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(one_step, 1, wall_ms, list(F32_FAMILIES), top_n=12)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the eval loss: one float32 fused_ce_fwd at N = B S
+    before = fce.LAUNCHES
+    fa.reset_launches()
+    with torch.no_grad():
+        a.record()
+        ev = gpt.loss_fn(params, ids, labels, cfg).item()
+        b.record()
+    torch.cuda.synchronize()
+    eval_launches = {"fused_ce_fwd": fce.LAUNCHES - before,
+                     **fa.launches()}
+    if eval_launches != {"fused_ce_fwd": 1, "flash_attention_fwd": L,
+                         "flash_attention_bwd_dkv": 0,
+                         "flash_attention_bwd_dq": 0}:
+        raise AssertionError(f"eval launches {eval_launches}")
+    eval_event_ms = a.elapsed_time(b)
+    with torch.no_grad():
+        eval_prof = _step_profile(
+            lambda: gpt.loss_fn(params, ids, labels, cfg), n=3,
+            families=F32_FAMILIES)
+        # the head's input, as _head_loss computes it
+        h = gpt.forward_layers(gpt.embed(params, ids, cfg), params["layers"],
+                               cfg)
+        h = gpt._layer_norm(h, params["lnf_g"], params["lnf_b"],
+                            cfg.layer_norm_epsilon).reshape(B * S, -1)
+        lbl = labels.reshape(-1).to(torch.int32)
+        z, picked = fce.fused_ce_fwd(h, params["wte"], lbl)
+        wz, wp = fce.fused_ce_fwd_plain(h, params["wte"], lbl)
+    errs = {"z": (z - wz).abs().max().item(),
+            "picked": (picked - wp).abs().max().item(),
+            "eval_loss": abs(ev - (wz - wp).mean().item())}
+    row = {"phase": "float32_training",
+           "config": "gpt3_1p3b defaults (float32, use_flash=None)",
+           "B": B, "S": S, "num_micro": 1, "remat": False,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "losses": losses, "launches_4_steps": launches,
+           "launches_per_step": {k: v / 4 for k, v in launches.items()},
+           "step_ms_host": wall / 4 * 1e3,
+           "step_ms_events": step_event_ms,
+           "stall_s": loop.stall_seconds, "peak_memory_bytes": peak,
+           "profiled_step_wall_ms": wall_ms, "step_profile": prof,
+           "eval_loss": ev, "eval_launches": eval_launches,
+           "eval_ms_events": eval_event_ms,
+           "eval_profile": {k: eval_prof[k] for k in (
+               "wall_ms", "device_ms", "device_busy_ms", "idle_share",
+               "sm_clock_power", "top_kernels_ms_count_name")},
+           "eval_fused_ce_share": eval_prof["device_ms"]["fused_ce"]
+           / max(eval_prof["device_busy_ms"], 1e-9),
+           "eval_token_errors": errs, "atol": 1e-3}
+    _log(row)
+    if not max(errs.values()) <= 1e-3:
+        raise AssertionError(f"float32 eval loss against fused_ce_fwd_plain: "
+                             f"{errs}")
     return row
 
 
@@ -5183,9 +5428,18 @@ def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
     return out
 
 
+#: the phases ``--phases`` can run alone
+ONLY_PHASES = {"train_kernel": train_kernel_phase,
+               "float32_training": float32_training_phase,
+               "ring_kernel": ring_kernel_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON")
+    ap.add_argument("--phases", help="comma-separated names of ONLY_PHASES: "
+                    "build the training kernels' two sources and run just "
+                    "these phases (no kernels line, no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5224,12 +5478,19 @@ def main(argv=None) -> int:
     _log({"phase": "setup", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
+    only = args.phases.split(",") if args.phases else None
+    if only and not set(only) <= set(ONLY_PHASES):
+        print(f"chip_smoke: --phases takes {sorted(ONLY_PHASES)}",
+              file=sys.stderr)
+        return 2
+    sources = (["flash_attention", "fused_ce"] if only else
+               ["flash_decode", "flash_attention", "fused_ce", "fused_decode",
+                "rms_norm", "row_gemm", "sampling"])
     t0 = time.perf_counter()
-    ptxas = _flash_ptxas_start(_build)
+    ptxas = _flash_ptxas_start(_build, [s for s in PTXAS_SOURCES
+                                        if s in sources])
     try:
-        libs = _build.build(["flash_decode", "flash_attention", "fused_ce",
-                             "fused_decode", "rms_norm", "row_gemm",
-                             "sampling"])
+        libs = _build.build(sources)
     except BaseException:
         for proc, _ in ptxas.values():
             proc.kill()
@@ -5251,6 +5512,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t
         return out
+
+    if only:
+        args_of = {"train_kernel": (fa, fce, matmul_f32out),
+                   "float32_training": (gpt, hybrid, TrainLoop, fa, fce),
+                   "ring_kernel": (fa,)}
+        for name in only:
+            timed(name, ONLY_PHASES[name], *args_of[name])
+        seconds["total_with_build"] = time.perf_counter() - t0
+        _log({"phase": "phase_seconds", "card": card, "build_s": build_s,
+              **seconds})
+        return 0
 
     kernels = timed("kernel", kernel_phase, fd)
     gemm_rows = timed("row_gemm", row_gemm_phase, rg, new_resources)
@@ -5316,6 +5588,9 @@ def main(argv=None) -> int:
                            hybrid, fa, training["losses"])
     # the GPT trees are gone with their phases
     torch.cuda.empty_cache()
+    f32_training = timed("float32_training", float32_training_phase, gpt,
+                         hybrid, TrainLoop, fa, fce)
+    torch.cuda.empty_cache()
     rms_kernels = timed("rms_kernel", rms_kernel_phase, fnr)
     llama_kernels = timed("llama_kernel", llama_kernel_phase, fa, fd)
     timed("llama_reference", llama_reference_phase, llama, fnr, fd)
@@ -5332,7 +5607,8 @@ def main(argv=None) -> int:
     del train_state
     torch.cuda.empty_cache()
     seconds["total_with_build"] = time.perf_counter() - t0
-    _log({"phase": "phase_seconds", **seconds})
+    _log({"phase": "phase_seconds", "card": card, "build_s": build_s,
+          **seconds})
 
     src = "paddle_tpu_torch/incubate/nn/kernels/csrc/"
     ref = "paddle_tpu/incubate/nn/kernels/"
@@ -5433,18 +5709,32 @@ def main(argv=None) -> int:
             "library_ms": tr["fwd_library_ms" if key == "fwd"
                              else "bwd_library_ms"],
             "shape": tr["shape"]})
-    # the float32 instances (CUDA cores): launched by the float32
-    # reference phase, timed at [2, 1024, 16x128]
+    # the float32 instances: launches from gpt3_1p3b's default-dtype
+    # training (4 steps; the gpt_tiny reference phase's beside), timed at
+    # [2, 1024, 16x128]; the forward as three TF32 products on the tensor
+    # cores (its bound at the TF32 rate, the CUDA cores' beside), dK/dV
+    # and dQ on the CUDA cores
     f32 = train_kernels["train_f32"]
     for e in entries[-3:]:
         key = e["name"].replace("flash_attention_", "").replace("bwd_", "")
         e["float32"] = {
-            "shape": f32["shape"], "launches": f32_launches.get(e["name"], 0),
+            "kernel": ("flash_attention_fwd_tf32x3_kernel" if key == "fwd"
+                       else f"{e['name']}_kernel<float>"),
+            "shape": f32["shape"],
+            "launches": f32_training["launches_4_steps"][e["name"]],
+            "reference_launches": f32_launches.get(e["name"], 0),
             "ms": f32[f"{key}_ms"], "plain_ms": f32[f"{key}_plain_ms"],
             "bound_ms": f32["bounds"][key]["bound_ms"],
             "bound_by": f32["bounds"][key]["bound_by"],
             "library_ms": f32["fwd_library_ms" if key == "fwd"
                               else "bwd_library_ms"]}
+        if key == "fwd":
+            e["float32"].update(
+                bound_ffma_ms=f32["bounds"]["fwd_ffma"]["bound_ms"],
+                max_abs_err=f32["max_abs_err"]["out"],
+                tf32x3_emulation_share=f32["tf32x3_emulation"],
+                single_pass_witness=train_kernels["tf32_witness"][
+                    "flash_attention_fwd"])
     ce32 = train_kernels["fused_ce_f32"]
     entries.append({
         "name": "fused_ce_fwd", "route": "cuda",
@@ -5454,10 +5744,19 @@ def main(argv=None) -> int:
         "bound_ms": ce["bound_ms"], "bound_by": ce["bound_by"],
         "library_ms": ce["library_ms"], "shape": ce["shape"],
         "plan": {"splits": ce["plan"][0], "tiles_per_split": ce["plan"][1]},
-        "float32": {"launches": f32_launches["fused_ce_fwd"],
+        "float32": {"kernel": "fused_ce_fwd_tf32x3_kernel + "
+                              "fused_ce_merge_kernel",
+                    "launches": f32_training["eval_launches"]["fused_ce_fwd"],
+                    "reference_launches": f32_launches["fused_ce_fwd"],
+                    "bound_ffma_ms": ce32["ffma"]["bound_ms"],
+                    "tf32x3_emulation_err": ce32["tf32x3_emulation_err"],
+                    "single_pass_witness": train_kernels["tf32_witness"][
+                        "fused_ce"],
+                    "plan": {"splits": ce32["plan"][0],
+                             "tiles_per_split": ce32["plan"][1]},
                     **{k: ce32[k] for k in ("shape", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
-                                            "library_ms")}}})
+                                            "library_ms", "max_abs_err")}}})
     # the fused layer stack: launches from the full-width run of the
     # kv_dtype that serves each storage mode, time and bound at pos 512
     for name, kd in (("fused_decode_layers", "bf16"),
@@ -5657,6 +5956,7 @@ def main(argv=None) -> int:
              "serving_b1": {f"{a} {b}": r for (a, b), r in fused_runs.items()},
              "b1_steps": b1_steps,
              "training": training, "plain_training": plain_training,
+             "float32_training": f32_training,
              "rms_kernels": {" ".join(map(str, k)): r
                              for k, r in rms_kernels.items()},
              "llama_kernels": llama_kernels,

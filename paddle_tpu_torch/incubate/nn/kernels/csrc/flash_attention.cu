@@ -39,6 +39,10 @@
 // 0.070 ms for dK/dV and 0.052 for dQ (operations); at LLaMA training's
 // [4, 2048, 32x128] 0.139, 0.278 and 0.209 ms (operations).
 //
+// Float32 runs as three TF32 products a product on the tensor cores in
+// the forward; at [2, 1024, 16x128] causal its bound is 0.1283 ms at the
+// CUDA cores' 67 TFLOP/s and 0.052 ms as three TF32 products at 495.
+//
 // Two designs, chosen by dtype here (dtype 1 -> bf16, 0 -> float32):
 //
 // bfloat16: the tensor-core kernels (*_tc_kernel), FlashAttention-2's
@@ -90,18 +94,59 @@
 //   float32 atomics) would save the recomputation of S and dP, but the
 //   order of those atomic adds changes from run to run, and with it dQ.
 //
-// float32: the CUDA-core kernels of the first port, unchanged (the tiny
-// reference runs and the float32 checks use them):
-// * One block of 256 threads per (64-row tile, head, batch).  Tiles of
-//   the other operand stream through shared memory as float32 rows of
-//   stride hD+1 (odd, so row-strided reads hit distinct banks), loaded
-//   with 16-byte vectors from strided [B, S, nH, hD] operands.
-// * Each thread owns a 4x4 score micro-tile (rows ty*4+i, columns
-//   tx+16*j) and the same 4 rows of the output; the 16 threads sharing
-//   a row are one half-warp, so row max/sum reduce with shuffles and the
-//   online-softmax state m, l stays in registers.  The scale is folded
-//   into a float32 copy of Q, and P and dS stay float32.
-// * The causal mask skips every tile past the diagonal, as above.
+// float32 is the models' default dtype (GPTConfig.dtype and
+// LlamaConfig.dtype are torch.float32, as in the JAX package), and
+// use_flash=None sends CUDA training attention here (models/common.py
+// _causal_attention): gpt3_1p3b at its defaults trains through these
+// kernels, 24 launches of each a step at [2, 1024, 16x128].
+// * Forward (flash_attention_fwd_tf32x3_kernel): three TF32 products a
+//   product on wgmma.  The tensor cores take no float32 operand and the
+//   CUDA cores' float32 rate is a seventh of the TF32 rate, so each
+//   operand splits into hi = tf32(x) and lo = tf32(x - hi)
+//   (tc_common.cuh tf32_split, tf32x3.py's rule) and each product runs
+//   as hi.hi + hi.lo + lo.hi into one float32 accumulator chain (lo.lo,
+//   <= 2^-22 of it, dropped): ~22 bits an operand, where one TF32 pass
+//   keeps 11 and misses the float32 limits.  wgmma, not mma.sync: with
+//   the three products, the bf16 kernel's warp layout on
+//   mma.sync.m16n8k8 ran slower than SDPA on the card (PERF.md §6).
+// * A block is two warpgroups of 64 query rows; K/V tiles of 32 keys.
+//   S = (Q scale) K^T is wgmma m64n32k8 with both operands in shared
+//   memory, K-major as Q and K lie in memory (tf32 wgmma takes no
+//   transpose): sub-tiles of 32 floats, one 128-byte swizzled row a tile
+//   row.  O += P V is m64n(hD)k8 with P from registers and V^T in shared
+//   memory, so V is transposed on its way in.
+// * The split is done once where the operand is staged: Q (q * scale in
+//   float32, as before) once a block and K once a tile, in place (hi)
+//   and beside (lo) by the threads whose cp.async copies they are; V is
+//   loaded into registers a tile ahead, split and stored transposed (a
+//   warp writes one 128-byte row of V^T at a time); P, which each thread
+//   owns, in registers.  Q and K hi and lo and two slots of V^T hi and lo
+//   take 225 KB at hD 128: one block an SM.  K is single-buffered (its
+//   copies fly during the softmax and P V); tile it + 1's V^T is stored
+//   into the other slot while tile it's S runs, from registers loaded a
+//   tile before.  Blocks run the longest query tiles of every head
+//   first: under the causal mask a tile's work grows with its position,
+//   and the grid runs in waves.
+// * P stays in registers as the A fragment, with no trip through shared
+//   memory: step j's A column t is key 8j + 2t and column t + 4 key
+//   8j + 2t + 1, which is where the score accumulators hold them, and
+//   V^T stores each 8 keys in that order (vt_off).
+// * The contract above holds as before: scale folded into Q, masked
+//   scores -1e30 and exponentiated, keys past Sk counting nothing,
+//   key_end skipping (and a warpgroup whose rows see none of a tile
+//   skips it), the run-time offset (offset 0: the same launch as the
+//   zero-offset call), lse float32.  expf and IEEE division keep the
+//   rest float32.
+// * dK/dV and dQ: the CUDA-core kernels of the first port, unchanged;
+//   they recompute P from the forward's lse.  One block of 256 threads
+//   per (64-row tile, head, batch); tiles of the other operand stream
+//   through shared memory as float32 rows of stride hD+1 (odd, so
+//   row-strided reads hit distinct banks), loaded with 16-byte vectors
+//   from strided [B, S, nH, hD] operands.  Each thread owns a 4x4 score
+//   micro-tile (rows ty*4+i, columns tx+16*j) and the same 4 rows of
+//   the output; the 16 threads sharing a row are one half-warp.  The
+//   scale is folded into a float32 copy of Q, and P and dS stay
+//   float32.  The causal mask skips every tile past the diagonal.
 //
 // Left for later work: wgmma with TMA and warp specialisation (a producer
 // warp feeding consumer warpgroups), the fused backward (see above), and
@@ -191,31 +236,12 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B,
   }
 }
 
-// reductions over the 16 threads (one half-warp) that share a row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // One past the last key a query tile at q0 must visit: under the causal
 // mask, when every row of the tile has a visible key, the last key its
 // last row sees; otherwise (or not causal) every key.
 __device__ __forceinline__ int key_end(int q0, int Sk, int causal,
                                        int offset) {
   return causal && q0 + offset >= 0 ? min(Sk, q0 + kTile + offset) : Sk;
-}
-
-template <int HD>
-constexpr int fwd_smem_bytes() {
-  return (3 * kTile * (HD + 1) + kTile * kPS) * 4;
 }
 
 template <int HD>
@@ -226,108 +252,6 @@ constexpr int dkv_smem_bytes() {
 template <int HD>
 constexpr int dq_smem_bytes() {
   return (4 * kTile * (HD + 1) + kTile * kPS) * 4;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           float* __restrict__ lse, int Sq, int Sk, int nH,
-                           Strides qs, Strides ks, Strides vs, float scale,
-                           int causal, int offset) {
-  constexpr int kS = HD + 1;
-  constexpr int kD = HD / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * kS;
-  float* sV = sK + kTile * kS;
-  float* sP = sV + kTile * kS;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // long tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
-
-  load_tile<T, HD>(sQ, q + b * qs.b + h * qs.h, qs.t, q0, Sq, scale);
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-
-  float m[kRows];
-  float l[kRows];
-  float acc[kRows][kD];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kD; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = key_end(q0, Sk, causal, offset);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD>(sK, kb, ks.t, k0, Sk, 1.f);
-    load_tile<T, HD>(sV, vb, vs.t, k0, Sk, 1.f);
-    __syncthreads();
-    float s[kRows][kCols];
-    tile_dot<HD>(sQ, sK, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty * kRows + i;
-      bool in[kCols];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        in[j] = kj < Sk;
-        s[i][j] = in[j] && (!causal || kj <= qi + offset) ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        // masked keys count (p = 1 in a row with no visible key, else 0)
-        const float p = in[j] ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty * kRows + i) * kPS + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kD; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float p[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = sP[(ty * kRows + i) * kPS + kk];
-#pragma unroll
-      for (int c = 0; c < kD; ++c) {
-        const float vv = sV[kk * kS + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty * kRows + i;
-    if (qi < Sq) {
-      const float l_safe = l[i] == 0.f ? 1.f : l[i];
-      const float inv = 1.f / l_safe;
-      T* o = out + ((static_cast<long long>(b) * Sq + qi) * nH + h) * HD;
-#pragma unroll
-      for (int c = 0; c < kD; ++c) Vec<T>::store(o + tx + 16 * c, acc[i][c] * inv);
-      if (tx == 0)
-        lse[(static_cast<long long>(b) * nH + h) * Sq + qi] = m[i] + logf(l_safe);
-    }
-  }
 }
 
 template <typename T, int HD>
@@ -977,6 +901,413 @@ flash_attention_bwd_dkv_tc_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 forward: three TF32 products a product on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Warps = 8;     // two warpgroups of 64 query rows
+constexpr int kF32BM = 16 * kF32Warps;
+constexpr int kF32BN = 32;       // keys of a K/V tile: one 128-byte row
+
+// d (64 x 32 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T: A
+// 64 x 8 and B 32 x 8 TF32, both K-major in 128-byte-swizzled shared
+// memory, named by descriptors
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32 float32, one warpgroup) += A * B^T: A 64 x 8 TF32 in
+// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// of each warp's 16 rows), B 32 x 8 TF32, K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 float32, one warpgroup) += A * B^T: A 64 x 8 TF32 in
+// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// of each warp's 16 rows), B 64 x 8 TF32, K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 float32, one warpgroup) += A * B^T: A 64 x 8 TF32 in
+// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// of each warp's 16 rows), B 128 x 8 TF32, K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Q and K tiles are K-major [ROWS][HD] in hD / 32 sub-tiles of 32 floats
+// (one 128-byte swizzled row each): chunk c of row r is sub-tile c / 8.
+template <int ROWS>
+__device__ __forceinline__ uint32_t kmajor_off(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + sw128(r, c & 7);
+}
+
+// V^T: [HD][32 keys], one 128-byte swizzled row a column of V; key j of
+// the tile sits at p(j) = 8 (j / 8) + (j % 8) / 2 + 4 (j % 2), so the P V
+// step's B column t is key 2t and column t + 4 key 2t + 1 (see below).
+__device__ __forceinline__ uint32_t vt_off(int d, int j) {
+  const int p = (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+  return sw128(d, p >> 2) + (p & 3) * 4;
+}
+
+// cp.async rows row0 .. row0+ROWS-1 of one (batch, head) slice into a
+// K-major tile at byte address dst; rows at or past n_rows are zeros.
+// Thread i copies chunks i, i + NT, ...
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void stage_kmajor(uint32_t dst, const float* base,
+                                             long long s_tok, int row0,
+                                             int n_rows) {
+  constexpr int kCPR = HD / 4;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * kCPR; idx += NT) {
+    const int r = idx / kCPR;
+    const int c = idx % kCPR;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + kmajor_off<ROWS>(r, c),
+               ok ? base + (row0 + r) * s_tok + c * 4 : base, ok);
+  }
+}
+
+// Split the chunks this thread copied (times `mul`) into `hi` (in place)
+// and `lo`, generic pointers to the two tiles.
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void split_kmajor(unsigned char* hi,
+                                             unsigned char* lo, float mul) {
+  constexpr int kCPR = HD / 4;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * kCPR; idx += NT) {
+    const uint32_t o = kmajor_off<ROWS>(idx / kCPR, idx % kCPR);
+    float4 x = *reinterpret_cast<const float4*>(hi + o);
+    if (mul != 1.f) {
+      x.x = __fmul_rn(x.x, mul);
+      x.y = __fmul_rn(x.y, mul);
+      x.z = __fmul_rn(x.z, mul);
+      x.w = __fmul_rn(x.w, mul);
+    }
+    uint4 h, l;
+    tf32_split(x.x, h.x, l.x);
+    tf32_split(x.y, h.y, l.y);
+    tf32_split(x.z, h.z, l.z);
+    tf32_split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+template <int HD>
+constexpr int fwd_tf32x3_smem_bytes() {
+  return (2 * kF32BM + 6 * kF32BN) * HD * 4 + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(32 * kF32Warps, 1)
+flash_attention_fwd_tf32x3_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  float* __restrict__ out,
+                                  float* __restrict__ lse, int Sq, int Sk,
+                                  int nH, Strides qs, Strides ks, Strides vs,
+                                  float scale, int causal, int offset) {
+  constexpr int BM = kF32BM;
+  constexpr int NT = 32 * kF32Warps;
+  constexpr int ND = HD / 8;          // n8 tiles of an output row
+  constexpr int KQ = BM * HD * 4;     // bytes of a Q tile (hi or lo)
+  constexpr int KK = kF32BN * HD * 4; // bytes of a K tile, and of V^T's
+  constexpr int VPT = HD / 32;        // V chunks a thread stages a tile
+  extern __shared__ unsigned char fa_smem[];
+  const uint32_t base = (smem_u32(fa_smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = fa_smem + (base - smem_u32(fa_smem));
+  // Q hi, Q lo, K hi, K lo, then V^T hi and lo of two tiles in turn
+  const uint32_t sQh = base, sQl = base + KQ, sKh = base + 2 * KQ,
+                 sKl = sKh + KK, sV = sKl + KK;
+
+  // the longest query tiles of every head first: a block's work grows
+  // with its tile under the causal mask, and the grid runs in waves
+  const int heads = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                            blockIdx.z);
+  const int q0 = (gridDim.x - 1 - lin / heads) * BM;
+  const int h = lin % heads % gridDim.y;
+  const int b = lin % heads / gridDim.y;
+  const int wg = threadIdx.x >> 7;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg0 = q0 + wg * 64;                   // this warpgroup's rows
+  const int w0 = q0 + warp * 16;                  // this warp's rows
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  const int k_end = causal && q0 + offset >= 0
+                        ? min(Sk, q0 + BM + offset) : Sk;
+  const int n_tiles = (k_end + kF32BN - 1) / kF32BN;
+  const bool skips = causal && q0 + offset >= 0;
+
+  // V tile it: lane j loads key it*32 + j, hD chunks warp + 8 i
+  float4 vreg[VPT];
+  auto load_v = [&](int it) {
+    const int key = it * kF32BN + lane;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = warp + 8 * i;
+      vreg[i] = key < Sk ? *reinterpret_cast<const float4*>(
+                               vb + key * vs.t + c * 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // ... then split and transposed into V^T hi / lo of slot `it & 1`: a
+  // warp writes one 128-byte row at a time
+  auto store_v = [&](int it) {
+    unsigned char* vh = gbase + (sV - base) + (it & 1) * 2 * KK;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = warp + 8 * i;
+      const float x[4] = {vreg[i].x, vreg[i].y, vreg[i].z, vreg[i].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t hi, lo;
+        tf32_split(x[e], hi, lo);
+        const uint32_t o = vt_off(4 * c + e, lane);
+        *reinterpret_cast<uint32_t*>(vh + o) = hi;
+        *reinterpret_cast<uint32_t*>(vh + KK + o) = lo;
+      }
+    }
+  };
+
+  stage_kmajor<HD, BM, NT>(sQh, q + b * qs.b + h * qs.h, qs.t, q0, Sq);
+  stage_kmajor<HD, kF32BN, NT>(sKh, kb, ks.t, 0, Sk);
+  cp_async_commit();
+  load_v(0);
+  cp_async_wait<0>();
+  // q * scale in float32 (as the plain versions have it), then split;
+  // Q once a block, K and V once a tile, by the threads that staged them
+  split_kmajor<HD, BM, NT>(gbase, gbase + KQ, scale);
+  split_kmajor<HD, kF32BN, NT>(gbase + 2 * KQ, gbase + 2 * KQ + KK, 1.f);
+  store_v(0);
+  if (1 < n_tiles) load_v(1);
+  fence_proxy_async();
+  __syncthreads();
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  // this warpgroup's 64 rows in the Q tiles: its A descriptors
+  const uint64_t dQh = sw128_desc(sQh + wg * 64 * 128);
+  const uint64_t dQl = sw128_desc(sQl + wg * 64 * 128);
+  const uint64_t dKh = sw128_desc(sKh);
+  const uint64_t dKl = sw128_desc(sKl);
+
+  float s[16] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kF32BN;
+    // this warpgroup's rows see no key of the tile: p = 0 on all of it
+    const bool idle = skips && k0 > wg0 + 63 + offset;
+    if (!idle) {
+      // S = (Q scale) K^T: 3 products a k8 step, one accumulator chain;
+      // a sub-tile of 32 floats is 4 steps of 32 bytes
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const uint64_t step = (kk >> 2) * (BM * 128 >> 4) + 2 * (kk & 3);
+        const uint64_t kstep = (kk >> 2) * (kF32BN * 128 >> 4) + 2 * (kk & 3);
+        wgmma_tf32_ss_n32(s, dQh + step, dKh + kstep, kk > 0);
+        wgmma_tf32_ss_n32(s, dQh + step, dKl + kstep, 1);
+        wgmma_tf32_ss_n32(s, dQl + step, dKh + kstep, 1);
+      }
+      wgmma_commit();
+    }
+    // tile it + 1's V^T into the other slot (its readers, the P V of tile
+    // it - 1, are done), while S runs; then tile it + 2's V loads
+    if (it + 1 < n_tiles) {
+      store_v(it + 1);
+      fence_proxy_async();
+      if (it + 2 < n_tiles) load_v(it + 2);
+    }
+    if (!idle) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(s[i])::"memory");
+    }
+    __syncthreads();  // both warpgroups are done reading K
+    if (it + 1 < n_tiles) stage_kmajor<HD, kF32BN, NT>(sKh, kb, ks.t,
+                                                       k0 + kF32BN, Sk);
+    cp_async_commit();
+    if (!idle) {
+      const bool masked =
+          k0 + kF32BN > Sk || (causal && k0 + kF32BN - 1 > wg0 + offset);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e];
+          if (masked) {
+            const int qi = w0 + g + ((e >> 1) << 3);
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            if (causal && kj > qi + offset) x = kNegInf;
+            if (kj >= Sk) x = -INFINITY;  // not a key: p = 0 in every row
+          }
+          s[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+      // P = exp(S - m), split: the A fragment of k8 step j takes key 2t
+      // as column t and key 2t + 1 as column t + 4 — where the score
+      // accumulators hold them — and V^T stores its keys in that order
+      uint32_t ph[4][4];
+      uint32_t pl[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(s[4 * j + e] - m[e >> 1]);
+          l[e >> 1] += p[e];
+        }
+        tf32_split(p[0], ph[j][0], pl[j][0]);
+        tf32_split(p[2], ph[j][1], pl[j][1]);
+        tf32_split(p[1], ph[j][2], pl[j][2]);
+        tf32_split(p[3], ph[j][3], pl[j][3]);
+      }
+      const uint64_t dVh = sw128_desc(sV + (it & 1) * 2 * KK);
+      const uint64_t dVl = dVh + (KK >> 4);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_tf32_rs(o, ph[j], dVh + 2 * j);
+        wgmma_tf32_rs(o, ph[j], dVl + 2 * j);
+        wgmma_tf32_rs(o, pl[j], dVh + 2 * j);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) asm volatile("" : "+f"(o[i])::"memory");
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          asm volatile("" : "+r"(ph[j][e])::"memory");
+          asm volatile("" : "+r"(pl[j][e])::"memory");
+        }
+    }
+    if (it + 1 < n_tiles) {
+      cp_async_wait<0>();
+      split_kmajor<HD, kF32BN, NT>(gbase + 2 * KQ, gbase + 2 * KQ + KK, 1.f);
+      fence_proxy_async();
+      // tile it + 1's K and V^T, split, for wgmma; both warpgroups are
+      // done reading tile it's V^T slot, which tile it + 2 refills
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = w0 + g + 8 * r;
+    const float lr = quad_sum(l[r]);
+    const float l_safe = lr == 0.f ? 1.f : lr;
+    if (qi < Sq) {
+      float* orow = out + ((static_cast<long long>(b) * Sq + qi) * nH + h) * HD;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r] / l_safe, o[4 * j + 2 * r + 1] / l_safe);
+      if (t == 0)
+        lse[(static_cast<long long>(b) * nH + h) * Sq + qi] =
+            m[r] + logf(l_safe);
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -1006,14 +1337,16 @@ cudaError_t launch(Pass pass, const Args& a) {
   const T* d = static_cast<const T*>(a.dout);
   cudaError_t err = cudaSuccess;
   if (pass == kFwd) {
-    constexpr int bytes = fwd_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, HD>,
+    constexpr int bytes = fwd_tf32x3_smem_bytes<HD>();
+    err = cudaFuncSetAttribute(flash_attention_fwd_tf32x3_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
-    flash_attention_fwd_kernel<T, HD><<<grid_q, kThreads, bytes, a.stream>>>(
-        q, k, v, static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.Sq, a.Sk,
-        a.nH, a.qs, a.ks, a.vs, a.scale, a.causal, a.offset);
+    const dim3 grid((a.Sq + kF32BM - 1) / kF32BM, a.nH, a.B);
+    flash_attention_fwd_tf32x3_kernel<HD>
+        <<<grid, 32 * kF32Warps, bytes, a.stream>>>(
+            q, k, v, static_cast<float*>(a.o0), static_cast<float*>(a.o1),
+            a.Sq, a.Sk, a.nH, a.qs, a.ks, a.vs, a.scale, a.causal, a.offset);
   } else if (pass == kDkv) {
     constexpr int bytes = dkv_smem_bytes<HD>();
     err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<T, HD>,
@@ -1096,7 +1429,7 @@ cudaError_t launch_dtype(int dtype, Pass pass, const Args& a) {
 template <int HD>
 int smem_bytes_hd(int dtype, Pass pass) {
   if (dtype == 0)
-    return pass == kFwd   ? fwd_smem_bytes<HD>()
+    return pass == kFwd   ? fwd_tf32x3_smem_bytes<HD>()
            : pass == kDkv ? dkv_smem_bytes<HD>()
                           : dq_smem_bytes<HD>();
   if (dtype == 1)

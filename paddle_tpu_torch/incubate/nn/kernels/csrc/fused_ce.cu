@@ -10,12 +10,14 @@
 //
 // What bounds it on the H100: 2*N*V*H operations against reading h and
 // W once (N*H + V*H elements), i.e. about N operations per byte of W.
-// At the eval shape (N = 8192 tokens, V = 50304, H = 2048) that is some
-// 1.7 TFLOP over 0.24 GB, so the operations bound it: about 1.7 ms at
-// the bf16 tensor-core rate.
+// At the bf16 eval shape (N = 8192 tokens, V = 50304, H = 2048) that is
+// some 1.7 TFLOP over 0.24 GB, so the operations bound it: about 1.7 ms
+// at the bf16 tensor-core rate.  In float32 at N 2048 (0.42 TFLOP over
+// 0.43 GB): 6.298 ms at the CUDA cores' 67 TFLOP/s, 2.557 ms as three
+// TF32 products a product at the tensor cores' 495 TFLOP/s (below).
 //
-// bfloat16 (the eval path): the tensor-core kernel, split over the
-// vocabulary.
+// bfloat16 (the bf16 models' eval path): the tensor-core kernel, split
+// over the vocabulary.
 // * A block of two warpgroups owns 128 rows of h (64 a warpgroup) and
 //   one split of the vocabulary, walked in tiles of 256 rows of W.  Each
 //   tile's 128 x 256 logits accumulate in float32 registers through
@@ -51,14 +53,50 @@
 //   kernel has it, picked = sum_s pick_s.  No atomics: the result is
 //   deterministic.
 //
-// float32 (no path gives the fused head float32 at a supported shape):
-// the CUDA-core kernel of the first port, unchanged.
-// * One block of 256 threads owns 64 rows of h and streams W in tiles
-//   of 64 vocabulary rows; each tile's 64x64 logits accumulate in
-//   float32 registers (a 4x4 micro-tile per thread: rows ty*4+i,
-//   vocabulary columns tx+16*j) over H in chunks of 32 staged through
-//   shared memory with 16-byte vector loads.  The online state folds as
-//   above, the 16 threads of a row reducing with shuffles.
+// float32: the default dtype of the models (GPTConfig.dtype and
+// LlamaConfig.dtype are torch.float32, as in the JAX package), so every
+// no-grad loss of a float32 model on the card reaches this instance at a
+// supported shape (chunked_ce.py's _fwd_dispatch; gpt3_1p3b at B 2, S
+// 1024: N 2048).  The tensor cores take no float32 operand, and the CUDA
+// cores' float32 rate is a seventh of their TF32 rate, so each product
+// runs as three TF32 products of split operands on wgmma (the TPU's
+// matrix unit, which has no float32 multiplier either, also runs a
+// float32 product in reduced-precision passes):
+// * x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), rounded to
+//   nearest with ties away (cvt.rna.tf32.f32's rounding, done on the
+//   integer bits: add 2^12, clear the 13 low bits; tf32x3.py's
+//   tf32_split is the same rule in torch, bit for bit on finite input).
+//   h.W = hi.hi + hi.lo + lo.hi, each product exact in float32, summed
+//   into one float32 accumulator chain a logit; lo.lo (<= 2^-22 of the
+//   product) is dropped, so each operand keeps ~22 bits where a single
+//   TF32 pass keeps 11 (tests/test_torch_cuda.py's witness: inputs on
+//   which one pass leaves the float32 limit, atol 1e-3, and the kernel
+//   does not).
+// * The bf16 kernel's structure: a block of two warpgroups owns 128 rows
+//   of h and one vocabulary split, walked in tiles of 128 rows of W
+//   (wgmma m64n128k8 .tf32: K-major operands as h and W lie in memory,
+//   which tf32 wgmma requires; 8 K a step, 32 bytes, as bf16's k16), the
+//   online fold after each tile, the vocabulary split of ce_plan (33
+//   splits of 12 tiles at N 2048: 528 blocks, 4 full waves of 132) and
+//   fused_ce_merge_kernel in split order.  No atomics.
+// * Staging: a stage holds 32 float32 of H (one 128-byte swizzled row a
+//   tile row): raw h (16 KB), W hi and W lo (16 KB each), 48 KB; a ring
+//   of four (192 KB) with the copies of stages f + 2 and f + 3 in flight
+//   while stage f computes.  W is the B operand, which wgmma reads only
+//   from shared memory, so it is split there: each thread rounds the
+//   chunks it copied itself, hi in place and lo into the second tile,
+//   while the products of the stage before run.  h is A, which tf32
+//   wgmma also takes from registers: each warp reads its 16 x 8
+//   fragments with ldmatrix (a 32-bit element is two b16 lanes) and
+//   splits them in registers, so h's split costs no shared memory or
+//   second tile.  The split of W doubles its bytes a stage; the ring is
+//   planned against 227 KB for that.
+// * Sums: the tensor cores add each step's products into the float32
+//   accumulator with truncation, so one chain over all of H (3 H / 8 =
+//   768 adds at H 2048) drifts by ~2^-17 of a logit.  Each stage's 12
+//   products run as one chain from zero, and the stages' partials are
+//   summed in registers with rounding adds: 64 + 64 accumulators a
+//   thread, which is what caps the tile at 128 vocabulary rows.
 //
 // Left for later work: TMA loads from a producer warp with the two
 // warpgroups as consumers (warp specialisation), a second accumulator so
@@ -76,132 +114,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
-// float32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;        // 8 warps
-constexpr int kTileN = 64;           // rows of h per block
-constexpr int kTileV = 64;           // vocabulary rows per tile
-constexpr int kChunk = 32;           // H elements per shared-memory stage
-constexpr int kRows = 4;
-constexpr int kCols = kTileV / 16;
-
-// Stage columns c0 .. c0+kChunk-1 of rows row0 .. row0+63 of a [n, H]
-// float32 matrix into dst[64][kChunk+1]; rows at or past n are zero.
-__device__ void load_chunk(float (*dst)[kChunk + 1], const float* src,
-                           int row0, int n, int H, int c0) {
-  for (int idx = threadIdx.x; idx < kTileN * kChunk / 4; idx += kThreads) {
-    const int r = idx / (kChunk / 4);
-    const int d = (idx % (kChunk / 4)) * 4;
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      t = *reinterpret_cast<const float4*>(
-          src + static_cast<long long>(row0 + r) * H + c0 + d);
-    }
-    dst[r][d] = t.x;
-    dst[r][d + 1] = t.y;
-    dst[r][d + 2] = t.z;
-    dst[r][d + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ z,
-                    float* __restrict__ picked, int N, int V, int H) {
-  __shared__ float sH[kTileN][kChunk + 1];
-  __shared__ float sW[kTileV][kChunk + 1];
-
-  const int n0 = blockIdx.x * kTileN;
-  const int lane = threadIdx.x & 31;
-  const int tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
-
-  float m[kRows];
-  float sse[kRows];
-  float pick[kRows];
-  int lbl[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = n0 + ty * kRows + i;
-    lbl[i] = row < N ? labels[row] : -1;
-    m[i] = kNegInf;
-    sse[i] = 0.f;
-    pick[i] = 0.f;
-  }
-
-  for (int v0 = 0; v0 < V; v0 += kTileV) {
-    float acc[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-    for (int c0 = 0; c0 < H; c0 += kChunk) {
-      __syncthreads();  // the previous chunk's readers are done
-      load_chunk(sH, h, n0, N, H, c0);
-      load_chunk(sW, w, v0, V, H, c0);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kChunk; ++d) {
-        float av[kRows];
-        float bv[kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) av[i] = sH[ty * kRows + i][d];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) bv[j] = sW[tx + 16 * j][d];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int vid = v0 + tx + 16 * j;
-        const bool ok = vid < V;
-        acc[i][j] = ok ? acc[i][j] : kNegInf;
-        if (ok && vid == lbl[i]) pick[i] += acc[i][j];
-        mx = fmaxf(mx, acc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        sum += v0 + tx + 16 * j < V ? expf(acc[i][j] - m_new) : 0.f;
-      sse[i] = sse[i] * expf(m[i] - m_new) + row_sum(sum);
-      m[i] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float p = row_sum(pick[i]);
-    const int row = n0 + ty * kRows + i;
-    if (tx == 0 && row < N) {
-      z[row] = m[i] + logf(sse[i] == 0.f ? 1.f : sse[i]);
-      picked[row] = p;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bfloat16: the tensor-core kernel (wgmma), split over the vocabulary
 // ---------------------------------------------------------------------------
 
@@ -215,17 +127,6 @@ constexpr int kAcc = kBV / 2;                  // accumulators a thread
 constexpr int kStageBytes = (kBM + kBV) * kBK * 2;
 constexpr int kTcSmemBytes = kStages * kStageBytes + 1024;  // + alignment
 constexpr int kMergeThreads = 256;
-
-// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
-// swizzle: start address >> 4, leading offset unused (one swizzle row
-// spans the 64 K values of a stage), stride 1024 bytes between groups of
-// eight rows, layout 1 = 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(1) << 16)
-         | (static_cast<uint64_t>(1024 >> 4) << 32)
-         | (static_cast<uint64_t>(1) << 62);
-}
 
 // d (64 x 256 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T:
 // A 64 x 16 and B 256 x 16, both K-major bf16 in 128-byte-swizzled
@@ -288,31 +189,11 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAcc],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N of this warpgroup's wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma's issue and wait
 __device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory writes of the generic proxy (cp.async) become visible to
-// the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Stage rows row0 .. row0+ROWS-1, columns k0 .. k0+63 of a row-major
@@ -448,6 +329,254 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: three TF32 products a product on wgmma, split over the vocabulary
+// ---------------------------------------------------------------------------
+
+constexpr int kFBV = 128;                      // vocabulary rows a tile
+constexpr int kFBK = 32;                       // H a stage: 128 bytes of f32
+constexpr int kFStages = 4;                    // ring of stages
+constexpr int kFAhead = kFStages - 1;          // stages loaded ahead
+constexpr int kFAcc = kFBV / 2;                // accumulators a thread
+constexpr int kFHBytes = kBM * kFBK * 4;       // raw h of a stage
+constexpr int kFWBytes = kFBV * kFBK * 4;      // W hi (and W lo) of a stage
+constexpr int kFStageBytes = kFHBytes + 2 * kFWBytes;
+constexpr int kF32SmemBytes = kFStages * kFStageBytes + 1024;  // + alignment
+
+// d (64 x 128 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T:
+// A 64 x 8 TF32 in registers (this warp's 16 rows: a0 (g, t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)), B 128 x 8 TF32, K-major
+// in 128-byte-swizzled shared memory named by its descriptor
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[kFAcc],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void fence_acc_f32(float (&d)[kFAcc]) {
+#pragma unroll
+  for (int i = 0; i < kFAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// keeps the compiler from rewriting an A fragment before the wgmma
+// reading it has been waited for
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// One block: rows n0 .. n0+127 of h against vocabulary tiles vt0 ..
+// vt1-1 (128 rows each) of split blockIdx.y; part [3][splits][N] as the
+// bf16 kernel's.
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_fwd_tf32x3_kernel(const float* __restrict__ h,
+                           const float* __restrict__ w,
+                           const int* __restrict__ labels,
+                           float* __restrict__ part, int N, int V, int H,
+                           int tiles_per_split) {
+  extern __shared__ unsigned char ce_smem[];
+  const uint32_t base = (smem_u32(ce_smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = ce_smem + (base - smem_u32(ce_smem));
+  const int n0 = blockIdx.x * kBM;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int vt0 = split * tiles_per_split;
+  const int vt1 = min((V + kFBV - 1) / kFBV, vt0 + tiles_per_split);
+  const int nk = (H + kFBK - 1) / kFBK;
+  const int total = (vt1 - vt0) * nk;   // stages this block consumes
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  // this warp's 16 rows of the tile, and this thread's two rows of h
+  const int arow = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;
+  const int row0 = n0 + arow + (lane >> 2);
+
+  // raw h and W (into the W hi tile) of stage f, 16-byte copies; rows
+  // past N or V and columns past H are zeros
+  auto load = [&](int f) {
+    const uint32_t sH = base + (f % kFStages) * kFStageBytes;
+    const int k0 = (f % nk) * kFBK;
+    const int v0 = (vt0 + f / nk) * kFBV;
+#pragma unroll
+    for (int i = 0; i < kBM * 8 / kTcThreads; ++i) {
+      const int idx = threadIdx.x + i * kTcThreads;
+      const int r = idx >> 3;
+      const int c = idx & 7;
+      const bool ok = n0 + r < N && k0 + c * 4 < H;
+      cp_async16(sH + sw128(r, c),
+                 ok ? h + static_cast<long long>(n0 + r) * H + k0 + c * 4 : h,
+                 ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kFBV * 8 / kTcThreads; ++i) {
+      const int idx = threadIdx.x + i * kTcThreads;
+      const int r = idx >> 3;
+      const int c = idx & 7;
+      const bool ok = v0 + r < V && k0 + c * 4 < H;
+      cp_async16(sH + kFHBytes + sw128(r, c),
+                 ok ? w + static_cast<long long>(v0 + r) * H + k0 + c * 4 : w,
+                 ok);
+    }
+  };
+  // split the W chunks this thread copied for stage f (its own copies
+  // are visible to it after its wait): hi in place, lo into the lo tile
+  auto split_w = [&](int f) {
+    unsigned char* sW = gbase + (f % kFStages) * kFStageBytes + kFHBytes;
+#pragma unroll
+    for (int i = 0; i < kFBV * 8 / kTcThreads; ++i) {
+      const int idx = threadIdx.x + i * kTcThreads;
+      const uint32_t off = sw128(idx >> 3, idx & 7);
+      const float4 x = *reinterpret_cast<const float4*>(sW + off);
+      uint4 hi, lo;
+      tf32_split(x.x, hi.x, lo.x);
+      tf32_split(x.y, hi.y, lo.y);
+      tf32_split(x.z, hi.z, lo.z);
+      tf32_split(x.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(sW + off) = hi;
+      *reinterpret_cast<uint4*>(sW + kFWBytes + off) = lo;
+    }
+  };
+
+#pragma unroll
+  for (int f = 0; f < kFAhead; ++f) {
+    if (f < total) load(f);
+    cp_async_commit();
+  }
+  cp_async_wait<kFAhead - 1>();
+  split_w(0);
+
+  // d: one stage's products (12 wgmma in one chain); acc: the tile's
+  // logits, the stages' d summed with rounding FADDs.  The tensor cores
+  // add into d with truncation, and a chain over all of H (768 adds at
+  // H 2048) drifts by ~2^-17 of a logit; a chain of 12 does not.
+  float d[kFAcc];
+  float acc[kFAcc];
+#pragma unroll
+  for (int i = 0; i < kFAcc; ++i) d[i] = acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};     // this lane's share of the row sums
+  float pick[2] = {0.f, 0.f};
+  const int lbl[2] = {labels[row0], labels[row0 + 8]};
+
+  for (int f = 0; f < total; ++f) {
+    fence_proxy_async();    // this thread's split writes, to wgmma's proxy
+    // every split of stage f is done; every warpgroup is past its wait of
+    // step f - 1, so the slot of stage f - 1 is free for stage f + 3
+    __syncthreads();
+    if (f + kFAhead < total) load(f + kFAhead);
+    cp_async_commit();
+    const int kt = f % nk;
+    const uint32_t sH = base + (f % kFStages) * kFStageBytes;
+    // this warp's A fragments of the stage's four k8 steps, split
+    uint32_t ah[4][4];
+    uint32_t al[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t raw[4];
+      ldsm_x4(raw, sH + sw128(arow + (lane & 15), 2 * j + (lane >> 4)));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tf32_split(__uint_as_float(raw[e]), ah[j][e], al[j][e]);
+    }
+    const uint64_t dhi = sw128_desc(sH + kFHBytes);
+    const uint64_t dlo = sw128_desc(sH + kFHBytes + kFWBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // 8 K values = 32 bytes further along the swizzled rows; the three
+      // products of a step into the one accumulator chain
+      wgmma_tf32_m64n128k8(d, ah[j], dhi + 2 * j, j > 0);
+      wgmma_tf32_m64n128k8(d, ah[j], dlo + 2 * j, 1);
+      wgmma_tf32_m64n128k8(d, al[j], dhi + 2 * j, 1);
+    }
+    wgmma_commit();
+    // stage f + 1's W, while stage f's products run
+    if (f + 1 < total) {
+      cp_async_wait<kFAhead - 1>();
+      split_w(f + 1);
+    }
+    wgmma_wait<0>();
+    fence_acc_f32(d);
+    fence_frag(ah);
+    fence_frag(al);
+#pragma unroll
+    for (int i = 0; i < kFAcc; ++i) acc[i] = kt == 0 ? d[i] : acc[i] + d[i];
+    if (kt != nk - 1) continue;
+    // a finished tile: fold its logits into the rows' online state
+    const int v0 = (vt0 + f / nk) * kFBV;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kFBV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = v0 + 8 * j + 2 * t + e;
+          float x = acc[4 * j + 2 * r + e];
+          if (col < V) {
+            if (col == lbl[r]) pick[r] += x;
+          } else {
+            x = kNegInf;
+          }
+          acc[4 * j + 2 * r + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFBV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sum += __expf(acc[4 * j + 2 * r + e] - m_new);
+      l[r] = l[r] * __expf(m[r] - m_new) + sum;
+      m[r] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    const float pr = quad_sum(pick[r]);
+    if (t == 0) {
+      const long long row = row0 + 8 * r;
+      part[static_cast<long long>(split) * N + row] = m[r];
+      part[static_cast<long long>(splits + split) * N + row] = lr;
+      part[static_cast<long long>(2 * splits + split) * N + row] = pr;
+    }
+  }
+}
+
 // z and picked of each row from the splits' partials, in split order.
 __global__ void __launch_bounds__(kMergeThreads)
 fused_ce_merge_kernel(const float* __restrict__ part, float* __restrict__ z,
@@ -472,11 +601,11 @@ fused_ce_merge_kernel(const float* __restrict__ part, float* __restrict__ z,
 
 // dtype: 0 = float32, 1 = bfloat16.  h [N, H] and W [V, H] row-major
 // with H a multiple of 32 and 16-byte aligned bases; labels [N] int32;
-// z and picked [N] float32.  bfloat16 only: N a multiple of 128, the
-// vocabulary cut into `splits` runs of `tiles_per_split` tiles of 256
-// rows (splits = ceil(ceil(V / 256) / tiles_per_split)), and `partials`
-// a float32 scratch of 3 * splits * N values.  Launches on `stream`
-// (bfloat16: the split kernel, then the merge), does not synchronise,
+// z and picked [N] float32; N a multiple of 128.  The vocabulary is cut
+// into `splits` runs of `tiles_per_split` tiles (bfloat16: 256 rows,
+// float32: 128; splits = ceil(ceil(V / tile) / tiles_per_split)), and
+// `partials` is a float32 scratch of 3 * splits * N values.  Launches on
+// `stream` the split kernel, then the merge; does not synchronise,
 // allocates nothing, returns cudaGetLastError() after the last launch
 // (cudaErrorInvalidValue for an unknown dtype or an inconsistent plan).
 extern "C" int pt_fused_ce_fwd(const void* h, const void* w,
@@ -484,36 +613,46 @@ extern "C" int pt_fused_ce_fwd(const void* h, const void* w,
                                void* partials, int dtype, int N, int V, int H,
                                int splits, int tiles_per_split, void* stream) {
   if (N == 0) return 0;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lbl = static_cast<const int*>(labels);
-  float* zf = static_cast<float*>(z);
-  float* pf = static_cast<float*>(picked);
-  if (dtype == 0) {
-    fused_ce_fwd_kernel<<<(N + kTileN - 1) / kTileN, kThreads, 0, s>>>(
-        static_cast<const float*>(h), static_cast<const float*>(w), lbl, zf,
-        pf, N, V, H);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int v_tiles = (V + kBV - 1) / kBV;
-  if (dtype != 1 || N % kBM || tiles_per_split < 1 || partials == nullptr
+  const int tile = dtype == 0 ? kFBV : kBV;
+  const int v_tiles = (V + tile - 1) / tile;
+  if (N % kBM || tiles_per_split < 1 || partials == nullptr
       || splits != (v_tiles + tiles_per_split - 1) / tiles_per_split) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int* lbl = static_cast<const int*>(labels);
   float* part = static_cast<float*>(partials);
-  fused_ce_fwd_tc_kernel<<<dim3(N / kBM, splits), kTcThreads, kTcSmemBytes,
-                           s>>>(static_cast<const bf16*>(h),
-                                static_cast<const bf16*>(w), lbl, part, N, V,
-                                H, tiles_per_split);
+  const dim3 grid(N / kBM, splits);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = cudaFuncSetAttribute(fused_ce_fwd_tf32x3_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kF32SmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_ce_fwd_tf32x3_kernel<<<grid, kTcThreads, kF32SmemBytes, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(w), lbl, part,
+        N, V, H, tiles_per_split);
+  } else {
+    err = cudaFuncSetAttribute(fused_ce_fwd_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTcSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_ce_fwd_tc_kernel<<<grid, kTcThreads, kTcSmemBytes, s>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), lbl, part,
+        N, V, H, tiles_per_split);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_ce_merge_kernel<<<(N + kMergeThreads - 1) / kMergeThreads,
-                          kMergeThreads, 0, s>>>(part, zf, pf, N, splits);
+                          kMergeThreads, 0, s>>>(part, static_cast<float*>(z),
+                                                 static_cast<float*>(picked),
+                                                 N, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dynamic shared memory (bytes) of one block of the bfloat16 kernel.
-extern "C" int pt_fused_ce_smem_bytes() { return kTcSmemBytes; }
+// The dynamic shared memory (bytes) of one block of the split kernel of
+// `dtype` (0 float32, 1 bfloat16).
+extern "C" int pt_fused_ce_smem_bytes(int dtype) {
+  return dtype == 0 ? kF32SmemBytes : kTcSmemBytes;
+}

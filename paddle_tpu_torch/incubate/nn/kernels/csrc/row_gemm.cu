@@ -302,19 +302,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead) {
          | (static_cast<uint64_t>(1) << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // d (64 weight columns x 64 rows of x, float32) += A * B: A 64 x 16 by
 // descriptor, K-major (TA 0) or MN-major (TA 1); B 64 x 16, K-major
 template <int TA>

@@ -1,17 +1,22 @@
 // Tensor-core building blocks for Hopper (sm_90a) shared by the
 // hand-written kernels of this directory: flash_attention.cu's bf16
-// kernels, flash_decode.cu's prefill instance and fused_ce.cu.
+// kernels and float32 forward, flash_decode.cu's prefill instance and
+// fused_ce.cu.
 //
 // * cp.async 16- and 4-byte copies global -> shared (src-size 0 writes
 //   zeros and reads nothing), commit and wait;
 // * ldmatrix (plain and .trans) and mma.sync.m16n8k16 with bf16 operands
-//   and float32 accumulators;
+//   and float32 accumulators, and the split of a float32 value into two
+//   TF32 halves (tf32x3.py's rule);
 // * the XOR swizzle of a [rows][HD] bf16 tile (16-byte chunk c of row r
 //   at c ^ (r mod 8); hD 32: c ^ (r/2 mod 4)) and the ldmatrix addresses
 //   of A and B fragments in it;
 // * qk_tile (a 16-row score tile), pv_step (P.V with P as two bf16
 //   halves, hi and lo) and the quad reductions over the four lanes that
-//   share an accumulator row.
+//   share an accumulator row;
+// * wgmma's shared-memory descriptor of a K-major 128-byte-swizzled
+//   tile, its fence, commit and wait, the generic-to-async proxy fence,
+//   and the byte offset of a chunk in such a tile.
 //
 // Accumulator element e of n8 tile j sits at row g + 8 (e / 2), column
 // 8 j + 2 t + e % 2 (g = lane / 4, t = lane % 4).
@@ -181,6 +186,61 @@ __device__ __forceinline__ void pv_step(float (&acc)[HD / 8][4],
     mma(acc[2 * dj], lo, b[0], b[1]);
     mma(acc[2 * dj + 1], lo, b[2], b[3]);
   }
+}
+
+// x rounded to TF32 (nearest, ties away from zero): add half of the unit
+// of the 13 dropped bits to the magnitude bits, clear them; the rounding
+// of cvt.rna.tf32.f32, as tf32x3.tf32_round has it
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// hi = tf32(x), lo = tf32(x - hi) (0 where hi is not finite): x = hi + lo
+// within 2^-22 |x|
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = (hi & 0x7F800000u) == 0x7F800000u
+           ? 0u : tf32_rna(x - __uint_as_float(hi));
+}
+
+// ---- wgmma (sm_90a) ----
+
+// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle: start address >> 4, leading offset unused (one swizzle row
+// spans the 128 bytes of K of a stage), stride 1024 bytes between groups of
+// eight rows, layout 1 = 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of this warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes of the generic proxy (cp.async) become visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r of a tile of 128-byte rows in
+// the 128-byte swizzle (chunk c at c ^ (r mod 8)), as sw128_desc names it.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
 // quad (4 lanes sharing an accumulator row) reductions

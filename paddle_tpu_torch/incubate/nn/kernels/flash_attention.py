@@ -14,8 +14,11 @@ kernel, both recomputing P from the saved lse.  The TPU kernels
 backward) become the three hand-written CUDA kernels in
 ``csrc/flash_attention.cu``, in two designs chosen there by dtype:
 bfloat16 runs on the tensor cores (``mma.sync``, bf16 tiles staged by
-``cp.async``), float32 on the CUDA cores; its source note says what
-bounds them.
+``cp.async``); float32 runs its forward on the tensor cores too, each
+product as three TF32 products of split operands (``tf32x3.py``;
+:func:`flash_attention_fwd_tf32x3_plain` is that arithmetic in plain
+PyTorch, no call takes a single TF32 pass), and its dK/dV and dQ on the
+CUDA cores; its source note says what bounds them.
 
 Rounding: every version keeps P and dS to float32 precision (the
 bfloat16 kernels feed each to the tensor cores as two bf16 halves), so
@@ -62,10 +65,12 @@ import torch
 
 from . import _build
 from .flash_decode import _strides
+from .tf32x3 import einsum_tf32x3
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_with_lse_plain",
+           "flash_attention_fwd_tf32x3_plain",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain",
            "default_use_flash", "launches", "reset_launches", "NEG_INF",
            "ENTRIES", "LAUNCHES"]
@@ -157,6 +162,32 @@ def flash_attention_with_lse_plain(q, k, v, offset: int = 0,
     s = _scores(q, k, causal, _scale(q, scale), offset)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
     return out.to(q.dtype), torch.logsumexp(s, -1)
+
+
+def flash_attention_fwd_tf32x3_plain(q, k, v, offset: int = 0,
+                                     scale: Optional[float] = None,
+                                     causal: bool = True):
+    """The float32 forward kernel's arithmetic in plain PyTorch, (out,
+    lse): S = (q * scale) K^T and O = P V as three TF32 products of split
+    operands (:func:`tf32x3.einsum_tf32x3`), P = exp(S - max) split as it
+    is, l the sum of the unsplit P, out = O / l, lse = max + log l; masked
+    scores -1e30 as in :func:`flash_attention_with_lse_plain`.  The
+    kernel's online softmax rescales P tile by tile: another rounding of
+    the same terms."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the tf32x3 forward is float32's, got {q.dtype}")
+    qs = q * _scale(q, scale)
+    s = einsum_tf32x3("bqhd,bkhd->bhqk", qs, k)
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        visible = (torch.arange(Sk, device=q.device)[None, :]
+                   <= torch.arange(Sq, device=q.device)[:, None] + offset)
+        s = s.masked_fill(~visible, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1)
+    out = einsum_tf32x3("bhqk,bkhd->bqhd", p, v) / l.transpose(1, 2)[..., None]
+    return out, m[..., 0] + torch.log(l)
 
 
 def _bwd_terms(q, k, v, dout, lse, delta, causal, scale, offset):
@@ -268,8 +299,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     the run-time ``offset`` (a host int).  CPU tensors run the plain
     version; CUDA tensors launch the forward kernel (float32 or
     bfloat16, hD in 32/64/128, last axis contiguous, other strides and
-    the base 16-byte aligned) or raise.  The launch counts under
-    ``LAUNCHES[entry + "_fwd"]``."""
+    the base 16-byte aligned; float32 as three TF32 products a product,
+    :func:`flash_attention_fwd_tf32x3_plain`, whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says) or raise.  The
+    launch counts under ``LAUNCHES[entry + "_fwd"]``."""
     offset, entry = _offset(offset), _entry(entry)
     if not _check(q, k, v):
         return flash_attention_with_lse_plain(q, k, v, offset, scale, causal)

@@ -11,12 +11,15 @@ note says what bounds it on the H100.
 Dispatch: a CPU tensor runs :func:`fused_ce_fwd_plain`; a CUDA tensor
 launches the kernel or raises.  There is no fallback.
 
-bfloat16 runs on the tensor cores, split over the vocabulary: each
+Both dtypes run on the tensor cores, split over the vocabulary: each
 split writes per-row partials (max, sum-exp, picked) and a second kernel
 merges them in a fixed order (:func:`ce_plan` fixes the splits,
 :func:`fused_ce_fwd_split_plain` is that rule in plain PyTorch, for the
-tests).  ``LAUNCHES`` counts one per call, however many CUDA launches
-the call makes.
+tests).  float32 products are three TF32 products of split operands
+(``tf32x3.py``; :func:`fused_ce_fwd_tf32x3_plain` is the kernel's
+arithmetic in plain PyTorch); no call takes a single TF32 pass.
+``LAUNCHES`` counts one per call, however many CUDA launches the call
+makes.
 """
 from __future__ import annotations
 
@@ -26,17 +29,21 @@ import torch
 
 from ....models.common import matmul_f32out
 from . import _build
+from .tf32x3 import mm_tf32x3
 
 __all__ = ["fused_ce_fwd", "fused_ce_fwd_plain", "fused_ce_fwd_split_plain",
-           "fused_ce_supported", "ce_plan", "LAUNCHES"]
+           "fused_ce_fwd_tf32x3_plain", "fused_ce_supported", "ce_plan",
+           "LAUNCHES"]
 
 #: kernel calls so far, one per wrapper call (CUDA tensors only; the
 #: plain version and rejected calls do not count)
 LAUNCHES = 0
 
-#: the bfloat16 kernel's tiles: rows of h a block, vocabulary rows a
-#: tile, and blocks resident on one SM
+#: the kernels' tiles: rows of h a block, vocabulary rows a tile (the
+#: bfloat16 kernel's; the float32 kernel's by dtype in VOCAB_TILES), and
+#: blocks resident on one SM
 ROW_TILE, VOCAB_TILE, BLOCKS_PER_SM = 128, 256, 1
+VOCAB_TILES = {torch.bfloat16: VOCAB_TILE, torch.float32: 128}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
@@ -67,11 +74,8 @@ def _check(h, W, local_labels):
                          f"{sorted(map(str, devs))}")
 
 
-def fused_ce_fwd_plain(h, W, local_labels):
-    """The kernel's function in plain PyTorch: float32 logits (built in
-    full), logsumexp, and the label's logit masked outside [0, V)."""
-    V = W.shape[0]
-    logits = matmul_f32out(h, W.t())
+def _z_picked(logits, local_labels):
+    V = logits.shape[1]
     z = torch.logsumexp(logits, dim=-1)
     lbl = local_labels.long()
     ok = (lbl >= 0) & (lbl < V)
@@ -79,13 +83,28 @@ def fused_ce_fwd_plain(h, W, local_labels):
     return z, torch.where(ok, got, 0.0)
 
 
-def ce_plan(N: int, V: int, n_sm: int):
-    """(splits, tiles_per_split) of the bfloat16 kernel: the vocabulary
-    in runs of whole 128-row tiles, as few runs as reach the least
-    (waves of ``BLOCKS_PER_SM * n_sm`` blocks) x (tiles a block).  At
-    N 8192, V 50304 on 132 SMs: 33 splits of 6 tiles."""
+def fused_ce_fwd_plain(h, W, local_labels):
+    """The kernel's function in plain PyTorch: float32 logits (built in
+    full), logsumexp, and the label's logit masked outside [0, V)."""
+    return _z_picked(matmul_f32out(h, W.t()), local_labels)
+
+
+def fused_ce_fwd_tf32x3_plain(h, W, local_labels):
+    """The float32 kernel's arithmetic in plain PyTorch: the logits as
+    three TF32 products of split operands (:func:`tf32x3.mm_tf32x3`),
+    then as :func:`fused_ce_fwd_plain`."""
+    return _z_picked(mm_tf32x3(h, W.t()), local_labels)
+
+
+def ce_plan(N: int, V: int, n_sm: int, vocab_tile: int = VOCAB_TILE):
+    """(splits, tiles_per_split) of the kernels: the vocabulary in runs
+    of whole ``vocab_tile``-row tiles (``VOCAB_TILES`` of the dtype), as
+    few runs as reach the least (waves of ``BLOCKS_PER_SM * n_sm``
+    blocks) x (tiles a block).  On 132 SMs: bfloat16 at N 8192, V 50304,
+    33 splits of 6 tiles; float32 at N 2048, 33 splits of 12 tiles of
+    128 (528 blocks: 4 full waves)."""
     row_tiles = -(-N // ROW_TILE)
-    v_tiles = -(-V // VOCAB_TILE)
+    v_tiles = -(-V // vocab_tile)
     slots = BLOCKS_PER_SM * n_sm
     best = None
     for per in range(v_tiles, 0, -1):
@@ -97,16 +116,17 @@ def ce_plan(N: int, V: int, n_sm: int):
 
 
 def fused_ce_fwd_split_plain(h, W, local_labels, tiles_per_split: int,
-                             splits=None):
-    """The bfloat16 kernel's split-and-merge rule in plain PyTorch (float32
-    logits): split s covers vocabulary rows [s * tiles_per_split * 128,
-    (s + 1) * tiles_per_split * 128) and yields per row its max m_s
-    (-1e30 when it holds no row of W), sum-exp sse_s and picked logit;
-    the merge, in split order, is z = M + log(sum_s sse_s exp(m_s - M))
-    (a zero sum reads as 1) and picked = sum_s pick_s.  ``splits`` may
-    exceed the splits V needs: the extra ones are empty."""
+                             splits=None, vocab_tile: int = VOCAB_TILE):
+    """The kernels' split-and-merge rule in plain PyTorch (float32
+    logits): split s covers vocabulary rows [s * tiles_per_split *
+    vocab_tile, (s + 1) * tiles_per_split * vocab_tile) and yields per
+    row its max m_s (-1e30 when it holds no row of W), sum-exp sse_s and
+    picked logit; the merge, in split order, is z = M + log(sum_s sse_s
+    exp(m_s - M)) (a zero sum reads as 1) and picked = sum_s pick_s.
+    ``splits`` may exceed the splits V needs: the extra ones are
+    empty."""
     V = W.shape[0]
-    per_rows = tiles_per_split * VOCAB_TILE
+    per_rows = tiles_per_split * vocab_tile
     if splits is None:
         splits = -(-V // per_rows)
     logits = matmul_f32out(h, W.t())
@@ -161,16 +181,12 @@ def _launch(h, W, local_labels):
                              f"16-byte aligned")
     z = torch.empty((N,), dtype=torch.float32, device=h.device)
     picked = torch.empty((N,), dtype=torch.float32, device=h.device)
-    splits, per, part = 0, 0, None
-    if h.dtype == torch.bfloat16:
-        splits, per = ce_plan(N, V, torch.cuda.get_device_properties(
-            h.device).multi_processor_count)
-        part = torch.empty((3, splits, N), dtype=torch.float32,
-                           device=h.device)
+    splits, per = ce_plan(N, V, torch.cuda.get_device_properties(
+        h.device).multi_processor_count, VOCAB_TILES[h.dtype])
+    part = torch.empty((3, splits, N), dtype=torch.float32, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     rc = _kernel()(h.data_ptr(), W.data_ptr(), local_labels.data_ptr(),
-                   z.data_ptr(), picked.data_ptr(),
-                   None if part is None else part.data_ptr(),
+                   z.data_ptr(), picked.data_ptr(), part.data_ptr(),
                    _DTYPE_CODE[h.dtype], N, V, H, splits, per, stream)
     if rc != 0:
         raise RuntimeError(f"fused_ce_fwd kernel launch failed: CUDA "
@@ -188,7 +204,9 @@ def fused_ce_fwd(h, W, local_labels):
     multiple of 128.  CPU tensors run the plain version; CUDA tensors
     launch the kernel (float32 or bfloat16, contiguous, H a multiple of
     32: one count in ``LAUNCHES``, for the split kernel and its merge
-    alike) or raise."""
+    alike) or raise.  float32 runs three TF32 products a product (see
+    :func:`fused_ce_fwd_tf32x3_plain`), whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says."""
     _check(h, W, local_labels)
     if h.device.type == "cpu":
         return fused_ce_fwd_plain(h, W, local_labels)

@@ -14,6 +14,10 @@ value, plus room for float32 summation order near zero).  In float32
 (another summation order) flash_decode is held at atol 1e-4, and the
 training kernels, whose gradients grow with S, at 1e-4 of the largest
 reference value.  fused_ce's float32 outputs are held at atol 1e-3.
+The float32 forward and fused_ce (three TF32 products a product on the
+tensor cores) are also held to their own arithmetic
+(``*_tf32x3_plain``, chip_smoke.TF32X3_REL / TF32X3_ATOL), and a
+witness shows one TF32 pass missing the float32 limits they keep.
 The RMS kernel is held by ``chip_smoke._rms_errors``, the limits the
 card run uses (float32 per element at 1e-6 relative + 1e-7; bfloat16
 equal or one step apart on at most 1e-3 of the elements; rstd at 1e-6
@@ -570,8 +574,10 @@ def test_flash_attention_offsets_under_the_tc_tiles(cuda, offset):
 
 
 def test_flash_attention_dtype_picks_the_kernels(cuda):
-    """bf16 runs the tensor-core kernels (*_tc_kernel), float32 the CUDA-
-    core ones, as the profiler's kernel names show."""
+    """bf16 runs the tensor-core kernels (*_tc_kernel); float32 its
+    forward as three TF32 products on the tensor cores
+    (flash_attention_fwd_tf32x3_kernel) and dK/dV and dQ on the CUDA
+    cores, as the profiler's kernel names show."""
     from torch.profiler import ProfilerActivity, profile
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -584,6 +590,81 @@ def test_flash_attention_dtype_picks_the_kernels(cuda):
     assert all("_tc_kernel" in n for n in names[torch.bfloat16])
     assert len(names[torch.float32]) == 3
     assert not any("_tc_" in n for n in names[torch.float32])
+    fwd = [n for n in names[torch.float32] if "_fwd" in n]
+    assert len(fwd) == 1 and "flash_attention_fwd_tf32x3_kernel" in fwd[0]
+    assert sum("_tf32x3_" in n for n in names[torch.float32]) == 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,nH,hD,causal", [
+    (2, 1024, 1024, 16, 128, True),   # the float32 training row
+    (2, 1000, 1000, 3, 64, True),     # ragged at length
+    (1, 100, 100, 2, 32, True),       # ragged: one partial query tile
+    (1, 100, 300, 2, 128, True),      # Sk > Sq: key tiles past every row
+    (1, 300, 100, 2, 64, False),
+    (1, 64, 1000, 2, 32, False),
+])
+def test_flash_attention_f32_forward_on_tf32x3(cuda, B, Sq, Sk, nH, hD,
+                                               causal):
+    """The float32 forward (three TF32 products a product) against the
+    true float32 plain version (out 1e-4 of max, lse 1e-4 relative) and
+    against its own arithmetic (chip_smoke.tf32x3_forward_share); the
+    float32 backward pair, unchanged, on this forward's lse at its limits
+    (1e-4 of max); repeat runs give the same bits."""
+    rng = np.random.default_rng(Sq + 3 * Sk + hD + causal)
+    q, dout = (_rand(rng, (B, Sq, nH, hD), torch.float32, cuda)
+               for _ in range(2))
+    k, v = (_rand(rng, (B, Sk, nH, hD), torch.float32, cuda)
+            for _ in range(2))
+    out, lse, delta, grads = _flash_passes(q, k, v, dout, causal)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0,
+                                                     causal=causal)
+    _assert_kernel(out, w_out, 1e-4, of_max=True)
+    _assert_rel(lse, w_lse, 1e-4)
+    share = chip_smoke.tf32x3_forward_share(fa, q, k, v, out, lse, causal, 0)
+    assert max(share.values()) <= 1, share
+    dk, dv, dq = grads[0]
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
+                                                  causal)
+    w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    for got, want in ((dq, w_dq), (dk, w_dk), (dv, w_dv)):
+        _assert_kernel(got, want, 1e-4, of_max=True)
+
+
+@pytest.mark.parametrize("offset", [-1024, -64, -37, 0, 37, 64])
+def test_flash_attention_f32_offsets_on_tf32x3(cuda, offset):
+    """The ring variant in float32 at one chunk of 1024 rows and keys:
+    chip_smoke.ring_kernels_check holds forward, dK/dV and dQ (this
+    forward's lse) to their plain versions and offset 0 bit for bit to
+    the zero-offset call; the forward against its emulation too."""
+    rng = np.random.default_rng(2048 + offset)
+    q, k, v, dout = (_rand(rng, (1, 1024, 2, 128), torch.float32, cuda)
+                     for _ in range(4))
+    g_lse = _rand(rng, (1, 2, 1024), torch.float32, cuda)
+    chip_smoke.ring_kernels_check(fa, q, k, v, dout, g_lse, offset)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, offset=offset,
+                                      entry="flash_attention_with_lse")
+    share = chip_smoke.tf32x3_forward_share(fa, q, k, v, out, lse, True,
+                                            offset)
+    assert max(share.values()) <= 1, share
+
+
+def test_flash_attention_f32_cuda_tensor_never_reaches_plain(cuda,
+                                                            monkeypatch):
+    def refuse(*_, **__):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for name in ("flash_attention_with_lse_plain",
+                 "flash_attention_fwd_tf32x3_plain", "einsum_tf32x3",
+                 "flash_attention_bwd_dkv_plain",
+                 "flash_attention_bwd_dq_plain"):
+        monkeypatch.setattr(fa, name, refuse)
+    x = torch.randn(1, 128, 2, 64, device=cuda, requires_grad=True)
+    out = fa.flash_attention(x, x, x)
+    out.sum().backward()
+    assert torch.isfinite(out).all() and torch.isfinite(x.grad).all()
 
 
 def test_flash_attention_autograd_on_card(cuda):
@@ -668,6 +749,8 @@ def test_fused_ce_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(fce, "fused_ce_fwd_plain", refuse)
     monkeypatch.setattr(fce, "fused_ce_fwd_split_plain", refuse)
+    monkeypatch.setattr(fce, "fused_ce_fwd_tf32x3_plain", refuse)
+    monkeypatch.setattr(fce, "mm_tf32x3", refuse)
     monkeypatch.setattr(fce, "matmul_f32out", refuse)
     for dtype in (torch.bfloat16, torch.float32):
         h = torch.randn(128, 64, device=cuda).to(dtype)
@@ -675,6 +758,67 @@ def test_fused_ce_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
         z, picked = fce.fused_ce_fwd(h, W, torch.zeros(
             128, dtype=torch.int32, device=cuda))
         assert z.is_cuda and torch.isfinite(z).all()
+
+
+@pytest.mark.parametrize("N,V,H", [(2048, 50304, 2048), (128, 1000, 128),
+                                   (256, 129, 256), (384, 50257, 2048)])
+def test_fused_ce_f32_kernel_on_tf32x3(cuda, N, V, H):
+    """float32 as three TF32 products on wgmma, split over the vocabulary
+    (tiles of 128 rows): the eval shape of gpt3_1p3b's default-dtype
+    training, ragged V (1000; 129, one row past a tile; 50257), labels out
+    of range and on the last row; against the true float32 plain version
+    (atol 1e-3), its own arithmetic (chip_smoke.TF32X3_ATOL) and the
+    split-and-merge rule at the kernel's plan; two calls bit for bit."""
+    rng = np.random.default_rng(N + V + H)
+    h = _rand(rng, (N, H), torch.float32, cuda)
+    W = _rand(rng, (V, H), torch.float32, cuda) * 0.05
+    lbl = torch.tensor(rng.integers(0, V, N), dtype=torch.int32, device=cuda)
+    lbl[:6] = torch.tensor([-1, V, V + 5, -7, V - 1, V - 1],
+                           dtype=torch.int32)
+    before = fce.LAUNCHES
+    z, picked = fce.fused_ce_fwd(h, W, lbl)
+    z2, picked2 = fce.fused_ce_fwd(h, W, lbl)
+    torch.cuda.synchronize()
+    assert fce.LAUNCHES == before + 2
+    assert torch.equal(z, z2) and torch.equal(picked, picked2)
+    wz, wp = fce.fused_ce_fwd_plain(h, W, lbl)
+    torch.testing.assert_close(z, wz, rtol=0, atol=1e-3)
+    torch.testing.assert_close(picked, wp, rtol=0, atol=1e-3)
+    assert (picked[:4] == 0).all() and (picked[4:6] != 0).all()
+    ez, ep = fce.fused_ce_fwd_tf32x3_plain(h, W, lbl)
+    tol = chip_smoke.TF32X3_ATOL
+    torch.testing.assert_close(z, ez, rtol=0, atol=tol)
+    torch.testing.assert_close(picked, ep, rtol=0, atol=tol)
+    tile = fce.VOCAB_TILES[torch.float32]
+    splits, per = fce.ce_plan(N, V, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, tile)
+    sz, sp = fce.fused_ce_fwd_split_plain(h, W, lbl, per, vocab_tile=tile)
+    torch.testing.assert_close(z, sz, rtol=0, atol=1e-3)
+    torch.testing.assert_close(picked, sp, rtol=0, atol=1e-3)
+
+
+def test_single_pass_tf32_witness(cuda):
+    """On chip_smoke.tf32_witness's inputs one TF32 pass leaves the
+    float32 limits (CE atol 1e-3, forward 1e-4 of max) and the kernels
+    stay within them; the kernels ignore torch's TF32 switch (the same
+    bits with allow_tf32 on)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    w = chip_smoke.tf32_witness(fa, fce, gen)
+    for name, r in w.items():
+        assert r["kernel"] <= 1 < r["one_pass"], (name, r)
+    h = torch.randn(256, 256, device=cuda)
+    W = torch.randn(1000, 256, device=cuda) * 0.1
+    lbl = torch.zeros(256, dtype=torch.int32, device=cuda)
+    q = torch.randn(1, 256, 2, 64, device=cuda)
+    got = []
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        got.append((*fce.fused_ce_fwd(h, W, lbl),
+                    *fa.flash_attention_fwd(q, q, q, True)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
 
 
 def test_chunked_nll_no_grad_runs_the_kernel(cuda):
