@@ -74,17 +74,20 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    kernel split over the vocabulary, then its merge; one launch count),
    and its float32 instance at N 2048.  float32 outputs are held at
    1e-4 of the largest reference value, lse and z/picked at atol 1e-3;
-   the float32 forward and CE (three TF32 products a product on the
-   tensor cores) also against their own arithmetic
-   (``flash_attention_fwd_tf32x3_plain``, ``fused_ce_fwd_tf32x3_plain``:
-   TF32X3_REL, TF32X3_ATOL), with both bounds (the TF32 rate x 3, the
-   CUDA cores'); then ``tf32_witness``: inputs on which one TF32 pass
-   leaves those limits and the kernels do not.  Yardsticks:
+   the float32 flash forward, dK/dV and dQ and CE (three TF32 products
+   a product on the tensor cores) also against their own arithmetic
+   (``flash_attention_{fwd,bwd_dkv,bwd_dq}_tf32x3_plain``,
+   ``fused_ce_fwd_tf32x3_plain``: TF32X3_REL of max, TF32X3_ATOL), with
+   both bounds (the TF32 rate x 3, the CUDA cores') and both shares;
+   then ``tf32_witness``: inputs on which one TF32 pass leaves those
+   limits and the kernels do not (forward, backward and CE); then,
+   reported only, the float32 forward's share of TF32X3_REL at S 2048
+   and 4096 and at hD 64 (``tf32x3_forward_drift``).  Yardsticks:
    SDPA (``is_causal``) forward and its autograd backward;
    ``matmul_f32out`` + ``torch.logsumexp`` (two calls).  Each flash
    time has its achieved TFLOP/s and share of the bound beside it.
    The attention kernels (bf16 on the tensor cores, P and dS carried as
-   two bf16 halves; float32 on the CUDA cores) and their plain versions
+   two bf16 halves; float32 as three TF32 products) and their plain versions
    both keep P and dS to float32 precision and round once, so each bf16
    element is held to |got - want| <= 2^-7 |want| + 1e-3: one rounding
    step of the reference value, plus room for float32 summation order
@@ -218,8 +221,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    hidden states (atol 1e-3); TF32 matmuls must be off.  Step ms (host
    clock and CUDA events), peak memory, a step's and an eval's device
    ms by family (flash forward, dK/dV, dQ, fused_ce, GEMMs, other) and
-   idle share.  ``--phases train_kernel,float32_training`` runs phases
-   3 and 6a alone (two sources built).
+   idle share.  ``--phases train_kernel,ring_kernel,float32_training``
+   runs phases 3, 11 and 6a alone (or any of them; two sources built).
 7. b1 int8 serving — the serving weights quantized by the port
    (``gpt.quantize_decode_params``).  ``fused_decode_layers`` against
    its plain version in four storage modes (an f32 cache at gpt_tiny
@@ -289,11 +292,13 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    forward, dK/dV and dQ (with an lse cotangent folded into delta) held
    per element to their plain versions at the limits of phase 3, lse at
    atol 1e-3, offset 0 bit for bit to the same kernels under
-   ``flash_attention``'s entry; times beside the plain versions and
+   ``flash_attention``'s entry, float32 also against the tf32x3
+   emulations (TF32X3_REL); times beside the plain versions and
    SDPA with the offset's boolean mask (forward, autograd backward; at
    offsets >= 0 only; at the training shape and offset 0 also SDPA
    ``is_causal``, its flash backend), bounds from the visible pairs
-   (bytes where none), achieved TFLOP/s and share of the bound.
+   (bytes where none; float32 both: the TF32 rate x 3, the CUDA
+   cores'), achieved TFLOP/s and share of the bound.
 12. ring replay — the 4 ranks of a 4-way ring over 4096 positions on one
    card through ``ring_attention_loop`` with a local hand-over, 16
    launches of each offset kernel: the outputs and dq/dk/dv of one
@@ -435,11 +440,13 @@ def _flash_ptxas_start(build, sources=PTXAS_SOURCES):
     return procs
 
 
-# mangled names: the float32 CUDA-core kernels <float, hD>, the float32
-# forward on TF32 <hD>, the bf16 tensor-core kernels <hD, warps>
+# mangled names: the float32 kernels on TF32 <hD>, the bf16 tensor-core
+# kernels <hD, warps>
 FLASH_KERNEL = re.compile(r"flash_attention_(fwd|bwd_dkv|bwd_dq)"
-                          r"(_tc|_tf32x3)?_kernelI(?:f)?Li(\d+)E(?:Li(\d+)E)?")
-F32_FWD_THREADS = 256                      # flash_attention.cu kF32Warps
+                          r"(_tc|_tf32x3)_kernelILi(\d+)E(?:Li(\d+)E)?")
+# threads of a float32 block: flash_attention.cu kF32Warps * 32 and
+# kBwdThreads, both 256
+F32_THREADS = 256
 # flash_decode.cu's split-KV <TQ, TKV, paged, hD, queries>, merge <TQ, hD>
 # and tensor-core <hD, paged> instances; fused_ce.cu's bf16 kernel and
 # merge; fused_decode.cu's <storage mode> instances
@@ -551,7 +558,10 @@ def flash_resources(procs, build):
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{log}")
         out.unlink(missing_ok=True)
         logs[name] = log
-        warnings = [x for x in log.splitlines() if "warning" in x.lower()]
+        # warnings, and ptxas's "Potential Performance Loss" notes (wgmma
+        # serialized: a kernel at a fraction of its speed, and correct)
+        warnings = [x for x in log.splitlines()
+                    if "warning" in x.lower() or "Performance Loss" in x]
         if warnings:
             _log({"phase": "ptxas_warnings", "source": name,
                   "lines": warnings})
@@ -562,11 +572,11 @@ def flash_resources(procs, build):
         m = FLASH_KERNEL.search(line)
         if m:
             tc = m.group(2) == "_tc"
-            name = (f"flash_attention_{m.group(1)}{m.group(2) or ''} "
+            name = (f"flash_attention_{m.group(1)}{m.group(2)} "
                     f"{'bfloat16' if tc else 'float32'} hD {m.group(3)}")
             rows[name] = {
-                "threads": 32 * int(m.group(4)) if tc else (
-                    F32_FWD_THREADS if m.group(2) else 256),
+                "threads": (32 * int(m.group(4)) if tc
+                            else F32_THREADS),
                 "smem_bytes": smem(int(tc), int(m.group(3)), (
                     "fwd", "bwd_dkv", "bwd_dq").index(m.group(1))), **res}
     new_rows = {}
@@ -1527,6 +1537,23 @@ def _bound(nbytes, ops, dt):
             "bytes": nbytes, "ops": ops}
 
 
+def _split_bounds(bounds):
+    """The float32 flash kernels run each product as three TF32 products:
+    their bound is three times the operations at the TF32 rate (the
+    lower one); the CUDA cores' float32 bound stays beside as
+    ``<key>_ffma``.  In place."""
+    for key in [k for k in bounds if not k.endswith("_ffma")]:
+        b = bounds[key]
+        bounds[f"{key}_ffma"] = b
+        bounds[key] = _bound(b["bytes"], 3 * b["ops"], "tf32")
+
+
+def _ffma_shares(times, bounds):
+    """Each timed float32 kernel's share of its FFMA bound."""
+    return {k: bounds[f"{k}_ffma"]["bound_ms"] / times[f"{k}_ms"]
+            for k in ("fwd", "dkv", "dq") if f"{k}_ms" in times}
+
+
 def train_kernel_phase(fa, fce, matmul_f32out):
     """The training kernels against their plain versions on the card,
     with times, bounds and the library yardsticks."""
@@ -1565,9 +1592,11 @@ def train_kernel_phase(fa, fce, matmul_f32out):
         errs = {"out": _err(out, w_out), "dk": _err(dk, w_dk),
                 "dv": _err(dv, w_dv), "dq": _err(dq, w_dq)}
         lse_err = (lse - w_lse).abs().max().item()
-        # float32: the forward against its own arithmetic too
-        emu = None if dt != torch.float32 else tf32x3_forward_share(
-            fa, q, k, v, out, lse, causal, 0)
+        # float32: the three kernels against their own arithmetic too
+        emu = None if dt != torch.float32 else {
+            **tf32x3_forward_share(fa, q, k, v, out, lse, causal, 0),
+            **tf32x3_backward_share(fa, q, k, v, dout, lse, delta,
+                                    (dk, dv, dq), causal, 0)}
         _log({"phase": "kernel_training_check", "name": name,
               "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
               "lse_max_abs_err": lse_err, "tf32x3_emulation": emu})
@@ -1623,10 +1652,7 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                                10 * hD * pairs * B * nH, dts),
         }
         if dt == torch.float32:
-            # the forward as three TF32 products a product: the lower bound
-            bounds["fwd_ffma"] = bounds["fwd"]
-            bounds["fwd"] = _bound(4 * n_el * e + stats,
-                                   3 * 4 * hD * pairs * B * nH, "tf32")
+            _split_bounds(bounds)
         row = {"phase": "kernel_training", "name": name,
                "shape": f"B={B} S={S} nH={nH} hD={hD} {dts} "
                         f"causal={causal} packed qkv",
@@ -1639,8 +1665,7 @@ def train_kernel_phase(fa, fce, matmul_f32out):
                "library_fwd_max_abs_err": lib_err,
                "bounds": bounds}
         if dt == torch.float32:
-            row["bound_share_ffma"] = {"fwd": bounds["fwd_ffma"]["bound_ms"]
-                                       / times["fwd_ms"]}
+            row["bound_share_ffma"] = _ffma_shares(times, bounds)
         _log(row)
         results[name] = row
         del qkv, q, k, v, dout, out, lse, delta, dk, dv, dq
@@ -1728,7 +1753,27 @@ def train_kernel_phase(fa, fce, matmul_f32out):
     w = results["tf32_witness"]
     if not all(w[k]["kernel"] <= 1 < w[k]["one_pass"] for k in w):
         raise AssertionError(f"single-pass TF32 witness: {w}")
+    results["tf32x3_forward_drift"] = tf32x3_forward_drift(fa, gen)
+    _log({"phase": "tf32x3_forward_drift", "limit": TF32X3_REL,
+          "shares": results["tf32x3_forward_drift"]})
     return results
+
+
+def tf32x3_forward_drift(fa, gen):
+    """Reported, not asserted: the share of its TF32X3_REL limits the
+    float32 forward uses against its emulation past the training shape,
+    causal: [1, 2048, 16x128] and [1, 4096, 16x128] (longer accumulation
+    chains in P V and the online softmax) and [2, 1024, 16x64]."""
+    rows = {}
+    for B, S, hD in ((1, 2048, 128), (1, 4096, 128), (2, 1024, 64)):
+        q, k, v = (torch.randn((B, S, 16, hD), generator=gen, device="cuda")
+                   for _ in range(3))
+        out, lse = fa.flash_attention_fwd(q, k, v, True)
+        rows[f"B={B} S={S} nH=16 hD={hD}"] = tf32x3_forward_share(
+            fa, q, k, v, out, lse, True, 0)
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return rows
 
 
 # The float32 kernels against their tf32x3 emulation: the same split
@@ -1755,6 +1800,22 @@ def tf32x3_forward_share(fa, q, k, v, out, lse, causal, offset):
             "lse": ((lse - e_lse).abs() / lse_lim).max().item()}
 
 
+def tf32x3_backward_share(fa, q, k, v, dout, lse, delta, grads, causal,
+                          offset):
+    """The share of its limit the float32 dK/dV and dQ kernels' worst
+    elements use against ``flash_attention_bwd_{dkv,dq}_tf32x3_plain``
+    (the same split products, another summation order; the kernels sum
+    each tile's products from zero): each of ``grads`` = (dk, dv, dq)
+    within TF32X3_REL of its max."""
+    e_dk, e_dv = fa.flash_attention_bwd_dkv_tf32x3_plain(
+        q, k, v, dout, lse, delta, causal, None, offset)
+    e_dq = fa.flash_attention_bwd_dq_tf32x3_plain(q, k, v, dout, lse, delta,
+                                                  causal, None, offset)
+    return {name: _limit_share(got, want, TF32X3_REL, of_max=True)
+            for name, got, want in zip(("dk", "dv", "dq"), grads,
+                                       (e_dk, e_dv, e_dq))}
+
+
 def tf32_witness(fa, fce, gen):
     """Inputs on which one TF32 pass (each operand rounded to TF32 once)
     leaves the float32 limits and the kernels (three products of split
@@ -1763,7 +1824,10 @@ def tf32_witness(fa, fce, gen):
     one pass).  CE at [2048, 50304, 2048] with W at 0.1 N(0, 1) (logits
     ~4.5 wide: one pass moves a logit by ~1e-3), atol 1e-3; the forward
     at [2, 1024, 16x128] causal with q and k at 3 N(0, 1) (scores ~9
-    wide, sharp rows), out 1e-4 of max |out|."""
+    wide, sharp rows), out 1e-4 of max |out|; the backward (dK/dV and dQ)
+    on the same inputs with dO ~ N(0, 1), each grad 1e-4 of its max (the
+    kernel's worst grad; one pass: the worst of q * scale, k, v and dO
+    rounded once, P and dS kept float32)."""
     from paddle_tpu_torch.incubate.nn.kernels.tf32x3 import tf32_round
     N, V, H = 2048, 50304, 2048
     h = torch.randn((N, H), generator=gen, device="cuda")
@@ -1792,6 +1856,29 @@ def tf32_witness(fa, fce, gen):
     out["flash_attention_fwd"] = {
         "kernel": _limit_share(got, want, F32_REL, of_max=True),
         "one_pass": _limit_share(one, want, F32_REL, of_max=True)}
+    # the backward on the same inputs, dO ~ N(0, 1), from the plain
+    # forward's out and lse; one pass: q * scale, k, v and dO rounded once
+    dout = torch.randn((B, S, nH, hD), generator=gen, device="cuda")
+    del got, one
+    w_out, lse = fa.flash_attention_with_lse_plain(q, k, v, 0)
+    delta = (dout * w_out).sum(-1).transpose(1, 2).contiguous()
+    del w_out
+    kernel = (*fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta),
+              fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta))
+    want = (*fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta),
+            fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta))
+    r = (tf32_round(q * hD ** -0.5), tf32_round(k), tf32_round(v),
+         tf32_round(dout), lse, delta, True, 1.0)
+    one = (*fa.flash_attention_bwd_dkv_plain(*r),
+           fa.flash_attention_bwd_dq_plain(*r) * hD ** -0.5)
+    names = ("dk", "dv", "dq")
+    shares = {n: {"kernel": _limit_share(a, w, F32_REL, of_max=True),
+                  "one_pass": _limit_share(o, w, F32_REL, of_max=True)}
+              for n, a, o, w in zip(names, kernel, one, want)}
+    out["flash_attention_bwd"] = {
+        "kernel": max(s["kernel"] for s in shares.values()),
+        "one_pass": max(s["one_pass"] for s in shares.values()),
+        "by_grad": shares}
     torch.cuda.empty_cache()
     return out
 
@@ -4102,10 +4189,12 @@ def ring_kernel_phase(fa):
     (every key visible); and at the shape the sequence-parallel run
     gives it (llama_7b training, B 4, S 2048, bf16) at offsets 0 (that
     run's), -37 and 37.  Each held per element to the plain versions,
-    offset 0 bit for bit to the zero-offset entry.  Times of the kernels
-    and the plain versions; SDPA with the offset's boolean mask, forward
-    and autograd backward, at offsets >= 0 (a fully masked row gives NaN
-    there); bounds from the visible pairs (bytes where none is)."""
+    offset 0 bit for bit to the zero-offset entry, float32 also to the
+    three kernels' tf32x3 emulations.  Times of the kernels and the plain
+    versions; SDPA with the offset's boolean mask, forward and autograd
+    backward, at offsets >= 0 (a fully masked row gives NaN there);
+    bounds from the visible pairs (bytes where none is; float32 as three
+    TF32 products, the FFMA bound beside)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -4121,8 +4210,20 @@ def ring_kernel_phase(fa):
                                      device="cuda").to(dt) for _ in range(4))
         g_lse = torch.randn((B, nH, S), generator=gen, device="cuda")
         for off in offsets:
-            (out, lse, *_), delta, errs, lse_err = ring_kernels_check(
+            (out, lse, dk, dv, dq), delta, errs, lse_err = ring_kernels_check(
                 fa, q, k, v, dout, g_lse, off)
+            emu = None
+            if dt == torch.float32:
+                # the three kernels against their own arithmetic too
+                emu = {**tf32x3_forward_share(fa, q, k, v, out, lse, True,
+                                              off),
+                       **tf32x3_backward_share(fa, q, k, v, dout, lse, delta,
+                                               (dk, dv, dq), True, off)}
+                if not max(emu.values()) <= 1:
+                    raise AssertionError(f"flash_attention offset {off} "
+                                         f"float32 against the tf32x3 "
+                                         f"emulation: {emu}")
+            del dk, dv, dq
             times = {
                 "fwd_ms": _time_ms(lambda: fa.flash_attention_fwd(
                     q, k, v, True, None, off, RING), reps=10, flush=flush),
@@ -4184,15 +4285,19 @@ def ring_kernel_phase(fa):
                 "fwd": _bound(4 * n_el * e + stats, 4 * hD * pairs, dts),
                 "dkv": _bound(6 * n_el * e + 2 * stats, 8 * hD * pairs, dts),
                 "dq": _bound(5 * n_el * e + 2 * stats, 6 * hD * pairs, dts)}
+            if dt == torch.float32:
+                _split_bounds(bounds)
             row = {"phase": "kernel_ring", "case": case, "offset": off,
                    "shape": f"B={B} Sq=Sk={S} nH={nH} hD={hD} {dts} causal",
                    "visible_pairs": pairs, **times, **_rates(times, bounds),
                    "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
                    "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
-                   "lse_max_abs_err": lse_err,
+                   "lse_max_abs_err": lse_err, "tf32x3_emulation": emu,
                    "library_fwd_max_abs_err": lib_err,
                    "offset0_bit_for_bit": True if off == 0 else None,
                    "bounds": bounds}
+            if dt == torch.float32:
+                row["bound_share_ffma"] = _ffma_shares(times, bounds)
             _log(row)
             results[(f"{case} {dts}", off)] = row
             del out, lse, delta
@@ -5711,30 +5816,31 @@ def main(argv=None) -> int:
             "shape": tr["shape"]})
     # the float32 instances: launches from gpt3_1p3b's default-dtype
     # training (4 steps; the gpt_tiny reference phase's beside), timed at
-    # [2, 1024, 16x128]; the forward as three TF32 products on the tensor
-    # cores (its bound at the TF32 rate, the CUDA cores' beside), dK/dV
-    # and dQ on the CUDA cores
+    # [2, 1024, 16x128]; all three as three TF32 products on the tensor
+    # cores (the bound at the TF32 rate, the CUDA cores' beside)
     f32 = train_kernels["train_f32"]
+    emu = f32["tf32x3_emulation"]
     for e in entries[-3:]:
         key = e["name"].replace("flash_attention_", "").replace("bwd_", "")
+        grads = {"fwd": ("out", "lse"), "dkv": ("dk", "dv"),
+                 "dq": ("dq",)}[key]
         e["float32"] = {
-            "kernel": ("flash_attention_fwd_tf32x3_kernel" if key == "fwd"
-                       else f"{e['name']}_kernel<float>"),
+            "kernel": f"{e['name']}_tf32x3_kernel",
             "shape": f32["shape"],
             "launches": f32_training["launches_4_steps"][e["name"]],
             "reference_launches": f32_launches.get(e["name"], 0),
             "ms": f32[f"{key}_ms"], "plain_ms": f32[f"{key}_plain_ms"],
             "bound_ms": f32["bounds"][key]["bound_ms"],
             "bound_by": f32["bounds"][key]["bound_by"],
+            "bound_ffma_ms": f32["bounds"][f"{key}_ffma"]["bound_ms"],
+            "max_abs_err": max(f32["max_abs_err"][g] for g in grads
+                               if g != "lse"),
+            "tf32x3_emulation_share": {g: emu[g] for g in grads},
+            "single_pass_witness": train_kernels["tf32_witness"][
+                "flash_attention_fwd" if key == "fwd"
+                else "flash_attention_bwd"],
             "library_ms": f32["fwd_library_ms" if key == "fwd"
                               else "bwd_library_ms"]}
-        if key == "fwd":
-            e["float32"].update(
-                bound_ffma_ms=f32["bounds"]["fwd_ffma"]["bound_ms"],
-                max_abs_err=f32["max_abs_err"]["out"],
-                tf32x3_emulation_share=f32["tf32x3_emulation"],
-                single_pass_witness=train_kernels["tf32_witness"][
-                    "flash_attention_fwd"])
     ce32 = train_kernels["fused_ce_f32"]
     entries.append({
         "name": "fused_ce_fwd", "route": "cuda",

@@ -39,9 +39,11 @@
 // 0.070 ms for dK/dV and 0.052 for dQ (operations); at LLaMA training's
 // [4, 2048, 32x128] 0.139, 0.278 and 0.209 ms (operations).
 //
-// Float32 runs as three TF32 products a product on the tensor cores in
-// the forward; at [2, 1024, 16x128] causal its bound is 0.1283 ms at the
-// CUDA cores' 67 TFLOP/s and 0.052 ms as three TF32 products at 495.
+// Float32 runs as three TF32 products a product on the tensor cores; at
+// [2, 1024, 16x128] causal (524,800 visible pairs a head) the bounds at
+// the CUDA cores' 67 TFLOP/s are 0.1283 ms (forward), 0.2567 (dK/dV) and
+// 0.1925 (dQ), and as three TF32 products at 495 TFLOP/s 0.052, 0.1042
+// and 0.0782 ms, all set by the operations.
 //
 // Two designs, chosen by dtype here (dtype 1 -> bf16, 0 -> float32):
 //
@@ -98,60 +100,105 @@
 // LlamaConfig.dtype are torch.float32, as in the JAX package), and
 // use_flash=None sends CUDA training attention here (models/common.py
 // _causal_attention): gpt3_1p3b at its defaults trains through these
-// kernels, 24 launches of each a step at [2, 1024, 16x128].
-// * Forward (flash_attention_fwd_tf32x3_kernel): three TF32 products a
-//   product on wgmma.  The tensor cores take no float32 operand and the
-//   CUDA cores' float32 rate is a seventh of the TF32 rate, so each
-//   operand splits into hi = tf32(x) and lo = tf32(x - hi)
-//   (tc_common.cuh tf32_split, tf32x3.py's rule) and each product runs
-//   as hi.hi + hi.lo + lo.hi into one float32 accumulator chain (lo.lo,
-//   <= 2^-22 of it, dropped): ~22 bits an operand, where one TF32 pass
-//   keeps 11 and misses the float32 limits.  wgmma, not mma.sync: with
-//   the three products, the bf16 kernel's warp layout on
-//   mma.sync.m16n8k8 ran slower than SDPA on the card (PERF.md §6).
-// * A block is two warpgroups of 64 query rows; K/V tiles of 32 keys.
-//   S = (Q scale) K^T is wgmma m64n32k8 with both operands in shared
-//   memory, K-major as Q and K lie in memory (tf32 wgmma takes no
-//   transpose): sub-tiles of 32 floats, one 128-byte swizzled row a tile
-//   row.  O += P V is m64n(hD)k8 with P from registers and V^T in shared
-//   memory, so V is transposed on its way in.
-// * The split is done once where the operand is staged: Q (q * scale in
-//   float32, as before) once a block and K once a tile, in place (hi)
-//   and beside (lo) by the threads whose cp.async copies they are; V is
-//   loaded into registers a tile ahead, split and stored transposed (a
-//   warp writes one 128-byte row of V^T at a time); P, which each thread
-//   owns, in registers.  Q and K hi and lo and two slots of V^T hi and lo
-//   take 225 KB at hD 128: one block an SM.  K is single-buffered (its
-//   copies fly during the softmax and P V); tile it + 1's V^T is stored
-//   into the other slot while tile it's S runs, from registers loaded a
-//   tile before.  Blocks run the longest query tiles of every head
-//   first: under the causal mask a tile's work grows with its position,
-//   and the grid runs in waves.
-// * P stays in registers as the A fragment, with no trip through shared
-//   memory: step j's A column t is key 8j + 2t and column t + 4 key
-//   8j + 2t + 1, which is where the score accumulators hold them, and
-//   V^T stores each 8 keys in that order (vt_off).
-// * The contract above holds as before: scale folded into Q, masked
-//   scores -1e30 and exponentiated, keys past Sk counting nothing,
-//   key_end skipping (and a warpgroup whose rows see none of a tile
-//   skips it), the run-time offset (offset 0: the same launch as the
-//   zero-offset call), lse float32.  expf and IEEE division keep the
-//   rest float32.
-// * dK/dV and dQ: the CUDA-core kernels of the first port, unchanged;
-//   they recompute P from the forward's lse.  One block of 256 threads
-//   per (64-row tile, head, batch); tiles of the other operand stream
-//   through shared memory as float32 rows of stride hD+1 (odd, so
-//   row-strided reads hit distinct banks), loaded with 16-byte vectors
-//   from strided [B, S, nH, hD] operands.  Each thread owns a 4x4 score
-//   micro-tile (rows ty*4+i, columns tx+16*j) and the same 4 rows of
-//   the output; the 16 threads sharing a row are one half-warp.  The
-//   scale is folded into a float32 copy of Q, and P and dS stay
-//   float32.  The causal mask skips every tile past the diagonal.
+// kernels, 24 launches of each a step at [2, 1024, 16x128].  All three
+// (flash_attention_{fwd,bwd_dkv,bwd_dq}_tf32x3_kernel) run each float32
+// product as three TF32 products on wgmma.  The tensor cores take no
+// float32 operand and the CUDA cores' float32 rate is a seventh of the
+// TF32 rate, so each operand splits into hi = tf32(x) and lo = tf32(x -
+// hi) (tc_common.cuh tf32_split, tf32x3.py's rule) and each product runs
+// as hi.hi + hi.lo + lo.hi (lo.lo, <= 2^-22 of it, dropped): ~22 bits an
+// operand, where one TF32 pass keeps 11 and misses the float32 limits.
+// wgmma, not mma.sync: with the three products, the bf16 kernels' warp
+// layout on mma.sync.m16n8k8 ran slower than SDPA on the card.  Common
+// to the three:
+// * tf32 wgmma takes only K-major operands (no transpose) from shared
+//   memory: sub-tiles of 32 floats, one 128-byte swizzled row a tile row
+//   (kmajor_off).  An operand whose contraction runs along its stored
+//   rows is stored transposed on its way in, [HD][32] (vt_off): V in the
+//   forward, Q and dO in dK/dV, K in dQ.
+// * A score accumulator is the A fragment of the next product, in
+//   registers, with no trip through shared memory: step j's A column t is
+//   the accumulator's column 8j + 2t and column t + 4 column 8j + 2t + 1,
+//   and the transposed tiles store each 8 rows in that order (vt_off).
+// * Each operand is split once, where it is staged.  Q is multiplied by
+//   the scale in float32 before its split, as the plain versions have it.
+// * The contract above holds: masked scores -1e30 and exponentiated,
+//   keys past Sk counting nothing, the causal skips, the run-time offset
+//   (offset 0: the same launch as the zero-offset call), lse and delta
+//   float32 (delta computed outside).  expf and IEEE division keep the
+//   rest float32.  No atomics: every output is written once, by the block
+//   that owns its rows, and runs give the same bits.
+// * Blocks run the longest tiles of every head first (the last query
+//   tiles in the forward and dQ, key tile 0 in dK/dV): under the causal
+//   mask a tile's work grows (shrinks) with its position, and the grid
+//   runs in waves.
+// Forward: a block is two warpgroups of 64 query rows; K/V tiles of 32
+// keys.  S = (Q scale) K^T is wgmma m64n32k8 with Q and K K-major as they
+// lie; O += P V is m64n(hD)k8 with P from registers and V^T in shared
+// memory.  Q is split once a block and K once a tile, in place (hi) and
+// beside (lo), by the threads whose cp.async copies they are; V is loaded
+// into registers a tile ahead, split and stored transposed (a warp writes
+// one 128-byte row of V^T at a time).  Q and K hi and lo and two slots of
+// V^T hi and lo take 225 KB at hD 128: one block an SM.  K is single-
+// buffered (its copies fly during the softmax and P V); tile it + 1's V^T
+// is stored into the other slot while tile it's S runs.  A warpgroup
+// whose rows see none of a tile skips it.
+// dK/dV and dQ recompute P = exp(S - lse) and dS = P (dP - delta).  A
+// block is two warpgroups: a consumer that owns 64 resident rows and
+// runs the products, P and dS, and a producer that streams the other
+// operand's tiles.  The producer loads a tile's rows into registers a
+// tile ahead (lane pairs read 32 contiguous bytes of a row), splits them,
+// stores the K-major hi/lo tiles once the consumer's score products of
+// the tile before are done, then the transposed hi/lo tiles once its
+// accumulating products are done; four mbarriers (K-major full and
+// empty, transposed full and empty; mbar_wait traps after ~8.7 s) carry
+// the hand-over.  So a tile's split and K-major stores run beside the
+// consumer's P, dS and accumulating products of the tile before, and its
+// transposed stores beside its own score products.  (Staging by the
+// consumer itself, between its products, took 37 % of dK/dV's time and
+// 43 % of dQ's at [2, 1024, 16x128]: PERF.md.)  The warpgroup index
+// comes through a shuffle: with a plain threadIdx test ptxas takes the
+// consumer's path for divergent and serializes its wgmma ("Potential
+// Performance Loss", twice the time; chip_smoke.py prints such notes).
+// * dK/dV: the block owns 64 keys; K and V are split once into resident
+//   tiles.  It walks query tiles of BQ = 16 rows at hD 128 (32 below),
+//   skipping under the causal mask those whose rows all see a key and
+//   whose last row does not see the block's first key; rows with no
+//   visible key are visited in full.  S^T = K (Q scale)^T and dP^T = V
+//   dO^T are m64nBQk8 with K and V as A and Q, dO K-major as they lie;
+//   P^T and dS^T = P^T (dP^T - delta), split in registers, are the A
+//   fragments of dV += P^T dO and dK += dS^T (Q scale) with dO^T and
+//   (Q scale)^T as B.  Shared memory at hD 128: K, V hi/lo 4 x 32 KB,
+//   Q, dO hi/lo 4 x 8 KB, Q^T, dO^T hi/lo 4 x 16 KB ([128][32] rows, 16
+//   positions used), lse and delta [2][16] (two slots: the producer
+//   fills the next visit's while the consumer reads this one's),
+//   mbarriers, 1 KB of alignment: 230,688 of 232,448 bytes.  BQ 32
+//   would take 256 KB, and K, V as register A operands 128 registers a
+//   thread.  Registers: dK and dV 64 each a thread, S^T and dP^T 8 each,
+//   the P and dS fragments 32, a stage sum 32.
+// * dQ: the block owns 64 query rows; Q scale and dO are split once into
+//   resident tiles.  It walks key tiles of 32, up to its last visible key
+//   under the causal mask.  S = (Q scale) K^T and dP = dO V^T are
+//   m64n32k8 with K and V K-major as they lie; dS, split in registers, is
+//   the A fragment of dQ += dS K with K^T as B; dQ * scale at the end (a
+//   float32 multiply, as the plain version).  Shared memory at hD 128:
+//   Q, dO hi/lo 4 x 32 KB, K, V hi/lo 4 x 16 KB, K^T hi/lo 2 x 16 KB,
+//   mbarriers, alignment: 230,432 bytes.
+// * Sums: the tensor cores add each k8 step into the float32 accumulator
+//   with truncation, so one chain over all of Sq (Sk) drifts: 1024 / 8 x
+//   3 = 384 truncating adds.  So each query (key) tile's products are
+//   summed from zero (6 wgmma in dK/dV at hD 128, 12 in dQ; dK/dV in two
+//   halves of 64 columns at hD 128, for registers) and added to dK, dV
+//   (dQ) with rounding adds.  At [2, 1024, 16x128] one chain took 0.28
+//   of the emulation limit (chip_smoke.TF32X3_REL) on dK and dV, these
+//   sums 0.08, for ~6 % of dK/dV's time (PERF.md); the chain's
+//   drift grows with S.
 //
-// Left for later work: wgmma with TMA and warp specialisation (a producer
-// warp feeding consumer warpgroups), the fused backward (see above), and
-// skipping the ring's fully masked blocks (every row of the block with no
-// visible key) outside the kernels.
+// Left for later work: TMA copies, the fused backward (see above), the
+// consumer's own elementwise work beside its products (two consumer
+// warpgroups need a second copy of the streamed tiles: no room at hD
+// 128), and skipping the ring's fully masked blocks (every row of the
+// block with no visible key) outside the kernels.
 
 #include <cstdint>
 
@@ -162,296 +209,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // 8 warps
-constexpr int kTile = 64;              // rows of a query or key tile
-constexpr int kRows = 4;               // tile rows per thread
-constexpr int kCols = kTile / 16;      // tile columns per thread
-constexpr int kPS = kTile + 1;         // row stride of the P / dS tiles
 constexpr float kNegInf = -1e30f;
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  __device__ static void store(float* p, float v) { *p = v; }
-};
 
 struct Strides {
   long long b, t, h;
 };
-
-// Stage rows row0 .. row0+kTile-1 of one (batch, head) slice into
-// shared memory as float32 rows of stride HD+1, times `mul`; rows at or
-// past n_rows read as zero.
-template <typename T, int HD>
-__device__ void load_tile(float* dst, const T* base, long long s_tok,
-                          int row0, int n_rows, float mul) {
-  constexpr int VN = Vec<T>::N;
-  constexpr int kS = HD + 1;
-  for (int idx = threadIdx.x; idx < kTile * HD / VN; idx += kThreads) {
-    const int r = idx / (HD / VN);
-    const int d = (idx % (HD / VN)) * VN;
-    float t[VN];
-    if (row0 + r < n_rows) {
-      Vec<T>::load(base + static_cast<long long>(row0 + r) * s_tok + d, t);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VN; ++i) t[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < VN; ++i) dst[r * kS + d + i] = t[i] * mul;
-  }
-}
-
-// acc[i][j] = sum_d A[ty*4+i][d] * B[tx+16*j][d] over two staged tiles.
-template <int HD>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         float (&acc)[kRows][kCols],
-                                         int ty, int tx) {
-  constexpr int kS = HD + 1;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  const float* a = A + ty * kRows * kS;
-  const float* b = B + tx * kS;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float av[kRows];
-    float bv[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) av[i] = a[i * kS + d];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[j] = b[j * 16 * kS + d];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// One past the last key a query tile at q0 must visit: under the causal
-// mask, when every row of the tile has a visible key, the last key its
-// last row sees; otherwise (or not causal) every key.
-__device__ __forceinline__ int key_end(int q0, int Sk, int causal,
-                                       int offset) {
-  return causal && q0 + offset >= 0 ? min(Sk, q0 + kTile + offset) : Sk;
-}
-
-template <int HD>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (HD + 1) + 2 * kTile * kPS + 2 * kTile) * 4;
-}
-
-template <int HD>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (HD + 1) + kTile * kPS) * 4;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int Sq, int Sk, int nH, Strides qs, Strides ks, Strides vs, Strides ds,
-    float scale, int causal, int offset) {
-  constexpr int kS = HD + 1;
-  constexpr int kD = HD / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * kS;
-  float* sQ = sV + kTile * kS;
-  float* sO = sQ + kTile * kS;   // dO
-  float* sP = sO + kTile * kS;   // P^T   [key][query]
-  float* sG = sP + kTile * kPS;  // dS^T  [key][query]
-  float* sL = sG + kTile * kPS;  // lse of the query tile
-  float* sDl = sL + kTile;       // delta of the query tile
-
-  const int k0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
-  const long long row = (static_cast<long long>(b) * nH + h) * Sq;
-
-  load_tile<T, HD>(sK, k + b * ks.b + h * ks.h, ks.t, k0, Sk, 1.f);
-  load_tile<T, HD>(sV, v + b * vs.b + h * vs.h, vs.t, k0, Sk, 1.f);
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* ob = dout + b * ds.b + h * ds.h;
-
-  float gk[kRows][kD];
-  float gv[kRows][kD];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < kD; ++c) {
-      gk[i][c] = 0.f;
-      gv[i][c] = 0.f;
-    }
-
-  // under the causal mask a query tile whose rows all have a visible key
-  // gives this key tile p = 0 unless its last row sees key k0
-  for (int q0 = 0; q0 < Sq; q0 += kTile) {
-    if (causal && q0 + offset >= 0 && q0 + kTile - 1 + offset < k0) continue;
-    __syncthreads();
-    load_tile<T, HD>(sQ, qb, qs.t, q0, Sq, scale);
-    load_tile<T, HD>(sO, ob, ds.t, q0, Sq, 1.f);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool in = q0 + r < Sq;
-      sL[r] = in ? lse[row + q0 + r] : 0.f;
-      sDl[r] = in ? delta[row + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    float s[kRows][kCols];
-    float dp[kRows][kCols];
-    tile_dot<HD>(sK, sQ, s, ty, tx);   // S^T[key][query]
-    tile_dot<HD>(sV, sO, dp, ty, tx);  // dP^T[key][query]
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int kj = k0 + ty * kRows + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const int qi = q0 + c;
-        const float sv = !causal || kj <= qi + offset ? s[i][j] : kNegInf;
-        const float p = qi < Sq && kj < Sk ? expf(sv - sL[c]) : 0.f;
-        sP[(ty * kRows + i) * kPS + c] = p;
-        sG[(ty * kRows + i) * kPS + c] = p * (dp[i][j] - sDl[c]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float p[kRows];
-      float g[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        p[i] = sP[(ty * kRows + i) * kPS + qq];
-        g[i] = sG[(ty * kRows + i) * kPS + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < kD; ++c) {
-        const float o = sO[qq * kS + tx + 16 * c];
-        const float qv = sQ[qq * kS + tx + 16 * c];  // already times scale
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          gv[i][c] = fmaf(p[i], o, gv[i][c]);
-          gk[i][c] = fmaf(g[i], qv, gk[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kj = k0 + ty * kRows + i;
-    if (kj < Sk) {
-      const long long o = ((static_cast<long long>(b) * Sk + kj) * nH + h) * HD;
-#pragma unroll
-      for (int c = 0; c < kD; ++c) {
-        Vec<T>::store(dk + o + tx + 16 * c, gk[i][c]);
-        Vec<T>::store(dv + o + tx + 16 * c, gv[i][c]);
-      }
-    }
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
-    int nH, Strides qs, Strides ks, Strides vs, Strides ds, float scale,
-    int causal, int offset) {
-  constexpr int kS = HD + 1;
-  constexpr int kD = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sO = sQ + kTile * kS;  // dO
-  float* sK = sO + kTile * kS;
-  float* sV = sK + kTile * kS;
-  float* sG = sV + kTile * kS;  // dS [query][key]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // long tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
-  const long long row = (static_cast<long long>(b) * nH + h) * Sq;
-
-  load_tile<T, HD>(sQ, q + b * qs.b + h * qs.h, qs.t, q0, Sq, scale);
-  load_tile<T, HD>(sO, dout + b * ds.b + h * ds.h, ds.t, q0, Sq, 1.f);
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-
-  float lr[kRows];
-  float dr[kRows];
-  float gq[kRows][kD];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty * kRows + i;
-    lr[i] = qi < Sq ? lse[row + qi] : 0.f;
-    dr[i] = qi < Sq ? delta[row + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kD; ++c) gq[i][c] = 0.f;
-  }
-
-  const int k_end = key_end(q0, Sk, causal, offset);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<T, HD>(sK, kb, ks.t, k0, Sk, 1.f);
-    load_tile<T, HD>(sV, vb, vs.t, k0, Sk, 1.f);
-    __syncthreads();
-    float s[kRows][kCols];
-    float dp[kRows][kCols];
-    tile_dot<HD>(sQ, sK, s, ty, tx);
-    tile_dot<HD>(sO, sV, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty * kRows + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const float sv = !causal || kj <= qi + offset ? s[i][j] : kNegInf;
-        const float p = qi < Sq && kj < Sk ? expf(sv - lr[i]) : 0.f;
-        sG[(ty * kRows + i) * kPS + tx + 16 * j] = p * (dp[i][j] - dr[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float g[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) g[i] = sG[(ty * kRows + i) * kPS + kk];
-#pragma unroll
-      for (int c = 0; c < kD; ++c) {
-        const float kv = sK[kk * kS + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) gq[i][c] = fmaf(g[i], kv, gq[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty * kRows + i;
-    if (qi < Sq) {
-      T* o = dq + ((static_cast<long long>(b) * Sq + qi) * nH + h) * HD;
-#pragma unroll
-      for (int c = 0; c < kD; ++c) Vec<T>::store(o + tx + 16 * c, gq[i][c] * scale);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: the tensor-core kernels (building blocks in tc_common.cuh)
@@ -909,11 +671,24 @@ constexpr int kF32Warps = 8;     // two warpgroups of 64 query rows
 constexpr int kF32BM = 16 * kF32Warps;
 constexpr int kF32BN = 32;       // keys of a K/V tile: one 128-byte row
 
-// d (64 x 32 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T: A
-// 64 x 8 and B 32 x 8 TF32, both K-major in 128-byte-swizzled shared
+// d (64 x 16 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T: A
+// 64 x 8 and B 16 x 8 TF32, both K-major in 128-byte-swizzled shared
 // memory, named by descriptors
-__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
-                                                  uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same, 64 x 32: B 32 x 8
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -927,12 +702,12 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 32 float32, one warpgroup) += A * B^T: A 64 x 8 TF32 in
-// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// d (64 x 32 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T: A
+// 64 x 8 TF32 in registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 // of each warp's 16 rows), B 32 x 8 TF32, K-major in shared memory
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -943,15 +718,16 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
-// d (64 x 64 float32, one warpgroup) += A * B^T: A 64 x 8 TF32 in
-// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// d (64 x 64 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T: A
+// 64 x 8 TF32 in registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 // of each warp's 16 rows), B 64 x 8 TF32, K-major in shared memory
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -968,15 +744,16 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
-// d (64 x 128 float32, one warpgroup) += A * B^T: A 64 x 8 TF32 in
-// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// d (64 x 128 float32, one warpgroup) = (scale_d ? d : 0) + A * B^T: A
+// 64 x 8 TF32 in registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 // of each warp's 16 rows), B 128 x 8 TF32, K-major in shared memory
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -1005,7 +782,8 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
 // Q and K tiles are K-major [ROWS][HD] in hD / 32 sub-tiles of 32 floats
@@ -1186,9 +964,9 @@ flash_attention_fwd_tf32x3_kernel(const float* __restrict__ q,
       for (int kk = 0; kk < HD / 8; ++kk) {
         const uint64_t step = (kk >> 2) * (BM * 128 >> 4) + 2 * (kk & 3);
         const uint64_t kstep = (kk >> 2) * (kF32BN * 128 >> 4) + 2 * (kk & 3);
-        wgmma_tf32_ss_n32(s, dQh + step, dKh + kstep, kk > 0);
-        wgmma_tf32_ss_n32(s, dQh + step, dKl + kstep, 1);
-        wgmma_tf32_ss_n32(s, dQl + step, dKh + kstep, 1);
+        wgmma_tf32_ss(s, dQh + step, dKh + kstep, kk > 0);
+        wgmma_tf32_ss(s, dQh + step, dKl + kstep, 1);
+        wgmma_tf32_ss(s, dQl + step, dKh + kstep, 1);
       }
       wgmma_commit();
     }
@@ -1308,6 +1086,586 @@ flash_attention_fwd_tf32x3_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 backward: dK/dV and dQ, three TF32 products a product on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRows = 64;      // keys (dK/dV) or query rows (dQ) of a block
+constexpr int kBwdThreads = 256;  // a consumer and a producer warpgroup
+constexpr int kDqBN = 32;         // keys of a dQ K/V tile
+
+// The block's mbarriers (8 bytes each, 128 arrivals a phase, one phase
+// a tile): the producer's K-major tiles full, the consumer done with
+// them, the transposed tiles full, the consumer done with them.
+enum Bar { kKmFull = 0, kKmEmpty = 1, kTFull = 2, kTEmpty = 3 };
+constexpr int kBarBytes = 32;
+
+// query rows of a dK/dV Q/dO tile: 16 at hD 128 (shared memory), else 32
+template <int HD>
+__host__ __device__ constexpr int dkv_bq() {
+  return HD == 128 ? 16 : 32;
+}
+
+// The producer warpgroup streams the tiles that are not resident: a
+// thread holds NC 16-byte chunks of an [ROWS][HD] tile in registers,
+// chunk slot idx = p + 128 n.  In the pair order lane pairs read the 32
+// contiguous bytes of chunks 2m and 2m + 1 of one row (slot idx: row
+// (idx / 2) % ROWS, chunk 2 (idx / 2 ROWS) + idx % 2), so a warp's
+// transposed writes fall in two rows of the [HD][32] tile four apart,
+// whose swizzles differ: no bank conflicts.  Else row by row.
+template <int HD, int ROWS, bool PAIRS>
+__device__ __forceinline__ void tile_chunk(int idx, int& r, int& c) {
+  if (PAIRS) {
+    r = (idx >> 1) % ROWS;
+    c = 2 * (idx / (2 * ROWS)) + (idx & 1);
+  } else {
+    r = idx / (HD / 4);
+    c = idx % (HD / 4);
+  }
+}
+
+// rows row0 .. row0+ROWS-1 of one (batch, head) slice into registers;
+// rows at or past n_rows are zeros
+template <int HD, int ROWS, bool PAIRS, int NC>
+__device__ __forceinline__ void load_chunks(float4 (&x)[NC], const float* base,
+                                            long long s_tok, int row0,
+                                            int n_rows, int p) {
+  static_assert(NC * 512 == ROWS * HD, "chunks a producer thread holds");
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    int r, c;
+    tile_chunk<HD, ROWS, PAIRS>(p + 128 * n, r, c);
+    x[n] = row0 + r < n_rows
+               ? *reinterpret_cast<const float4*>(base + (row0 + r) * s_tok +
+                                                  c * 4)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ... split (times `mul`, in float32) into h and l, stored into the
+// K-major tiles `hi` and `lo` (generic pointers)
+template <int HD, int ROWS, bool PAIRS, int NC>
+__device__ __forceinline__ void store_split(const float4 (&x)[NC],
+                                            uint4 (&h)[NC], uint4 (&l)[NC],
+                                            unsigned char* hi,
+                                            unsigned char* lo, float mul,
+                                            int p) {
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    int r, c;
+    tile_chunk<HD, ROWS, PAIRS>(p + 128 * n, r, c);
+    float4 v = x[n];
+    if (mul != 1.f) {
+      v.x = __fmul_rn(v.x, mul);
+      v.y = __fmul_rn(v.y, mul);
+      v.z = __fmul_rn(v.z, mul);
+      v.w = __fmul_rn(v.w, mul);
+    }
+    tf32_split(v.x, h[n].x, l[n].x);
+    tf32_split(v.y, h[n].y, l[n].y);
+    tf32_split(v.z, h[n].z, l[n].z);
+    tf32_split(v.w, h[n].w, l[n].w);
+    const uint32_t o = kmajor_off<ROWS>(r, c);
+    *reinterpret_cast<uint4*>(hi + o) = h[n];
+    *reinterpret_cast<uint4*>(lo + o) = l[n];
+  }
+}
+
+// ... and transposed into the [HD][32] tiles `thi` and `tlo` (vt_off:
+// row d of the operand's column d, its row r at position p(r))
+template <int HD, int ROWS, int NC>
+__device__ __forceinline__ void store_transposed(const uint4 (&h)[NC],
+                                                 const uint4 (&l)[NC],
+                                                 unsigned char* thi,
+                                                 unsigned char* tlo, int p) {
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    int r, c;
+    tile_chunk<HD, ROWS, true>(p + 128 * n, r, c);
+    const uint32_t hv[4] = {h[n].x, h[n].y, h[n].z, h[n].w};
+    const uint32_t lv[4] = {l[n].x, l[n].y, l[n].z, l[n].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t o = vt_off(4 * c + e, r);
+      *reinterpret_cast<uint32_t*>(thi + o) = hv[e];
+      *reinterpret_cast<uint32_t*>(tlo + o) = lv[e];
+    }
+  }
+}
+
+// The A fragment of k8 step j from a 64 x 8n score accumulator: columns t
+// and t + 4 are the accumulator's columns 2t and 2t + 1 (the B tiles store
+// their rows in that order, vt_off), split into hi and lo.
+template <int N>
+__device__ __forceinline__ void acc_split(const float (&x)[N], int j,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  tf32_split(x[4 * j], hi[0], lo[0]);
+  tf32_split(x[4 * j + 2], hi[1], lo[1]);
+  tf32_split(x[4 * j + 1], hi[2], lo[2]);
+  tf32_split(x[4 * j + 3], hi[3], lo[3]);
+}
+
+// d = the three products of the A fragments (hi, lo) of NJ k8 steps and
+// the B tiles dBh, dBl ([rows of d][32], K-major): one chain from zero,
+// waited for
+template <int NJ, int ND>
+__device__ __forceinline__ void tf32x3_chain(float (&d)[ND],
+                                             uint32_t (&hi)[NJ][4],
+                                             uint32_t (&lo)[NJ][4],
+                                             uint64_t dBh, uint64_t dBl) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    wgmma_tf32_rs(d, hi[j], dBh + 2 * j, j == 0 ? 0 : 1);
+    wgmma_tf32_rs(d, hi[j], dBl + 2 * j);
+    wgmma_tf32_rs(d, lo[j], dBh + 2 * j);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < ND; ++i) asm volatile("" : "+f"(d[i])::"memory");
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      asm volatile("" : "+r"(hi[j][e])::"memory");
+      asm volatile("" : "+r"(lo[j][e])::"memory");
+    }
+}
+
+// sum (64 x HD, this thread's HD / 2 values) += those products, NP
+// columns at a time as a chain from zero (B from row d0 of its tiles),
+// added to sum with rounding adds: the tensor cores' truncating adds
+// stay within one tile's products.
+template <int NJ, int HD, int NP>
+__device__ __forceinline__ void acc_products(float (&sum)[HD / 2],
+                                             uint32_t (&hi)[NJ][4],
+                                             uint32_t (&lo)[NJ][4],
+                                             uint64_t dBh, uint64_t dBl) {
+#pragma unroll
+  for (int d0 = 0; d0 < HD; d0 += NP) {
+    float part[NP / 2];
+    const uint64_t o = d0 * 128 >> 4;
+    tf32x3_chain<NJ>(part, hi, lo, dBh + o, dBl + o);
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i)
+      sum[d0 / 2 + i] = __fadd_rn(sum[d0 / 2 + i], part[i]);
+  }
+}
+
+template <int HD>
+constexpr int dkv_tf32x3_smem_bytes() {
+  // K and V hi/lo [64][HD], Q and dO hi/lo [BQ][HD], Q^T and dO^T hi/lo
+  // [HD][32], lse and delta [2][BQ], the mbarriers, alignment
+  return 4 * kBwdRows * HD * 4 + 4 * dkv_bq<HD>() * HD * 4 + 4 * HD * 128 +
+         4 * dkv_bq<HD>() * 4 + kBarBytes + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_dkv_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int nH,
+    Strides qs, Strides ks, Strides vs, Strides ds, float scale, int causal,
+    int offset) {
+  constexpr int BQ = dkv_bq<HD>();
+  constexpr int NJ = BQ / 8;             // k8 steps of a query tile
+  constexpr int NP = HD < 64 ? HD : 64;  // columns of a stage sum
+  constexpr int NC = BQ * HD / 512;      // chunks a producer thread stages
+  constexpr int KK = kBwdRows * HD * 4;  // bytes of a K or V tile
+  constexpr int KQ = BQ * HD * 4;        // bytes of a Q or dO tile
+  constexpr int KT = HD * 128;           // bytes of a transposed tile
+  extern __shared__ unsigned char fa_smem[];
+  const uint32_t base = (smem_u32(fa_smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = fa_smem + (base - smem_u32(fa_smem));
+  const uint32_t sKh = base, sKl = sKh + KK, sVh = sKl + KK, sVl = sVh + KK;
+  const uint32_t sQh = sVl + KK, sQl = sQh + KQ, sOh = sQl + KQ,
+                 sOl = sOh + KQ;                         // dO
+  const uint32_t sQTh = sOl + KQ, sQTl = sQTh + KT, sOTh = sQTl + KT,
+                 sOTl = sOTh + KT;                       // Q^T, dO^T
+  float* const sL = reinterpret_cast<float*>(gbase + (sOTl + KT - base));
+  float* const sD = sL + 2 * BQ;                         // [2][BQ] each
+  const uint32_t bars = smem_u32(sD + 2 * BQ);
+  auto at = [&](uint32_t a) { return gbase + (a - base); };
+
+  // key tile 0 of every head first: under the causal mask a key tile's
+  // work shrinks with its position, and the grid runs in waves
+  const int heads = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                            blockIdx.z);
+  const int k0 = lin / heads * kBwdRows;
+  const int h = lin % heads % gridDim.y;
+  const int b = lin % heads / gridDim.y;
+  const long long row = (static_cast<long long>(b) * nH + h) * Sq;
+
+  // Under the causal mask, query tile i (rows q0 = i BQ ..) is skipped
+  // when every row has a visible key (q0 + offset >= 0) and its last row
+  // does not see key k0 (q0 + BQ - 1 + offset < k0): the tiles [skip_lo,
+  // skip_hi).  The rest are visited in order.
+  const int nq = (Sq + BQ - 1) / BQ;
+  int skip_lo = nq;
+  int skip_hi = nq;
+  if (causal) {
+    const long long lo = -floor_div(offset, BQ);
+    const long long hi =
+        floor_div(static_cast<long long>(k0) - offset - BQ, BQ) + 1;
+    const long long clo = lo < 0 ? 0 : (lo > nq ? nq : lo);
+    const long long chi = hi < 0 ? 0 : (hi > nq ? nq : hi);
+    if (clo < chi) {
+      skip_lo = static_cast<int>(clo);
+      skip_hi = static_cast<int>(chi);
+    }
+  }
+  const int n_visit = nq - (skip_hi - skip_lo);
+  auto tile_q0 = [&](int it) {
+    return (it < skip_lo ? it : it + skip_hi - skip_lo) * BQ;
+  };
+
+  // K and V of the block, split once, by both warpgroups
+  stage_kmajor<HD, kBwdRows, kBwdThreads>(sKh, k + b * ks.b + h * ks.h, ks.t,
+                                          k0, Sk);
+  stage_kmajor<HD, kBwdRows, kBwdThreads>(sVh, v + b * vs.b + h * vs.h, vs.t,
+                                          k0, Sk);
+  cp_async_commit();
+  if (threadIdx.x < 4) mbar_init(bars + 8 * threadIdx.x, 128);
+  cp_async_wait<0>();
+  split_kmajor<HD, kBwdRows, kBwdThreads>(at(sKh), at(sKl), 1.f);
+  split_kmajor<HD, kBwdRows, kBwdThreads>(at(sVh), at(sVl), 1.f);
+  fence_proxy_async();
+  __syncthreads();
+
+  // the warpgroup index through a shuffle, which ptxas knows to be
+  // warp-uniform: with a plain threadIdx test it takes the consumer's
+  // path for divergent and serializes its wgmma (twice the time)
+  if (__shfl_sync(0xffffffffu, threadIdx.x >> 7, 0) == 1) {
+    // the producer: visit it's Q (times scale, in float32, as the plain
+    // versions have it) and dO, split, into the K-major tiles once the
+    // consumer's S^T and dP^T of visit it - 1 are done, lse and delta
+    // into slot it % 2; then transposed, once its products of visit
+    // it - 1 are done.  The next visit's rows load in between.
+    const int p = threadIdx.x - 128;
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* ob = dout + b * ds.b + h * ds.h;
+    float4 xq[NC], xo[NC];
+    uint4 hq[NC], lq[NC], ho[NC], lo[NC];
+    float xl = 0.f, xd = 0.f;
+    auto load = [&](int it) {
+      const int q0 = tile_q0(it);
+      load_chunks<HD, BQ, true>(xq, qb, qs.t, q0, Sq, p);
+      load_chunks<HD, BQ, true>(xo, ob, ds.t, q0, Sq, p);
+      if (p < BQ && q0 + p < Sq) {
+        xl = lse[row + q0 + p];
+        xd = delta[row + q0 + p];
+      } else {
+        xl = xd = 0.f;
+      }
+    };
+    if (n_visit > 0) load(0);
+    for (int it = 0; it < n_visit; ++it) {
+      if (it > 0) mbar_wait(bars + 8 * kKmEmpty, (it - 1) & 1);
+      store_split<HD, BQ, true>(xq, hq, lq, at(sQh), at(sQl), scale, p);
+      store_split<HD, BQ, true>(xo, ho, lo, at(sOh), at(sOl), 1.f, p);
+      if (p < BQ) {
+        sL[(it & 1) * BQ + p] = xl;
+        sD[(it & 1) * BQ + p] = xd;
+      }
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * kKmFull);
+      if (it + 1 < n_visit) load(it + 1);
+      if (it > 0) mbar_wait(bars + 8 * kTEmpty, (it - 1) & 1);
+      store_transposed<HD, BQ>(hq, lq, at(sQTh), at(sQTl), p);
+      store_transposed<HD, BQ>(ho, lo, at(sOTh), at(sOTl), p);
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * kTFull);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: the products and P, dS
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kw = k0 + warp * 16;  // first key of this warp's rows
+  float gk[HD / 2];
+  float gv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    gk[i] = 0.f;
+    gv[i] = 0.f;
+  }
+  const uint64_t dKh = sw128_desc(sKh), dKl = sw128_desc(sKl);
+  const uint64_t dVh = sw128_desc(sVh), dVl = sw128_desc(sVl);
+  const uint64_t dQh = sw128_desc(sQh), dQl = sw128_desc(sQl);
+  const uint64_t dOh = sw128_desc(sOh), dOl = sw128_desc(sOl);
+  const uint64_t dQTh = sw128_desc(sQTh), dQTl = sw128_desc(sQTl);
+  const uint64_t dOTh = sw128_desc(sOTh), dOTl = sw128_desc(sOTl);
+
+  float s[BQ / 2] = {};   // S^T [key][query], this thread's share
+  float dp[BQ / 2] = {};  // dP^T
+  for (int it = 0; it < n_visit; ++it) {
+    const int q0 = tile_q0(it);
+    mbar_wait(bars + 8 * kKmFull, it & 1);
+    // S^T = K (Q scale)^T and dP^T = V dO^T: 3 products a k8 step, one
+    // chain each over hD; a sub-tile of 32 floats is 4 steps of 32 bytes
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint64_t a = (kk >> 2) * (kBwdRows * 128 >> 4) + 2 * (kk & 3);
+      const uint64_t bq = (kk >> 2) * (BQ * 128 >> 4) + 2 * (kk & 3);
+      wgmma_tf32_ss(s, dKh + a, dQh + bq, kk > 0);
+      wgmma_tf32_ss(dp, dVh + a, dOh + bq, kk > 0);
+      wgmma_tf32_ss(s, dKh + a, dQl + bq, 1);
+      wgmma_tf32_ss(dp, dVh + a, dOl + bq, 1);
+      wgmma_tf32_ss(s, dKl + a, dQh + bq, 1);
+      wgmma_tf32_ss(dp, dVl + a, dOh + bq, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      asm volatile("" : "+f"(s[i])::"memory");
+      asm volatile("" : "+f"(dp[i])::"memory");
+    }
+    if (it + 1 < n_visit) mbar_arrive(bars + 8 * kKmEmpty);
+
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta), split into the A
+    // fragments of the two accumulating products
+    const float* cL = sL + (it & 1) * BQ;
+    const float* cD = sD + (it & 1) * BQ;
+    // one test for the warpgroup's 64 keys
+    const bool masked = q0 + BQ > Sq || k0 + kBwdRows > Sk ||
+                        (causal && k0 + kBwdRows - 1 > q0 + offset);
+    uint32_t ph[NJ][4], pl[NJ][4], gh[NJ][4], gl[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);  // query of the tile
+        float x = s[4 * j + e];
+        bool in = true;
+        if (masked) {
+          const int qi = q0 + c;
+          const int kj = kw + g + ((e >> 1) << 3);
+          if (causal && kj > qi + offset) x = kNegInf;
+          in = qi < Sq && kj < Sk;
+        }
+        const float p = in ? expf(x - cL[c]) : 0.f;
+        s[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - cD[c]);
+      }
+      acc_split(s, j, ph[j], pl[j]);
+      acc_split(dp, j, gh[j], gl[j]);
+    }
+    // dV += P^T dO and dK += dS^T (Q scale): B is dO^T or Q^T
+    mbar_wait(bars + 8 * kTFull, it & 1);
+    acc_products<NJ, HD, NP>(gv, ph, pl, dOTh, dOTl);
+    acc_products<NJ, HD, NP>(gk, gh, gl, dQTh, dQTl);
+    if (it + 1 < n_visit) mbar_arrive(bars + 8 * kTEmpty);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kw + g + 8 * r;
+    if (kj < Sk) {
+      const long long o = ((static_cast<long long>(b) * Sk + kj) * nH + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<float2*>(dk + o + 8 * j + 2 * t) =
+            make_float2(gk[4 * j + 2 * r], gk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + o + 8 * j + 2 * t) =
+            make_float2(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int HD>
+constexpr int dq_tf32x3_smem_bytes() {
+  // Q and dO hi/lo [64][HD], K and V hi/lo [32][HD], K^T hi/lo [HD][32],
+  // the mbarriers, alignment
+  return 4 * kBwdRows * HD * 4 + 4 * kDqBN * HD * 4 + 2 * HD * 128 +
+         kBarBytes + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_dq_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int Sq, int Sk, int nH, Strides qs, Strides ks,
+    Strides vs, Strides ds, float scale, int causal, int offset) {
+  constexpr int BN = kDqBN;
+  constexpr int NC = BN * HD / 512;      // chunks a producer thread stages
+  constexpr int KQ = kBwdRows * HD * 4;  // bytes of a Q or dO tile
+  constexpr int KK = BN * HD * 4;        // bytes of a K or V tile
+  constexpr int KT = HD * 128;           // bytes of the K^T tile
+  extern __shared__ unsigned char fa_smem[];
+  const uint32_t base = (smem_u32(fa_smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = fa_smem + (base - smem_u32(fa_smem));
+  const uint32_t sQh = base, sQl = sQh + KQ, sOh = sQl + KQ,
+                 sOl = sOh + KQ;                         // dO
+  const uint32_t sKh = sOl + KQ, sKl = sKh + KK, sVh = sKl + KK,
+                 sVl = sVh + KK;
+  const uint32_t sKTh = sVl + KK, sKTl = sKTh + KT;      // K^T
+  const uint32_t bars = sKTl + KT;
+  auto at = [&](uint32_t a) { return gbase + (a - base); };
+
+  // the longest query tiles of every head first (see the forward)
+  const int heads = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                            blockIdx.z);
+  const int q0 = (gridDim.x - 1 - lin / heads) * kBwdRows;
+  const int h = lin % heads % gridDim.y;
+  const int b = lin % heads / gridDim.y;
+  const long long row = (static_cast<long long>(b) * nH + h) * Sq;
+
+  const int k_end = causal && q0 + offset >= 0
+                        ? min(Sk, q0 + kBwdRows + offset) : Sk;
+  const int n_tiles = (k_end + BN - 1) / BN;
+
+  // Q (times scale, in float32, as the plain versions have it) and dO of
+  // the block, split once, by both warpgroups
+  stage_kmajor<HD, kBwdRows, kBwdThreads>(sQh, q + b * qs.b + h * qs.h, qs.t,
+                                          q0, Sq);
+  stage_kmajor<HD, kBwdRows, kBwdThreads>(sOh, dout + b * ds.b + h * ds.h,
+                                          ds.t, q0, Sq);
+  cp_async_commit();
+  if (threadIdx.x < 4) mbar_init(bars + 8 * threadIdx.x, 128);
+  cp_async_wait<0>();
+  split_kmajor<HD, kBwdRows, kBwdThreads>(at(sQh), at(sQl), scale);
+  split_kmajor<HD, kBwdRows, kBwdThreads>(at(sOh), at(sOl), 1.f);
+  fence_proxy_async();
+  __syncthreads();
+
+  // the warpgroup index through a shuffle, which ptxas knows to be
+  // warp-uniform: with a plain threadIdx test it takes the consumer's
+  // path for divergent and serializes its wgmma (twice the time)
+  if (__shfl_sync(0xffffffffu, threadIdx.x >> 7, 0) == 1) {
+    // the producer: key tile it's K and V, split, into the K-major tiles
+    // once the consumer's S and dP of tile it - 1 are done; then K
+    // transposed, once its dS K of tile it - 1 is done.  The next tile's
+    // rows load in between.
+    const int p = threadIdx.x - 128;
+    const float* kb = k + b * ks.b + h * ks.h;
+    const float* vb = v + b * vs.b + h * vs.h;
+    float4 xk[NC], xv[NC];
+    uint4 hk[NC], lk[NC], hv[NC], lv[NC];
+    auto load = [&](int it) {
+      load_chunks<HD, BN, true>(xk, kb, ks.t, it * BN, Sk, p);
+      load_chunks<HD, BN, false>(xv, vb, vs.t, it * BN, Sk, p);
+    };
+    load(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it > 0) mbar_wait(bars + 8 * kKmEmpty, (it - 1) & 1);
+      store_split<HD, BN, true>(xk, hk, lk, at(sKh), at(sKl), 1.f, p);
+      store_split<HD, BN, false>(xv, hv, lv, at(sVh), at(sVl), 1.f, p);
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * kKmFull);
+      if (it + 1 < n_tiles) load(it + 1);
+      if (it > 0) mbar_wait(bars + 8 * kTEmpty, (it - 1) & 1);
+      store_transposed<HD, BN>(hk, lk, at(sKTh), at(sKTl), p);
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * kTFull);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: the products and dS
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int w0 = q0 + warp * 16;  // this warp's rows
+  float lr[2];
+  float dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = w0 + g + 8 * r;
+    lr[r] = qi < Sq ? lse[row + qi] : 0.f;
+    dr[r] = qi < Sq ? delta[row + qi] : 0.f;
+  }
+  float gq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) gq[i] = 0.f;
+  // this warpgroup's 64 rows of the Q and dO tiles: its A descriptors
+  const uint64_t dQh = sw128_desc(sQh), dQl = sw128_desc(sQl);
+  const uint64_t dOh = sw128_desc(sOh), dOl = sw128_desc(sOl);
+  const uint64_t dKh = sw128_desc(sKh), dKl = sw128_desc(sKl);
+  const uint64_t dVh = sw128_desc(sVh), dVl = sw128_desc(sVl);
+  const uint64_t dKTh = sw128_desc(sKTh), dKTl = sw128_desc(sKTl);
+
+  float s[BN / 2] = {};
+  float dp[BN / 2] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BN;
+    mbar_wait(bars + 8 * kKmFull, it & 1);
+    // S = (Q scale) K^T and dP = dO V^T: 3 products a k8 step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint64_t a = (kk >> 2) * (kBwdRows * 128 >> 4) + 2 * (kk & 3);
+      const uint64_t bk = (kk >> 2) * (BN * 128 >> 4) + 2 * (kk & 3);
+      wgmma_tf32_ss(s, dQh + a, dKh + bk, kk > 0);
+      wgmma_tf32_ss(dp, dOh + a, dVh + bk, kk > 0);
+      wgmma_tf32_ss(s, dQh + a, dKl + bk, 1);
+      wgmma_tf32_ss(dp, dOh + a, dVl + bk, 1);
+      wgmma_tf32_ss(s, dQl + a, dKh + bk, 1);
+      wgmma_tf32_ss(dp, dOl + a, dVh + bk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      asm volatile("" : "+f"(s[i])::"memory");
+      asm volatile("" : "+f"(dp[i])::"memory");
+    }
+    if (it + 1 < n_tiles) mbar_arrive(bars + 8 * kKmEmpty);
+
+    const bool masked =
+        k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
+    uint32_t gh[BN / 8][4], gl[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e];
+        bool key = true;
+        if (masked) {
+          const int qi = w0 + g + ((e >> 1) << 3);
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          if (causal && kj > qi + offset) x = kNegInf;
+          key = kj < Sk;
+        }
+        const float p = key ? expf(x - lr[e >> 1]) : 0.f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - dr[e >> 1]);
+      }
+      acc_split(dp, j, gh[j], gl[j]);
+    }
+    // dQ += dS K, K^T from the transposed tile; scale at the end
+    mbar_wait(bars + 8 * kTFull, it & 1);
+    acc_products<BN / 8, HD, HD>(gq, gh, gl, dKTh, dKTl);
+    if (it + 1 < n_tiles) mbar_arrive(bars + 8 * kTEmpty);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = w0 + g + 8 * r;
+    if (qi < Sq) {
+      float* orow = dq + ((static_cast<long long>(b) * Sq + qi) * nH + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+            make_float2(__fmul_rn(gq[4 * j + 2 * r], scale),
+                        __fmul_rn(gq[4 * j + 2 * r + 1], scale));
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -1327,14 +1685,13 @@ struct Args {
 
 enum Pass { kFwd = 0, kDkv = 1, kDq = 2 };
 
-template <typename T, int HD>
-cudaError_t launch(Pass pass, const Args& a) {
-  const dim3 grid_q((a.Sq + kTile - 1) / kTile, a.nH, a.B);
-  const dim3 grid_k((a.Sk + kTile - 1) / kTile, a.nH, a.B);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* d = static_cast<const T*>(a.dout);
+// float32: the three kernels of three TF32 products a product
+template <int HD>
+cudaError_t launch_f32(Pass pass, const Args& a) {
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* d = static_cast<const float*>(a.dout);
   cudaError_t err = cudaSuccess;
   if (pass == kFwd) {
     constexpr int bytes = fwd_tf32x3_smem_bytes<HD>();
@@ -1348,25 +1705,28 @@ cudaError_t launch(Pass pass, const Args& a) {
             q, k, v, static_cast<float*>(a.o0), static_cast<float*>(a.o1),
             a.Sq, a.Sk, a.nH, a.qs, a.ks, a.vs, a.scale, a.causal, a.offset);
   } else if (pass == kDkv) {
-    constexpr int bytes = dkv_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<T, HD>,
+    constexpr int bytes = dkv_tf32x3_smem_bytes<HD>();
+    err = cudaFuncSetAttribute(flash_attention_bwd_dkv_tf32x3_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
-    flash_attention_bwd_dkv_kernel<T, HD>
-        <<<grid_k, kThreads, bytes, a.stream>>>(
-            q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0),
-            static_cast<T*>(a.o1), a.Sq, a.Sk, a.nH, a.qs, a.ks, a.vs, a.ds,
-            a.scale, a.causal, a.offset);
+    const dim3 grid((a.Sk + kBwdRows - 1) / kBwdRows, a.nH, a.B);
+    flash_attention_bwd_dkv_tf32x3_kernel<HD>
+        <<<grid, kBwdThreads, bytes, a.stream>>>(
+            q, k, v, d, a.lse, a.delta, static_cast<float*>(a.o0),
+            static_cast<float*>(a.o1), a.Sq, a.Sk, a.nH, a.qs, a.ks, a.vs,
+            a.ds, a.scale, a.causal, a.offset);
   } else {
-    constexpr int bytes = dq_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, HD>,
+    constexpr int bytes = dq_tf32x3_smem_bytes<HD>();
+    err = cudaFuncSetAttribute(flash_attention_bwd_dq_tf32x3_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
-    flash_attention_bwd_dq_kernel<T, HD><<<grid_q, kThreads, bytes, a.stream>>>(
-        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0), a.Sq, a.Sk, a.nH,
-        a.qs, a.ks, a.vs, a.ds, a.scale, a.causal, a.offset);
+    const dim3 grid((a.Sq + kBwdRows - 1) / kBwdRows, a.nH, a.B);
+    flash_attention_bwd_dq_tf32x3_kernel<HD>
+        <<<grid, kBwdThreads, bytes, a.stream>>>(
+            q, k, v, d, a.lse, a.delta, static_cast<float*>(a.o0), a.Sq,
+            a.Sk, a.nH, a.qs, a.ks, a.vs, a.ds, a.scale, a.causal, a.offset);
   }
   return cudaGetLastError();
 }
@@ -1418,10 +1778,10 @@ cudaError_t launch_tc(Pass pass, const Args& a) {
   return cudaGetLastError();
 }
 
-// float32 on the CUDA cores, bfloat16 on the tensor cores
+// float32 as three TF32 products, bfloat16 on mma.sync
 template <int HD>
 cudaError_t launch_dtype(int dtype, Pass pass, const Args& a) {
-  if (dtype == 0) return launch<float, HD>(pass, a);
+  if (dtype == 0) return launch_f32<HD>(pass, a);
   if (dtype == 1) return launch_tc<HD>(pass, a);
   return cudaErrorInvalidValue;
 }
@@ -1430,8 +1790,8 @@ template <int HD>
 int smem_bytes_hd(int dtype, Pass pass) {
   if (dtype == 0)
     return pass == kFwd   ? fwd_tf32x3_smem_bytes<HD>()
-           : pass == kDkv ? dkv_smem_bytes<HD>()
-                          : dq_smem_bytes<HD>();
+           : pass == kDkv ? dkv_tf32x3_smem_bytes<HD>()
+                          : dq_tf32x3_smem_bytes<HD>();
   if (dtype == 1)
     return pass == kFwd   ? fwd_tc_smem_bytes<HD, kFwdWarps>()
            : pass == kDkv ? dkv_tc_smem_bytes<HD, kDkvWarps>()

@@ -16,7 +16,9 @@
 //   share an accumulator row;
 // * wgmma's shared-memory descriptor of a K-major 128-byte-swizzled
 //   tile, its fence, commit and wait, the generic-to-async proxy fence,
-//   and the byte offset of a chunk in such a tile.
+//   and the byte offset of a chunk in such a tile;
+// * mbarrier init, arrive and a parity wait that traps after ~8.7 s
+//   (row_gemm.cu, the float32 flash backward).
 //
 // Accumulator element e of n8 tile j sits at row g + 8 (e / 2), column
 // 8 j + 2 t + e % 2 (g = lane / 4, t = lane % 4).
@@ -241,6 +243,40 @@ __device__ __forceinline__ void fence_proxy_async() {
 // the 128-byte swizzle (chunk c at c ^ (r mod 8)), as sw128_desc names it.
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// A wait longer than this many cycles (~8.7 s at 1.98 GHz) is a barrier
+// that can never complete: trap, so that the launch fails instead of
+// hanging the card.
+constexpr long long kStallCycles = 1ll << 34;
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > kStallCycles) __trap();
+  } while (!done);
 }
 
 // quad (4 lanes sharing an accumulator row) reductions

@@ -14,11 +14,13 @@ kernel, both recomputing P from the saved lse.  The TPU kernels
 backward) become the three hand-written CUDA kernels in
 ``csrc/flash_attention.cu``, in two designs chosen there by dtype:
 bfloat16 runs on the tensor cores (``mma.sync``, bf16 tiles staged by
-``cp.async``); float32 runs its forward on the tensor cores too, each
-product as three TF32 products of split operands (``tf32x3.py``;
-:func:`flash_attention_fwd_tf32x3_plain` is that arithmetic in plain
-PyTorch, no call takes a single TF32 pass), and its dK/dV and dQ on the
-CUDA cores; its source note says what bounds them.
+``cp.async``); float32 runs all three on the tensor cores too (``wgmma``),
+each product as three TF32 products of split operands (``tf32x3.py``;
+:func:`flash_attention_fwd_tf32x3_plain`,
+:func:`flash_attention_bwd_dkv_tf32x3_plain` and
+:func:`flash_attention_bwd_dq_tf32x3_plain` are that arithmetic in plain
+PyTorch, no call takes a single TF32 pass); its source note says what
+bounds them.
 
 Rounding: every version keeps P and dS to float32 precision (the
 bfloat16 kernels feed each to the tensor cores as two bf16 halves), so
@@ -72,6 +74,8 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dq", "flash_attention_with_lse_plain",
            "flash_attention_fwd_tf32x3_plain",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain",
+           "flash_attention_bwd_dkv_tf32x3_plain",
+           "flash_attention_bwd_dq_tf32x3_plain",
            "default_use_flash", "launches", "reset_launches", "NEG_INF",
            "ENTRIES", "LAUNCHES"]
 
@@ -176,18 +180,24 @@ def flash_attention_fwd_tf32x3_plain(q, k, v, offset: int = 0,
     the same terms."""
     if q.dtype != torch.float32:
         raise TypeError(f"the tf32x3 forward is float32's, got {q.dtype}")
-    qs = q * _scale(q, scale)
-    s = einsum_tf32x3("bqhd,bkhd->bhqk", qs, k)
-    if causal:
-        Sq, Sk = q.shape[1], k.shape[1]
-        visible = (torch.arange(Sk, device=q.device)[None, :]
-                   <= torch.arange(Sq, device=q.device)[:, None] + offset)
-        s = s.masked_fill(~visible, NEG_INF)
+    s = _scores_tf32x3(q * _scale(q, scale), k, causal, offset)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1)
     out = einsum_tf32x3("bhqk,bkhd->bqhd", p, v) / l.transpose(1, 2)[..., None]
     return out, m[..., 0] + torch.log(l)
+
+
+def _scores_tf32x3(qs, k, causal, offset):
+    """(q * scale) K^T [B, nH, Sq, Sk] as three TF32 products of split
+    operands, masked keys at -1e30."""
+    s = einsum_tf32x3("bqhd,bkhd->bhqk", qs, k)
+    if causal:
+        Sq, Sk = qs.shape[1], k.shape[1]
+        visible = (torch.arange(Sk, device=qs.device)[None, :]
+                   <= torch.arange(Sq, device=qs.device)[:, None] + offset)
+        s = s.masked_fill(~visible, NEG_INF)
+    return s
 
 
 def _bwd_terms(q, k, v, dout, lse, delta, causal, scale, offset):
@@ -220,6 +230,47 @@ def flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
     _, ds = _bwd_terms(q, k, v, dout, lse, delta, causal, scale, offset)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
             * scale).to(q.dtype)
+
+
+def _bwd_terms_tf32x3(q, k, v, dout, lse, delta, causal, scale, offset):
+    """The float32 backward kernels' P and dS: S = (q * scale) K^T and
+    dP = dO V^T as three TF32 products, P = exp(S - lse) and dS = P (dP -
+    delta) unsplit, as the kernels hold them; and q * scale."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the tf32x3 backward is float32's, got {q.dtype}")
+    qs = q * _scale(q, scale)
+    p = torch.exp(_scores_tf32x3(qs, k, causal, offset) - lse[..., None])
+    dp = einsum_tf32x3("bqhd,bkhd->bhqk", dout, v)
+    return p, p * (dp - delta[..., None]), qs
+
+
+def flash_attention_bwd_dkv_tf32x3_plain(q, k, v, dout, lse, delta,
+                                         causal: bool = True,
+                                         scale: Optional[float] = None,
+                                         offset: int = 0):
+    """The float32 dK/dV kernel's arithmetic in plain PyTorch, (dk, dv):
+    S^T, dP^T (:func:`_bwd_terms_tf32x3`), dV = P^T dO and dK = dS^T
+    (q * scale), every product three TF32 products of split operands
+    (:func:`tf32x3.einsum_tf32x3`) with P and dS split as they are.  The
+    kernel sums each query tile's products from zero and the tiles with
+    rounding adds: another rounding of the same terms."""
+    p, ds, qs = _bwd_terms_tf32x3(q, k, v, dout, lse, delta, causal, scale,
+                                  offset)
+    return (einsum_tf32x3("bhqk,bqhd->bkhd", ds, qs),
+            einsum_tf32x3("bhqk,bqhd->bkhd", p, dout))
+
+
+def flash_attention_bwd_dq_tf32x3_plain(q, k, v, dout, lse, delta,
+                                        causal: bool = True,
+                                        scale: Optional[float] = None,
+                                        offset: int = 0):
+    """The float32 dQ kernel's arithmetic in plain PyTorch: dQ = (dS K)
+    scale, dS K three TF32 products of split operands, the scale a
+    float32 multiply at the end (S and dS as in
+    :func:`flash_attention_bwd_dkv_tf32x3_plain`)."""
+    _, ds, _ = _bwd_terms_tf32x3(q, k, v, dout, lse, delta, causal, scale,
+                                 offset)
+    return einsum_tf32x3("bhqk,bkhd->bqhd", ds, k) * _scale(q, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +373,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                             entry: str = "flash_attention"):
     """(dk, dv), contiguous [B, Sk, nH, hD].  CPU tensors run the plain
     version; CUDA tensors launch the dK/dV kernel (counted under
-    ``LAUNCHES[entry + "_bwd_dkv"]``) or raise."""
+    ``LAUNCHES[entry + "_bwd_dkv"]``; float32 as three TF32 products a
+    product, :func:`flash_attention_bwd_dkv_tf32x3_plain`) or raise."""
     offset, entry = _offset(offset), _entry(entry)
     if not _check(q, k, v, dout):
         return flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
@@ -344,7 +396,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                            entry: str = "flash_attention"):
     """dq, contiguous [B, Sq, nH, hD].  CPU tensors run the plain
     version; CUDA tensors launch the dQ kernel (counted under
-    ``LAUNCHES[entry + "_bwd_dq"]``) or raise."""
+    ``LAUNCHES[entry + "_bwd_dq"]``; float32 as three TF32 products a
+    product, :func:`flash_attention_bwd_dq_tf32x3_plain`) or raise."""
     offset, entry = _offset(offset), _entry(entry)
     if not _check(q, k, v, dout):
         return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,

@@ -575,9 +575,9 @@ def test_flash_attention_offsets_under_the_tc_tiles(cuda, offset):
 
 def test_flash_attention_dtype_picks_the_kernels(cuda):
     """bf16 runs the tensor-core kernels (*_tc_kernel); float32 its
-    forward as three TF32 products on the tensor cores
-    (flash_attention_fwd_tf32x3_kernel) and dK/dV and dQ on the CUDA
-    cores, as the profiler's kernel names show."""
+    forward, dK/dV and dQ as three TF32 products on the tensor cores
+    (flash_attention_{fwd,bwd_dkv,bwd_dq}_tf32x3_kernel), as the
+    profiler's kernel names show."""
     from torch.profiler import ProfilerActivity, profile
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -590,9 +590,11 @@ def test_flash_attention_dtype_picks_the_kernels(cuda):
     assert all("_tc_kernel" in n for n in names[torch.bfloat16])
     assert len(names[torch.float32]) == 3
     assert not any("_tc_" in n for n in names[torch.float32])
-    fwd = [n for n in names[torch.float32] if "_fwd" in n]
-    assert len(fwd) == 1 and "flash_attention_fwd_tf32x3_kernel" in fwd[0]
-    assert sum("_tf32x3_" in n for n in names[torch.float32]) == 1
+    for kernel in ("fwd", "bwd_dkv", "bwd_dq"):
+        found = [n for n in names[torch.float32] if f"_{kernel}_" in n]
+        assert len(found) == 1, (kernel, found)
+        assert f"flash_attention_{kernel}_tf32x3_kernel" in found[0]
+    assert sum("_tf32x3_" in n for n in names[torch.float32]) == 3
 
 
 @pytest.mark.parametrize("B,Sq,Sk,nH,hD,causal", [
@@ -608,8 +610,10 @@ def test_flash_attention_f32_forward_on_tf32x3(cuda, B, Sq, Sk, nH, hD,
     """The float32 forward (three TF32 products a product) against the
     true float32 plain version (out 1e-4 of max, lse 1e-4 relative) and
     against its own arithmetic (chip_smoke.tf32x3_forward_share); the
-    float32 backward pair, unchanged, on this forward's lse at its limits
-    (1e-4 of max); repeat runs give the same bits."""
+    float32 backward pair (three TF32 products a product too) on this
+    forward's lse against the true float32 plain versions (1e-4 of max)
+    and against its own arithmetic (chip_smoke.tf32x3_backward_share:
+    TF32X3_REL of max); repeat runs give the same bits."""
     rng = np.random.default_rng(Sq + 3 * Sk + hD + causal)
     q, dout = (_rand(rng, (B, Sq, nH, hD), torch.float32, cuda)
                for _ in range(2))
@@ -632,24 +636,35 @@ def test_flash_attention_f32_forward_on_tf32x3(cuda, B, Sq, Sk, nH, hD,
     w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
     for got, want in ((dq, w_dq), (dk, w_dk), (dv, w_dv)):
         _assert_kernel(got, want, 1e-4, of_max=True)
+    share = chip_smoke.tf32x3_backward_share(fa, q, k, v, dout, lse, delta,
+                                             (dk, dv, dq), causal, 0)
+    assert max(share.values()) <= 1, share
 
 
 @pytest.mark.parametrize("offset", [-1024, -64, -37, 0, 37, 64])
 def test_flash_attention_f32_offsets_on_tf32x3(cuda, offset):
     """The ring variant in float32 at one chunk of 1024 rows and keys:
     chip_smoke.ring_kernels_check holds forward, dK/dV and dQ (this
-    forward's lse) to their plain versions and offset 0 bit for bit to
-    the zero-offset call; the forward against its emulation too."""
+    forward's lse, the lse cotangent folded into delta) to their plain
+    versions and offset 0 bit for bit to the zero-offset call; all three
+    against their emulations too, and a second backward gives the same
+    bits."""
     rng = np.random.default_rng(2048 + offset)
     q, k, v, dout = (_rand(rng, (1, 1024, 2, 128), torch.float32, cuda)
                      for _ in range(4))
     g_lse = _rand(rng, (1, 2, 1024), torch.float32, cuda)
-    chip_smoke.ring_kernels_check(fa, q, k, v, dout, g_lse, offset)
-    out, lse = fa.flash_attention_fwd(q, k, v, True, offset=offset,
-                                      entry="flash_attention_with_lse")
-    share = chip_smoke.tf32x3_forward_share(fa, q, k, v, out, lse, True,
-                                            offset)
+    (out, lse, *grads), delta, _, _ = chip_smoke.ring_kernels_check(
+        fa, q, k, v, dout, g_lse, offset)
+    share = {**chip_smoke.tf32x3_forward_share(fa, q, k, v, out, lse, True,
+                                               offset),
+             **chip_smoke.tf32x3_backward_share(fa, q, k, v, dout, lse,
+                                                delta, grads, True, offset)}
     assert max(share.values()) <= 1, share
+    args = (q, k, v, dout, lse, delta, True, None, offset)
+    again = (*fa.flash_attention_bwd_dkv(*args),
+             fa.flash_attention_bwd_dq(*args))
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_f32_cuda_tensor_never_reaches_plain(cuda,
@@ -659,7 +674,9 @@ def test_flash_attention_f32_cuda_tensor_never_reaches_plain(cuda,
     for name in ("flash_attention_with_lse_plain",
                  "flash_attention_fwd_tf32x3_plain", "einsum_tf32x3",
                  "flash_attention_bwd_dkv_plain",
-                 "flash_attention_bwd_dq_plain"):
+                 "flash_attention_bwd_dq_plain",
+                 "flash_attention_bwd_dkv_tf32x3_plain",
+                 "flash_attention_bwd_dq_tf32x3_plain"):
         monkeypatch.setattr(fa, name, refuse)
     x = torch.randn(1, 128, 2, 64, device=cuda, requires_grad=True)
     out = fa.flash_attention(x, x, x)
@@ -799,9 +816,9 @@ def test_fused_ce_f32_kernel_on_tf32x3(cuda, N, V, H):
 
 def test_single_pass_tf32_witness(cuda):
     """On chip_smoke.tf32_witness's inputs one TF32 pass leaves the
-    float32 limits (CE atol 1e-3, forward 1e-4 of max) and the kernels
-    stay within them; the kernels ignore torch's TF32 switch (the same
-    bits with allow_tf32 on)."""
+    float32 limits (CE atol 1e-3, forward and each grad of the backward
+    1e-4 of max) and the kernels stay within them; the kernels ignore
+    torch's TF32 switch (the same bits with allow_tf32 on)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(3)
     w = chip_smoke.tf32_witness(fa, fce, gen)
@@ -814,8 +831,11 @@ def test_single_pass_tf32_witness(cuda):
     got = []
     for tf32 in (False, True):
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        got.append((*fce.fused_ce_fwd(h, W, lbl),
-                    *fa.flash_attention_fwd(q, q, q, True)))
+        out, lse = fa.flash_attention_fwd(q, q, q, True)
+        delta = (q * out).sum(-1).transpose(1, 2).contiguous()
+        got.append((*fce.fused_ce_fwd(h, W, lbl), out, lse,
+                    *fa.flash_attention_bwd_dkv(q, q, q, q, lse, delta),
+                    fa.flash_attention_bwd_dq(q, q, q, q, lse, delta)))
     torch.backends.cuda.matmul.allow_tf32 = False
     for a, b in zip(*got):
         assert torch.equal(a, b)

@@ -13,15 +13,29 @@ it names and against the JAX package's float32 kernels.
   and scores move by ~1e-6, within the float32 summation-order room the
   existing parity tests allow (1e-5).  One TF32 pass, the negative
   control, misses that bound on the same inputs.
+* ``flash_attention_bwd_{dkv,dq}_tf32x3_plain`` (the float32 backward
+  kernels' arithmetic) against the gradients of JAX's
+  ``flash_attention_with_lse`` in float32 (``jax.vjp`` through its
+  custom VJP, whose backward kernels run in interpret mode), with an
+  lse cotangent, at 1e-5 of max(1, max |grad|) for the same reason:
+  every operand of the four products keeps 2^-22 of itself, and P and
+  dS stay float32.  The grads are ~1 but for the rows with no visible
+  key (offset -64: P = 1 on all 128 keys), where they reach ~45 and the
+  same relative error is ~2e-5 absolute, so the bound is taken of the
+  largest value, as the card holds the kernels.  One TF32 pass over
+  q * scale, k, v and dO misses that bound.
 * ``ce_plan`` of the float32 kernel fills the H100's 132 SMs at the
   eval shape of gpt3_1p3b's default-dtype training (N 2048).
 
 The card tests (tests/test_torch_cuda.py) hold the kernels to these.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.incubate.nn.kernels.flash_attention import \
@@ -146,6 +160,53 @@ def test_flash_forward_tf32x3_matches_jax(causal, offset, S):
         _one_pass(tq * (1 / hD ** 0.5)), _one_pass(tk), _one_pass(tv),
         offset, scale=1.0, causal=causal)
     assert np.abs(one.numpy() - jout).max() > TOL["atol"]
+
+
+@functools.partial(jax.jit, static_argnums=5)
+def _jax_flash_grads(q, k, v, g, g_lse, causal, offset):
+    """dq, dk, dv of JAX's flash_attention_with_lse for the cotangents g
+    and g_lse; the offset is traced, so the S 128 causal cases share one
+    compile."""
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash_lse(q, k, v, offset, None,
+                                                   causal), q, k, v)
+    return vjp((g, g_lse))
+
+
+@pytest.mark.parametrize("causal,offset,S", [
+    (True, 0, 100), (False, 0, 100), (True, -64, 128), (True, 64, 128),
+    (True, 0, 128)])
+def test_flash_backward_tf32x3_matches_jax(causal, offset, S):
+    """The inputs of the forward's test, a cotangent dO and one of lse:
+    dq, dk and dv of the emulations from the plain forward's out and lse
+    (delta = rowsum(dO * O) - g_lse, as the port's backward has it)
+    against JAX's vjp."""
+    B, nH, hD = 1, 2, 64
+    rng = np.random.default_rng(S + offset + causal + 1)
+    q, k, v, g = (rng.standard_normal((B, S, nH, hD)).astype(np.float32)
+                  for _ in range(4))
+    g_lse = rng.standard_normal((B, nH, S)).astype(np.float32)
+    jgrads = [np.moveaxis(np.asarray(x).reshape(B, nH, S, hD), 1, 2)
+              for x in _jax_flash_grads(
+                  _bh(q), _bh(k), _bh(v), _bh(g),
+                  jnp.asarray(g_lse.reshape(B * nH, S)), causal, offset)]
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = fa.flash_attention_with_lse_plain(tq, tk, tv, offset,
+                                                 causal=causal)
+    delta = ((tg * out).sum(-1).transpose(1, 2)
+             - torch.from_numpy(g_lse)).contiguous()
+    args = (tq, tk, tv, tg, lse, delta, causal, None, offset)
+    dk, dv = fa.flash_attention_bwd_dkv_tf32x3_plain(*args)
+    dq = fa.flash_attention_bwd_dq_tf32x3_plain(*args)
+    atol = [TOL["atol"] * max(1.0, np.abs(w).max()) for w in jgrads]
+    for got, want, tol in zip((dq, dk, dv), jgrads, atol):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    scale = 1 / hD ** 0.5
+    one = (_one_pass(tq * scale), _one_pass(tk), _one_pass(tv),
+           _one_pass(tg), lse, delta, causal, 1.0, offset)
+    odk, odv = fa.flash_attention_bwd_dkv_plain(*one)
+    odq = fa.flash_attention_bwd_dq_plain(*one) * scale
+    assert max(np.abs(o.numpy() - w).max() / tol
+               for o, w, tol in zip((odq, odk, odv), jgrads, atol)) > 1
 
 
 def test_float32_ce_plan_fills_the_h100():
