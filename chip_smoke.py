@@ -193,6 +193,21 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    for bit, two seeds of one prompt diverging; one sampled decode step
    (no topk, sort, cumsum or softmax kernel in it), one draw (one
    kernel) and the draw alone profiled (family "sampling").
+5d. compiled serving (``compiled_serving_phase``) — every serving
+   engine runs its decode rounds, verify passes and draft proposals as
+   CUDA-graph replays by default (``cuda_graphs=None``), phases 4-5c
+   included; here the serving cell's 12 requests (the fused engine: 3)
+   go through a captured engine and a ``cuda_graphs=False`` one in
+   turns (two warm runs, then 3 pairs, eager first, then captured
+   first) on contiguous bf16, paged bf16 and int8, fused b1 int8,
+   sampled contiguous bf16 and n-gram k 3 on contiguous bf16 and on the
+   fused engine: every run's streams equal the first eager run's (12/12,
+   fused 3/3), each pair counts the same launches of every kernel, each
+   captured round is one replay; the median decode-loop tok/s, wall a
+   round and a token, programs, capture seconds and pool bytes; then
+   steady rounds of each engine (8 slots decoding, 1 on the fused
+   engine; 4 timed, 1 profiled): wall and device ms a round, device ms a
+   step, idle share, kernels and host CUDA calls a round.
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -222,7 +237,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    clock and CUDA events), peak memory, a step's and an eval's device
    ms by family (flash forward, dK/dV, dQ, fused_ce, GEMMs, other) and
    idle share.  ``--phases train_kernel,ring_kernel,float32_training``
-   runs phases 3, 11 and 6a alone (or any of them; two sources built).
+   runs phases 3, 11 and 6a alone (or any of them; two sources built);
+   ``--phases compiled_serving`` phase 5d alone (four sources).
 7. b1 int8 serving — the serving weights quantized by the port
    (``gpt.quantize_decode_params``).  ``fused_decode_layers`` against
    its plain version in four storage modes (an f32 cache at gpt_tiny
@@ -5534,17 +5550,237 @@ def sampled_serving_phase(gpt, decoding, engines, sm, fd, rg, cfg, params,
 
 
 #: the phases ``--phases`` can run alone
+# the compiled_serving phase: eager and captured runs in turns, and the
+# steady decode rounds each engine's profile covers
+GRAPH_PAIRS = 3
+GRAPH_WARM_ROUNDS, GRAPH_TIMED_ROUNDS, GRAPH_PROFILED_ROUNDS = 2, 4, 1
+# (label, engine, kv_dtype, n-gram k 3, sampled at SAMPLE_SERVE)
+GRAPH_CASES = (("contiguous bf16", "contiguous", "bf16", False, False),
+               ("paged bf16", "paged", "bf16", False, False),
+               ("paged int8", "paged", "int8", False, False),
+               ("fused int8", "fused", "int8", False, False),
+               ("sampled contiguous bf16", "contiguous", "bf16", False, True),
+               ("ngram contiguous bf16", "contiguous", "bf16", True, False),
+               ("ngram fused int8", "fused", "int8", True, False))
+
+
+def _host_calls(prof, rounds):
+    """CUDA API calls the host made a round in a profiled window, by
+    name (kernel launches, graph launches, copies), and their sum."""
+    calls = {}
+    for ev in prof.key_averages():
+        if "CPU" not in str(getattr(ev, "device_type", "")):
+            continue
+        name = ev.key
+        if name.startswith(("cuda", "cu")) and (
+                "Launch" in name or "Memcpy" in name or "Memset" in name):
+            calls[name] = ev.count / rounds
+    return {"by_name": calls, "launches": sum(
+        n for k, n in calls.items() if "Launch" in k)}
+
+
+def _steady_rounds(eng, prompts, spec):
+    """Wall, device time and host calls of steady decode rounds: the
+    engine's first ``max_batch`` prompts admitted and decoding with
+    enough new tokens that nobody retires inside the window (16 a
+    round, at most k + 1 = 4 a speculative one), ``GRAPH_WARM_ROUNDS``
+    rounds, then ``GRAPH_TIMED_ROUNDS`` timed on the host clock (each
+    round ends in its readback) and ``GRAPH_PROFILED_ROUNDS`` under the
+    profiler; the requests are then served to the end."""
+    from torch.profiler import ProfilerActivity, profile
+    rounds = GRAPH_WARM_ROUNDS + GRAPH_TIMED_ROUNDS + GRAPH_PROFILED_ROUNDS
+    new = (SPEC_K + 1 if spec else 16) * rounds + 8
+    rids = [eng.submit(p, max_new=new, seed=i + 1)
+            for i, p in enumerate(prompts[:eng.max_batch])]
+    for _ in range(GRAPH_WARM_ROUNDS):
+        eng.step(16)
+    base = eng.metrics()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_TIMED_ROUNDS):
+        eng.step(16)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / GRAPH_TIMED_ROUNDS * 1e3
+    d = _spec_deltas(eng.metrics(), base)
+    steps = d["decode_steps"] if not spec else d["verify"]
+    clocks = _nvidia_smi("clocks.sm,power.draw")
+    # CUDA activity alone: the kernels and the host's CUDA API calls,
+    # without an event an operator (an eager round has ~2 a kernel)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_PROFILED_ROUNDS):
+            eng.step(16)
+        torch.cuda.synchronize()
+    busy, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and "CUDA" in str(getattr(ev, "device_type", "CUDA")):
+            busy += us
+            kernels += ev.count
+    busy_ms = busy / GRAPH_PROFILED_ROUNDS / 1e3
+    eng.run(steps_per_sync=16)
+    torch.cuda.synchronize()
+    if any(eng.request(r).status != "DONE" for r in rids):
+        raise AssertionError("compiled serving: a steady-round request did "
+                             "not finish")
+    per_round = steps / GRAPH_TIMED_ROUNDS
+    if d.get("prefill", 0) + d.get("prefill_fused", 0) or per_round != (
+            1 if spec else 16):
+        raise AssertionError(f"compiled serving: the timed rounds were not "
+                             f"steady ({d})")
+    return {"round_wall_ms": wall_ms, "round_device_ms": busy_ms,
+            # decode: steps of the K-step loop; speculative: verify passes
+            "steps_per_round": per_round,
+            "device_ms_per_step": busy_ms / per_round,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "kernels_per_round": kernels / GRAPH_PROFILED_ROUNDS,
+            "host_calls_per_round": _host_calls(prof, GRAPH_PROFILED_ROUNDS),
+            "sm_clock_power": clocks}
+
+
+def compiled_serving_phase(gpt, engines, programs, cfg, params, qparams):
+    """The serving cell with its decode programs captured as CUDA graphs
+    against the same engines run eagerly (``cuda_graphs=False``):
+    gpt3_1p3b at full width, the 12 requests of ``serving_phase`` (the
+    fused engine: the first 3), 32 new tokens, on contiguous bf16, paged
+    bf16 and int8 (64-token pages, the default pool), the fused b1 int8
+    engine, the contiguous engine sampled (``SAMPLE_SERVE``, seeds
+    1-12), and n-gram k 3 on contiguous bf16 and on the fused engine.
+    Each engine is warmed by two runs of the requests (every program of
+    the run eager once, then captured); then ``GRAPH_PAIRS`` pairs of
+    runs in turns (eager first, then captured first, ...).  Gates: every
+    run's streams equal the first eager run's, and each pair's runs
+    count the same launches of every kernel; the captured engine's
+    timed rounds are all replays.  Reported: the median of the pairs'
+    decode-loop tok/s, wall a round and a token, the captured engine's
+    programs, replays, capture seconds and pool bytes; and, over steady
+    rounds (``_steady_rounds``), each engine's wall and device ms a
+    round, device ms a step, idle share and host calls a round."""
+    Engine, PagedEngine, FusedEngine = engines
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 701, 12)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    rows = {}
+    for label, kind, kd, ngram, sampled in GRAPH_CASES:
+        t_case = time.perf_counter()
+        reqs = prompts[:3] if kind == "fused" else prompts
+
+        def make(cuda_graphs):
+            kw = dict(kv_dtype=kd, attn_kernel="flash", device="cuda",
+                      speculative=ngram, cuda_graphs=cuda_graphs,
+                      **(SAMPLE_SERVE if sampled else {}))
+            if kind == "fused":
+                return FusedEngine(qparams, cfg, max_len=1024, **kw)
+            if kind == "paged":
+                return PagedEngine(params, cfg, max_batch=8, max_len=1024,
+                                   block_size=64, **kw)
+            return Engine(params, cfg, max_batch=8, max_len=1024, **kw)
+
+        def run(eng):
+            base, counts = eng.metrics(), programs.snapshot()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, max_new=32, seed=i + 1)
+                    for i, p in enumerate(reqs)]
+            out = eng.run(steps_per_sync=16)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d = _spec_deltas(eng.metrics(), base)
+            rounds = d.get("decode", 0) + d.get("verify", 0)
+            tokens = 32 * len(reqs)
+            if any(eng.request(r).status != "DONE" or len(out[r]) != 32
+                   for r in rids):
+                raise AssertionError(f"compiled serving {label}: a request "
+                                     f"did not finish with 32 tokens")
+            return {"streams": [list(map(int, out[r])) for r in rids],
+                    "launches": programs.difference(programs.snapshot(),
+                                                    counts),
+                    "replays": eng.metrics()["graph_replays"]
+                    - base["graph_replays"],
+                    "wall_s": wall, "rounds": rounds,
+                    "tok_s": tokens / d["decode_seconds"],
+                    "e2e_tok_s": tokens / wall,
+                    "round_ms": d["decode_seconds"] / rounds * 1e3,
+                    "token_ms": d["decode_seconds"] / tokens * 1e3}
+
+        engs = {"eager": make(False), "captured": make(None)}
+        want = run(engs["eager"])
+        for _ in range(2):
+            run(engs["captured"])
+        pairs = []
+        for i in range(GRAPH_PAIRS):
+            order = ("eager", "captured") if i % 2 == 0 \
+                else ("captured", "eager")
+            pair = {name: run(engs[name]) for name in order}
+            for name, r in pair.items():
+                if r["streams"] != want["streams"]:
+                    same = sum(a == b for a, b in zip(r["streams"],
+                                                      want["streams"]))
+                    raise AssertionError(
+                        f"compiled serving {label}: {name} run {i} streams "
+                        f"{same}/{len(reqs)} equal to the first eager run")
+            cap = pair["captured"]
+            if cap["launches"] != pair["eager"]["launches"]:
+                raise AssertionError(
+                    f"compiled serving {label}: launches {cap['launches']} "
+                    f"captured != {pair['eager']['launches']} eager")
+            if cap["replays"] != cap["rounds"]:
+                raise AssertionError(
+                    f"compiled serving {label}: {cap['replays']} replays "
+                    f"for {cap['rounds']} rounds")
+            pairs.append(pair)
+        m = engs["captured"].metrics()
+        row = {"phase": "compiled_serving", "case": label, "engine": kind,
+               "kv_dtype": kd, "draft": "ngram" if ngram else "none",
+               "sampled": sampled, "requests": len(reqs), "max_new": 32,
+               "streams_equal": f"{len(reqs)}/{len(reqs)}",
+               "launches_equal": True, "rounds": want["rounds"],
+               "graphs": m["graphs"], "graph_replays": m["graph_replays"],
+               "capture_seconds": m["capture_seconds"],
+               "graph_pool_bytes": m["graph_pool_bytes"]}
+        for name in ("eager", "captured"):
+            rs = [p[name] for p in pairs]
+            row[name] = {k: statistics.median(r[k] for r in rs)
+                         for k in ("tok_s", "e2e_tok_s", "round_ms",
+                                   "token_ms", "wall_s")}
+            row[name]["tok_s_runs"] = [r["tok_s"] for r in rs]
+        row["captured_over_eager_tok_s"] = statistics.median(
+            p["captured"]["tok_s"] / p["eager"]["tok_s"] for p in pairs)
+        for name in ("eager", "captured"):
+            row[name]["steady"] = _steady_rounds(engs[name], prompts, ngram)
+        row["seconds"] = time.perf_counter() - t_case
+        rows[label] = row
+        _log(row)
+        del engs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compiled_serving_alone(gpt, engines, programs):
+    """``compiled_serving_phase`` on its own: gpt3_1p3b bf16 from seed
+    0 and its int8 serving weights."""
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    qparams = gpt.quantize_decode_params(params, cfg)
+    return compiled_serving_phase(gpt, engines, programs, cfg, params,
+                                  qparams)
+
+
+#: the phases ``--phases`` runs alone, and the sources each builds
 ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "float32_training": float32_training_phase,
-               "ring_kernel": ring_kernel_phase}
+               "ring_kernel": ring_kernel_phase,
+               "compiled_serving": compiled_serving_alone}
+ONLY_SOURCES = {"compiled_serving": ("flash_decode", "fused_decode",
+                                     "row_gemm", "sampling")}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON")
     ap.add_argument("--phases", help="comma-separated names of ONLY_PHASES: "
-                    "build the training kernels' two sources and run just "
-                    "these phases (no kernels line, no device line)")
+                    "build their sources (the training kernels' two, the "
+                    "serving kernels' four) and run just these phases (no "
+                    "kernels line, no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5571,6 +5807,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
     from paddle_tpu_torch.incubate.nn.kernels import sampling as sm
     from paddle_tpu_torch.incubate.nn import kv_quant as kvq
+    from paddle_tpu_torch.inference import programs
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingEngine, FusedB1Engine,
         PagedContinuousBatchingEngine, SpeculativeConfig)
@@ -5588,12 +5825,16 @@ def main(argv=None) -> int:
         print(f"chip_smoke: --phases takes {sorted(ONLY_PHASES)}",
               file=sys.stderr)
         return 2
-    sources = (["flash_attention", "fused_ce"] if only else
+    sources = (sorted({s for name in only for s in ONLY_SOURCES.get(
+                   name, ("flash_attention", "fused_ce"))}) if only else
                ["flash_decode", "flash_attention", "fused_ce", "fused_decode",
                 "rms_norm", "row_gemm", "sampling"])
     t0 = time.perf_counter()
-    ptxas = _flash_ptxas_start(_build, [s for s in PTXAS_SOURCES
-                                        if s in sources])
+    # the resource report reads flash_attention.cu's: a --phases run
+    # without it makes none
+    ptxas = (_flash_ptxas_start(_build, [s for s in PTXAS_SOURCES
+                                         if s in sources])
+             if "flash_attention" in sources else {})
     try:
         libs = _build.build(sources)
     except BaseException:
@@ -5604,9 +5845,10 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     _log({"phase": "build", "seconds": build_s,
           "libraries": [p.name for p in libs.values()]})
-    resources, new_resources = flash_resources(ptxas, _build)
-    _log({"phase": "flash_attention_resources", "kernels": resources})
-    _log({"phase": "kernel_resources", "kernels": new_resources})
+    if ptxas:
+        resources, new_resources = flash_resources(ptxas, _build)
+        _log({"phase": "flash_attention_resources", "kernels": resources})
+        _log({"phase": "kernel_resources", "kernels": new_resources})
 
     seconds = {}
 
@@ -5621,7 +5863,11 @@ def main(argv=None) -> int:
     if only:
         args_of = {"train_kernel": (fa, fce, matmul_f32out),
                    "float32_training": (gpt, hybrid, TrainLoop, fa, fce),
-                   "ring_kernel": (fa,)}
+                   "ring_kernel": (fa,),
+                   "compiled_serving": (gpt, (
+                       ContinuousBatchingEngine,
+                       PagedContinuousBatchingEngine, FusedB1Engine),
+                       programs)}
         for name in only:
             timed(name, ONLY_PHASES[name], *args_of[name])
         seconds["total_with_build"] = time.perf_counter() - t0
@@ -5676,6 +5922,8 @@ def main(argv=None) -> int:
             ("contiguous", "ngram"): spec_runs[("contiguous", "bf16",
                                                 "ngram")],
             ("paged", "ngram"): spec_runs[("paged", "bf16", "ngram")]})
+    compiled = timed("compiled_serving", compiled_serving_phase, gpt, engines,
+                     programs, cfg, params, qparams)
     del params
     torch.cuda.empty_cache()
     fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
@@ -6081,6 +6329,7 @@ def main(argv=None) -> int:
                  **{k: v for k, v in sampled.items() if k != "runs"}},
              "prefix_serving": {f"{a} {b}": r
                                 for (a, b), r in prefix_runs.items()},
+             "compiled_serving": compiled,
              "speculative_serving": {" ".join(k) if isinstance(k, tuple)
                                      else k: v for k, v in spec_runs.items()
                                      if k != "verify_rows"},

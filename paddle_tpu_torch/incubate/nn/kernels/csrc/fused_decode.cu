@@ -1398,9 +1398,10 @@ extern "C" int pt_fused_decode_scratch(int H, int F, int T, int nH, int grid,
 }
 
 // One token through all L layers in one cooperative launch on `stream`
-// (no synchronisation, nothing allocated).  small_bf16: the biases and
-// LN params are bfloat16 (else float32).  kv_mode: 0 float32, 1
-// bfloat16, 2 int8 (ks/vs scale planes required), 3 float8_e4m3.  grid
+// (no synchronisation, nothing allocated; a CUDA graph can capture it).
+// small_bf16: the biases and LN params are bfloat16 (else float32).
+// kv_mode: 0 float32, 1 bfloat16, 2 int8 (ks/vs scale planes
+// required), 3 float8_e4m3.  grid
 // and stages come from pt_fused_decode_plan, which must have run on
 // this device first (it sets the shared memory limit); scratch and sync
 // are sized by pt_fused_decode_scratch, sync zeroed before its first
@@ -1463,11 +1464,22 @@ extern "C" int pt_fused_decode(
   p.stages = stages;
   p.eps = eps;
   p.scale = scale;
+  // cudaLaunchKernelExC with the cooperative attribute, not
+  // cudaLaunchCooperativeKernel: the same launch, and one that stream
+  // capture records as a cooperative kernel node of a CUDA graph
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes =
+      static_cast<size_t>(fixed_smem(H, F) + stages * kStageBytes);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   void* args[] = {&p};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_of(kv_mode), dim3(grid), dim3(kThreads), args,
-      static_cast<size_t>(fixed_smem(H, F) + stages * kStageBytes),
-      static_cast<cudaStream_t>(stream));
+  cudaError_t e = cudaLaunchKernelExC(&cfg, kernel_of(kv_mode), args);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,25 @@ and the device runs two programs over one in-place KV cache:
   step: greedy argmax, or the position-keyed sampler) advancing every
   slot at its own position, with ONE host sync per K steps.
 
+Compiled programs (``cuda_graphs``): the K-step decode loop, the
+speculative verify pass and the draft's k steps are device programs
+over static buffers (``programs.DeviceProgram``; the JAX engine's
+``_decode_k_program``, ``_verify_program`` and ``_propose_k_program``),
+kept in a per-engine cache keyed by (kind, steps) — temperature, top-k,
+top-p, eos, ``attn_kernel`` and ``kv_dtype`` are constants of an
+engine, so they are not in the key.  A round copies its host state
+(token, position and done flag a slot, the paged block tables, n-gram
+drafts) into the static buffers with ``copy_``, runs the program and
+reads its output back once.  On a CUDA engine a program's first round
+runs eagerly and its second captures it as a CUDA graph, so every
+later round is one graph replay; on the CPU the same programs run
+eagerly.  A graph binds buffer addresses, so this cache is one
+engine's own (JAX's is shared across engines): replacing the cache
+storage (``_reset_cache``, ``_init_draft_cache``) drops the programs
+and their memory pool.  Prefix installs, suffix fills and admission
+prefills write the cache in place, outside any program, and need no
+invalidation.
+
 Priming follows the JAX engine: sequences pad to a bucket, so an
 admitted slot starts at ``pos = S-1`` feeding its last real token; the
 first decode step recomputes that row and its draw is the next
@@ -86,6 +105,7 @@ from ..models import decoding, gpt, llama
 from .lifecycle import (AdmissionQueue, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
 from .prefix_cache import KVSpanPayload, PagePayload, RadixPrefixCache
+from .programs import ProgramCache, resolve_capture
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
            "FusedB1Engine", "Request", "RequestStatus", "EngineState",
@@ -228,7 +248,10 @@ class ContinuousBatchingEngine:
     ``temperature`` / ``top_k`` / ``top_p`` — engine-level sampling (the
     JAX engine's defaults 0.0 / 0 / 1.0): temperature <= 0 is greedy;
     else each request draws with its ``submit(seed=...)`` at each
-    absolute position (the module note)."""
+    absolute position (the module note).  ``cuda_graphs`` — None (the
+    default): the decode, verify and draft programs are captured as
+    CUDA graphs on a CUDA engine and run eagerly on the CPU; False:
+    eager on CUDA too; True: captured, and a CPU engine raises."""
 
     # the metrics()["launches"] key of an admission prefill
     _prefill_kind = "prefill"
@@ -240,7 +263,8 @@ class ContinuousBatchingEngine:
                  max_stall_rounds: int = 8, speculative: Any = None,
                  prefix_cache_bytes: Optional[int] = 0,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, device=None):
+                 top_p: float = 1.0, cuda_graphs: Optional[bool] = None,
+                 device=None):
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"engine max_len={max_len} exceeds the model's "
@@ -305,6 +329,17 @@ class ContinuousBatchingEngine:
         self._prefix: Optional[RadixPrefixCache] = None
         if prefix_cache_bytes is None or prefix_cache_bytes > 0:
             self._prefix = RadixPrefixCache(prefix_cache_bytes)
+        # the compiled programs and their static buffers: a round's fed
+        # token, position and done flag a slot (rows 0-2), and the
+        # drafts a verify pass checks
+        self._programs = ProgramCache(self.device, resolve_capture(
+            cuda_graphs, self.device))
+        self._io = torch.zeros((3, max_batch), dtype=torch.int32,
+                               device=self.device)
+        self._drafts = None
+        if speculative is not None:
+            self._drafts = torch.zeros((max_batch, speculative.k),
+                                       dtype=torch.int32, device=self.device)
         self._init_cache()
         self._init_draft_cache()
 
@@ -346,9 +381,11 @@ class ContinuousBatchingEngine:
                                             device=self.device)
 
     def _reset_cache(self):
-        """Replace the cache storage (and the draft cache) wholesale.
-        Contiguous engines keep the prefix cache — its payloads are
-        owned copies; the paged engine flushes it first."""
+        """Replace the cache storage (and the draft cache) wholesale,
+        dropping the programs that bind it.  Contiguous engines keep the
+        prefix cache — its payloads are owned copies; the paged engine
+        flushes it first."""
+        self._programs.drop()
         self._init_cache()
         self._init_draft_cache()
 
@@ -356,7 +393,9 @@ class ContinuousBatchingEngine:
         """The draft model's cache: contiguous ``[L, max_batch, max_len,
         ...]`` in the engine's ``kv_dtype`` whatever the target's layout
         (the draft is small), and for a LLaMA draft its rotary tables,
-        built once."""
+        built once.  A new draft cache drops the programs bound to the
+        old one."""
+        self._programs.drop()
         self._draft_cache = None
         self._draft_rope = None
         spec = self._spec
@@ -407,8 +446,16 @@ class ContinuousBatchingEngine:
         return vstep
 
     def _decode_extra(self):
-        """Per-round extra device argument of the decode step."""
+        """The extra device argument of the decode and verify steps: a
+        static buffer, refilled by :meth:`_load_round` (paged: the block
+        tables); None here."""
         return None
+
+    def _load_round(self, state: np.ndarray):
+        """Copy a round's host state into the programs' static buffers,
+        outside any program: ``state`` [3, B] int32 (the token fed, the
+        position fed and the done flag of each slot)."""
+        self._io.copy_(torch.from_numpy(state))
 
     def _scan_clamp(self, active, max_tokens: int = 1) -> int:
         """Upper bound on the decode loop's length from cache headroom.
@@ -514,7 +561,11 @@ class ContinuousBatchingEngine:
         rounds, deferred admissions, KV storage format and cache bytes,
         prompt tokens served from the prefix cache and spans it evicted;
         with the prefix cache on, ``prefix_cache``: the trie's stats; with
-        speculation, ``speculative``: the JAX engine's counters."""
+        speculation, ``speculative``: the JAX engine's counters.  The
+        compiled programs: ``graphs`` ({"kind:steps": captured, runs,
+        replays}), ``graph_replays``, ``capture_seconds`` and
+        ``graph_pool_bytes`` (the reserved bytes the graphs' pool took,
+        0 on the CPU)."""
         out = {
             "attn_kernel": self.attn_kernel,
             "kv_dtype": self.kv_dtype,
@@ -531,6 +582,7 @@ class ContinuousBatchingEngine:
             "prefix_hit_tokens": self._prefix_hit_tokens,
             "prefix_evictions": (0 if self._prefix is None
                                  else self._prefix.evictions),
+            **self._programs.metrics(),
         }
         if self._prefix is not None:
             out["prefix_cache"] = self._prefix.stats()
@@ -782,70 +834,111 @@ class ContinuousBatchingEngine:
         self._prefix.insert(key, lambda a, b: self._read_span(slot, a, b),
                             extend=extend)
 
-    def _decode_many(self, K: int, tok, pos, done) -> np.ndarray:
-        """K decode steps on the device, each drawing its token (greedy,
-        or the position-keyed sampler with the slots' seeds); one host
-        sync at the end.  Done slots keep their position (their writes
-        land on a row they own, or on a junk row) and feed the eos id.
-        Returns tokens [K, B]."""
+    def _decode_many(self, K: int) -> np.ndarray:
+        """The K-step decode program over the loaded round: K decode
+        steps on the device, each drawing its token (greedy, or the
+        position-keyed sampler with the slots' seeds); one host sync at
+        the end.  Returns tokens [K, B]."""
+        prog = self._programs.get("decode", K, lambda: self._decode_body(K))
+        prog.run()
+        self._note_launch("decode")
+        self._decode_steps += K
+        return prog.outputs["out"].cpu().numpy()
+
+    def _decode_body(self, K: int):
+        """The body of the K-step decode program (JAX's
+        ``_decode_k_program``) and its output buffer [K, B].  Done
+        slots keep their position (their writes land on a row they own,
+        or on a junk row) and feed the eos id."""
         eos = -1 if self.eos is None else self.eos
         step_fn = self._decode_step_fn()
         extra = self._decode_extra()
-        out = torch.empty((K, self.max_batch), dtype=torch.int32,
+        io = self._io
+        out = torch.zeros((K, self.max_batch), dtype=torch.int32,
                           device=self.device)
-        with torch.inference_mode():
-            for s in range(K):
-                logits, _ = step_fn(self.params, self._cache, extra, tok,
-                                    pos)
-                nxt = decoding.sample_token_pos(
-                    logits, self._seeds, pos, self.temperature, self.top_k,
-                    self.top_p)
-                nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
-                done = done | (nxt == eos)
-                pos = torch.where(done, pos, pos + 1)
-                tok = nxt
-                out[s] = nxt
-        self._note_launch("decode")
-        self._decode_steps += K
-        return out.cpu().numpy()
 
-    def _propose(self, k: int, tok, pos):
-        """k greedy draft steps on the device, no host sync: drafts
-        [B, k] int32.  Inactive slots ride along pinned at the junk row
-        ``max_len - 1`` (JAX lets them run on and drops the writes past
-        the cache; a torch index there raises); an active slot's k - 1
-        steps stay below it (k < its headroom)."""
+        def body():
+            tok, pos, done = io[0], io[1], io[2] != 0
+            with torch.inference_mode():
+                for s in range(K):
+                    logits, _ = step_fn(self.params, self._cache, extra, tok,
+                                        pos)
+                    nxt = decoding.sample_token_pos(
+                        logits, self._seeds, pos, self.temperature,
+                        self.top_k, self.top_p)
+                    nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+                    done = done | (nxt == eos)
+                    pos = torch.where(done, pos, pos + 1)
+                    tok = nxt
+                    out[s] = nxt
+
+        return body, {"out": out}
+
+    def _propose(self, k: int):
+        """The draft program: k greedy draft steps on the device into
+        the static drafts buffer, no host sync."""
+        self._programs.get("draft", k, lambda: self._propose_body(k)).run()
+        self._note_launch("draft")
+        self._draft_steps += k
+
+    def _propose_body(self, k: int):
+        """The body of the draft program (JAX's ``_propose_k_program``):
+        drafts [:, :k] from the loaded round's tokens and positions.
+        Inactive slots ride along pinned at the junk row ``max_len - 1``
+        (JAX lets them run on and drops the writes past the cache; a
+        torch index there raises); an active slot's k - 1 steps stay
+        below it (k < its headroom)."""
         spec = self._spec
         mod = _draft_family(spec.family)
         kw = {} if self._draft_rope is None else \
             {"rope_tables": self._draft_rope}
         last = self.max_len - 1
-        out = torch.empty((self.max_batch, k), dtype=torch.int32,
-                          device=self.device)
-        for j in range(k):
-            logits, _ = mod.decode_step_multi(
-                spec.draft_params, self._draft_cache, tok, pos,
-                spec.draft_cfg, attn_kernel=self.attn_kernel, **kw)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            out[:, j] = tok
-            pos = torch.clamp(pos + 1, max=last)
-        self._note_launch("draft")
-        self._draft_steps += k
-        return out
+        io, drafts = self._io, self._drafts
 
-    def _verify_many(self, tok, drafts, pos):
-        """The verify program: ONE pass of the target over each slot's
-        window [tok, drafts...] and the target's token at every position
-        (greedy, or the sampler at that absolute position).  Returns the
-        fed window and the target tokens, both [B, k + 1] on the
-        device."""
-        toks = torch.cat([tok[:, None], drafts], dim=1)
-        logits, _ = self._verify_step_fn()(self.params, self._cache,
-                                           self._decode_extra(), toks, pos)
-        g = decoding.sample_window(logits, self._seeds, pos,
-                                   self.temperature, self.top_k, self.top_p)
+        def body():
+            tok, pos = io[0], io[1]
+            with torch.inference_mode():
+                for j in range(k):
+                    logits, _ = mod.decode_step_multi(
+                        spec.draft_params, self._draft_cache, tok, pos,
+                        spec.draft_cfg, attn_kernel=self.attn_kernel, **kw)
+                    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                    drafts[:, j] = tok
+                    pos = torch.clamp(pos + 1, max=last)
+
+        return body, {}
+
+    def _verify_many(self, k: int):
+        """The verify program over the loaded round and drafts [:, :k]:
+        returns its output buffer [2, B, k + 1] on the device, the fed
+        window and the target tokens."""
+        prog = self._programs.get("verify", k, lambda: self._verify_body(k))
+        prog.run()
         self._note_launch("verify")
-        return toks, g
+        return prog.outputs["out"]
+
+    def _verify_body(self, k: int):
+        """The body of the verify program (JAX's ``_verify_program``):
+        ONE pass of the target over each slot's window [tok, drafts...]
+        and the target's token at every position (greedy, or the sampler
+        at that absolute position)."""
+        vstep = self._verify_step_fn()
+        extra = self._decode_extra()
+        io, drafts = self._io, self._drafts
+        out = torch.zeros((2, self.max_batch, k + 1), dtype=torch.int32,
+                          device=self.device)
+
+        def body():
+            tok, pos = io[0], io[1]
+            with torch.inference_mode():
+                toks = torch.cat([tok[:, None], drafts[:, :k]], dim=1)
+                logits, _ = vstep(self.params, self._cache, extra, toks, pos)
+                out[0] = toks
+                out[1] = decoding.sample_window(
+                    logits, self._seeds, pos, self.temperature, self.top_k,
+                    self.top_p)
+
+        return body, {"out": out}
 
     def _decode_round(self, max_tokens: int, retired_before: int):
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
@@ -876,15 +969,9 @@ class ContinuousBatchingEngine:
         # host drops their overshoot
         K = max(1, min(max_tokens, clamp))
         K = 1 << (K.bit_length() - 1)
-        active_mask = np.array([r is not None for r in self._slot_req])
-        dev = self.device
-        tok = torch.from_numpy(self._next_tok.copy()).to(dev)
-        pos = torch.from_numpy(np.where(active_mask, self._pos,
-                                        self.max_len - 1)
-                               .astype(np.int32)).to(dev)
-        done = torch.from_numpy(~active_mask).to(dev)
         t_scan = _now()
-        toks = self._decode_many(K, tok, pos, done)
+        self._load_round(self._round_state())
+        toks = self._decode_many(K)
         t_host = _now()
         self._decode_seconds += t_host - t_scan
         self._stall_rounds = 0    # tokens produced: not a livelock
@@ -914,22 +1001,16 @@ class ContinuousBatchingEngine:
         one; acceptance decides only how many land a round."""
         spec = self._spec
         k = min(spec.k, clamp - 1)
-        active_mask = np.array([r is not None for r in self._slot_req])
-        dev = self.device
-        pos = torch.from_numpy(np.where(active_mask, self._pos,
-                                        self.max_len - 1)
-                               .astype(np.int32)).to(dev)
-        tok = torch.from_numpy(self._next_tok.copy()).to(dev)
         launches = 1                                  # the verify
         t_scan = _now()
-        with torch.inference_mode():
-            if spec.has_model:
-                drafts = self._propose(k, tok, pos)
-                launches += 1
-            else:
-                drafts = torch.from_numpy(self._ngram_proposals(k)).to(dev)
-            feed, g = self._verify_many(tok, drafts, pos)
-            feed, g = torch.stack((feed, g)).cpu().numpy()
+        self._load_round(self._round_state())
+        if spec.has_model:
+            self._propose(k)
+            launches += 1
+        else:
+            self._drafts[:, :k].copy_(torch.from_numpy(
+                self._ngram_proposals(k)))
+        feed, g = self._verify_many(k).cpu().numpy()
         t_host = _now()
         self._decode_seconds += t_host - t_scan
         self._stall_rounds = 0
@@ -965,6 +1046,15 @@ class ContinuousBatchingEngine:
         st["launches"] += launches
         st["slot_launches"] += launches * len(active)
         st["rollbacks"] += rollbacks
+
+    def _round_state(self) -> np.ndarray:
+        """A round's [3, B] int32 host state for :meth:`_load_round`:
+        each slot's next token, its position (inactive slots at the junk
+        row ``max_len - 1``) and its done flag (inactive slots done)."""
+        active = np.array([r is not None for r in self._slot_req])
+        return np.stack([self._next_tok,
+                         np.where(active, self._pos, self.max_len - 1),
+                         ~active]).astype(np.int32)
 
     def _ngram_proposals(self, k: int) -> np.ndarray:
         """Host-side draft: for each active slot, the tokens that followed
@@ -1117,6 +1207,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             // self.num_blocks
         self._tables = np.full((self.max_batch, self._max_blocks_per_slot),
                                -1, np.int32)
+        # the block tables the decode and verify programs read, refilled
+        # from _tables before each round
+        self._tables_dev = torch.full(self._tables.shape, -1,
+                                      dtype=torch.int32, device=self.device)
 
     def _reset_cache(self):
         if self._prefix is not None:
@@ -1177,9 +1271,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return vstep
 
     def _decode_extra(self):
-        # the block tables, copied to the device once per decode round
-        return torch.tensor(self._tables, dtype=torch.int32,
-                            device=self.device)
+        return self._tables_dev
+
+    def _load_round(self, state: np.ndarray):
+        # the pages _scan_clamp claimed, evictions and shared prefix
+        # pages all reach the programs through this copy
+        super()._load_round(state)
+        self._tables_dev.copy_(torch.from_numpy(self._tables))
 
     def _scan_clamp(self, active, max_tokens: int = 1) -> int:
         """Besides cache headroom, no slot may decode past its last

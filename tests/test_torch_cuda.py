@@ -1982,3 +1982,151 @@ def test_sampled_engine_on_card_is_partition_invariant(cuda):
         streams.append([out[r] for r in rids])
         assert sm.LAUNCHES - before == eng.metrics()["decode_steps"]
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# compiled decode programs: CUDA graphs against the same rounds run eagerly
+# ---------------------------------------------------------------------------
+
+# (prompt length, max_new) of the graph A/B: three prefill buckets,
+# slots that refill, and enough decode growth to outgrow a small pool
+_GRAPH_REQS = ((20, 40), (40, 40), (17, 40), (50, 40), (3, 40), (60, 30))
+# engine, kv_dtype, paged pool (block size 8): 64 pages hold every
+# admission, 26 pages defer and evict
+_GRAPH_ENGINES = (("contiguous", "bf16", None), ("paged", "bf16", 64),
+                  ("paged", "int8", 64), ("paged", "fp8", 64),
+                  ("paged", "bf16", 26), ("fused", "int8", None))
+_GRAPH_MODES = ("greedy", "sampled", "ngram", "self")
+
+
+def _graph_models(device):
+    """gpt_tiny in bfloat16 (hD 32) at initializer_range 0.3, so greedy
+    streams move, and its int8 serving weights."""
+    cfg = gpt.gpt_tiny(dtype=torch.bfloat16, initializer_range=0.3,
+                       use_flash=False)
+    params = _to(gpt.init_params(cfg, seed=3, device="cpu"), device)
+    return cfg, params, gpt.quantize_decode_params(params, cfg)
+
+
+def _graph_engine(models, kind, kd, pages, mode, device, cuda_graphs,
+                  **kw):
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine, FusedB1Engine,
+        PagedContinuousBatchingEngine, SpeculativeConfig)
+    cfg, params, qparams = models
+    p = qparams if kind == "fused" else params
+    if mode == "self":
+        kw["speculative"] = SpeculativeConfig(k=3, draft_params=p,
+                                              draft_cfg=cfg)
+    elif mode == "ngram":
+        kw["speculative"] = SpeculativeConfig(k=3)
+    elif mode == "sampled":
+        kw.update(chip_smoke.SAMPLE_SERVE)
+    kw.update(kv_dtype=kd, device=device, cuda_graphs=cuda_graphs)
+    if kind == "fused":
+        return FusedB1Engine(p, cfg, max_len=256, **kw)
+    if kind == "paged":
+        return PagedContinuousBatchingEngine(
+            p, cfg, max_batch=4, max_len=256, block_size=8,
+            num_blocks=pages, **kw)
+    return ContinuousBatchingEngine(p, cfg, max_batch=4, max_len=256, **kw)
+
+
+def _graph_run(eng, prompts, steps=8):
+    """Serve ``prompts`` ((ids, max_new) pairs, seeds 1..n); returns the
+    streams and every kernel counter's change over the run."""
+    from paddle_tpu_torch.inference import programs
+    before = programs.snapshot()
+    rids = [eng.submit(p, max_new=m, seed=i + 1)
+            for i, (p, m) in enumerate(prompts)]
+    out = eng.run(steps_per_sync=steps)
+    torch.cuda.synchronize()
+    return ([list(map(int, out[r])) for r in rids],
+            programs.difference(programs.snapshot(), before))
+
+
+def _graph_prompts(cfg, kind, seed=6):
+    rng = np.random.default_rng(seed)
+    reqs = _GRAPH_REQS[:3] if kind == "fused" else _GRAPH_REQS
+    return [(rng.integers(0, cfg.vocab_size, (n,)), m) for n, m in reqs]
+
+
+@pytest.mark.parametrize("mode", _GRAPH_MODES)
+@pytest.mark.parametrize("kind,kd,pages", _GRAPH_ENGINES)
+def test_captured_engine_equals_eager(cuda, kind, kd, pages, mode):
+    """A default (captured) engine and a ``cuda_graphs=False`` engine
+    give bit-identical streams and equal launch counts of every kernel,
+    twice over (the second run replays the first run's graphs); every
+    decode round, verify pass and draft proposal past a program's first
+    runs is one replay."""
+    models = _graph_models(cuda)
+    prompts = _graph_prompts(models[0], kind)
+    graph = _graph_engine(models, kind, kd, pages, mode, cuda, None)
+    eager = _graph_engine(models, kind, kd, pages, mode, cuda, False)
+    for _ in range(2):
+        got, got_n = _graph_run(graph, prompts)
+        want, want_n = _graph_run(eager, prompts)
+        assert got == want
+        assert got_n == want_n
+    m, e = graph.metrics(), eager.metrics()
+    assert m["launches"] == e["launches"]
+    assert m["graph_replays"] > 0 and e["graph_replays"] == 0
+    assert all(g["captured"] == (g["runs"] > 1)
+               for g in m["graphs"].values())
+    runs = sum(g["runs"] for g in m["graphs"].values())
+    assert m["graph_replays"] == runs - len(m["graphs"])
+    assert m["graph_pool_bytes"] > 0 and m["capture_seconds"] > 0
+    if mode in ("ngram", "self"):
+        assert any(k.startswith("verify:") for k in m["graphs"])
+    if mode == "self":
+        assert any(k.startswith("draft:") for k in m["graphs"])
+    if pages == 26:
+        assert m["evictions"] >= 1 and m["deferred_admissions"] >= 1
+        assert m["evictions"] == e["evictions"]
+    if kind == "paged":
+        assert m["free_blocks"] == m["num_blocks"]
+
+
+@pytest.mark.parametrize("mode", ["greedy", "self"])
+@pytest.mark.parametrize("kind,kd,pages", [("contiguous", "bf16", None),
+                                           ("paged", "int8", 64),
+                                           ("fused", "int8", None)])
+def test_captured_engine_after_reset_cache(cuda, kind, kd, pages, mode):
+    """``_reset_cache`` replaces the storage the graphs bind: it drops
+    them, and the next run captures anew and still equals eager."""
+    models = _graph_models(cuda)
+    prompts = _graph_prompts(models[0], kind, seed=7)
+    graph = _graph_engine(models, kind, kd, pages, mode, cuda, None)
+    eager = _graph_engine(models, kind, kd, pages, mode, cuda, False)
+    first = _graph_run(graph, prompts)
+    assert first == _graph_run(eager, prompts)
+    for eng in (graph, eager):
+        eng._reset_cache()
+    assert graph.metrics()["graphs"] == {}
+    got, want = _graph_run(graph, prompts), _graph_run(eager, prompts)
+    assert got == want and got[0] == first[0]
+    assert any(g["captured"] for g in graph.metrics()["graphs"].values())
+
+
+@pytest.mark.parametrize("kind,kd,pages", [("contiguous", "bf16", None),
+                                           ("paged", "bf16", 64),
+                                           ("fused", "int8", None)])
+def test_captured_engine_after_prefix_install(cuda, kind, kd, pages):
+    """With the prefix cache on (unbounded), a primer then requests that
+    share its prefix: installs and suffix fills write the cache in place
+    outside the graphs, and the captured streams equal eager."""
+    models = _graph_models(cuda)
+    cfg = models[0]
+    rng = np.random.default_rng(8)
+    shared = rng.integers(0, cfg.vocab_size, (48,))
+    prompts = [(np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                     (n,))]), 8)
+               for n in ((5, 17, 30) if kind != "fused" else (5, 17))]
+    runs = []
+    for cuda_graphs in (None, False):
+        eng = _graph_engine(models, kind, kd, pages, "greedy", cuda,
+                            cuda_graphs, prefix_cache_bytes=None)
+        _graph_run(eng, [(shared, 4)])
+        runs.append(_graph_run(eng, prompts))
+        assert eng.metrics()["prefix_hit_tokens"] > 0
+    assert runs[0] == runs[1]
