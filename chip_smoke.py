@@ -115,8 +115,9 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    card stream equal to the card's non-speculative stream and to the
    CPU's; launches exact (flash_decode L a target decode step, verify
    round and prefill, the draft's layers a draft step and draft
-   prefill; fused_decode once a decode step and a verify position; RMS
-   "llama" 2 L + 1 a LLaMA draft step).
+   prefill; fused_decode once a decode step and a verify position; the
+   RMS norm alone once and its fused residual-add instance 2 L times a
+   LLaMA draft step).
 4b. prefix reference (``prefix_reference_phase``) — the prefix cache on
    gpt_tiny f32 (int8 weights for the fused engine): a primer, then a
    shared-prefix load with hits, partial hits and a full hit on the
@@ -267,15 +268,24 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    24 per prefill only), stream agreement reported; one step of each at
    pos 601 on a shared cache, profiled, and the per-op step timed (no
    single library call computes a layer stack: it stands in for one).
-8. RMSNorm — the ``rms_norm`` kernel against ``rms_norm_plain`` in both
-   rounding policies ("fused", the TPU kernel's; "llama", the LLaMA
-   path's), float32 and bfloat16, at [8, 4096], [2048, 4096], [8, 128]
-   and [7, 11008], and through a row stride: float32 per element within
-   1e-6 |want| + 1e-7, bfloat16 equal or one step apart on at most 1e-3
-   of the elements, rstd within 1e-6 relative; times beside
-   ``F.rms_norm`` and the byte bound.  Then the LLaMA path's attention
-   kernels at the shapes llama_7b gives them (32 heads of 128, bf16,
-   unpacked q/k/v), per element at the limits of phase 2/3:
+8. RMSNorm — the ``rms_norm.cu`` kernels in both rounding policies
+   ("fused", the TPU kernel's; "llama", the LLaMA path's), float32 and
+   bfloat16, at [8, 4096], [2048, 4096], [8, 128], [7, 11008] and
+   llama_7b training's [8192, 4096]: the forward against
+   ``rms_norm_plain`` (float32 per element within 1e-6 |want| + 1e-7,
+   bfloat16 equal or one step apart on at most 1e-3 of the elements,
+   rstd within 1e-6 relative), also through a row stride; the fused
+   residual-add instance bit for bit ``h + delta`` and the forward
+   kernel on it, its backward with g_s bit for bit T(dx + g_s); the
+   backward against ``rms_norm_bwd_plain`` (``_rms_bwd_errors``: dw one
+   bf16 step, dx one step of max(|dx|, ``_rms_bwd_floor``): 2 |g w
+   rstd| for "llama", 2^-8 of the float32 terms' scale for "fused").
+   Each timed
+   beside its plain version, its byte bound and share, and a library
+   yardstick: ``F.rms_norm``; ``h + delta`` then ``F.rms_norm`` (two
+   calls); ``F.rms_norm``'s autograd backward.  Then the LLaMA path's
+   attention kernels at the shapes llama_7b gives them (32 heads of 128,
+   bf16, unpacked q/k/v), per element at the limits of phase 2/3:
    ``flash_attention_fwd`` at generate's prefill (B 4, S 512, causal),
    ``flash_decode`` at the slot loop's decode step (B 8, T 1024, ragged)
    and at its longest ``prefill_into_slots`` (B 1, W = T = 600, pos 0).
@@ -287,12 +297,15 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    of 128, FFN 11008, V 32000, bf16, seed 0) after the GPT trees are
    freed: ``generate`` of 4 x 512 tokens, 32 new, and the slot loop over
    8 prompts (32..700 tokens, max_len 1024, 32 new, "flash"), with exact
-   launch counts (RMS "llama" 65 a forward pass, 64 a
+   launch counts (RMS: the norm alone once and the fused residual-add
+   instance 64 times a forward pass, once and 63 times a
    ``prefill_into_slots``; flash_attention_fwd 32 a generate prefill;
    flash_decode 32 a slot decode step or ``prefill_into_slots``); prefill
-   ms, decode tok/s, one 8-slot step profiled, cache bytes, peak memory;
-   the plain route on the same weights (streams reported), and both
-   routes' first-step logits against the same steps in float32: the
+   ms, decode tok/s, one 8-slot step profiled (and its norms and
+   residual adds: device ms and launches, ``norm_add_profile``), cache
+   bytes, peak memory; the plain route on the same weights (streams
+   reported), and both routes' first-step logits against the same steps
+   in float32: the
    kernel route's largest error within 1.5 x the plain route's; beside
    it, negative controls (the kernel route with a fault injected around
    a wrapper: K/V heads rolled, attention zeroed, layer 0's first
@@ -335,12 +348,15 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    one sequence (atol 2e-3; each leaf within 5e-2 in norm); then B 4,
    S 2048, one seeded batch, 1 warm + 4 steps through
    ``TrainLoop(max_inflight=2)`` (the loss must fall; launches exact:
-   each flash kernel 8 a step, RMS "llama" 17), step ms, tokens/s, peak
-   memory, a profile by family (flash fwd, flash bwd, GEMMs, RMS fwd,
-   other) with the optimizer timed alone; one ``remat=True`` step; the
-   RMS "llama" backward at [8192, 4096] bf16 against the same call on
-   the CPU (dw one bf16 step per element; dx one step of the larger of
-   the element and twice its first addend, see ``rms_backward_check``).
+   each flash kernel 8 a step; RMS a step: the norm alone once, the
+   fused residual-add instance 16 times, the backward 17 times), step
+   ms, tokens/s, peak memory, a profile by family (flash fwd, flash bwd,
+   GEMMs, RMS fwd, RMS bwd, other) with the optimizer timed alone; one
+   ``remat=True`` step; the RMS "llama" backward at [8192, 4096] bf16
+   against the same call on the CPU (dw one bf16 step per element; dx
+   one step of the larger of the element and twice its first addend,
+   see ``rms_backward_check``), both kernels' time under autograd and
+   the backward kernel's alone beside the plain versions'.
 15. LLaMA sequence parallel — ``llama.loss_fn(sp_group=g)`` on a real
    one-rank NCCL group at that config (the ring at P = 1: the offset
    kernels, 8 launches each) against ``loss_fn`` without a group: loss
@@ -348,7 +364,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    first call sets up the communicator, the second is counted and timed.
 16. the seconds of each phase, the kernels line (flash_decode in each
    layout and storage mode that the serving runs launch, row_gemm, the
-   training kernels, fused_decode in each storage mode, rms_norm in each policy,
+   training kernels, fused_decode in each storage mode, rms_norm's
+   forward, fused residual-add instance and backward in each policy,
    the ring variant's three kernels, ``flash_attention_with_lse_*``,
    with launches from phase 15 and times at its shape; the float32
    instances of the flash and CE kernels beside their bf16 rows
@@ -2705,7 +2722,8 @@ def _spec_counts(fd, fdl, fnr):
     return {"flash_decode": fd.LAUNCHES,
             "flash_decode_paged": fd.PAGED_LAUNCHES,
             "split": fd.INSTANCE_LAUNCHES["split"],
-            "fused_decode": fdl.LAUNCHES, "rms_llama": fnr.LAUNCHES["llama"]}
+            "fused_decode": fdl.LAUNCHES, "rms_llama": fnr.LAUNCHES["llama"],
+            "rms_add_llama": fnr.LAUNCHES["add_llama"]}
 
 
 def _spec_reset(fd, fdl, fnr):
@@ -2736,13 +2754,15 @@ def _spec_want(kind, d, L, Ld, llama_draft=False):
     L a target decode step, verify round and prefill (paged: decode steps
     and verify rounds in the paged layout; fused: the fused kernel once a
     decode step and once a verify position, proposed + rounds), the
-    draft's Ld a draft step and a draft prefill; RMS "llama" 2 Ld + 1 a
-    LLaMA draft step and 2 Ld a draft prefill."""
+    draft's Ld a draft step and a draft prefill; RMS "llama" one a LLaMA
+    draft step and a draft prefill (layer 0's attention norm), its fused
+    residual-add instance 2 Ld a draft step and 2 Ld - 1 a draft
+    prefill (``_rms_launches``)."""
     steps, rounds = d["decode_steps"], d.get("verify", 0)
     prefills = d.get("prefill", 0) + d.get("prefill_fused", 0)
     draft = Ld * (d["draft_steps"] + d.get("draft_prefill", 0))
     want = {"flash_decode": L * prefills + draft, "flash_decode_paged": 0,
-            "fused_decode": 0, "rms_llama": 0}
+            "fused_decode": 0, "rms_llama": 0, "rms_add_llama": 0}
     if kind == "contiguous":
         want["flash_decode"] += L * (steps + rounds)
     elif kind == "paged":
@@ -2750,8 +2770,8 @@ def _spec_want(kind, d, L, Ld, llama_draft=False):
     else:
         want["fused_decode"] = steps + rounds + d.get("spec_proposed", 0)
     if llama_draft:
-        want["rms_llama"] = ((2 * Ld + 1) * d["draft_steps"]
-                             + 2 * Ld * d.get("draft_prefill", 0))
+        want.update(_rms_launches(Ld, d["draft_steps"],
+                                  d.get("draft_prefill", 0)))
     return want
 
 
@@ -3539,6 +3559,7 @@ def prefix_serving_phase(gpt, engines, fd, rg, fdl, cfg, params, qparams):
 
 
 RMS_CASES = ((8, 4096), (2048, 4096), (8, 128), (7, 11008))
+RMS_TRAIN_ROWS = (8192, 4096)   # llama_7b training: B 4 x S 2048 rows
 RMS_F32_REL, RMS_F32_ABS = 1e-6, 1e-7   # float32 out, per element
 RMS_BF16_STEP_SHARE = 1e-3   # bf16: elements one step apart, at most
 RMS_RSTD_REL = 1e-6          # "fused" rstd, relative
@@ -3591,49 +3612,144 @@ def _rms_errors(got, want, rstd=None, want_rstd=None):
     return err, share
 
 
+def _rms_work(kind, N, H, e, policy, residual=False):
+    """(bytes, operations) the function must move and do: the forward
+    reads x and w and writes out (the fused instance: h and delta read,
+    s and out written); the backward reads x, g (and g_s) and w and
+    writes dx and dw; "fused" adds rstd [N] float32 (written by the
+    forward, read by the backward).  Operations: a multiply-add and two
+    products an element forward (an add more fused), about ten an
+    element backward."""
+    rstd = 4 * N if policy == "fused" else 0
+    if kind == "fwd":
+        return 2 * N * H * e + H * e + rstd, 4 * N * H
+    if kind == "add":
+        return 4 * N * H * e + H * e + rstd, 5 * N * H
+    return ((4 if residual else 3) * N * H * e + 2 * H * e + rstd,
+            10 * N * H)
+
+
 def rms_kernel_phase(fnr):
-    """The RMS kernel against its plain version on the card, both
+    """The RMS kernels against their plain versions on the card, both
     policies, float32 and bfloat16, at the LLaMA path's rows (8 decode
-    rows and 4 x 512 prefill rows of llama_7b, 8 rows of llama_tiny) and
-    an odd case (7 rows of 11008); times of the kernel, the plain
-    version and ``F.rms_norm`` (the one PyTorch call computing the same
-    function, never called by the port), and the byte bound.  One more
-    call reads x through a row stride (every other row)."""
+    rows and 4 x 512 prefill rows of llama_7b, 8 rows of llama_tiny, an
+    odd case of 7 rows of 11008, and llama_7b training's 4 x 2048 rows):
+    the forward (``_rms_errors``), the fused residual-add instance
+    (``add_rms_check``: bit for bit the add and the forward kernel, and
+    its backward with g_s bit for bit), and the backward against its
+    plain version on the card (``_rms_bwd_errors``).  Times of each
+    kernel, its plain version and the library yardstick — ``F.rms_norm``
+    (never called by the port) for the forward; ``h + delta`` then
+    ``F.rms_norm`` (two calls) for the fused instance; ``F.rms_norm``'s
+    autograd backward (the graph kept, one backward timed) for the
+    backward — beside the byte bound and the kernel's share of it.  One
+    more call reads x through a row stride (every other row)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     eps = 1e-6
     results = {}
-    for N, H in RMS_CASES:
+
+    def timed(fn):
+        return _time_ms(fn, flush=flush)
+
+    for N, H in RMS_CASES + (RMS_TRAIN_ROWS,):
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn((N, H), generator=gen, device="cuda").to(dt)
+            x, h, delta, g, g_s = (torch.randn(
+                (N, H), generator=gen, device="cuda").to(dt)
+                for _ in range(5))
             w = (1 + 0.1 * torch.randn((H,), generator=gen,
                                        device="cuda")).to(dt)
+            e = x.element_size()
+            shape = f"N={N} H={H} {str(dt).split('.')[-1]}"
             for policy in fnr.POLICIES:
+                key = (policy, N, H, str(dt).split(".")[-1])
+                # the forward
                 got, rstd = fnr.rms_norm(x, w, eps, policy)
                 torch.cuda.synchronize()
                 want, want_rstd = fnr.rms_norm_plain(x, w, eps, policy)
                 err, share = _rms_errors(got, want, rstd, want_rstd)
                 lib = F.rms_norm(x, (H,), w, eps)
-                e = x.element_size()
-                nbytes = 2 * N * H * e + H * e + (4 * N if rstd is not None
-                                                  else 0)
-                row = {"phase": "kernel_rms", "policy": policy,
-                       "shape": f"N={N} H={H} {str(dt).split('.')[-1]}",
-                       "ms": _time_ms(lambda: fnr.rms_norm(x, w, eps, policy),
-                                      flush=flush),
-                       "plain_ms": _time_ms(
-                           lambda: fnr.rms_norm_plain(x, w, eps, policy),
-                           flush=flush),
-                       "library_ms": _time_ms(
-                           lambda: F.rms_norm(x, (H,), w, eps), flush=flush),
-                       # a multiply-add and two products an element
-                       **_bound(nbytes, 4 * N * H, "float32"),
+                row = {"phase": "kernel_rms", "kind": "fwd",
+                       "policy": policy, "shape": shape,
+                       "ms": timed(lambda: fnr.rms_norm(x, w, eps, policy)),
+                       "plain_ms": timed(
+                           lambda: fnr.rms_norm_plain(x, w, eps, policy)),
+                       "library_ms": timed(
+                           lambda: F.rms_norm(x, (H,), w, eps)),
+                       **_bound(*_rms_work("fwd", N, H, e, policy),
+                                "float32"),
                        "max_abs_err": err, "share_differing": share,
                        "library_max_abs_err": (lib.float() - want.float())
                        .abs().max().item()}
+                row["bound_share"] = row["bound_ms"] / row["ms"]
                 _log(row)
-                results[(policy, N, H, str(dt).split(".")[-1])] = row
+                results[("fwd",) + key] = row
+                # the fused residual-add instance
+                add_rms_check(fnr, h, delta, w, g, g_s, policy, eps)
+                s_plain, out_plain = fnr.add_rms_norm_plain(h, delta, w, eps,
+                                                            policy)
+                s_k, out_k = fnr.add_rms_norm(h, delta, w, eps, policy)
+                err, share = _rms_errors(out_k, out_plain)
+
+                def add_library():
+                    F.rms_norm(h + delta, (H,), w, eps)
+
+                row = {"phase": "kernel_rms", "kind": "add",
+                       "policy": policy, "shape": shape,
+                       "ms": timed(lambda: fnr.add_rms_norm(h, delta, w, eps,
+                                                            policy)),
+                       "plain_ms": timed(lambda: fnr.add_rms_norm_plain(
+                           h, delta, w, eps, policy)),
+                       "library_ms": timed(add_library),
+                       "library_calls": "h + delta, then F.rms_norm (two)",
+                       **_bound(*_rms_work("add", N, H, e, policy),
+                                "float32"),
+                       "s_bit_equal_add": bool(torch.equal(s_k, s_plain)),
+                       "max_abs_err": err, "share_differing": share,
+                       "bit_equal_rms_norm_of_s": True}
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                _log(row)
+                results[("add",) + key] = row
+                # the backward, with and without the residual's cotangent
+                dx, dw = fnr.rms_norm_bwd(x, w, g, eps, policy, rstd)
+                torch.cuda.synchronize()
+                pdx, pdw = fnr.rms_norm_bwd_plain(x, w, g, eps, policy,
+                                                  want_rstd)
+                dx_err, dx_share, dw_err, dw_share = _rms_bwd_errors(
+                    (dx, dw), (pdx, pdw),
+                    _rms_bwd_floor(x, w, g, policy, eps),
+                    f"rms_norm {policy} backward kernel vs plain")
+                xx = x.detach().requires_grad_(True)
+                ww = w.detach().requires_grad_(True)
+                lib_out = F.rms_norm(xx, (H,), ww, eps)
+                row = {"phase": "kernel_rms", "kind": "bwd",
+                       "policy": policy, "shape": shape,
+                       "ms": timed(lambda: fnr.rms_norm_bwd(
+                           x, w, g, eps, policy, rstd)),
+                       "ms_with_g_s": timed(lambda: fnr.rms_norm_bwd(
+                           x, w, g, eps, policy, rstd, g_s)),
+                       "plain_ms": timed(lambda: fnr.rms_norm_bwd_plain(
+                           x, w, g, eps, policy, want_rstd)),
+                       "library_ms": timed(lambda: torch.autograd.grad(
+                           lib_out, (xx, ww), g, retain_graph=True)),
+                       "library_calls": "F.rms_norm's autograd backward",
+                       **_bound(*_rms_work("bwd", N, H, e, policy),
+                                "float32"),
+                       "bound_with_g_s_ms": _bound(*_rms_work(
+                           "bwd", N, H, e, policy, True),
+                           "float32")["bound_ms"],
+                       "max_abs_err": max(dx_err, dw_err),
+                       "dx_max_abs_err": dx_err, "dx_share_differing":
+                           dx_share, "dw_max_abs_err": dw_err,
+                       "dw_share_differing": dw_share}
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                row["bound_share_with_g_s"] = (row["bound_with_g_s_ms"]
+                                               / row["ms_with_g_s"])
+                _log(row)
+                results[("bwd",) + key] = row
+                del lib_out, xx, ww
+            del x, h, delta, g, g_s
     # a row stride: every other row of a [16, 4096] tensor
     base = torch.randn((16, 4096), generator=gen,
                        device="cuda").to(torch.bfloat16)
@@ -3763,11 +3879,64 @@ def llama_slot_loop(llama, params, cfg, prompts, new_tokens, max_len,
             "decode_s": t2 - t1}
 
 
-def _rms_launches(cfg, forwards, into_slots):
-    """RMS "llama" launches of a run: 2L + 1 a forward pass (a prefill,
-    a decode step), 2L a ``prefill_into_slots`` call (no final norm)."""
-    L = cfg.num_layers
-    return (2 * L + 1) * forwards + 2 * L * into_slots
+def norm_add_profile(step, rows, H, n=10):
+    """The RMS norms and the residual adds of a decode step ``step()``
+    over ``rows`` rows of H, under torch.profiler (shapes recorded), per
+    step: the device ms and launches of the RMS kernels (every kernel
+    named rms_norm*), of the separate residual adds (``aten::add`` of two
+    [rows, H] tensors, their kernels' device time), their sum, and the
+    step's device ms and kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+
+    def dev_us(ev, self_only):
+        name = "self_device_time_total" if self_only else "device_time_total"
+        us = getattr(ev, name, None)
+        if us is None:
+            us = getattr(ev, name.replace("device", "cuda"), 0.0)
+        return us
+
+    out = dict.fromkeys(("rms_ms", "rms_launches", "residual_add_ms",
+                         "residual_adds", "device_ms", "kernels"), 0.0)
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        us = dev_us(ev, True)
+        out["device_ms"] += us / n / 1e3
+        out["kernels"] += ev.count / n
+        if "rms_norm" in ev.key.lower():
+            out["rms_ms"] += us / n / 1e3
+            out["rms_launches"] += ev.count / n
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.key == "aten::add" and list(ev.input_shapes[:2]) == [
+                [rows, H], [rows, H]]:
+            out["residual_add_ms"] += dev_us(ev, False) / n / 1e3
+            out["residual_adds"] += ev.count / n
+    out["norm_add_ms"] = out["rms_ms"] + out["residual_add_ms"]
+    return out
+
+
+def _rms_launches(L, forwards, into_slots):
+    """The RMS launches of a run of an L-layer LLaMA: 2L + 1 norms a
+    forward pass (a prefill, a decode step), 2L a ``prefill_into_slots``
+    call (no final norm).  Layer 0's attention norm reads no residual sum
+    and launches the norm alone ("llama"); every other norm launches the
+    fused residual-add instance ("add_llama"), so a forward pass adds
+    nothing outside the norm kernels to the residual stream."""
+    return {"rms_llama": forwards + into_slots,
+            "rms_add_llama": 2 * L * forwards + (2 * L - 1) * into_slots}
+
+
+def _rms_counts(fnr):
+    return {"rms_llama": fnr.LAUNCHES["llama"],
+            "rms_add_llama": fnr.LAUNCHES["add_llama"]}
 
 
 def llama_reference_phase(llama, fnr, fd):
@@ -3789,8 +3958,8 @@ def llama_reference_phase(llama, fnr, fd):
         fnr.reset_launches()
         gen[dev] = llama.generate(params, ids, cfg, max_new_tokens=8).cpu() \
             .tolist()
-    want = _rms_launches(cfg, 8, 0)
-    if gen["cpu"] != gen["cuda"] or fnr.LAUNCHES["llama"] != want:
+    want = _rms_launches(cfg.num_layers, 8, 0)
+    if gen["cpu"] != gen["cuda"] or _rms_counts(fnr) != want:
         raise AssertionError(f"llama_tiny generate: card {gen['cuda']} vs "
                              f"CPU {gen['cpu']}, {fnr.LAUNCHES} RMS launches "
                              f"(want {want})")
@@ -3802,8 +3971,8 @@ def llama_reference_phase(llama, fnr, fd):
         fd.reset_launches()
         card = llama_slot_loop(llama, gpu_params, cfg, prompts, 8, 64, kd,
                                "flash", "cuda")
-        counts = (fnr.LAUNCHES["llama"], fd.LAUNCHES)
-        want = (_rms_launches(cfg, 8, len(prompts)),
+        counts = (_rms_counts(fnr), fd.LAUNCHES)
+        want = (_rms_launches(cfg.num_layers, 8, len(prompts)),
                 cfg.num_layers * (8 + len(prompts)))
         if card["streams"] != cpu["streams"] or counts != want:
             raise AssertionError(f"llama_tiny slot loop {kd}: card "
@@ -3891,8 +4060,10 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
     of 4 seeded prompts of 512 tokens, 32 new, greedy; (b) the slot loop
     over 8 prompts (lengths from seed 0 in 32..700), max_len 1024, 32
     new tokens, attn_kernel "flash".  Counts are set to 0 just before
-    each and held exactly: RMS "llama" 65 a forward pass and 64 a
-    ``prefill_into_slots``, flash_attention_fwd 32 a generate prefill,
+    each and held exactly (``_rms_launches``: the norm alone once and the
+    fused residual-add instance 64 times a forward pass, once and 63
+    times a ``prefill_into_slots``), flash_attention_fwd 32 a generate
+    prefill,
     flash_decode 32 a slot decode step and a ``prefill_into_slots``.
     Then one 8-slot decode step profiled; the plain route (use_flash
     False, attn_kernel "xla") on the same weights and prompts, its
@@ -3919,8 +4090,8 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
     torch.cuda.synchronize()
 
     def counts():
-        return {"rms_llama": fnr.LAUNCHES["llama"],
-                "rms_fused": fnr.LAUNCHES["fused"],
+        return {**_rms_counts(fnr), "rms_fused": fnr.LAUNCHES["fused"],
+                "rms_add_fused": fnr.LAUNCHES["add_fused"],
                 "flash_attention_fwd": fa.LAUNCHES["flash_attention_fwd"],
                 "flash_decode": fd.LAUNCHES}
 
@@ -3935,7 +4106,7 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     gen_counts = counts()
-    want = {"rms_llama": _rms_launches(cfg, new, 0), "rms_fused": 0,
+    want = {**_rms_launches(L, new, 0), "rms_fused": 0, "rms_add_fused": 0,
             "flash_attention_fwd": L, "flash_decode": 0}
     if gen_counts != want:
         raise AssertionError(f"llama_7b generate launches {gen_counts}, "
@@ -3976,8 +4147,8 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
     loop = llama_slot_loop(llama, params, cfg, prompts, new, 1024,
                            attn_kernel="flash")
     loop_counts = counts()
-    want = {"rms_llama": _rms_launches(cfg, new, len(prompts)),
-            "rms_fused": 0, "flash_attention_fwd": 0,
+    want = {**_rms_launches(L, new, len(prompts)),
+            "rms_fused": 0, "rms_add_fused": 0, "flash_attention_fwd": 0,
             "flash_decode": L * (new + len(prompts))}
     if loop_counts != want:
         raise AssertionError(f"llama_7b slot loop launches {loop_counts}, "
@@ -3988,6 +4159,9 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
     prof = _step_profile(lambda: llama.decode_step_multi(
         params, cache, loop["token"], loop["pos"], cfg, attn_kernel="flash"),
         LLAMA_FAMILIES)
+    norm_add = norm_add_profile(lambda: llama.decode_step_multi(
+        params, cache, loop["token"], loop["pos"], cfg, attn_kernel="flash"),
+        len(prompts), cfg.hidden_size)
     # the first step again on the final cache (rows past S-1 are masked,
     # row S-1 is rewritten before it is read), then under each control
     first_tok = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32,
@@ -4020,7 +4194,8 @@ def llama_serving_phase(llama, common, fnr, fa, fd):
                     f"{tokens_same}/{len(prompts) * new}",
                 "decode_step": dict(slots=len(prompts),
                                     tok_s=len(prompts) / prof["wall_ms"] * 1e3,
-                                    **prof)}
+                                    **prof),
+                "decode_step_norm_add": norm_add}
     torch.cuda.empty_cache()
 
     # the first steps again in float32 (the same weights widened, plain
@@ -4132,7 +4307,8 @@ LLAMA_TRAIN_LAYERS = 8              # llama_7b's 32, cut to fit AdamW state
 LLAMA_TRAIN_B, LLAMA_TRAIN_S = 4, 2048
 LLAMA_FLASH_FAMILIES = (("flash_fwd", ("flash_attention_fwd",)),
                         ("flash_bwd", ("flash_attention_bwd",)),
-                        ("rms_fwd", ("rms_norm",)))
+                        ("rms_fwd", ("rms_norm_fwd",)),
+                        ("rms_bwd", ("rms_norm_bwd", "rms_norm_dw")))
 
 
 def _visible_pairs(Sq, Sk, offset):
@@ -4480,17 +4656,26 @@ def llama_sp_check(llama, fa, cfg, params, ids, labels):
 
 def _llama_train_counts(fa, fnr):
     return {**fa.launches(), "ring": sum(fa.launches(RING).values()),
-            "rms_llama": fnr.LAUNCHES["llama"]}
+            **_rms_counts(fnr), "rms_bwd_llama": fnr.LAUNCHES["bwd_llama"]}
 
 
 def _llama_train_want(L, steps, remat):
     """Launches of ``steps`` LLaMA train steps: each flash kernel L a
-    step (the forward 2L under remat), RMS "llama" 2L + 1 a forward pass
-    (2L more under remat: the layers run again in the backward)."""
+    step (the forward 2L under remat); the RMS norms of a forward pass
+    (``_rms_launches``) and one backward launch for each of the 2L + 1
+    norms.  Under remat a layer's checkpoint keeps the residual sum, so
+    each attention norm and the final norm launch the norm alone and
+    only the ffn norms the fused instance (L + 1 and L), and the layers'
+    2L run again in the backward."""
+    if remat:
+        fwd = {"rms_llama": steps * (L + 1 + L),
+               "rms_add_llama": steps * 2 * L}
+    else:
+        fwd = _rms_launches(L, steps, 0)
     return {"flash_attention_fwd": steps * L * (2 if remat else 1),
             "flash_attention_bwd_dkv": steps * L,
-            "flash_attention_bwd_dq": steps * L, "ring": 0,
-            "rms_llama": steps * (2 * L + 1 + (2 * L if remat else 0))}
+            "flash_attention_bwd_dq": steps * L, "ring": 0, **fwd,
+            "rms_bwd_llama": steps * (2 * L + 1)}
 
 
 def llama_train_reference_phase(llama, hybrid, fa, fnr):
@@ -4539,47 +4724,101 @@ def llama_train_reference_phase(llama, hybrid, fa, fnr):
     return rows
 
 
+def _rms_bwd_floor(x, w, g, policy, eps=1e-6):
+    """Per element, the magnitude below which a bfloat16 dx may be one
+    step off (float32, from x, w, g).  "llama": dx ends in a bfloat16
+    add of two rounded terms, T(g w) r + T(c 2x), and where they cancel
+    one step of a term is many steps of the sum: twice the first term,
+    2 |g w| r.  "fused": dx is one float32 expression, r (g w - xhat m),
+    rounded once, so where it cancels only the float32 noise of its
+    terms shows, and that of m = mean(g w xhat), a sum in another order,
+    scales with mean |g w xhat| (not with |m|, which is small in some
+    rows): 2^-8 (|g w| r + r |xhat| mean |g w xhat|), whose bfloat16
+    step is 2^-16 of the terms' scale — some 100 float32 steps, and
+    2^-7 of what one bfloat16 rounding of xhat or g w would add."""
+    xc, gc, wc = x.float(), g.float(), w.float()
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    gw = (gc * wc).abs()
+    if policy == "llama":
+        return 2 * gw * rstd
+    xhat = (xc * rstd).abs()
+    return 2.0 ** -8 * rstd * (gw + xhat * (gw * xhat).mean(-1, keepdim=True))
+
+
+def _rms_bwd_errors(got, want, floor, label):
+    """(dx, dw) of the RMS backward against the reference's: float32
+    within 1e-5 of each gradient's largest value; bfloat16 dw at most one
+    step apart per element (a float32 sum rounded once, in another
+    order), and so dx, but within one step of the larger of the element
+    and ``floor`` (``_rms_bwd_floor``).  Raises past a limit; returns
+    (max |err| of dx, its share of differing elements, the same of
+    dw)."""
+    out = []
+    for g, r, fl, name in zip(got, want, (floor, None), ("dx", "dw")):
+        diff = (g.float() - r.float()).abs()
+        if g.dtype == torch.bfloat16:
+            scale = torch.maximum(g.float().abs(), r.float().abs())
+            if fl is not None:
+                scale = torch.maximum(scale, fl)
+            ok = bool((diff <= _bf16_step(scale)).all())
+        else:
+            ok = diff.max().item() <= 1e-5 * r.float().abs().max().item()
+        if not ok:
+            raise AssertionError(f"{label} {name} {g.dtype} "
+                                 f"{tuple(g.shape)}: max abs err "
+                                 f"{diff.max().item()}")
+        out += [diff.max().item(), (diff > 0).float().mean().item()]
+    return out
+
+
 def rms_backward_check(fnr, x, w, g, policy):
-    """``rms_norm`` under autograd on the card (the kernel's forward,
-    the policy's plain backward) against the same call on the CPU (the
-    plain forward, the same backward) on the same inputs: float32 within
-    1e-5 of each gradient's largest value; bfloat16 dw at most one step
-    apart per element (a float32 sum rounded once, in another order),
-    and so dx, except that the "llama" dx is held within one step of the
-    larger of the element and twice its first addend |g * w * rstd|: it
-    ends in a bfloat16 add of two rounded terms, and where they cancel,
-    one step of either is many steps of the sum.  Raises past a limit;
-    returns (max |err| of dx, of dw, shares of differing elements)."""
-    before = fnr.LAUNCHES[policy]
+    """``rms_norm`` under autograd on the card (the forward and backward
+    kernels, one launch each) against the same call on the CPU (the
+    plain forward and backward) on the same inputs, under
+    ``_rms_bwd_errors``' rule, whose four numbers it returns: the
+    "llama" dx within one step of the larger of the element and
+    ``_rms_bwd_floor``, the "fused" dx within one step of the element."""
+    before = dict(fnr.LAUNCHES)
     grads = []
     for dev in ("cuda", "cpu"):
         xx, ww = (t.detach().to(dev).requires_grad_(True) for t in (x, w))
         fnr.rms_norm(xx, ww, 1e-6, policy)[0].backward(g.to(dev))
         grads.append((xx.grad.cpu(), ww.grad.cpu()))
-    if fnr.LAUNCHES[policy] != before + 1:
-        raise AssertionError("rms_norm under autograd did not launch its "
-                             "kernel once")
-    addend = None
-    if policy == "llama":
-        xc, gc, wc = x.cpu().float(), g.cpu().float(), w.cpu().float()
-        addend = 2 * (gc * wc * torch.rsqrt((xc * xc).mean(-1, keepdim=True)
-                                             + 1e-6)).abs()
-    out = []
-    for (got, want), floor in zip(zip(*grads), (addend, None)):
-        diff = (got.float() - want.float()).abs()
-        if got.dtype == torch.bfloat16:
-            scale = torch.maximum(got.float().abs(), want.float().abs())
-            if floor is not None:
-                scale = torch.maximum(scale, floor)
-            ok = bool((diff <= _bf16_step(scale)).all())
-        else:
-            ok = diff.max().item() <= 1e-5 * want.float().abs().max().item()
-        if not ok:
-            raise AssertionError(f"rms_norm {policy} backward {got.dtype} "
-                                 f"{tuple(x.shape)}, card vs CPU: max abs "
-                                 f"err {diff.max().item()}")
-        out += [diff.max().item(), (diff > 0).float().mean().item()]
-    return out
+    launched = {k: fnr.LAUNCHES[k] - before[k] for k in before}
+    if launched != {k: int(k in (policy, f"bwd_{policy}")) for k in before}:
+        raise AssertionError(f"rms_norm under autograd launched {launched}, "
+                             f"want its forward and backward kernels once")
+    floor = (_rms_bwd_floor(x.cpu(), w.cpu(), g.cpu(), policy)
+             if policy == "llama" else None)
+    return _rms_bwd_errors(grads[0], grads[1], floor,
+                           f"rms_norm {policy} backward, card vs CPU")
+
+
+def add_rms_check(fnr, h, delta, w, g, g_s, policy, eps=1e-6):
+    """The fused residual-add instance on the card against the kernels it
+    fuses: s bit for bit ``h + delta`` (torch's add), out bit for bit
+    ``rms_norm`` of that s; and its backward (``rms_norm_bwd`` with the
+    residual's cotangent g_s) bit for bit T(dx + g_s) and the same dw,
+    dx and dw from the backward kernel without g_s.  Under autograd h
+    and delta receive that ds.  Raises past a limit."""
+    s, out = fnr.add_rms_norm(h, delta, w, eps, policy)
+    want_s = h + delta
+    want_out, rstd = fnr.rms_norm(want_s, w, eps, policy)
+    dx, dw = fnr.rms_norm_bwd(want_s, w, g, eps, policy, rstd)
+    ds, dw_s = fnr.rms_norm_bwd(want_s, w, g, eps, policy, rstd, g_s)
+    hh, dd, ww = (t.detach().requires_grad_(True) for t in (h, delta, w))
+    s2, out2 = fnr.add_rms_norm(hh, dd, ww, eps, policy)
+    torch.autograd.backward([s2, out2], [g_s, g])
+    checks = {"s": (s, want_s), "out": (out, want_out),
+              "ds": (ds, dx + g_s), "dw": (dw_s, dw),
+              "autograd_out": (out2, want_out), "autograd_dh": (hh.grad, ds),
+              "autograd_ddelta": (dd.grad, ds), "autograd_dw": (ww.grad, dw)}
+    for name, (a, b) in checks.items():
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"add_rms_norm {policy} {a.dtype} {tuple(a.shape)}: {name} "
+                f"not bit for bit, max abs diff "
+                f"{(a.float() - b.float()).abs().max().item()}")
 
 
 def llama_train_phase(llama, hybrid, TrainLoop, fa, fnr):
@@ -4702,6 +4941,8 @@ def llama_train_phase(llama, hybrid, TrainLoop, fa, fnr):
         cfg, device="cuda", model=hybrid.llama_stage_model(cfg, remat=True))
     fa.reset_launches()
     fnr.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rl, params, opt = step_r(params, opt, ids, labels)
     torch.cuda.synchronize()
@@ -4739,8 +4980,14 @@ def llama_train_phase(llama, hybrid, TrainLoop, fa, fnr):
         "reference": "the same call on the CPU",
         "rule": "dw one bf16 step per element; dx one step of max(|dx|, "
                 "2 |g w rstd|)",
-        "kernel_fwd_plain_bwd_ms": _time_ms(lambda: fwd_bwd(fnr.rms_norm)),
-        "plain_autograd_ms": _time_ms(lambda: fwd_bwd(fnr.rms_norm_plain))}
+        # forward and backward under autograd: both kernels against the
+        # plain forward under torch's autograd; then the backward alone
+        "kernel_fwd_bwd_ms": _time_ms(lambda: fwd_bwd(fnr.rms_norm)),
+        "plain_autograd_ms": _time_ms(lambda: fwd_bwd(fnr.rms_norm_plain)),
+        "kernel_bwd_ms": _time_ms(lambda: fnr.rms_norm_bwd(
+            x, w, g, 1e-6, "llama")),
+        "plain_bwd_ms": _time_ms(lambda: fnr.rms_norm_bwd_plain(
+            x, w, g, 1e-6, "llama"))}
     _log({"phase": "llama_training_remat_and_rms_backward",
           "remat_step": row["remat_step"],
           "rms_llama_backward": row["rms_llama_backward"]})
@@ -5769,9 +6016,11 @@ def compiled_serving_alone(gpt, engines, programs):
 ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "float32_training": float32_training_phase,
                "ring_kernel": ring_kernel_phase,
-               "compiled_serving": compiled_serving_alone}
+               "compiled_serving": compiled_serving_alone,
+               "rms_kernel": rms_kernel_phase}
 ONLY_SOURCES = {"compiled_serving": ("flash_decode", "fused_decode",
-                                     "row_gemm", "sampling")}
+                                     "row_gemm", "sampling"),
+                "rms_kernel": ("rms_norm",)}
 
 
 def main(argv=None) -> int:
@@ -5867,7 +6116,8 @@ def main(argv=None) -> int:
                    "compiled_serving": (gpt, (
                        ContinuousBatchingEngine,
                        PagedContinuousBatchingEngine, FusedB1Engine),
-                       programs)}
+                       programs),
+                   "rms_kernel": (fnr,)}
         for name in only:
             timed(name, ONLY_PHASES[name], *args_of[name])
         seconds["total_with_build"] = time.perf_counter() - t0
@@ -6185,33 +6435,69 @@ def main(argv=None) -> int:
             # the same kernels on the llama_7b training run (4 steps)
             e["llama_7b_train_launches"] = \
                 llama_train["launches_4_steps"][e["name"]]
-    # RMSNorm: one kernel, one entry per policy, timed at the prefill
-    # rows of llama_7b (4 x 512, bf16) with the decode rows (8) beside;
-    # launches from the llama_7b runs (generate and the slot loop)
-    for name, policy, replaces, note in (
-            ("rms_norm", "fused", ref + "fused_norm_rope.py:33",
+    # RMSNorm: the forward, the fused residual-add instance and the
+    # backward of csrc/rms_norm.cu, one entry per instance and policy;
+    # forward and fused instance timed at the prefill rows of llama_7b
+    # (4 x 512, bf16) with the decode rows (8) beside, the backward at
+    # llama_7b training's rows (4 x 2048); launches from the llama_7b
+    # runs (generate and the slot loop; the backward: the 4 timed
+    # training steps)
+    train_rows = f"{RMS_TRAIN_ROWS[0]} {RMS_TRAIN_ROWS[1]}"
+    for name, kind, policy, replaces, note in (
+            ("rms_norm", "fwd", "fused", ref + "fused_norm_rope.py:33",
              "no path of the JAX package calls rms_norm_pallas, so the "
-             "LLaMA runs launch this policy no time; the same kernel "
-             "carries the path under policy llama"),
-            ("rms_norm_llama", "llama", "paddle_tpu/models/llama.py:117",
+             "LLaMA runs launch this policy no time; the same kernels "
+             "carry the path under policy llama"),
+            ("rms_norm_llama", "fwd", "llama",
+             "paddle_tpu/models/llama.py:117",
              "an XLA function in the JAX package, not a Pallas kernel: "
-             "every RMSNorm of the LLaMA path")):
-        row = rms_kernels[(policy, 2048, 4096, "bfloat16")]
-        dec = rms_kernels[(policy, 8, 4096, "bfloat16")]
+             "layer 0's attention norm of every LLaMA forward pass"),
+            ("add_rms_norm", "add", "fused", ref + "fused_norm_rope.py:33",
+             "the fused residual-add instance in the TPU kernel's "
+             "policy: on no path"),
+            ("add_rms_norm_llama", "add", "llama",
+             "paddle_tpu/models/llama.py:117 with the residual add "
+             "before it (h = h + ..., :127-130)",
+             "every other RMSNorm of the LLaMA path, the residual add "
+             "fused in"),
+            ("rms_norm_bwd", "bwd", "fused", ref + "fused_norm_rope.py:33 "
+             "(the custom VJP _rms2d_bwd, XLA)",
+             "the TPU kernel's backward is XLA: on no path"),
+            ("rms_norm_bwd_llama", "bwd", "llama",
+             "paddle_tpu/models/llama.py:117 (its autodiff gradient, "
+             "XLA)", "every RMSNorm backward of LLaMA training")):
+        big = (train_rows if kind == "bwd" else "2048 4096")
+        row = rms_kernels[(kind, policy) + tuple(
+            int(v) for v in big.split()) + ("bfloat16",)]
+        dec = rms_kernels[(kind, policy, 8, 4096, "bfloat16")]
+        key = {"fwd": f"rms_{policy}", "add": f"rms_add_{policy}",
+               "bwd": f"rms_bwd_{policy}"}[kind]
+        if kind == "bwd":
+            launches = llama_train["launches_4_steps"].get(key, 0)
+        else:
+            launches = (llama_gen["launches"][key]
+                        + llama_loop["launches"][key])
         entries.append({
             "name": name, "route": "cuda", "source": src + "rms_norm.cu",
-            "replaces": replaces, "note": note,
-            "launches": (llama_gen["launches"][f"rms_{policy}"]
-                         + llama_loop["launches"][f"rms_{policy}"]),
-            "max_abs_err": max(r["max_abs_err"] for (p, *_), r in
-                               rms_kernels.items() if p == policy),
+            "replaces": replaces, "note": note, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for (k, p, *_), r in
+                               rms_kernels.items()
+                               if k == kind and p == policy),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_share": row["bound_share"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "decode_shape": {k: dec[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}})
-    entries[-1]["llama_7b_train_launches"] = \
-        llama_train["launches_4_steps"]["rms_llama"]
+                "shape", "ms", "plain_ms", "bound_ms", "bound_share",
+                "library_ms")},
+            "cases": [{k: r[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_share", "max_abs_err")}
+                for (k, p, *_), r in rms_kernels.items()
+                if k == kind and p == policy]})
+        if kind != "bwd":
+            entries[-1]["llama_7b_train_launches"] = \
+                llama_train["launches_4_steps"].get(key, 0)
     # the ring variant (a run-time offset): launches from the sequence-
     # parallel loss and gradients at the training config (a one-rank
     # ring: offset 0 each layer, [4, 2048, 32x128] bf16); times, bound

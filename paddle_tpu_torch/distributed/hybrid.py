@@ -124,7 +124,9 @@ class StageModel:
     """What ``build_train_step`` needs of a model family (the JAX
     contract at pp = mp = 1, without the partition specs):
       embed(params, tok_mb)      -> h for one micro-batch
-      trunk(params, h)           -> h through the layers
+      trunk(params, h)           -> h through the layers (LLaMA: the
+                                    residual pair (h, delta) whose add
+                                    the head's final norm fuses)
       head(params, h, lbl_mb)    -> the mean loss of the micro-batch."""
     embed: Callable
     trunk: Callable

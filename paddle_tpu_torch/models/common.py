@@ -165,11 +165,12 @@ def layer_slices(layers: Dict[str, torch.Tensor]
         yield {name: ws[l] for name, ws in per.items()}
 
 
-def scan_layers_with_remat(body: Callable, h: torch.Tensor,
+def scan_layers_with_remat(body: Callable, h: Any,
                            layers: Dict[str, torch.Tensor],
-                           remat: Union[bool, str] = False) -> torch.Tensor:
+                           remat: Union[bool, str] = False) -> Any:
     """``h = body(h, lp)`` over the stacked layers, with the remat plan
-    of the JAX function:
+    of the JAX function; the carry h is a tensor, or a tuple of them
+    (LLaMA's residual pair without remat, its add pending):
 
       False — save everything;
       True  — full per-layer recompute: each layer runs under

@@ -13,9 +13,14 @@ in the storage dtype of ``kv_dtype`` (int8 adds ``{"ks", "vs"}`` scale
 planes with a trailing axis of 1), quantized on write (``common._kv_write``).
 
 Kernels: every RMSNorm is the ``"llama"`` policy of the ``rms_norm``
-CUDA kernel (``incubate/nn/kernels/fused_norm_rope.py``), which keeps
-the two bfloat16 roundings of the JAX ``_rms_norm`` (its backward is
-plain PyTorch, the gradient of that function); training attention in
+CUDA kernels (``incubate/nn/kernels/fused_norm_rope.py``), which keep
+the two bfloat16 roundings of the JAX ``_rms_norm``, forward and
+backward.  The layer stack carries the residual stream as a pair
+``(h, delta)`` whose add is still pending: each norm that reads a
+residual sum (every norm but layer 0's attention norm) is
+``add_rms_norm``, which writes ``h + delta`` and its norm in one launch;
+the sum is the one JAX's ``h = h + ...`` rounds, so the values are the
+same as an add followed by the norm.  Training attention in
 :func:`forward`, :func:`loss_fn` and :func:`prefill` is
 ``flash_attention``, and under ``sp_group`` ``ring_attention`` over
 ``flash_attention_with_lse``; the
@@ -25,7 +30,8 @@ plain PyTorch, the gradient of that function); training attention in
 ``cfg.use_flash`` chooses for both kernel families: None -> the kernels
 on CUDA, the plain compositions on the CPU; True -> the kernel wrappers
 (their plain versions on the CPU); False -> the plain compositions
-(``rms_norm_plain``, the masked softmax) on any device.
+(``rms_norm_plain``, ``add_rms_norm_plain``, the masked softmax) on any
+device.
 
 Differences from the JAX functions, by design:
 
@@ -64,7 +70,9 @@ from ..incubate.nn.functional import _decode_attention
 from ..incubate.nn.functional.chunked_ce import (chunked_vocab_nll,
                                                  pick_num_chunks)
 from ..incubate.nn.kernels.flash_decode import flash_decode_attention
-from ..incubate.nn.kernels.fused_norm_rope import rms_norm, rms_norm_plain
+from ..incubate.nn.kernels.fused_norm_rope import (add_rms_norm,
+                                                   add_rms_norm_plain,
+                                                   rms_norm, rms_norm_plain)
 from ..incubate.nn.kernels.ring_attention import ring_attention
 from ..incubate.nn.kv_quant import byte_view
 from .common import (_causal_attention, _check_attn_kernel, _kv_layer,
@@ -191,6 +199,21 @@ def _rms_norm(x, g, cfg: LlamaConfig):
     return out.view(x.shape)
 
 
+def _residual_norm(carry, g, cfg: LlamaConfig):
+    """The residual stream and its RMSNorm from the pair ``carry`` =
+    (h, delta) whose add is pending: (h + delta, its norm), the add fused
+    into the norm (``add_rms_norm``; ``add_rms_norm_plain`` when
+    ``cfg.use_flash`` is False).  A pair without delta is h itself."""
+    h, delta = carry
+    if delta is None:
+        return h, _rms_norm(h, g, cfg)
+    fn = add_rms_norm_plain if cfg.use_flash is False else add_rms_norm
+    H = h.shape[-1]
+    s, out = fn(h.reshape(-1, H), delta.reshape(-1, H), g, cfg.rms_norm_eps,
+                "llama")
+    return s.view(h.shape), out.view(h.shape)
+
+
 def rope_cos_sin(S: int, head_dim: int, theta: float, dtype, device=None):
     """Rotary tables [S, hD/2] in ``dtype`` (angles in float32), on
     ``device`` (CUDA by default)."""
@@ -231,17 +254,19 @@ def _attention(q, k, v, cfg: LlamaConfig, sp_group=None):
     return _causal_attention(q, k, v, cfg.head_dim, use_flash=cfg.use_flash)
 
 
-def _decoder_layer(h, lp, cfg: LlamaConfig, cos, sin,
+def _decoder_layer(carry, lp, cfg: LlamaConfig, cos, sin,
                    return_kv: bool = False,
                    attn_kernel: Optional[str] = None, sp_group=None):
-    """Pre-RMSNorm decoder layer over h [B, S, H]; ``return_kv`` also
+    """Pre-RMSNorm decoder layer over the residual pair ``carry`` = (h,
+    delta), h [B, S, H] (see :func:`_residual_norm`); returns the next
+    pair, (h after attention, the MLP's output).  ``return_kv`` also
     returns this layer's post-rope K and V at nKV heads (prefill).
     ``attn_kernel="flash"`` runs the causal attention in the flash_decode
     kernel (the window mask at a zero base offset; GQA grouped in the
     kernel); ``sp_group`` the ring over a sequence split."""
+    h, x = _residual_norm(carry, lp["attn_norm"], cfg)
     B, S, _ = h.shape
     nH, nKV, hD = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    x = _rms_norm(h, lp["attn_norm"], cfg)
     q = apply_rope((x @ lp["q_w"]).view(B, S, nH, hD), cos, sin)
     k = apply_rope((x @ lp["k_w"]).view(B, S, nKV, hD), cos, sin)
     v = (x @ lp["v_w"]).view(B, S, nKV, hD)
@@ -250,15 +275,16 @@ def _decoder_layer(h, lp, cfg: LlamaConfig, cos, sin,
             q, k, v, torch.zeros((B,), dtype=torch.int32, device=h.device))
     else:
         attn = _attention(q, k, v, cfg, sp_group)
-    h = h + attn.reshape(B, S, nH * hD) @ lp["o_w"]
-    x = _rms_norm(h, lp["ffn_norm"], cfg)
-    out = h + (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"]
+    h, x = _residual_norm((h, attn.reshape(B, S, nH * hD) @ lp["o_w"]),
+                          lp["ffn_norm"], cfg)
+    out = (h, (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"])
     return (out, (k, v)) if return_kv else out
 
 
-def _logits(params, h, cfg: LlamaConfig):
-    """Final RMSNorm + LM head -> float32 logits [..., V]."""
-    h = _rms_norm(h, params["final_norm"], cfg)
+def _logits(params, carry, cfg: LlamaConfig):
+    """Final RMSNorm (of the residual pair ``carry``, the add fused in) +
+    LM head -> float32 logits [..., V]."""
+    _, h = _residual_norm(carry, params["final_norm"], cfg)
     head = (params["wte"].t() if cfg.tie_word_embeddings
             else params["lm_head"])
     logits = matmul_f32out(h.reshape(-1, h.shape[-1]), head)
@@ -267,9 +293,15 @@ def _logits(params, h, cfg: LlamaConfig):
 
 def forward_layers(h, layer_params, cfg: LlamaConfig, remat=False,
                    sp_group=None):
-    """The stacked decoder layers over h [B, S, H]; ``remat`` False or
-    True (see ``scan_layers_with_remat``).  Under ``sp_group`` h is this
-    rank's chunk of the sequence: rope positions start at rank * S."""
+    """The stacked decoder layers over h [B, S, H] -> the residual pair
+    (h, delta) of the last layer, its add pending (the final norm
+    fuses it); ``remat`` False or True (see ``scan_layers_with_remat``).
+    Without remat the pair is the carry.  Under remat each layer's
+    checkpoint keeps its input, so the carry is the sum h + delta, one
+    tensor a layer as the unfused stack keeps: each layer ends in that
+    add, and its attention norm is the norm alone (delta None).  Under
+    ``sp_group`` h is this rank's chunk of the sequence: rope positions
+    start at rank * S."""
     S = h.shape[1]
     if sp_group is None:
         cos, sin = rope_cos_sin(S, cfg.head_dim, cfg.rope_theta, h.dtype,
@@ -280,27 +312,33 @@ def forward_layers(h, layer_params, cfg: LlamaConfig, remat=False,
                                 cfg.head_dim, cfg.rope_theta, h.dtype,
                                 h.device)
         cos, sin = cos[pos0:pos0 + S], sin[pos0:pos0 + S]
-    return scan_layers_with_remat(
-        lambda c, lp: _decoder_layer(c, lp, cfg, cos, sin,
-                                     sp_group=sp_group),
-        h, layer_params, remat)
+    def layer(carry, lp):
+        return _decoder_layer(carry, lp, cfg, cos, sin, sp_group=sp_group)
+
+    if remat:
+        def summed(h, lp):
+            s, delta = layer((h, None), lp)
+            return s + delta
+
+        return scan_layers_with_remat(summed, h, layer_params, remat), None
+    return scan_layers_with_remat(layer, (h, None), layer_params, remat)
 
 
 def forward(params, input_ids, cfg: LlamaConfig, remat=False,
             sp_group=None):
     """Float32 logits [B, S, V] of input_ids [B, S] (this rank's chunk
     under ``sp_group``)."""
-    h = params["wte"][input_ids]
-    h = forward_layers(h, params["layers"], cfg, remat=remat,
-                       sp_group=sp_group)
-    return _logits(params, h, cfg)
+    carry = forward_layers(params["wte"][input_ids], params["layers"], cfg,
+                           remat=remat, sp_group=sp_group)
+    return _logits(params, carry, cfg)
 
 
-def _head_loss(params, h, labels, cfg: LlamaConfig):
-    """Final RMSNorm + LM head + cross entropy over h [B, S, H], the
+def _head_loss(params, carry, labels, cfg: LlamaConfig):
+    """Final RMSNorm (of the residual pair ``carry`` from
+    :func:`forward_layers`) + LM head + cross entropy over [B, S, H], the
     mean over tokens, through ``chunked_vocab_nll`` (no [tokens, V]
     log-softmax saved under autograd)."""
-    h = _rms_norm(h, params["final_norm"], cfg)
+    _, h = _residual_norm(carry, params["final_norm"], cfg)
     W = params["wte"] if cfg.tie_word_embeddings else params["lm_head"].t()
     N = h.shape[0] * h.shape[1]
     nll = chunked_vocab_nll(h.reshape(N, h.shape[-1]), W, labels.reshape(N),
@@ -313,10 +351,9 @@ def loss_fn(params, input_ids, labels, cfg: LlamaConfig, sp_group=None,
     """Next-token cross entropy, the mean over tokens (ids/labels
     [B, S]).  Under ``sp_group`` they are this rank's chunk of the
     sequence and the loss is the mean over the group (``lax.pmean``)."""
-    h = params["wte"][input_ids]
-    h = forward_layers(h, params["layers"], cfg, remat=remat,
-                       sp_group=sp_group)
-    loss = _head_loss(params, h, labels, cfg)
+    carry = forward_layers(params["wte"][input_ids], params["layers"], cfg,
+                           remat=remat, sp_group=sp_group)
+    loss = _head_loss(params, carry, labels, cfg)
     if sp_group is not None:
         loss = all_reduce_sum(loss, sp_group) / dist.get_world_size(sp_group)
     return loss
@@ -339,17 +376,19 @@ def _prefill_layers(params, input_ids, cfg: LlamaConfig, cache, write,
                     attn_kernel: Optional[str] = None):
     """The stack over prompts [N, S]: each layer's K/V go through
     ``write(arr, rows)`` into layer l of ``cache``; returns the last
-    hidden state [N, S, H]."""
+    layer's residual pair (h, delta), each [N, S, H]."""
     h = params["wte"][input_ids]
     cos, sin = rope_cos_sin(input_ids.shape[1], cfg.head_dim, cfg.rope_theta,
                             h.dtype, h.device)
+    carry = (h, None)
     for l, lp in enumerate(layer_slices(params["layers"])):
-        h, (k, v) = _decoder_layer(h, lp, cfg, cos, sin, return_kv=True,
-                                   attn_kernel=attn_kernel)
+        carry, (k, v) = _decoder_layer(carry, lp, cfg, cos, sin,
+                                       return_kv=True,
+                                       attn_kernel=attn_kernel)
         ck, cv = _kv_layer(cache, l)
         _kv_write(ck, k, write)
         _kv_write(cv, v, write)
-    return h
+    return carry
 
 
 def prefill(params, input_ids, cfg: LlamaConfig, cache):
@@ -358,27 +397,29 @@ def prefill(params, input_ids, cfg: LlamaConfig, cache):
     [B, V] float32, cache, pos=S)."""
     B, S = input_ids.shape
     slots = torch.arange(B, device=input_ids.device)
-    h = _prefill_layers(params, input_ids, cfg, cache,
-                        _slot_rows_writer(slots, S))
-    return _logits(params, h[:, -1], cfg), cache, S
+    h, delta = _prefill_layers(params, input_ids, cfg, cache,
+                               _slot_rows_writer(slots, S))
+    return _logits(params, (h[:, -1], delta[:, -1]), cfg), cache, S
 
 
-def _decode_layer(h, lp, ck, cv, cfg: LlamaConfig, c, s, write, attend):
-    """One-token block of the decode paths over h [B, H]: q/k rotated by
-    cos/sin ``c``/``s`` (broadcast against [B, heads, hD/2]), this
-    token's K/V through ``write(arr, rows)``, ``attend(q, ck, cv)`` ->
-    [B, nH, hD]."""
+def _decode_layer(carry, lp, ck, cv, cfg: LlamaConfig, c, s, write,
+                  attend):
+    """One-token block of the decode paths over the residual pair
+    ``carry`` (h [B, H], delta; see :func:`_residual_norm`) -> the next
+    pair: q/k rotated by cos/sin ``c``/``s`` (broadcast against [B,
+    heads, hD/2]), this token's K/V through ``write(arr, rows)``,
+    ``attend(q, ck, cv)`` -> [B, nH, hD]."""
+    h, x = _residual_norm(carry, lp["attn_norm"], cfg)
     B = h.shape[0]
     nH, nKV, hD = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    x = _rms_norm(h, lp["attn_norm"], cfg)
     q = _rotate_pairs((x @ lp["q_w"]).view(B, nH, hD), c, s)
     k = _rotate_pairs((x @ lp["k_w"]).view(B, nKV, hD), c, s)
     v = (x @ lp["v_w"]).view(B, nKV, hD)
     _kv_write(ck, k, write)
     _kv_write(cv, v, write)
-    hh = h + attend(q, ck, cv).reshape(B, nH * hD) @ lp["o_w"]
-    x = _rms_norm(hh, lp["ffn_norm"], cfg)
-    return hh + (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"]
+    h, x = _residual_norm((h, attend(q, ck, cv).reshape(B, nH * hD)
+                           @ lp["o_w"]), lp["ffn_norm"], cfg)
+    return h, (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"]
 
 
 def _tables(params, cfg: LlamaConfig, rope_tables):
@@ -406,11 +447,11 @@ def decode_step(params, cache, token, pos, cfg: LlamaConfig,
     def attend(q, ck, cv):
         return _decode_attention(q, ck, cv, lens)
 
-    h = params["wte"][token]                                    # [B, H]
+    carry = (params["wte"][token], None)                        # [B, H]
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(cache, l)
-        h = _decode_layer(h, lp, ck, cv, cfg, c, s, write, attend)
-    return _logits(params, h, cfg), cache
+        carry = _decode_layer(carry, lp, ck, cv, cfg, c, s, write, attend)
+    return _logits(params, carry, cfg), cache
 
 
 def decode_step_multi(params, cache, token, pos, cfg: LlamaConfig,
@@ -438,11 +479,11 @@ def decode_step_multi(params, cache, token, pos, cfg: LlamaConfig,
         def attend(q, ck, cv):
             return _decode_attention(q, ck, cv, pos + 1)
 
-    h = params["wte"][token]
+    carry = (params["wte"][token], None)
     for l, lp in enumerate(layer_slices(params["layers"])):
         ck, cv = _kv_layer(cache, l)
-        h = _decode_layer(h, lp, ck, cv, cfg, c, s, write, attend)
-    return _logits(params, h, cfg), cache
+        carry = _decode_layer(carry, lp, ck, cv, cfg, c, s, write, attend)
+    return _logits(params, carry, cfg), cache
 
 
 def prefill_into_slots(params, input_ids, cfg: LlamaConfig, cache, slots,

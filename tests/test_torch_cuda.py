@@ -1303,12 +1303,178 @@ def test_rms_norm_rejects(cuda, bad):
 
 
 def test_rms_norm_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    """The norm, the fused residual-add instance and the backward (under
+    autograd, both policies) launch kernels for CUDA tensors: no plain
+    version is called."""
     def refuse(*_):
         raise AssertionError("a CUDA tensor reached the plain version")
-    monkeypatch.setattr(fnr, "rms_norm_plain", refuse)
+    for name in ("rms_norm_plain", "add_rms_norm_plain",
+                 "rms_norm_bwd_plain", "_llama_bwd", "_fused_bwd"):
+        monkeypatch.setattr(fnr, name, refuse)
     out, _ = fnr.rms_norm(torch.randn(3, 40, device=cuda),
                           torch.ones(40, device=cuda), 1e-6, "llama")
     assert out.is_cuda and torch.isfinite(out).all()
+    for policy in fnr.POLICIES:
+        h, d = (torch.randn(3, 40, device=cuda, requires_grad=True)
+                for _ in range(2))
+        w = torch.ones(40, device=cuda, requires_grad=True)
+        s, out = fnr.add_rms_norm(h, d, w, 1e-6, policy)
+        (s.sum() + out.square().sum()).backward()
+        assert all(torch.isfinite(t.grad).all() for t in (h, d, w))
+
+
+_RMS_ROWS = [
+    (8, 4096),      # llama_7b decode rows
+    (2048, 4096),   # prefill rows
+    (8, 128),       # llama_tiny
+    (7, 11008),     # odd N, FFN width
+    (5, 11),        # H under and not a multiple of the vector width
+    (3, 1100),      # rows not 16-byte aligned (bf16: 2200 bytes)
+]
+
+
+@pytest.mark.parametrize("policy", ["fused", "llama"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H", _RMS_ROWS)
+def test_add_rms_norm_matches_the_kernels_it_fuses(cuda, policy, dtype, N,
+                                                   H):
+    """The fused residual-add instance (one launch): s bit for bit
+    ``h + delta``, out bit for bit the forward kernel on that s, its
+    backward with the residual's cotangent bit for bit T(dx + g_s)
+    (``chip_smoke.add_rms_check``); out within the forward's limits of
+    ``add_rms_norm_plain``."""
+    rng = np.random.default_rng(N + H + 2)
+    h, delta, g, g_s = (_rand(rng, (N, H), dtype, cuda) for _ in range(4))
+    w = (1 + 0.1 * _rand(rng, (H,), torch.float32, cuda)).to(dtype)
+    before = dict(fnr.LAUNCHES)
+    s, out = fnr.add_rms_norm(h, delta, w, 1e-6, policy)
+    torch.cuda.synchronize()
+    assert {k: fnr.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == f"add_{policy}") for k in before}
+    chip_smoke.add_rms_check(fnr, h, delta, w, g, g_s, policy)
+    want_s, want = fnr.add_rms_norm_plain(h, delta, w, 1e-6, policy)
+    assert torch.equal(s, want_s)
+    chip_smoke._rms_errors(out, want)
+
+
+@pytest.mark.parametrize("policy", ["fused", "llama"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H", _RMS_ROWS + [(8192, 4096)])
+def test_rms_norm_bwd_kernel_matches_plain(cuda, policy, dtype, N, H):
+    """The backward kernel (one count for its two launches) against
+    ``rms_norm_bwd_plain`` on the card under ``_rms_bwd_errors``' rule
+    (dw one bf16 step per element; dx one step of max(|dx|,
+    ``_rms_bwd_floor``): 2 |g w rstd| for "llama", 2^-8 of the float32
+    terms' scale for "fused"); dw is the same bits on a second call (no
+    atomics)."""
+    rng = np.random.default_rng(N + H + 3)
+    x, g = (_rand(rng, (N, H), dtype, cuda) for _ in range(2))
+    w = (1 + 0.1 * _rand(rng, (H,), torch.float32, cuda)).to(dtype)
+    _, rstd = fnr.rms_norm(x, w, 1e-6, policy)
+    before = dict(fnr.LAUNCHES)
+    dx, dw = fnr.rms_norm_bwd(x, w, g, 1e-6, policy, rstd)
+    torch.cuda.synchronize()
+    assert {k: fnr.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == f"bwd_{policy}") for k in before}
+    want = fnr.rms_norm_bwd_plain(x, w, g, 1e-6, policy, rstd)
+    chip_smoke._rms_bwd_errors((dx, dw), want,
+                               chip_smoke._rms_bwd_floor(x, w, g, policy),
+                               f"rms_norm_bwd {policy}")
+    again = fnr.rms_norm_bwd(x, w, g, 1e-6, policy, rstd)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("layout", ["row_stride", "misaligned",
+                                    "g_transposed"])
+def test_rms_norm_bwd_kernel_strides(cuda, layout):
+    """The backward reads x through a row stride or from a base 2 bytes
+    off 16, and a cotangent whose last axis is not contiguous (copied
+    first), within the rule against the plain version."""
+    rng = np.random.default_rng(13)
+    H = 4096
+    if layout == "row_stride":
+        x = _rand(rng, (6, H + 64), torch.bfloat16, cuda)[:, 64:]
+    elif layout == "misaligned":
+        x = _rand(rng, (6 * H + 1,), torch.bfloat16, cuda)[1:].view(6, H)
+    else:
+        x = _rand(rng, (6, H), torch.bfloat16, cuda)
+    g = (_rand(rng, (H, 6), torch.bfloat16, cuda).t()
+         if layout == "g_transposed" else _rand(rng, (6, H), torch.bfloat16,
+                                                cuda))
+    w = _rand(rng, (H,), torch.bfloat16, cuda)
+    for policy in fnr.POLICIES:
+        _, rstd = fnr.rms_norm(x, w, 1e-6, policy)
+        got = fnr.rms_norm_bwd(x, w, g, 1e-6, policy, rstd)
+        want = fnr.rms_norm_bwd_plain(x, w, g, 1e-6, policy, rstd)
+        floor = chip_smoke._rms_bwd_floor(x, w, g, policy)
+        chip_smoke._rms_bwd_errors(got, want, floor,
+                                   f"rms_norm_bwd {policy} {layout}")
+
+
+def test_llama_decode_step_fuses_the_residual_adds(cuda):
+    """llama_tiny in bfloat16: one ``decode_step_multi`` launches the norm
+    alone once (layer 0's attention norm) and the fused residual-add
+    instance 2L times — 2L + 1 norms — and no separate residual add
+    (``aten::add`` of two [B, H] tensors, by the profiler)."""
+    cfg = llama.llama_tiny(dtype=torch.bfloat16, initializer_range=0.3)
+    L, B = cfg.num_layers, 4
+    params = llama.init_params(cfg, seed=5, device=cuda)
+    cache = llama.init_decode_cache(cfg, B, 64, device=cuda)
+    tok = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([3, 5, 7, 9], dtype=torch.int32, device=cuda)
+
+    def step():
+        with torch.inference_mode():
+            return llama.decode_step_multi(params, cache, tok, pos, cfg,
+                                           attn_kernel="flash")
+
+    before = dict(fnr.LAUNCHES)
+    step()
+    torch.cuda.synchronize()
+    assert {k: fnr.LAUNCHES[k] - before[k] for k in before} == {
+        k: {"llama": 1, "add_llama": 2 * L}.get(k, 0) for k in before}
+    prof = chip_smoke.norm_add_profile(step, B, cfg.hidden_size, n=2)
+    assert prof["residual_adds"] == 0
+    assert prof["rms_launches"] == 2 * L + 1
+
+
+@pytest.mark.parametrize("kind,kd,pages", [("contiguous", "bf16", None),
+                                           ("paged", "bf16", 64)])
+def test_captured_engine_with_llama_draft(cuda, kind, kd, pages):
+    """A LLaMA draft (GQA 4/2, H 64, 2 layers, bf16): its k steps run in
+    the captured draft program, which replays the norm kernel once a
+    step and the fused residual-add instance 2L times; the captured
+    engine's streams and every kernel counter equal the eager engine's,
+    twice over, and the RMS counts are exactly those of its draft steps
+    and draft prefills."""
+    from paddle_tpu_torch.inference import programs
+    from paddle_tpu_torch.inference.serving import SpeculativeConfig
+    models = _graph_models(cuda)
+    cfg = models[0]
+    lcfg = llama.llama_tiny(vocab_size=cfg.vocab_size, hidden_size=64,
+                            num_layers=2, num_heads=4, num_kv_heads=2,
+                            dtype=torch.bfloat16, initializer_range=0.3)
+    spec = SpeculativeConfig(k=3, family="llama", draft_cfg=lcfg,
+                             draft_params=_to(llama.init_params(
+                                 lcfg, seed=4, device="cpu"), cuda))
+    prompts = _graph_prompts(cfg, kind, seed=9)
+    idx = [m for m, _ in programs.COUNTERS].index(fnr)
+    runs = {}
+    for cuda_graphs in (None, False):
+        eng = _graph_engine(models, kind, kd, pages, "greedy", cuda,
+                            cuda_graphs, speculative=spec)
+        runs[cuda_graphs] = [_graph_run(eng, prompts) for _ in range(2)]
+        m = eng.metrics()
+        rms = {k: sum(n[idx][k] for _, n in runs[cuda_graphs])
+               for k in ("llama", "add_llama")}
+        steps, prefills = m["draft_steps"], m["launches"]["draft_prefill"]
+        want = chip_smoke._rms_launches(lcfg.num_layers, steps, prefills)
+        assert steps > 0 and rms == {"llama": want["rms_llama"],
+                                     "add_llama": want["rms_add_llama"]}
+        if cuda_graphs is None:
+            assert any(k.startswith("draft:") for k in m["graphs"])
+            assert m["graph_replays"] > 0
+    assert runs[None] == runs[False]
 
 
 def test_rms_norm_pallas_autograd_on_card(cuda):

@@ -258,28 +258,34 @@ def test_slot_loop_streams_identical(gqa, kv_dtype):
 
 
 def test_use_flash_routes_the_rms_norm(gqa, monkeypatch):
-    """use_flash None/True go through the kernel wrapper (its plain
-    version on the CPU, no launch), False calls the plain version
-    directly; all three give the same logits."""
+    """use_flash None/True go through the kernel wrappers (their plain
+    versions on the CPU, no launch): layer 0's attention norm through
+    ``rms_norm``, the 2L others through ``add_rms_norm`` (the residual
+    add fused in); False calls the plain versions directly; all three
+    give the same logits."""
     _, _, tcfg, tp = gqa
     ids = torch.from_numpy(_ids(7, (1, 6)))
     calls = []
-    real = fnr.rms_norm
 
-    def spy(*a):
-        calls.append(a[3])
-        return real(*a)
+    def spy(name):
+        real = getattr(fnr, name)
 
-    monkeypatch.setattr(tl, "rms_norm", spy)
+        def f(*a):
+            calls.append((name, a[-1]))
+            return real(*a)
+        return f
+
+    for name in ("rms_norm", "add_rms_norm"):
+        monkeypatch.setattr(tl, name, spy(name))
     before = dict(fnr.LAUNCHES)
     outs = {}
+    want = [("rms_norm", "llama")] + [("add_rms_norm", "llama")] * 8
     for flag in (None, True, False):
         calls.clear()
         cfg = tl.llama_tiny(initializer_range=0.3, num_kv_heads=2,
                             use_flash=flag)
         outs[flag] = tl.forward(tp, ids, cfg)
-        assert calls == ([] if flag is False else ["llama"] * 9), (flag,
-                                                                  calls)
+        assert calls == ([] if flag is False else want), (flag, calls)
     assert fnr.LAUNCHES == before
     torch.testing.assert_close(outs[True], outs[False], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(outs[None], outs[False], rtol=0, atol=0)

@@ -233,3 +233,179 @@ def test_rope_helpers_match_jax():
     want = jfnr.fused_rotary_position_embedding(
         jq, position_ids=jnp.asarray(pid))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("N,H", [(8, 4096), (7, 1100), (5, 11)])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_add_rms_norm_plain_matches_jax(N, H, dt):
+    """The fused instance's plain version against JAX's ``h + delta``
+    followed by ``llama._rms_norm`` (each its own jitted program): s bit
+    for bit in both dtypes; out
+    bit for bit in bfloat16 and, in float32, within the bar of the
+    unfused norm (``test_llama_policy_matches_jax_rms_norm``: 1e-6, the
+    row sums run in another order); and through the wrapper (no launch
+    on the CPU) the same values."""
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    h, w = _inputs(N, H, seed=8)
+    delta = np.random.default_rng(9).standard_normal((N, H)).astype(
+        np.float32)
+    (jh, th), (jd, td), (jw, tw) = (_pair(a, jdt, tdt) for a in (h, delta, w))
+    # two programs: in one, XLA:CPU fuses the bfloat16 add into the
+    # norm's float32 math and skips the add's rounding
+    js = jax.jit(lambda a, b: a + b)(jh, jd)
+    jout = jax.jit(lambda a, c: jllama._rms_norm(a, c, EPS))(js, jw)
+    s, out = fnr.add_rms_norm_plain(th, td, tw, EPS, "llama")
+    np.testing.assert_array_equal(s.float().numpy(), _as_np(js))
+    if dt == "bfloat16":
+        np.testing.assert_array_equal(out.float().numpy(), _as_np(jout))
+    else:
+        np.testing.assert_allclose(out.numpy(), _as_np(jout), rtol=1e-6,
+                                   atol=1e-7)
+    before = dict(fnr.LAUNCHES)
+    s2, out2 = fnr.add_rms_norm(th, td, tw, EPS, "llama")
+    assert fnr.LAUNCHES == before
+    assert torch.equal(s2, s) and torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("policy", fnr.POLICIES)
+@pytest.mark.parametrize("N,H", [(7, 1100)])
+def test_add_rms_norm_backward_matches_jax(residual, policy, N, H):
+    """``add_rms_norm`` under autograd (the plain backward on the CPU),
+    with the residual's cotangent g_s (``residual``) and without it (only
+    out is used), against ``jax.vjp`` of h + delta followed by the
+    policy's JAX norm, float32 within 1e-5 of each gradient's largest
+    value (the bar of ``test_rms_norm_backward_matches_jax``); h and
+    delta receive the same gradient."""
+    x, w = _inputs(N, H, seed=10)
+    rng = np.random.default_rng(11)
+    delta, g, g_s = (rng.standard_normal((N, H)).astype(np.float32)
+                     for _ in range(3))
+    jnorm = ((lambda a, b: jllama._rms_norm(a, b, EPS)) if policy == "llama"
+             else (lambda a, b: jfnr.rms_norm_pallas(a, b, EPS)))
+    if residual:
+        def jfn(a, b, c):
+            return a + b, jnorm(a + b, c)
+        cot = (jnp.asarray(g_s), jnp.asarray(g))
+    else:
+        def jfn(a, b, c):
+            return jnorm(a + b, c)
+        cot = jnp.asarray(g)
+    _, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(delta), jnp.asarray(w))
+    want = [_as_np(a) for a in vjp(cot)]
+    th, td, tw = (torch.tensor(a, requires_grad=True) for a in (x, delta, w))
+    s, out = fnr.add_rms_norm(th, td, tw, EPS, policy)
+    if residual:
+        torch.autograd.backward([s, out], [torch.from_numpy(g_s),
+                                           torch.from_numpy(g)])
+    else:
+        out.backward(torch.from_numpy(g))
+    assert torch.equal(th.grad, td.grad)
+    for got, ref in zip((th.grad, td.grad, tw.grad), want):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dt,remat", [("float32", False),
+                                      ("bfloat16", True)])
+def test_llama_fused_route_equals_unfused_bitwise(dt, remat, monkeypatch):
+    """llama_tiny on the CPU: the forward's logits, the train step's loss
+    and every gradient through the fused residual-add route equal bit for
+    bit those of the unfused route (the add, then ``rms_norm``: autograd
+    sums the residual's two cotangents, as the fused backward does), in
+    float32 and in bfloat16 (under remat, whose checkpointed layers carry
+    the residual sum and fuse only the ffn norms)."""
+    from paddle_tpu_torch.models import llama as tl
+    cfg = tl.llama_tiny(initializer_range=0.3, dtype=getattr(torch, dt),
+                        vocab_size=256, hidden_size=64, num_layers=3)
+    params = tl.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.default_rng(12)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+                   for _ in range(2))
+
+    def unfused(h, delta, w, eps, policy):
+        s = h + delta
+        return s, fnr.rms_norm(s, w, eps, policy)[0]
+
+    runs = []
+    for route in ("fused", "unfused"):
+        if route == "unfused":
+            monkeypatch.setattr(tl, "add_rms_norm", unfused)
+        p = {k: ({n: t.detach().requires_grad_(True) for n, t in v.items()}
+                 if isinstance(v, dict) else v.detach().requires_grad_(True))
+             for k, v in params.items()}
+        leaves = [t for v in p.values()
+                  for t in (v.values() if isinstance(v, dict) else [v])]
+        logits = tl.forward(p, ids, cfg)
+        loss = tl.loss_fn(p, ids, labels, cfg, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+        runs.append([logits, loss, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_llama_remat_checkpoints_one_tensor_a_layer(monkeypatch):
+    """Under remat each layer's checkpoint keeps its input, the residual
+    sum, as one tensor (the unfused stack's): the pending pair is summed
+    before each checkpoint, and the fused route's ffn norms still fuse."""
+    from paddle_tpu_torch.models import common
+    from paddle_tpu_torch.models import llama as tl
+    cfg = tl.llama_tiny(vocab_size=256, hidden_size=64, num_layers=3)
+    params = tl.init_params(cfg, seed=2, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 8)))
+    kept, inner = [], common.checkpoint
+
+    def spy(body, h, lp, **kw):
+        kept.append(h)
+        return inner(body, h, lp, **kw)
+
+    monkeypatch.setattr(common, "checkpoint", spy)
+    calls = []
+    real = tl.add_rms_norm
+    monkeypatch.setattr(tl, "add_rms_norm",
+                        lambda *a: calls.append(1) or real(*a))
+    tl.loss_fn(params, ids, ids, cfg, remat=True)
+    assert len(kept) == cfg.num_layers
+    assert all(isinstance(h, torch.Tensor) for h in kept)
+    assert len(calls) == cfg.num_layers
+
+
+def test_rms_plan_holds_the_row():
+    """The kernels' plans: a row slot of a multiple of 32 threads covers
+    the row within 256 threads wherever 16 vectors a thread (the
+    forward) or 8 (the backward, dw partials in registers) allow; the sum
+    order (vpt, group) does not move with N; rows past 512 x 8 vectors
+    raise."""
+    for H in (11, 128, 1100, 4096, 5120, 8192, 11008, 16384, 40000):
+        for nv in (1, 4, 8):
+            if H % nv:
+                continue
+            for kind in (0, 1):
+                if H // nv > fnr.MAX_GROUP * 8:
+                    with pytest.raises(ValueError, match="exceeds"):
+                        fnr.rms_plan(8, H, nv, kind)
+                    continue
+                vpt, group, threads = fnr.rms_plan(8192, H, nv, kind)
+                assert vpt in (fnr.VPTS if kind == 0 else fnr.VPTS[:-1])
+                assert group % 32 == 0 and group * vpt * nv >= H
+                assert threads % group == 0
+                assert threads <= (256 if vpt == 16 else fnr.MAX_GROUP)
+                if H // nv <= 256 * (16 if kind == 0 else 8):
+                    assert group <= 256
+                assert fnr.rms_plan(8, H, nv, kind)[:2] == (vpt, group)
+    assert fnr.rms_plan(8, 4096, 8) == (2, 256, 256)         # llama_7b bf16
+    assert fnr.rms_plan(8, 128, 8) == (1, 32, 32)            # a row a block
+    assert fnr.rms_plan(2048, 128, 8) == (1, 32, 256)        # 8 rows a block
+    assert fnr.rms_plan(8192, 4096, 8, 1) == (2, 256, 256)
+
+
+def test_add_rms_norm_rejects():
+    h, w = torch.ones(4, 8), torch.ones(8)
+    with pytest.raises(ValueError, match="h and delta"):
+        fnr.add_rms_norm(h, torch.ones(4, 7), w, EPS, "llama")
+    with pytest.raises(ValueError, match="h and delta"):
+        fnr.add_rms_norm(h, h.double(), w, EPS, "llama")
+    with pytest.raises(ValueError, match="policy"):
+        fnr.add_rms_norm(h, h, w, EPS, "layer")
+    with pytest.raises(ValueError, match="rstd"):
+        fnr.rms_norm_bwd(h, w, h, EPS, "fused")
