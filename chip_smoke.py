@@ -209,6 +209,25 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    steady rounds of each engine (8 slots decoding, 1 on the fused
    engine; 4 timed, 1 profiled): wall and device ms a round, device ms a
    step, idle share, kernels and host CUDA calls a round.
+5e. serving faults (``serving_faults_phase``) — robustness and lifecycle
+   on 5d's captured engines (contiguous bf16, paged bf16, sampled
+   contiguous, n-gram k 3, fused b1 int8) and a contiguous engine with a
+   2-layer model draft and the prefix cache, every count of flash_decode,
+   row_gemm, fused_decode and sampling set to 0 before and each > 0
+   after: ``fail_times=2`` on prefill, decode, verify, draft and prefix
+   calls and ``fail_after_times=1`` on decode and verify leave every
+   stream equal to the fault-free one bit for bit, with the fault-free
+   prefill counts; cancel after the first round and a TTL that expires
+   mid-decode leave the next occupants' streams exact and the page pool
+   whole; ``fail_always`` on prefill with the breaker at 2 fails every
+   request fast, submit raises CircuitOpenError, ``reset_circuit()``
+   serves exactly again; a real device stall (``torch.cuda._sleep``, 4x
+   ``step_timeout=0.5``) in every decode call trips the deadline and
+   ``drain(60)`` returns every request FAILED, and one in a prefill's
+   work trips the next decode call's deadline, retried to the exact
+   stream.  The funnel's host µs a call, without and with the watchdog.
+   ``--phases serving_faults`` runs it alone (its engines built and
+   warmed there).
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -239,7 +258,8 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    ms by family (flash forward, dK/dV, dQ, fused_ce, GEMMs, other) and
    idle share.  ``--phases train_kernel,ring_kernel,float32_training``
    runs phases 3, 11 and 6a alone (or any of them; two sources built);
-   ``--phases compiled_serving`` phase 5d alone (four sources).
+   ``--phases compiled_serving`` phase 5d alone (four sources),
+   ``--phases serving_faults`` phase 5e (the same four).
 7. b1 int8 serving — the serving weights quantized by the port
    (``gpt.quantize_decode_params``).  ``fused_decode_layers`` against
    its plain version in four storage modes (an f32 cache at gpt_tiny
@@ -5811,6 +5831,33 @@ GRAPH_CASES = (("contiguous bf16", "contiguous", "bf16", False, False),
                ("ngram fused int8", "fused", "int8", True, False))
 
 
+def graph_prompts(cfg):
+    """The serving cell's 12 seeded prompts (32-700 tokens) as
+    ``compiled_serving_phase`` serves them."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 701, 12)
+    return [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+
+
+def graph_case_engine(engines, case, cfg, params, qparams, cuda_graphs=None):
+    """The engine of one ``GRAPH_CASES`` entry (label, engine, kv_dtype,
+    n-gram, sampled) at gpt3_1p3b's serving shape: 8 slots (the fused
+    engine 1), max_len 1024, "flash", 64-token pages; and the requests it
+    serves (the fused engine the first 3 of ``graph_prompts``)."""
+    Engine, PagedEngine, FusedEngine = engines
+    _, kind, kd, ngram, sampled = case
+    kw = dict(kv_dtype=kd, attn_kernel="flash", device="cuda",
+              speculative=ngram, cuda_graphs=cuda_graphs,
+              **(SAMPLE_SERVE if sampled else {}))
+    prompts = graph_prompts(cfg)
+    if kind == "fused":
+        return FusedEngine(qparams, cfg, max_len=1024, **kw), prompts[:3]
+    if kind == "paged":
+        return PagedEngine(params, cfg, max_batch=8, max_len=1024,
+                           block_size=64, **kw), prompts
+    return Engine(params, cfg, max_batch=8, max_len=1024, **kw), prompts
+
+
 def _host_calls(prof, rounds):
     """CUDA API calls the host made a round in a profiled window, by
     name (kernel launches, graph launches, copies), and their sum."""
@@ -5885,7 +5932,8 @@ def _steady_rounds(eng, prompts, spec):
             "sm_clock_power": clocks}
 
 
-def compiled_serving_phase(gpt, engines, programs, cfg, params, qparams):
+def compiled_serving_phase(gpt, engines, programs, cfg, params, qparams,
+                           keep=None):
     """The serving cell with its decode programs captured as CUDA graphs
     against the same engines run eagerly (``cuda_graphs=False``):
     gpt3_1p3b at full width, the 12 requests of ``serving_phase`` (the
@@ -5902,26 +5950,21 @@ def compiled_serving_phase(gpt, engines, programs, cfg, params, qparams):
     decode-loop tok/s, wall a round and a token, the captured engine's
     programs, replays, capture seconds and pool bytes; and, over steady
     rounds (``_steady_rounds``), each engine's wall and device ms a
-    round, device ms a step, idle share and host calls a round."""
-    Engine, PagedEngine, FusedEngine = engines
-    rng = np.random.default_rng(0)
-    lens = rng.integers(32, 701, 12)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    round, device ms a step, idle share and host calls a round.  With
+    ``keep`` (a dict), the captured engines of ``FAULT_CASES`` stay alive
+    in it, by label, with their requests and fault-free streams:
+    ``serving_faults_phase`` takes them over."""
+    prompts = graph_prompts(cfg)
     rows = {}
-    for label, kind, kd, ngram, sampled in GRAPH_CASES:
+    for case in GRAPH_CASES:
+        label, kind, kd, ngram, sampled = case
         t_case = time.perf_counter()
-        reqs = prompts[:3] if kind == "fused" else prompts
 
         def make(cuda_graphs):
-            kw = dict(kv_dtype=kd, attn_kernel="flash", device="cuda",
-                      speculative=ngram, cuda_graphs=cuda_graphs,
-                      **(SAMPLE_SERVE if sampled else {}))
-            if kind == "fused":
-                return FusedEngine(qparams, cfg, max_len=1024, **kw)
-            if kind == "paged":
-                return PagedEngine(params, cfg, max_batch=8, max_len=1024,
-                                   block_size=64, **kw)
-            return Engine(params, cfg, max_batch=8, max_len=1024, **kw)
+            return graph_case_engine(engines, case, cfg, params, qparams,
+                                     cuda_graphs)[0]
+
+        reqs = prompts[:3] if kind == "fused" else prompts
 
         def run(eng):
             base, counts = eng.metrics(), programs.snapshot()
@@ -5997,6 +6040,8 @@ def compiled_serving_phase(gpt, engines, programs, cfg, params, qparams):
         row["seconds"] = time.perf_counter() - t_case
         rows[label] = row
         _log(row)
+        if keep is not None and label in FAULT_CASES:
+            keep[label] = (engs["captured"], reqs, want["streams"])
         del engs
         torch.cuda.empty_cache()
     return rows
@@ -6012,14 +6057,452 @@ def compiled_serving_alone(gpt, engines, programs):
                                   qparams)
 
 
+# the serving_faults phase: robustness and lifecycle on compiled_serving's
+# captured engines
+FAULT_CASES = ("contiguous bf16", "paged bf16", "sampled contiguous bf16",
+               "ngram contiguous bf16", "fused int8")
+FAULT_TIMEOUT = 0.5          # step_timeout of the device-stall checks, s
+FAULT_STALL_S = 2.0          # a stall: 4x FAULT_TIMEOUT
+SM_HZ = 1.98e9               # the H100 SXM's top SM clock: a torch.cuda._sleep
+                             # of FAULT_STALL_S * SM_HZ cycles lasts >= FAULT_STALL_S
+FAULT_TTL = 1.0              # ttl of the requests that expire mid-decode, s
+FAULT_DRAIN_S = 60.0         # drain(timeout) of the decode stall
+FUNNEL_CALLS = 20000         # calls timed for the funnel's host cost
+DRAFT_LAYERS = 2             # the model draft: gpt3_1p3b's width, 2 layers
+
+
+def _serve_reqs(eng, reqs, **submit_kw):
+    """Submit ``reqs`` (32 new tokens, seeds 1..n) and run them: (rids,
+    streams)."""
+    rids = [eng.submit(p, max_new=32, seed=i + 1, **submit_kw)
+            for i, p in enumerate(reqs)]
+    out = eng.run(steps_per_sync=16)
+    torch.cuda.synchronize()
+    return rids, [list(map(int, out[r])) for r in rids]
+
+
+def _retry_deltas(m, before):
+    """Retries by funnel kind between two ``metrics()`` snapshots."""
+    return {k: n - before["retries"].get(k, 0)
+            for k, n in m["retries"].items()
+            if n - before["retries"].get(k, 0)}
+
+
+def _streams_equal(label, check, streams, want, rids=None, eng=None):
+    if streams != want:
+        same = sum(a == b for a, b in zip(streams, want))
+        raise AssertionError(f"serving faults {label} {check}: streams "
+                             f"{same}/{len(want)} equal to the fault-free "
+                             f"ones")
+    if eng is not None and any(eng.status(r) != "DONE" for r in rids):
+        raise AssertionError(f"serving faults {label} {check}: a request "
+                             f"did not finish DONE")
+
+
+def fault_free_run(eng, reqs, want, label):
+    """One fault-free run of the requests on a warmed engine: its streams
+    must equal ``want``; returns its launch deltas (the prefill counts a
+    faulted run must keep) and its wall seconds."""
+    before = eng.metrics()
+    t0 = time.perf_counter()
+    rids, streams = _serve_reqs(eng, reqs)
+    wall = time.perf_counter() - t0
+    _streams_equal(label, "fault-free", streams, want, rids, eng)
+    return _spec_deltas(eng.metrics(), before), wall
+
+
+def fault_schedule_check(eng, reqs, want, base, label, **faults):
+    """One run of the requests under an injected fault schedule
+    (``testing.faults.inject_engine_faults``: ``fail_times`` before the
+    call, or ``fail_after_times`` after it ran): every stream equal to the
+    fault-free one bit for bit, every request DONE, the injections and
+    the engine's retries as scheduled, and the prefill, draft-prefill
+    and fused-prefill counts of the fault-free run ``base`` — a call
+    retried after it ran re-prefills nothing, as the caches are written
+    in place."""
+    from paddle_tpu_torch.testing.faults import inject_engine_faults
+    n = faults.get("fail_times") or faults["fail_after_times"]
+    want_inj = {k: n for k in faults["kinds"]}
+    before = eng.metrics()
+    t0 = time.perf_counter()
+    with inject_engine_faults(eng, **faults) as inj:
+        rids, streams = _serve_reqs(eng, reqs)
+    wall = time.perf_counter() - t0
+    m = eng.metrics()
+    check = ",".join(f"{k}={v}" for k, v in sorted(faults.items()))
+    _streams_equal(label, check, streams, want, rids, eng)
+    retries = _retry_deltas(m, before)
+    if inj.injected != want_inj or retries != want_inj:
+        raise AssertionError(f"serving faults {label} {check}: injected "
+                             f"{inj.injected}, retries {retries}, want "
+                             f"{want_inj}")
+    d = _spec_deltas(m, before)
+    for key in ("prefill", "prefill_fused", "draft_prefill"):
+        if d.get(key, 0) != base.get(key, 0):
+            raise AssertionError(f"serving faults {label} {check}: {key} "
+                                 f"{d.get(key, 0)} != fault-free "
+                                 f"{base.get(key, 0)}")
+    return {"faults": check, "injected": inj.injected, "retries": retries,
+            "wall_s": wall, "streams_equal": f"{len(want)}/{len(want)}"}
+
+
+def cancel_ttl_check(eng, reqs, want, label):
+    """Cancel after the first round: two running requests and the last
+    queued one go CANCELLED (pages back at once), the rest finish with
+    their fault-free streams — the cancelled slots' next occupants
+    included.  Then a TTL that expires mid-decode: the first two requests
+    get ``ttl=FAULT_TTL``; after the first round the host waits out the
+    deadline, and the next round retires them TIMEOUT with a prefix of
+    their streams (or, queued behind a b1 slot, expired in the queue
+    with none); the rest finish exactly.  A paged engine ends both with
+    ``free_blocks == num_blocks``."""
+    paged = hasattr(eng, "free_blocks")
+    rids = [eng.submit(p, max_new=32, seed=i + 1)
+            for i, p in enumerate(reqs)]
+    eng.step(16)
+    running = [r for r in rids if eng.status(r) == "RUNNING"]
+    victims = running[:2] + [r for r in rids[-1:]
+                             if eng.status(r) == "QUEUED"]
+    free = eng.free_blocks if paged else None
+    for r in victims:
+        if not eng.cancel(r):
+            raise AssertionError(f"serving faults {label}: cancel({r}) "
+                                 f"refused")
+    if paged and eng.free_blocks <= free:
+        raise AssertionError(f"serving faults {label}: cancel freed no page")
+    out = eng.run(steps_per_sync=16)
+    torch.cuda.synchronize()
+    row = {"cancelled": len(victims)}
+    for i, r in enumerate(rids):
+        req = eng.request(r)
+        got = list(map(int, req.tokens))
+        if r in victims:
+            ok = req.status == "CANCELLED" and got == want[i][:len(got)]
+        else:
+            ok = req.status == "DONE" and got == want[i] and r in out
+        if not ok:
+            raise AssertionError(f"serving faults {label} cancel: request "
+                                 f"{i} {req.status}, stream "
+                                 f"{'equal' if got == want[i] else 'differs'}")
+    if paged and eng.free_blocks != eng.num_blocks:
+        raise AssertionError(f"serving faults {label} cancel: "
+                             f"{eng.free_blocks}/{eng.num_blocks} pages free")
+    rids = [eng.submit(p, max_new=32, seed=i + 1,
+                       ttl=FAULT_TTL if i < 2 else None)
+            for i, p in enumerate(reqs)]
+    deadline = eng.request(rids[1]).deadline
+    eng.step(16)
+    time.sleep(max(0.0, deadline - time.monotonic()) + 0.01)
+    eng.run(steps_per_sync=16)
+    torch.cuda.synchronize()
+    timed_out = []
+    for i, r in enumerate(rids):
+        req = eng.request(r)
+        got = list(map(int, req.tokens))
+        if i < 2:
+            ok = (req.status == "TIMEOUT" and "deadline expired" in req.error
+                  and len(got) < 32 and got == want[i][:len(got)])
+            timed_out.append(len(got))
+        else:
+            ok = req.status == "DONE" and got == want[i]
+        if not ok:
+            raise AssertionError(f"serving faults {label} ttl: request {i} "
+                                 f"{req.status} ({req.error})")
+    if paged and eng.free_blocks != eng.num_blocks:
+        raise AssertionError(f"serving faults {label} ttl: "
+                             f"{eng.free_blocks}/{eng.num_blocks} pages free")
+    row["ttl_tokens_at_expiry"] = timed_out
+    return row
+
+
+def breaker_check(eng, reqs, want, label):
+    """``fail_always`` on prefill with the breaker's threshold at 2: two
+    admissions are quarantined FAILED "prefill failed after retries", the
+    breaker opens and every other request fails fast with its reason;
+    submit then raises CircuitOpenError; ``reset_circuit()`` and the
+    requests serve again with their fault-free streams."""
+    from paddle_tpu_torch.inference.lifecycle import CircuitOpenError
+    from paddle_tpu_torch.testing.faults import inject_engine_faults
+    threshold = eng._breaker.threshold
+    eng._breaker.threshold = 2
+    try:
+        t0 = time.perf_counter()
+        with inject_engine_faults(eng, fail_always=True,
+                                  kinds=("prefill",)) as inj:
+            rids = [eng.submit(p, max_new=32) for p in reqs]
+            out = eng.run(steps_per_sync=16)
+        fail_s = time.perf_counter() - t0
+        errors = [eng.request(r).error or "" for r in rids]
+        if not (eng.circuit_open and sorted(out) == rids
+                and all(eng.status(r) == "FAILED" for r in rids)
+                and sum("prefill failed after retries" in e
+                        for e in errors) == 2
+                and sum("circuit breaker open" in e for e in errors)
+                == len(rids) - 2):
+            raise AssertionError(f"serving faults {label} breaker: "
+                                 f"{[eng.status(r) for r in rids]}")
+        try:
+            eng.submit(reqs[0], max_new=32)
+        except CircuitOpenError:
+            pass
+        else:
+            raise AssertionError(f"serving faults {label} breaker: submit "
+                                 f"was taken while open")
+    finally:
+        eng._breaker.threshold = threshold
+    eng.reset_circuit()
+    rids, streams = _serve_reqs(eng, reqs)
+    _streams_equal(label, "after reset_circuit", streams, want, rids, eng)
+    return {"injected": inj.injected, "fail_fast_s": fail_s,
+            "quarantined": 2, "failed_fast": len(rids) - 2}
+
+
+def _stall(eng, kind, after=False):
+    """Make ``eng``'s device calls of ``kind`` queue a
+    ``torch.cuda._sleep`` of FAULT_STALL_S on the current stream: before
+    the call's own work (every call), or ``after`` it (the first call
+    only: its kernels are slow, its host call is not).  Returns the host
+    seconds of each stalled call, as it fills."""
+    orig = eng._device_invoke
+    took = []
+
+    def stalled(k, fn, *a, **kw):
+        if k != kind or (after and took):
+            return orig(k, fn, *a, **kw)
+        t0 = time.perf_counter()
+        if not after:
+            torch.cuda._sleep(int(FAULT_STALL_S * SM_HZ))
+        out = orig(k, fn, *a, **kw)
+        if after:
+            torch.cuda._sleep(int(FAULT_STALL_S * SM_HZ))
+        took.append(time.perf_counter() - t0)
+        return out
+
+    eng._device_invoke = stalled
+    return took
+
+
+def decode_stall_check(eng, reqs, label):
+    """A real device stall: every decode call queues FAULT_STALL_S of
+    ``torch.cuda._sleep`` before its round.  With ``step_timeout=
+    FAULT_TIMEOUT`` (the engine warmed: its kernels built and its
+    programs captured), no retry and the breaker's threshold at 2, each
+    decode call's readback outlives its deadline and raises TimeoutError,
+    the breaker opens and ``drain(FAULT_DRAIN_S)`` returns every request
+    FAILED with the breaker's reason, well inside its bound.  The engine
+    is STOPPED after."""
+    from paddle_tpu_torch.utils.retry import RetryPolicy
+    eng.step_timeout = FAULT_TIMEOUT
+    eng._retry = RetryPolicy(retries=0, backoff=0.0)
+    eng._breaker.threshold = 2
+    took = _stall(eng, "decode")
+    rids = [eng.submit(p, max_new=32) for p in reqs]
+    t0 = time.perf_counter()
+    out = eng.drain(timeout=FAULT_DRAIN_S, steps_per_sync=16)
+    drain_s = time.perf_counter() - t0
+    eng.__dict__.pop("_device_invoke", None)
+    last = eng._breaker.last_error or ""
+    if not (eng.state == "STOPPED" and drain_s < FAULT_DRAIN_S
+            and all(out[r].status == "FAILED"
+                    and "circuit breaker" in out[r].error for r in rids)
+            and "TimeoutError" in last and len(took) == 2
+            and min(took) >= FAULT_STALL_S * 0.9):
+        raise AssertionError(f"serving faults {label} decode stall: drain "
+                             f"{drain_s:.2f} s, calls {took}, last error "
+                             f"{last[:200]}")
+    return {"drain_s": drain_s, "stalled_call_s": took,
+            "statuses": "FAILED", "last_error": last[:160]}
+
+
+def prefill_stall_check(eng, reqs, want, label):
+    """The same stall in a prefill's device work (queued after the
+    call's own kernels) on one request: the prefill call only queues
+    work, so it returns inside its deadline; the decode call's copy of
+    the round waits for the stall and raises TimeoutError, the default
+    policy retries the round, and the stream is the fault-free one."""
+    timeout = eng.step_timeout
+    eng.step_timeout = FAULT_TIMEOUT
+    seen = []
+    eng._retry.on_retry = lambda attempt, e: seen.append(repr(e))
+    took = _stall(eng, "prefill", after=True)
+    before = eng.metrics()
+    try:
+        rids, streams = _serve_reqs(eng, reqs[:1])
+    finally:
+        eng.__dict__.pop("_device_invoke", None)
+        eng._retry.on_retry = None
+        eng.step_timeout = timeout
+    _streams_equal(label, "prefill stall", streams, want[:1], rids, eng)
+    retries = _retry_deltas(eng.metrics(), before)
+    if not (len(took) == 1 and took[0] < FAULT_TIMEOUT
+            and retries == {"decode": 1} and seen
+            and "serving:decode" in seen[0] and "TimeoutError" in seen[0]):
+        raise AssertionError(f"serving faults {label} prefill stall: "
+                             f"prefill call {took}, retries {retries}, "
+                             f"{seen}")
+    return {"prefill_call_s": took[0], "retries": retries,
+            "tripped": seen[0][:160]}
+
+
+def funnel_host_us(eng, n=FUNNEL_CALLS):
+    """Host µs the funnel adds to a device call: ``_device_call`` of a
+    call that does nothing against the call itself, without and with the
+    watchdog (``step_timeout`` None and 30)."""
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def noop():
+        return None
+
+    timeout = eng.step_timeout
+    try:
+        direct = per_call(noop)
+        eng.step_timeout = None
+        plain = per_call(lambda: eng._device_call("decode", noop))
+        eng.step_timeout = 30.0
+        watched = per_call(lambda: eng._device_call("decode", noop))
+    finally:
+        eng.step_timeout = timeout
+    return {"call_us": direct, "funnel_us": plain - direct,
+            "funnel_watchdog_us": watched - direct}
+
+
+def _draft_prefix_engine(gpt, Engine, Spec, cfg, params):
+    """The contiguous bf16 engine with a model draft (gpt3_1p3b's width,
+    DRAFT_LAYERS layers, seed 1, k 3) and an unbounded prefix cache: the
+    engine whose calls include "draft" and, from its second run on,
+    "prefix" installs."""
+    dcfg = gpt.gpt3_1p3b(dtype=torch.bfloat16, num_layers=DRAFT_LAYERS)
+    draft = gpt.init_params(dcfg, seed=1, device="cuda")
+    return Engine(params, cfg, max_batch=8, max_len=1024, attn_kernel="flash",
+                  device="cuda", prefix_cache_bytes=None,
+                  speculative=Spec(k=SPEC_K, draft_params=draft,
+                                   draft_cfg=dcfg))
+
+
+def fault_engines(engines, cfg, params, qparams):
+    """The captured engines of ``FAULT_CASES`` when ``compiled_serving``
+    has not run (``--phases serving_faults``, the card tests): built as
+    that phase builds them (``graph_case_engine``), each warmed by two
+    fault-free runs of its requests (every program eager once, then
+    captured), the first run's streams the fault-free ones."""
+    keep = {}
+    for case in GRAPH_CASES:
+        if case[0] not in FAULT_CASES:
+            continue
+        eng, reqs = graph_case_engine(engines, case, cfg, params, qparams)
+        _, want = _serve_reqs(eng, reqs)
+        _, again = _serve_reqs(eng, reqs)
+        _streams_equal(case[0], "warm-up", again, want)
+        keep[case[0]] = (eng, reqs, want)
+    return keep
+
+
+def serving_faults_phase(gpt, engines, Spec, programs, kernels, cfg, params,
+                         keep):
+    """Serving robustness and lifecycle at gpt3_1p3b's full width (bf16,
+    seed 0) on captured programs: ``keep`` holds compiled_serving's
+    captured engines (contiguous bf16, paged bf16, sampled contiguous,
+    n-gram k 3, fused b1 int8: the serving cell's 12 requests, the fused
+    engine's 3) with their fault-free streams; a contiguous engine with a
+    2-layer model draft and the prefix cache is built here.  On each: a
+    fault-free run, then ``fail_times=2`` on each call kind it makes
+    (prefill, decode, verify, draft, prefix) and ``fail_after_times=1``
+    on decode or verify, streams bit for bit and no extra prefill
+    (``fault_schedule_check``); cancel and TTL with the page pool whole
+    (``cancel_ttl_check``); the breaker (``breaker_check``); a real
+    device stall in a prefill (``prefill_stall_check``) and in every
+    decode call, drained (``decode_stall_check``, last: it stops the
+    engine).  Every count of ``kernels`` (flash_decode, row_gemm,
+    fused_decode, sampling) is set to 0 before and read after; each must
+    have launched.  Returns the phase's row (logged)."""
+    fd, rg, fdl, sm = kernels
+    t_phase = time.perf_counter()
+    for mod in kernels:
+        mod.reset_launches()
+    rows = {}
+    schedules = {
+        "contiguous bf16": (("prefill",), ("decode",)),
+        "paged bf16": (("prefill",), ("decode",)),
+        "sampled contiguous bf16": (("decode",),),
+        "ngram contiguous bf16": (("prefill",), ("verify",)),
+        "fused int8": (("prefill",), ("decode",))}
+    after = {"contiguous bf16": "decode", "paged bf16": "decode",
+             "ngram contiguous bf16": "verify", "fused int8": "decode"}
+    funnel = funnel_host_us(keep["contiguous bf16"][0])
+    for label in FAULT_CASES:
+        eng, reqs, want = keep[label]
+        base, wall = fault_free_run(eng, reqs, want, label)
+        row = {"fault_free_wall_s": wall, "schedules": []}
+        for kinds in schedules[label]:
+            row["schedules"].append(fault_schedule_check(
+                eng, reqs, want, base, label, fail_times=2, kinds=kinds))
+        if label in after:
+            row["schedules"].append(fault_schedule_check(
+                eng, reqs, want, base, label, fail_after_times=1,
+                kinds=(after[label],)))
+        if label in ("contiguous bf16", "paged bf16", "fused int8"):
+            row["cancel_ttl"] = cancel_ttl_check(eng, reqs, want, label)
+        if label == "paged bf16":
+            row["prefill_stall"] = prefill_stall_check(eng, reqs, want,
+                                                       label)
+        if label == "contiguous bf16":
+            row["breaker"] = breaker_check(eng, reqs, want, label)
+            row["decode_stall"] = decode_stall_check(eng, reqs, label)
+        row["metrics"] = {k: eng.metrics()[k] for k in (
+            "retries", "retired", "quarantined", "breaker")}
+        rows[label] = row
+    Engine = engines[0]
+    eng = _draft_prefix_engine(gpt, Engine, Spec, cfg, params)
+    eng_reqs, want = keep["contiguous bf16"][1], keep["contiguous bf16"][2]
+    _, first = _serve_reqs(eng, eng_reqs)
+    base, wall = fault_free_run(eng, eng_reqs, first, "draft prefix")
+    rows["draft prefix"] = {
+        "fault_free_wall_s": wall, "equals_plain_streams": first == want,
+        "prefix_hit_tokens": eng.metrics()["prefix_hit_tokens"],
+        "schedules": [fault_schedule_check(eng, eng_reqs, first, base,
+                                           "draft prefix", fail_times=2,
+                                           kinds=(kind,))
+                      for kind in ("draft", "prefix")]}
+    del eng
+    counts = {"flash_decode": fd.LAUNCHES + fd.PAGED_LAUNCHES,
+              "row_gemm": rg.LAUNCHES, "fused_decode": fdl.LAUNCHES,
+              "sampling": sm.LAUNCHES}
+    if not all(counts.values()):
+        raise AssertionError(f"serving faults: a kernel of the path was "
+                             f"launched no time: {counts}")
+    out = {"phase": "serving_faults", "launches": counts,
+           "funnel_host_us": funnel, "cases": rows,
+           "seconds": time.perf_counter() - t_phase}
+    _log(out)
+    return out
+
+
+def serving_faults_alone(gpt, engines, Spec, programs, kernels):
+    """``serving_faults_phase`` on its own: gpt3_1p3b bf16 from seed 0,
+    its int8 serving weights, and the engines of ``fault_engines``."""
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    qparams = gpt.quantize_decode_params(params, cfg)
+    keep = fault_engines(engines, cfg, params, qparams)
+    return serving_faults_phase(gpt, engines, Spec, programs, kernels, cfg,
+                                params, keep)
+
+
 #: the phases ``--phases`` runs alone, and the sources each builds
 ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "float32_training": float32_training_phase,
                "ring_kernel": ring_kernel_phase,
                "compiled_serving": compiled_serving_alone,
+               "serving_faults": serving_faults_alone,
                "rms_kernel": rms_kernel_phase}
 ONLY_SOURCES = {"compiled_serving": ("flash_decode", "fused_decode",
                                      "row_gemm", "sampling"),
+                "serving_faults": ("flash_decode", "fused_decode",
+                                   "row_gemm", "sampling"),
                 "rms_kernel": ("rms_norm",)}
 
 
@@ -6117,6 +6600,10 @@ def main(argv=None) -> int:
                        ContinuousBatchingEngine,
                        PagedContinuousBatchingEngine, FusedB1Engine),
                        programs),
+                   "serving_faults": (gpt, (
+                       ContinuousBatchingEngine,
+                       PagedContinuousBatchingEngine, FusedB1Engine),
+                       SpeculativeConfig, programs, (fd, rg, fdl, sm)),
                    "rms_kernel": (fnr,)}
         for name in only:
             timed(name, ONLY_PHASES[name], *args_of[name])
@@ -6172,9 +6659,13 @@ def main(argv=None) -> int:
             ("contiguous", "ngram"): spec_runs[("contiguous", "bf16",
                                                 "ngram")],
             ("paged", "ngram"): spec_runs[("paged", "bf16", "ngram")]})
+    fault_keep = {}
     compiled = timed("compiled_serving", compiled_serving_phase, gpt, engines,
-                     programs, cfg, params, qparams)
-    del params
+                     programs, cfg, params, qparams, fault_keep)
+    faults = timed("serving_faults", serving_faults_phase, gpt, engines,
+                   SpeculativeConfig, programs, (fd, rg, fdl, sm), cfg, params,
+                   fault_keep)
+    del params, fault_keep
     torch.cuda.empty_cache()
     fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
                           cfg, qparams)
@@ -6580,6 +7071,13 @@ def main(argv=None) -> int:
             "device_ms"]["sampling"],
         "draw_device_ms": draws["draw"]["device_busy_ms"],
         "draw_kernels": draws["draw"]["kernels_per_step"]})
+    # the serving_faults phase's launches, beside each kernel it runs
+    for e in entries:
+        key = {"flash_decode": "flash_decode", "row_gemm": "row_gemm",
+               "fused_decode_layers_int8": "fused_decode",
+               "sampling_filter_draw": "sampling"}.get(e["name"])
+        if key is not None:
+            e["serving_faults_launches"] = faults["launches"][key]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -6615,7 +7113,7 @@ def main(argv=None) -> int:
                  **{k: v for k, v in sampled.items() if k != "runs"}},
              "prefix_serving": {f"{a} {b}": r
                                 for (a, b), r in prefix_runs.items()},
-             "compiled_serving": compiled,
+             "compiled_serving": compiled, "serving_faults": faults,
              "speculative_serving": {" ".join(k) if isinstance(k, tuple)
                                      else k: v for k, v in spec_runs.items()
                                      if k != "verify_rows"},

@@ -24,8 +24,8 @@ over static buffers (``programs.DeviceProgram``; the JAX engine's
 kept in a per-engine cache keyed by (kind, steps) — temperature, top-k,
 top-p, eos, ``attn_kernel`` and ``kv_dtype`` are constants of an
 engine, so they are not in the key.  A round copies its host state
-(token, position and done flag a slot, the paged block tables, n-gram
-drafts) into the static buffers with ``copy_``, runs the program and
+(token, position, done flag and seed a slot, the paged block tables,
+n-gram drafts) into the static buffers with ``copy_``, runs the program and
 reads its output back once.  On a CUDA engine a program's first round
 runs eagerly and its second captures it as a CUDA graph, so every
 later round is one graph replay; on the CPU the same programs run
@@ -48,7 +48,7 @@ greedy and sampled streams match it.
 Sampling (``temperature`` > 0, with ``top_k`` / ``top_p``): the token
 fed at position p of a request is drawn with ``fold_in(PRNGKey(seed),
 p)`` (``decoding.sample_token_pos``; the seed is ``submit(seed=...)``,
-kept per slot on the device), so a stream is a function of (seed,
+loaded per slot with each round), so a stream is a function of (seed,
 positions) and the same under any ``steps_per_sync``, with or without
 speculation, on all three engines.  On the card the draw is the
 sampler kernel (``incubate/nn/kernels/sampling.py``), one launch a
@@ -81,10 +81,38 @@ fused engine runs its own decode step a token).  A DONE retirement
 extends the trie with the request's emitted output, so rejected
 speculative tokens never enter it.
 
-Left out (ROADMAP Queue 1): the prefix cache's host tier, handoff and
-reinstall hooks, tensor-parallel mesh (and the draft's replication over
-it), retries/breaker/deadlines/cancel, observability, the
-``PT_KV_DTYPE`` flag.
+Robustness and lifecycle (the JAX engine's contract): every request
+reaches a terminal status (DONE, FAILED, TIMEOUT, CANCELLED, REJECTED);
+a transient device fault never changes a token; a hung step or a
+shutdown is bounded.  Every device call — prefill, decode, verify,
+draft, prefix install and suffix fill — goes through ONE funnel
+(:meth:`ContinuousBatchingEngine._device_call`): bounded retries with
+backoff (``retry``), each attempt under a watchdog deadline
+(``step_timeout``), and ``_device_invoke`` as the one override point of
+``testing.faults.inject_engine_faults``.  A failed decode or
+speculative round leaves its requests in their slots and lets the
+circuit breaker judge the device; a failed admission is retried one
+member at a time and the failing request is quarantined FAILED (the
+poison-pill guard).  ``submit(ttl=, deadline=)``, ``cancel``,
+``forget``, the ``shed-oldest`` / ``block`` overload policies, the
+breaker's fail-fast and half-open probe, ``prefill_budget`` and
+``drain(timeout)`` follow the JAX engine.
+
+The port writes its caches in place and its programs read static
+buffers that only a round's ``_load_round`` writes, so a device call
+that raised after it ran is run again from unchanged host state and
+writes the same rows and tokens.  JAX donates its caches instead: a
+program that dies mid-run deletes them and the JAX engine re-prefills
+every slot (``_cache_lost`` / ``_rematerialize_cache``); the port has
+nothing to rebuild, and its prefill count does not move.  A sticky CUDA
+error (an illegal address, a device assert) leaves the context unusable:
+every later call raises, the breaker opens and every request retires
+FAILED.
+
+Left out (ROADMAP Queue 1): the prefix cache's host tier (item 2b: the
+INSTALLING state), handoff and reinstall hooks and ``drain(mode=
+"handoff")`` (item 9), tensor-parallel mesh and the draft's replication
+over it (item 10), observability (item 9), the ``PT_KV_DTYPE`` flag.
 """
 from __future__ import annotations
 
@@ -101,15 +129,19 @@ from ..incubate.nn.kernels.fused_decode import KV_CHUNK
 from ..incubate.nn.kv_quant import (byte_view, kv_components,
                                     kv_has_scales, kv_storage_dtype,
                                     kv_zeros, resolve_kv_dtype)
+from ..distributed import watchdog
 from ..models import decoding, gpt, llama
-from .lifecycle import (AdmissionQueue, EngineClosedError, EngineState,
+from ..utils.retry import TRANSIENT_EXCS, RetryPolicy
+from .lifecycle import (DRAIN_MODES, AdmissionQueue, CircuitBreaker,
+                        CircuitOpenError, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
 from .prefix_cache import KVSpanPayload, PagePayload, RadixPrefixCache
 from .programs import ProgramCache, resolve_capture
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
            "FusedB1Engine", "Request", "RequestStatus", "EngineState",
-           "QueueFullError", "EngineClosedError", "SpeculativeConfig"]
+           "QueueFullError", "CircuitOpenError", "EngineClosedError",
+           "SpeculativeConfig"]
 
 
 def _draft_family(name: str):
@@ -155,10 +187,14 @@ class Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     status: str = RequestStatus.QUEUED
-    error: Optional[str] = None
+    deadline: Optional[float] = None   # monotonic; None = no deadline
+    error: Optional[str] = None        # set with FAILED/TIMEOUT/REJECTED
     submitted_at: float = 0.0
-    # monotonic stamps; TTFT resolves at the host sync that returned the
-    # first token, so a K-step decode loop stamps all K tokens at once
+    # monotonic stamps (None until reached); TTFT resolves at the host
+    # sync that returned the first token, so a K-step decode loop stamps
+    # all K tokens at once
+    admitted_at: Optional[float] = None
+    prefill_start: Optional[float] = None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     # prompt tokens served from the prefix cache at the last admission
@@ -174,6 +210,10 @@ class Request:
             return self.prompt
         return np.concatenate([self.prompt,
                                np.asarray(self.tokens, np.int32)])
+
+    @property
+    def terminal(self) -> bool:
+        return self.status in RequestStatus.TERMINAL
 
 
 def _derive_buckets(max_len: int) -> Tuple[int, ...]:
@@ -201,12 +241,14 @@ class _AdmitPlan:
     admit, and the prefix cache's outcome — ``hit`` usable cached tokens
     and ``install`` the engine's install info (contiguous: the matched
     payload spans to copy; paged: the shared page ids, consumed when the
-    pages are reserved)."""
+    pages are reserved).  ``solo``: a member of a batched prefill that
+    failed, run again alone so that a poison pill is found."""
     slot: int
     req: Request
     seq: np.ndarray
     hit: int = 0
     install: Any = None
+    solo: bool = False
 
 
 def _span_rows(parts):
@@ -235,9 +277,23 @@ class ContinuousBatchingEngine:
     "fp8") — the KV cache's storage format; an explicit argument, since
     the JAX engine's ``PT_KV_DTYPE`` flag registry is not ported.
     ``device`` — CUDA unless ``"cpu"`` is passed; ``params`` must
-    already lie there.  ``max_queue`` bounds the admission queue
-    (``reject`` policy: submit raises :class:`QueueFullError`).
-    ``max_stall_rounds`` — consecutive scheduler rounds without
+    already lie there.  ``max_queue`` bounds the admission queue under
+    the ``overload`` policy: "reject" (submit raises
+    :class:`QueueFullError`), "shed-oldest" (the oldest queued request
+    retires REJECTED) or "block" (submit runs scheduler iterations for
+    up to ``overload_timeout`` seconds, then raises).  ``retry`` — the
+    :class:`RetryPolicy` of every device call (default: 2 retries of
+    ``OSError`` / ``TimeoutError``, backoff 0.05 s doubling to 1 s).
+    ``step_timeout`` — seconds a device call may take before the
+    watchdog's deadline raises ``TimeoutError`` (None: no deadline);
+    warm the engine first, since a program's first runs build its
+    kernels and capture its graph.  ``breaker_threshold`` consecutive
+    failed calls open the circuit breaker (every request retires FAILED,
+    submit raises :class:`CircuitOpenError` until ``reset_circuit()``);
+    ``breaker_cooldown`` seconds later one submit rides through as the
+    half-open probe.  ``prefill_budget`` — prompt tokens one scheduler
+    iteration may prefill (None: unbounded; the first admission always
+    runs).  ``max_stall_rounds`` — consecutive scheduler rounds without
     progress after which the stalled request retires FAILED with a
     capacity diagnostic (the livelock guard).  ``speculative`` — a
     :class:`SpeculativeConfig` (``True``: the n-gram proposer with
@@ -258,7 +314,13 @@ class ContinuousBatchingEngine:
 
     def __init__(self, params, cfg, max_batch: int = 4,
                  max_len: int = 1024, eos_token_id: Optional[int] = None,
-                 max_queue: Optional[int] = None,
+                 max_queue: Optional[int] = None, overload: str = "reject",
+                 overload_timeout: float = 5.0,
+                 retry: Optional[RetryPolicy] = None,
+                 step_timeout: Optional[float] = None,
+                 breaker_threshold: int = 5,
+                 breaker_cooldown: Optional[float] = None,
+                 prefill_budget: Optional[int] = None,
                  attn_kernel: str = "flash", kv_dtype: str = "bf16",
                  max_stall_rounds: int = 8, speculative: Any = None,
                  prefix_cache_bytes: Optional[int] = 0,
@@ -298,16 +360,30 @@ class ContinuousBatchingEngine:
         self._slot_req: List[Optional[Request]] = [None] * max_batch
         self._pos = np.zeros(max_batch, np.int32)     # pos being fed
         self._next_tok = np.zeros(max_batch, np.int32)
-        # each slot's request seed, on the device (set at admission)
-        self._seeds = torch.zeros(max_batch, dtype=torch.int32,
-                                  device=self.device)
-        self._queue = AdmissionQueue(max_queue)
+        # each slot's request seed (set at admission, loaded with the
+        # round: no device write between a prefill and its round)
+        self._seed = np.zeros(max_batch, np.int32)
+        self._queue = AdmissionQueue(max_queue, overload)
+        self.overload_timeout = float(overload_timeout)
+        self._retry = retry if retry is not None else RetryPolicy(
+            retries=2, backoff=0.05, max_backoff=1.0,
+            retry_excs=TRANSIENT_EXCS)
+        self.step_timeout = step_timeout
+        self._breaker = CircuitBreaker(breaker_threshold,
+                                       cooldown_seconds=breaker_cooldown)
+        self.prefill_budget = (None if prefill_budget is None
+                               else int(prefill_budget))
         self.state = EngineState.SERVING
         self._requests: Dict[int, Request] = {}
         self._pending_report: List[Request] = []
         self._next_rid = 0
         # device programs run, per kind ("prefill" / "decode")
         self._launch_counts: Dict[str, int] = {}
+        # device-call attempts beyond the first, per funnel kind;
+        # requests retired, per terminal status; quarantined admissions
+        self._retries: Dict[str, int] = {}
+        self._retired: Dict[str, int] = {}
+        self._quarantined = 0
         self._decode_steps = 0
         # host clock around each decode loop, its one sync included
         self._decode_seconds = 0.0
@@ -330,12 +406,13 @@ class ContinuousBatchingEngine:
         if prefix_cache_bytes is None or prefix_cache_bytes > 0:
             self._prefix = RadixPrefixCache(prefix_cache_bytes)
         # the compiled programs and their static buffers: a round's fed
-        # token, position and done flag a slot (rows 0-2), and the
-        # drafts a verify pass checks
+        # token, position, done flag and seed a slot (rows 0-3; the
+        # seeds row is ``_seeds``), and the drafts a verify pass checks
         self._programs = ProgramCache(self.device, resolve_capture(
             cuda_graphs, self.device))
-        self._io = torch.zeros((3, max_batch), dtype=torch.int32,
+        self._io = torch.zeros((4, max_batch), dtype=torch.int32,
                                device=self.device)
+        self._seeds = self._io[3]
         self._drafts = None
         if speculative is not None:
             self._drafts = torch.zeros((max_batch, speculative.k),
@@ -453,8 +530,9 @@ class ContinuousBatchingEngine:
 
     def _load_round(self, state: np.ndarray):
         """Copy a round's host state into the programs' static buffers,
-        outside any program: ``state`` [3, B] int32 (the token fed, the
-        position fed and the done flag of each slot)."""
+        outside any program: ``state`` [4, B] int32 (the token fed, the
+        position fed, the done flag and the request's seed of each
+        slot)."""
         self._io.copy_(torch.from_numpy(state))
 
     def _scan_clamp(self, active, max_tokens: int = 1) -> int:
@@ -481,12 +559,24 @@ class ContinuousBatchingEngine:
                 f"max_len {self.max_len})")
 
     # -- client surface ----------------------------------------------------
-    def submit(self, prompt, max_new: int = 32, seed: int = 0) -> int:
-        """Enqueue a generation request; returns its rid.  ``seed`` (an
-        int32) keys its draws when the engine samples."""
+    def submit(self, prompt, max_new: int = 32, ttl: Optional[float] = None,
+               deadline: Optional[float] = None, seed: int = 0) -> int:
+        """Enqueue a generation request; returns its rid.
+
+        ``ttl`` — seconds from now until the request expires (queued or
+        mid-decode) with status TIMEOUT; ``deadline`` is the absolute
+        monotonic-clock form (``ttl`` wins when both are given).
+        ``seed`` (an int32) keys its draws when the engine samples.
+        Raises :class:`QueueFullError` under overload (per the engine's
+        policy), :class:`CircuitOpenError` while the breaker is open and
+        :class:`EngineClosedError` after :meth:`drain`."""
         if self.state != EngineState.SERVING:
             raise EngineClosedError(
                 f"engine is {self.state}; submissions are closed")
+        if self._breaker.open and not self._breaker.should_probe():
+            # after the cooldown ONE request rides through as the
+            # recovery probe; until then new work is refused fast
+            raise CircuitOpenError(self._breaker.reason)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
@@ -500,49 +590,154 @@ class ContinuousBatchingEngine:
             raise ValueError("prompt + max_new exceeds engine max_len")
         if not -2 ** 31 <= int(seed) < 2 ** 31:
             raise ValueError(f"seed {seed} is not an int32")
+        if ttl is not None:
+            deadline = _now() + ttl
         # the rid is used up before the offer, so a rejected request
         # (QueueFullError) still takes one, as in the JAX engine
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, prompt, max_new, submitted_at=_now(),
-                      seed=int(seed))
-        self._queue.offer(req)
+        req = Request(rid, prompt, max_new, deadline=deadline,
+                      submitted_at=_now(), seed=int(seed))
+        self._offer(req)
         self._requests[req.rid] = req
         return req.rid
 
+    def _offer(self, req: Request):
+        """Admission control: the queue bound under the overload policy.
+        ``block`` runs scheduler iterations (they free queue space as
+        slots retire and re-admit) until space opens or
+        ``overload_timeout`` expires."""
+        if self._queue.policy == "block" and self._queue.full:
+            give_up = _now() + self.overload_timeout
+            while self._queue.full and self._has_work():
+                if _now() >= give_up:
+                    raise QueueFullError(
+                        f"admission queue still full after blocking "
+                        f"{self.overload_timeout}s "
+                        f"({self._queue.context()})")
+                self._step_inner(4)
+        shed = self._queue.offer(req)
+        if shed is not None:
+            self._retire(shed, RequestStatus.REJECTED,
+                         f"shed by overload policy 'shed-oldest' "
+                         f"({self._queue.context()})")
+
     def run(self, steps_per_sync: int = 16) -> Dict[int, List[int]]:
         """Serve until the queue and every slot are empty; returns
-        {rid: generated tokens}.  Every request ends in a terminal
-        status (DONE, or FAILED by the livelock guard)."""
+        {rid: generated tokens}.
+
+        Every request reaches a terminal status (the breaker, deadlines
+        and the livelock guard bound every failure loop), so this
+        returns under device faults too, then with partial token lists
+        for requests that are not DONE: read ``status(rid)`` and
+        ``request(rid).error``.  ``steps_per_sync``: tokens a scheduler
+        iteration decodes on the device before it syncs with the host."""
         results: Dict[int, List[int]] = {}
         while self._has_work():
             for req in self.step(steps_per_sync):
                 results[req.rid] = req.tokens
+        # retirements made outside a step(): cancel, shed, the block
+        # policy's iterations inside submit
+        flush, self._pending_report = self._pending_report, []
+        for req in flush:
+            results[req.rid] = req.tokens
         return results
 
-    def drain(self) -> Dict[int, List[int]]:
-        """Stop admission, finish every queued and running request,
-        and stop; later submits raise :class:`EngineClosedError`."""
-        self.state = EngineState.DRAINING
-        out = self.run()
+    def drain(self, timeout: Optional[float] = None,
+              steps_per_sync: int = 16,
+              mode: str = "retire") -> Dict[int, Request]:
+        """Graceful shutdown: SERVING → DRAINING (submissions refused)
+        → STOPPED; returns {rid: Request} of every request the engine
+        knows, each in a terminal status.  ``mode="retire"`` finishes
+        everything queued or running; with ``timeout``, whatever is
+        unfinished at the deadline retires TIMEOUT, so drain always
+        returns.  ``mode="handoff"`` (park live requests for a successor
+        engine) is not ported (ROADMAP Queue 1 item 9)."""
+        if mode not in DRAIN_MODES:
+            raise ValueError(f"unknown drain mode {mode!r}; choose one "
+                             f"of {DRAIN_MODES}")
+        if mode == "handoff":
+            raise NotImplementedError(
+                "drain(mode='handoff') needs the serving fleet's handoff, "
+                "not ported yet (ROADMAP Queue 1 item 9)")
+        if self.state == EngineState.SERVING:
+            self.state = EngineState.DRAINING
+        give_up = None if timeout is None else _now() + timeout
+        while self._has_work():
+            if give_up is not None and _now() >= give_up:
+                self._retire_all(RequestStatus.TIMEOUT,
+                                 f"engine drain timed out after "
+                                 f"{timeout}s")
+                break
+            self._step_inner(steps_per_sync)
         self.state = EngineState.STOPPED
-        return out
+        self._pending_report = []
+        return dict(self._requests)
 
     def step(self, max_tokens: int = 1) -> List[Request]:
         """Admit into free slots, advance every active slot up to
         ``max_tokens`` tokens, retire finished requests.  Returns the
-        requests retired this iteration."""
-        retired_before = len(self._pending_report)
-        self._admit()
-        self._decode_round(max_tokens, retired_before)
+        requests retired this iteration, each in a terminal status (DONE,
+        or FAILED / TIMEOUT / CANCELLED / REJECTED when a robustness
+        path retired it)."""
+        self._step_inner(max_tokens)
         out, self._pending_report = self._pending_report, []
         return out
+
+    def _step_inner(self, max_tokens: int):
+        if self._breaker.open and not self._breaker.half_open:
+            # the device is declared down: fail everything fast.  A
+            # half-open probe runs a normal round, so that its outcome
+            # closes or re-arms the breaker.
+            self._retire_all(RequestStatus.FAILED, self._breaker.reason)
+            return
+        retired_before = len(self._pending_report)
+        self._expire(_now())
+        self._admit()
+        self._decode_round(max_tokens, retired_before)
 
     def status(self, rid: int) -> str:
         return self._requests[rid].status
 
     def request(self, rid: int) -> Request:
         return self._requests[rid]
+
+    @property
+    def circuit_open(self) -> bool:
+        return self._breaker.open
+
+    def reset_circuit(self):
+        """Operator action: close the breaker once the device has
+        recovered."""
+        self._breaker.reset()
+
+    def forget(self, rid: int) -> Optional[Request]:
+        """Drop a TERMINAL request from the engine's bookkeeping (a
+        long-lived server forgets reported requests, or the status map
+        grows without bound); None if it is unknown or not terminal."""
+        req = self._requests.get(rid)
+        if req is not None and req.terminal:
+            return self._requests.pop(rid)
+        return None
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or running request: True when it moves to
+        CANCELLED (its slot and pages are freed at once), False when it
+        is unknown or already terminal."""
+        req = self._requests.get(rid)
+        if req is None or req.terminal:
+            return False
+        for i, r in enumerate(self._slot_req):
+            if r is req:
+                self._retire(req, RequestStatus.CANCELLED,
+                             "cancelled by client", slot=i)
+                return True
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            return False
+        self._retire(req, RequestStatus.CANCELLED, "cancelled by client")
+        return True
 
     @property
     def active_slots(self) -> int:
@@ -565,11 +760,25 @@ class ContinuousBatchingEngine:
         compiled programs: ``graphs`` ({"kind:steps": captured, runs,
         replays}), ``graph_replays``, ``capture_seconds`` and
         ``graph_pool_bytes`` (the reserved bytes the graphs' pool took,
-        0 on the CPU)."""
+        0 on the CPU).  Robustness: ``retries`` (device-call attempts
+        beyond the first, by funnel kind), ``retired`` (requests by
+        terminal status), ``quarantined`` admissions and ``breaker``
+        (open, half-open, consecutive and total failures, opens, flaps,
+        probes, last error)."""
+        br = self._breaker
         out = {
             "attn_kernel": self.attn_kernel,
             "kv_dtype": self.kv_dtype,
             "launches": dict(self._launch_counts),
+            "retries": dict(self._retries),
+            "retired": dict(self._retired),
+            "quarantined": self._quarantined,
+            "breaker": {"open": br.open, "half_open": br.half_open,
+                        "failures": br.failures,
+                        "total_failures": br.total_failures,
+                        "open_count": br.open_count,
+                        "flaps_total": br.flaps_total, "probes": br.probes,
+                        "last_error": br.last_error},
             "decode_steps": self._decode_steps,
             "draft_steps": self._draft_steps,
             "decode_seconds": self._decode_seconds,
@@ -629,18 +838,32 @@ class ContinuousBatchingEngine:
             self._queue.extendleft(reversed(list(reqs)))
 
     def _admit(self):
-        """Fill free slots in slot order from the queue head, plan each
-        admission against the prefix cache, reserve their capacity
+        """Fill free slots in slot order from the queue head (expired
+        heads retire TIMEOUT on the way), within ``prefill_budget``, plan
+        each admission against the prefix cache, reserve their capacity
         (whatever the pool cannot back yet goes back to the queue front,
         FIFO), then run them: every same-bucket group of this round's
         misses in one prefill, each hit as an install plus its suffix."""
+        t = _now()
         plans: List[_AdmitPlan] = []
+        spent = 0
         for slot in range(self.max_batch):
             if self._slot_req[slot] is not None:
                 continue
-            if not self._queue:
+            req = self._next_admissible(t)
+            if req is None:
                 break
-            plans.append(self._plan_admission(slot, self._queue.popleft()))
+            plan = self._plan_admission(slot, req)
+            # the prefill budget: tokens the device must prefill or fill
+            # for this plan; the FIRST admission always proceeds
+            cost = max(plan.seq.size - 1 - plan.hit, 0)
+            if self.prefill_budget is not None and plans \
+                    and spent + cost > self.prefill_budget:
+                self._requeue_front([req])
+                break
+            spent += cost
+            req.prefill_start = _now()
+            plans.append(plan)
         ready = []
         for idx, plan in enumerate(plans):
             if self._reserve_slot(plan):
@@ -650,6 +873,20 @@ class ContinuousBatchingEngine:
                 self._deferred += len(plans) - idx
                 break
         self._run_admission(ready)
+
+    def _next_admissible(self, t: float) -> Optional[Request]:
+        """Pop the next queue head that has not expired (expired heads
+        retire TIMEOUT in place)."""
+        while self._queue:
+            req = self._queue[0]
+            if req.deadline is not None and t >= req.deadline:
+                self._queue.popleft()
+                self._retire(req, RequestStatus.TIMEOUT,
+                             f"deadline expired after "
+                             f"{t - req.submitted_at:.3f}s in queue")
+                continue
+            return self._queue.popleft()
+        return None
 
     def _plan_admission(self, slot: int, req: Request) -> _AdmitPlan:
         plan = _AdmitPlan(slot=slot, req=req, seq=req.seq_so_far())
@@ -670,36 +907,77 @@ class ContinuousBatchingEngine:
         return (P, spans) if P > 0 else (0, None)
 
     def _run_admission(self, plans: Sequence[_AdmitPlan]):
-        """Run the admission programs in plan order: a miss takes every
-        later miss of its bucket into one prefill; a hit runs alone."""
+        """Run the admission calls in plan order: a miss takes every
+        later miss of its bucket into one prefill (``_prefill_into`` for
+        one, ``_prefill_batch`` for several); a hit runs alone; then the
+        model draft's prefill of the group.  The poison-pill guard: a
+        batch that fails after its retries runs again one member at a
+        time, and a member that fails alone retires FAILED
+        (quarantined), its capacity released, while the breaker judges
+        the device; the rest of the round goes on."""
         work = deque(plans)
         while work:
             head = work.popleft()
             group = [head]
-            if not head.hit:
+            if not head.hit and not head.solo:
                 b = self._bucket(head.seq.size)
-                for p in [p for p in work
-                          if not p.hit and self._bucket(p.seq.size) == b]:
+                for p in [p for p in work if not p.hit and not p.solo
+                          and self._bucket(p.seq.size) == b]:
                     group.append(p)
                     work.remove(p)
-                self._prefill_batch([p.slot for p in group],
-                                    [p.seq for p in group])
-                self._note_launch(self._prefill_kind)
-            else:
-                self._admit_hit(head)
-            if self._draft_cache is not None:
-                # the draft must cover the admitted sequences before it
-                # can propose (it has no prefix cache)
-                self._draft_prefill([p.slot for p in group],
-                                    [p.seq for p in group])
-                self._note_launch("draft_prefill")
+            try:
+                if head.hit:
+                    self._admit_hit(head)
+                else:
+                    if len(group) == 1:
+                        self._device_call("prefill", self._prefill_into,
+                                          head.slot, head.req)
+                    else:
+                        self._device_call("prefill", self._prefill_batch,
+                                          tuple(p.slot for p in group),
+                                          tuple(p.req for p in group))
+                    self._note_launch(self._prefill_kind)
+                if self._draft_cache is not None:
+                    # the draft must cover the admitted sequences before
+                    # it can propose (it has no prefix cache)
+                    self._device_call("draft", self._draft_prefill,
+                                      tuple(p.slot for p in group),
+                                      tuple(p.req for p in group))
+                    self._note_launch("draft_prefill")
+            except Exception as e:  # noqa: BLE001 — the poison-pill guard
+                if len(group) > 1:
+                    for p in group:
+                        p.solo = True
+                    work.extendleft(reversed(group))
+                    continue
+                plan = group[0]
+                self._release_slot(plan.slot)
+                self._quarantined += 1
+                self._retire(plan.req, RequestStatus.FAILED,
+                             f"prefill failed after retries: {e!r}")
+                if self._breaker.record_failure(e):
+                    for p in work:
+                        self._release_slot(p.slot)
+                    self._requeue_front([p.req for p in work])
+                    self._retire_all(RequestStatus.FAILED,
+                                     self._breaker.reason)
+                    return
+                continue
+            self._breaker.record_success()
             for p in group:
                 self._finish_admit(p)
 
+    def _prefill_into(self, slot: int, req: Request):
+        """Prefill one request's sequence so far into ``slot`` (the
+        one-request case of :meth:`_prefill_batch`, kept as its own call
+        so that a fault can target one request)."""
+        self._prefill_batch((slot,), (req,))
+
     def _prefill_batch(self, slots: Sequence[int],
-                       seqs: Sequence[np.ndarray]):
+                       reqs: Sequence[Request]):
         """One prefill of a bucket's sequences straight into their
         slots."""
+        seqs = [r.seq_so_far() for r in reqs]
         bucket = self._bucket(max(s.size for s in seqs))
         ids = np.zeros((len(seqs), bucket), np.int32)
         for i, s in enumerate(seqs):
@@ -712,13 +990,14 @@ class ContinuousBatchingEngine:
                 attn_kernel=self.attn_kernel)
 
     def _draft_prefill(self, slots: Sequence[int],
-                       seqs: Sequence[np.ndarray]):
+                       reqs: Sequence[Request]):
         """Bring the draft cache up to date for (re-)admitted slots in ONE
         batched prefill of the full sequences so far, bucketed: the draft
         has no prefix cache, and this keeps its state at the target's
         slot positions."""
         spec = self._spec
         mod = _draft_family(spec.family)
+        seqs = [r.seq_so_far() for r in reqs]
         ids = np.zeros((len(seqs), self._bucket(max(s.size for s in seqs))),
                        np.int32)
         for i, s in enumerate(seqs):
@@ -734,6 +1013,7 @@ class ContinuousBatchingEngine:
         slot, req, seq = plan.slot, plan.req, plan.seq
         self._slot_req[slot] = req
         req.status = RequestStatus.RUNNING
+        req.admitted_at = _now()
         req.prefix_hit = plan.hit
         self._prefix_hit_tokens += plan.hit
         # prime: feed the last REAL token at pos len-1 — the next decode
@@ -742,7 +1022,7 @@ class ContinuousBatchingEngine:
         # token)
         self._pos[slot] = seq.size - 1
         self._next_tok[slot] = int(seq[-1])
-        self._seeds[slot] = req.seed
+        self._seed[slot] = req.seed
         if self._prefix is not None and seq.size > 1:
             self._prefix_insert(plan)
 
@@ -754,12 +1034,13 @@ class ContinuousBatchingEngine:
         not even an install (the block table already holds the shared
         pages)."""
         if plan.install is not None:
-            self._install_prefix(plan)
+            self._device_call("prefix", self._install_prefix, plan)
             self._note_launch("prefix")
         suffix = plan.seq[plan.hit:plan.seq.size - 1]
         if suffix.size:
             with torch.inference_mode():
-                self._suffix_fill(plan.slot, suffix, plan.hit)
+                self._device_call("prefix", self._suffix_fill, plan.slot,
+                                  suffix, plan.hit)
             self._note_launch("prefix")
 
     def _read_span(self, slot: int, a: int, b: int) -> KVSpanPayload:
@@ -834,15 +1115,24 @@ class ContinuousBatchingEngine:
         self._prefix.insert(key, lambda a, b: self._read_span(slot, a, b),
                             extend=extend)
 
-    def _decode_many(self, K: int) -> np.ndarray:
-        """The K-step decode program over the loaded round: K decode
-        steps on the device, each drawing its token (greedy, or the
-        position-keyed sampler with the slots' seeds); one host sync at
-        the end.  Returns tokens [K, B]."""
-        prog = self._programs.get("decode", K, lambda: self._decode_body(K))
-        prog.run()
+    def _decode_many(self, K: int, state: np.ndarray) -> np.ndarray:
+        """The K-step decode program over the round ``state`` (see
+        :meth:`_load_round`): K decode steps on the device, each drawing
+        its token (greedy, or the position-keyed sampler with the slots'
+        seeds); one host sync at the end.  Returns tokens [K, B]."""
+        toks = self._device_call("decode", self._decode_run, K, state)
         self._note_launch("decode")
         self._decode_steps += K
+        return toks
+
+    def _decode_run(self, K: int, state: np.ndarray) -> np.ndarray:
+        """The funnelled decode call: load the round, run the K-step
+        program, read its tokens back.  Both copies wait for the device,
+        so the call's deadline covers the work queued before it and the
+        round itself."""
+        self._load_round(state)
+        prog = self._programs.get("decode", K, lambda: self._decode_body(K))
+        prog.run()
         return prog.outputs["out"].cpu().numpy()
 
     def _decode_body(self, K: int):
@@ -874,12 +1164,18 @@ class ContinuousBatchingEngine:
 
         return body, {"out": out}
 
-    def _propose(self, k: int):
-        """The draft program: k greedy draft steps on the device into
-        the static drafts buffer, no host sync."""
-        self._programs.get("draft", k, lambda: self._propose_body(k)).run()
+    def _propose(self, k: int, state: np.ndarray):
+        """The draft program over the round ``state``: k greedy draft
+        steps on the device into the static drafts buffer, no readback."""
+        self._device_call("draft", self._propose_run, k, state)
         self._note_launch("draft")
         self._draft_steps += k
+
+    def _propose_run(self, k: int, state: np.ndarray):
+        """The funnelled draft call: load the round (a copy that waits
+        for the work queued before it), run the draft program."""
+        self._load_round(state)
+        self._programs.get("draft", k, lambda: self._propose_body(k)).run()
 
     def _propose_body(self, k: int):
         """The body of the draft program (JAX's ``_propose_k_program``):
@@ -908,14 +1204,29 @@ class ContinuousBatchingEngine:
 
         return body, {}
 
-    def _verify_many(self, k: int):
-        """The verify program over the loaded round and drafts [:, :k]:
-        returns its output buffer [2, B, k + 1] on the device, the fed
-        window and the target tokens."""
+    def _verify_many(self, k: int, state: Optional[np.ndarray] = None,
+                     drafts: Optional[np.ndarray] = None) -> np.ndarray:
+        """The verify program over the round and drafts [:, :k]: returns
+        its output [2, B, k + 1] read back to the host, the fed window and
+        the target tokens.  ``state`` / ``drafts``: the round and the
+        n-gram drafts to load first (None: a draft call loaded the round
+        and wrote the drafts)."""
+        out = self._device_call("verify", self._verify_run, k, state, drafts)
+        self._note_launch("verify")
+        return out
+
+    def _verify_run(self, k: int, state: Optional[np.ndarray],
+                    drafts: Optional[np.ndarray]) -> np.ndarray:
+        """The funnelled verify call: load what is given, run the verify
+        program, read its output back (so a stalled verify trips this
+        call's deadline)."""
+        if state is not None:
+            self._load_round(state)
+        if drafts is not None:
+            self._drafts[:, :k].copy_(torch.from_numpy(drafts))
         prog = self._programs.get("verify", k, lambda: self._verify_body(k))
         prog.run()
-        self._note_launch("verify")
-        return prog.outputs["out"]
+        return prog.outputs["out"].cpu().numpy()
 
     def _verify_body(self, k: int):
         """The body of the verify program (JAX's ``_verify_program``):
@@ -970,8 +1281,12 @@ class ContinuousBatchingEngine:
         K = max(1, min(max_tokens, clamp))
         K = 1 << (K.bit_length() - 1)
         t_scan = _now()
-        self._load_round(self._round_state())
-        toks = self._decode_many(K)
+        try:
+            toks = self._decode_many(K, self._round_state())
+        except Exception as e:  # noqa: BLE001 — the isolation boundary
+            self._decode_failure(e)
+            return
+        self._breaker.record_success()
         t_host = _now()
         self._decode_seconds += t_host - t_scan
         self._stall_rounds = 0    # tokens produced: not a livelock
@@ -1003,14 +1318,19 @@ class ContinuousBatchingEngine:
         k = min(spec.k, clamp - 1)
         launches = 1                                  # the verify
         t_scan = _now()
-        self._load_round(self._round_state())
-        if spec.has_model:
-            self._propose(k)
-            launches += 1
-        else:
-            self._drafts[:, :k].copy_(torch.from_numpy(
-                self._ngram_proposals(k)))
-        feed, g = self._verify_many(k).cpu().numpy()
+        state = self._round_state()
+        try:
+            if spec.has_model:
+                self._propose(k, state)
+                launches += 1
+                feed, g = self._verify_many(k)
+            else:
+                feed, g = self._verify_many(k, state,
+                                            self._ngram_proposals(k))
+        except Exception as e:  # noqa: BLE001 — the isolation boundary
+            self._decode_failure(e)
+            return
+        self._breaker.record_success()
         t_host = _now()
         self._decode_seconds += t_host - t_scan
         self._stall_rounds = 0
@@ -1048,13 +1368,14 @@ class ContinuousBatchingEngine:
         st["rollbacks"] += rollbacks
 
     def _round_state(self) -> np.ndarray:
-        """A round's [3, B] int32 host state for :meth:`_load_round`:
+        """A round's [4, B] int32 host state for :meth:`_load_round`:
         each slot's next token, its position (inactive slots at the junk
-        row ``max_len - 1``) and its done flag (inactive slots done)."""
+        row ``max_len - 1``), its done flag (inactive slots done) and its
+        request's seed."""
         active = np.array([r is not None for r in self._slot_req])
         return np.stack([self._next_tok,
                          np.where(active, self._pos, self.max_len - 1),
-                         ~active]).astype(np.int32)
+                         ~active, self._seed]).astype(np.int32)
 
     def _ngram_proposals(self, k: int) -> np.ndarray:
         """Host-side draft: for each active slot, the tokens that followed
@@ -1102,6 +1423,81 @@ class ContinuousBatchingEngine:
                              self._stall_diagnostic(r), slot=i)
                 return
 
+    def _decode_failure(self, e: Exception):
+        """A decode or speculative round failed after its retries: the
+        engine survives and the breaker judges the device.  The requests
+        stay in their slots and the next step runs the round again: the
+        failed call wrote only cache rows and outputs that the next run
+        writes again from the same host state (the port writes its
+        caches in place, so nothing is lost and nothing re-prefills, where
+        JAX's donated caches are rebuilt).  When this failure opens the
+        breaker, every request retires FAILED with its reason."""
+        if self._breaker.record_failure(e):
+            self._retire_all(RequestStatus.FAILED, self._breaker.reason)
+
+    def _retire_all(self, status: str, reason: str):
+        """The fail-fast path (open breaker, drain timeout): every queued
+        and running request retires with ``status`` at once."""
+        while self._queue:
+            self._retire(self._queue.popleft(), status, reason)
+        for i, r in enumerate(self._slot_req):
+            if r is not None:
+                self._retire(r, status, reason, slot=i)
+
+    def _expire(self, t: float):
+        """Retire running requests whose deadline has passed (queued ones
+        expire at admission, :meth:`_next_admissible`).  Deadlines are
+        checked at scheduler boundaries, so a request can overshoot by
+        at most one device round."""
+        for i, req in enumerate(self._slot_req):
+            if req is not None and req.deadline is not None \
+                    and t >= req.deadline:
+                self._retire(
+                    req, RequestStatus.TIMEOUT,
+                    f"deadline expired mid-decode after "
+                    f"{len(req.tokens)}/{req.max_new} tokens", slot=i)
+
+    # -- the device-call funnel (retry + watchdog + fault-injection seam) ----
+    def _device_invoke(self, kind: str, fn, *args, **kwargs):
+        """Every device call lands here: the one override point that
+        ``testing.faults.inject_engine_faults`` patches to make device
+        calls fail or stall."""
+        del kind
+        return fn(*args, **kwargs)
+
+    def _device_call(self, kind: str, fn, *args, **kwargs):
+        """Run a device call of ``kind`` ("prefill", "decode", "verify",
+        "draft", "prefix") under the retry policy, each attempt under a
+        watchdog deadline of ``step_timeout`` seconds when it is set.
+        Attempts beyond the first count into ``metrics()["retries"]``.
+
+        A deadline measures host time, so it sees a device stall only
+        in a call that waits for the device.  Every call starts with
+        blocking host-to-device copies (the round's state, the ids and
+        slots of a prefill), which wait for the work queued before it;
+        the decode and verify calls also read their tokens back, so they
+        wait for their own work.  The prefill, draft and prefix calls
+        only queue their kernels: a stall inside them surfaces at the
+        next call, whose copies wait for it (the next prefill of the
+        round, or the round's decode or verify call)."""
+        attempts = 0
+
+        def attempt():
+            nonlocal attempts
+            attempts += 1
+            if self.step_timeout is None:
+                return self._device_invoke(kind, fn, *args, **kwargs)
+            with watchdog.watch(f"serving:{kind}",
+                                timeout=self.step_timeout):
+                return self._device_invoke(kind, fn, *args, **kwargs)
+
+        try:
+            return self._retry.call(attempt)
+        finally:
+            if attempts > 1:
+                self._retries[kind] = \
+                    self._retries.get(kind, 0) + attempts - 1
+
     def _retire(self, req: Request, status: str,
                 error: Optional[str] = None, slot: Optional[int] = None):
         """Move a request to a terminal status, free its slot and its
@@ -1121,6 +1517,7 @@ class ContinuousBatchingEngine:
                 self._prefix_extend(req, slot)
             self._slot_req[slot] = None
             self._release_slot(slot)
+        self._retired[status] = self._retired.get(status, 0) + 1
         self._pending_report.append(req)
 
 
@@ -1174,7 +1571,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         super().__init__(params, cfg, max_batch=max_batch,
                          max_len=max_len, eos_token_id=eos_token_id, **kw)
 
-    def submit(self, prompt, max_new: int = 32, seed: int = 0) -> int:
+    def submit(self, prompt, max_new: int = 32, **kwargs) -> int:
         arr = np.asarray(prompt, np.int32).reshape(-1)
         # the base submit owns the empty/max_new/over-long errors; only
         # a valid request gets the worst-case page check
@@ -1187,7 +1584,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     f"request needs up to {worst} pages but the pool "
                     f"only has {self.num_blocks}; raise num_blocks or "
                     "lower max_new")
-        return super().submit(arr, max_new=max_new, seed=seed)
+        return super().submit(arr, max_new=max_new, **kwargs)
 
     # -- cache strategy ------------------------------------------------------
     def _init_cache(self):
@@ -1424,9 +1821,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix.insert(key, make, extend=extend)
 
     def _prefill_batch(self, slots: Sequence[int],
-                       seqs: Sequence[np.ndarray]):
+                       reqs: Sequence[Request]):
         """One prefill of a bucket's sequences straight into their
         (pre-reserved) pages; ids pad to whole pages."""
+        seqs = [r.seq_so_far() for r in reqs]
         bucket = self._bucket(max(s.size for s in seqs))
         nblk = -(-bucket // self.block_size)
         ids = np.zeros((len(seqs), nblk * self.block_size), np.int32)
@@ -1558,8 +1956,8 @@ class FusedB1Engine(ContinuousBatchingEngine):
                                   pos[j:j + 1], self.cfg, logits=False)
 
     def _prefill_batch(self, slots: Sequence[int],
-                       seqs: Sequence[np.ndarray]):
-        (seq,) = seqs
+                       reqs: Sequence[Request]):
+        (seq,) = [r.seq_so_far() for r in reqs]
         cfg = self.cfg
         L, T = cfg.num_layers, self.max_len
         ids = np.zeros((1, self._bucket(seq.size)), np.int32)

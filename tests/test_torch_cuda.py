@@ -2296,3 +2296,124 @@ def test_captured_engine_after_prefix_install(cuda, kind, kd, pages):
         runs.append(_graph_run(eng, prompts))
         assert eng.metrics()["prefix_hit_tokens"] > 0
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# serving robustness and lifecycle on the card: chip_smoke's serving_faults
+# checks on gpt3_1p3b's captured engines
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def robust():
+    """gpt3_1p3b bf16 (seed 0) and its int8 serving weights, the captured
+    engines of ``chip_smoke.FAULT_CASES`` warmed by two runs of the serving
+    cell's requests (``chip_smoke.fault_engines``), their fault-free
+    streams, and a lazily filled map of each engine's fault-free launch
+    deltas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine, FusedB1Engine,
+        PagedContinuousBatchingEngine, SpeculativeConfig)
+    engines = (ContinuousBatchingEngine, PagedContinuousBatchingEngine,
+               FusedB1Engine)
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    qparams = gpt.quantize_decode_params(params, cfg)
+    keep = chip_smoke.fault_engines(engines, cfg, params, qparams)
+    state = {"cfg": cfg, "params": params, "engines": engines,
+             "spec": SpeculativeConfig, "keep": keep, "base": {}}
+    yield state
+    keep.clear()
+    torch.cuda.empty_cache()
+
+
+def _robust_case(robust, label):
+    """(engine, requests, fault-free streams, fault-free launch deltas)."""
+    eng, reqs, want = robust["keep"][label]
+    if label not in robust["base"]:
+        robust["base"][label] = chip_smoke.fault_free_run(eng, reqs, want,
+                                                          label)[0]
+    return eng, reqs, want, robust["base"][label]
+
+
+@pytest.mark.parametrize("label,kind", [
+    ("contiguous bf16", "prefill"), ("contiguous bf16", "decode"),
+    ("paged bf16", "prefill"), ("paged bf16", "decode"),
+    ("sampled contiguous bf16", "decode"),
+    ("ngram contiguous bf16", "prefill"), ("ngram contiguous bf16", "verify"),
+    ("fused int8", "prefill"), ("fused int8", "decode")])
+def test_robust_fail_times_keeps_streams(robust, label, kind):
+    """``fail_times=2`` on one call kind: streams bit for bit, retries as
+    injected, the fault-free prefill counts."""
+    eng, reqs, want, base = _robust_case(robust, label)
+    chip_smoke.fault_schedule_check(eng, reqs, want, base, label,
+                                    fail_times=2, kinds=(kind,))
+
+
+@pytest.mark.parametrize("label,kind", [
+    ("contiguous bf16", "decode"), ("paged bf16", "decode"),
+    ("ngram contiguous bf16", "verify"), ("fused int8", "decode")])
+def test_robust_fail_after_runs_again_in_place(robust, label, kind):
+    """``fail_after_times=1``: the call ran, its result is dropped and the
+    retry runs it again on unchanged host state — streams bit for bit and
+    no extra prefill (JAX, whose caches are donated, re-prefills)."""
+    eng, reqs, want, base = _robust_case(robust, label)
+    chip_smoke.fault_schedule_check(eng, reqs, want, base, label,
+                                    fail_after_times=1, kinds=(kind,))
+
+
+@pytest.mark.parametrize("label", ["contiguous bf16", "paged bf16",
+                                   "fused int8"])
+def test_robust_cancel_and_ttl(robust, label):
+    """Cancel after the first round and a TTL that expires mid-decode:
+    the next occupants' streams exact, the page pool whole."""
+    eng, reqs, want, _ = _robust_case(robust, label)
+    chip_smoke.cancel_ttl_check(eng, reqs, want, label)
+
+
+def test_robust_breaker_opens_and_resets(robust):
+    eng, reqs, want, _ = _robust_case(robust, "contiguous bf16")
+    chip_smoke.breaker_check(eng, reqs, want, "contiguous bf16")
+
+
+def test_robust_prefill_stall_trips_the_next_decode(robust):
+    eng, reqs, want, _ = _robust_case(robust, "paged bf16")
+    chip_smoke.prefill_stall_check(eng, reqs, want, "paged bf16")
+
+
+def test_robust_draft_and_prefix_faults(robust):
+    """The 2-layer model draft with the prefix cache: ``fail_times=2`` on
+    the draft calls and on the prefix installs, streams bit for bit."""
+    label = "draft prefix"
+    eng = chip_smoke._draft_prefix_engine(
+        gpt, robust["engines"][0], robust["spec"], robust["cfg"],
+        robust["params"])
+    reqs = robust["keep"]["contiguous bf16"][1]
+    _, first = chip_smoke._serve_reqs(eng, reqs)
+    base, _ = chip_smoke.fault_free_run(eng, reqs, first, label)
+    assert eng.metrics()["prefix_hit_tokens"] > 0
+    for kind in ("draft", "prefix"):
+        chip_smoke.fault_schedule_check(eng, reqs, first, base, label,
+                                        fail_times=2, kinds=(kind,))
+
+
+def test_robust_device_stall_trips_step_timeout_and_drain_returns(robust):
+    """A fresh contiguous engine, warmed (kernels built, programs
+    captured), then every decode call stalled 2 s on the device against
+    ``step_timeout=0.5``: the breaker opens and ``drain(60)`` returns
+    every request FAILED."""
+    Engine = robust["engines"][0]
+    eng = Engine(robust["params"], robust["cfg"], max_batch=8, max_len=1024,
+                 attn_kernel="flash", device="cuda")
+    reqs = robust["keep"]["contiguous bf16"][1]
+    for _ in range(2):
+        chip_smoke._serve_reqs(eng, reqs)
+    chip_smoke.decode_stall_check(eng, reqs, "fresh contiguous bf16")
+
+
+def test_robust_funnel_host_cost(robust):
+    """The funnel adds host microseconds, not milliseconds, a call."""
+    eng = robust["keep"]["contiguous bf16"][0]
+    cost = chip_smoke.funnel_host_us(eng, n=2000)
+    assert 0 < cost["funnel_watchdog_us"] < 1000, cost

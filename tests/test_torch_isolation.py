@@ -3,10 +3,11 @@ anything of paddle_tpu.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib`` and ``paddle_tpu``, imports every module of the port, serves
-one request (and one through the fused b1 engine on int8 weights),
+one request (again under injected device faults, then drained, and one
+through the fused b1 engine on int8 weights),
 takes one train step and runs one llama_tiny ``generate`` on the CPU.  A source scan checks the import
 statements of the package and of the chip scripts (``chip_smoke.py``,
-``chip_fused_ab.py``).
+``chip_fused_ab.py``, ``tools/llama_ab.py``, ``tools/serving_ab.py``).
 """
 import ast
 import subprocess
@@ -44,6 +45,13 @@ eng = ContinuousBatchingEngine(gpt.init_params(cfg, 0, device="cpu"), cfg,
 rid = eng.submit(np.arange(5), max_new=4)
 out = eng.run()
 assert eng.status(rid) == "DONE" and len(out[rid]) == 4, out
+
+from paddle_tpu_torch.testing.faults import inject_engine_faults
+eng.step_timeout = 30.0
+with inject_engine_faults(eng, fail_times=1) as inj:
+    again = eng.submit(np.arange(5), max_new=4)
+    assert eng.drain(timeout=60)[again].tokens == out[rid]
+assert inj.injected == {"prefill": 1, "decode": 1}, inj.injected
 
 from paddle_tpu_torch.incubate.nn.kernels import fused_decode
 from paddle_tpu_torch.inference.serving import FusedB1Engine
@@ -94,7 +102,8 @@ def _imports(path):
 
 def test_source_imports_no_jax_or_paddle_tpu():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_fused_ab.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_fused_ab.py",
+              ROOT / "tools" / "llama_ab.py", ROOT / "tools" / "serving_ab.py"]
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in BLOCKED]
     assert len(files) > 10

@@ -139,7 +139,10 @@ def test_queue_bound_and_drain(models):
     with pytest.raises(QueueFullError):
         eng.submit([6], max_new=2)
     out = eng.drain()
-    assert sorted(out) == [0, 1] and all(len(t) == 2 for t in out.values())
+    # JAX's drain() contract: {rid: Request}, each in a terminal status
+    assert sorted(out) == [0, 1]
+    assert all(r.status == RequestStatus.DONE and len(r.tokens) == 2
+               for r in out.values())
     with pytest.raises(EngineClosedError):
         eng.submit([1], max_new=1)
 
