@@ -228,6 +228,38 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    stream.  The funnel's host µs a call, without and with the watchdog.
    ``--phases serving_faults`` runs it alone (its engines built and
    warmed there).
+5f. tiered serving (``tiered_serving_phase``) — the prefix cache's host
+   tier at that width: the prefix load (a 512-token prefix, a primer,
+   12 requests with tails of 16-128, 32 new) on contiguous bf16, paged
+   bf16, int8 and fp8, and fused b1 (int8 weights, int8 cache, 3
+   requests), each cold, device-warm and host-warm (the device budget
+   half a span, the host tier 2 GiB; ``tiered_cell``): host-warm
+   streams equal device-warm bit for bit and cold's under the near-tie
+   rule; every host-warm request a host hit, none left INSTALLING;
+   flash_decode, row_gemm and fused_decode counts set to 0 before the
+   host-warm load and exact after; the same captured programs as
+   device-warm; the page pool whole, and free once the trie is cleared.
+   On contiguous and paged bf16 (``tier_fault_checks``): a slow copy
+   (``defer_ready=3``), a reinstall that always fails, one past
+   ``install_timeout`` and a cancel mid-install keep the streams and
+   free the slot.  A span's demotion ms and bytes, its reinstall copies'
+   GB/s beside a pinned ``copy_`` of the same bytes
+   (``tier_copy_rates``), mean TTFT cold / device-warm / host-warm,
+   reinstall seconds and the decode seconds that overlapped them, and
+   the decode tok/s of captured 8-slot rounds with and without a
+   reinstall's copies in flight, whole and in 8 MiB chunks, each also
+   less the host seconds of issuing the copies (``tier_overlap_tok_s``).
+5g. handoff serving (``handoff_serving_phase``) — the load on a
+   contiguous bf16 donor snapshotted after 8 rounds
+   (``inference.handoff``) and restored into a fresh contiguous engine
+   and a paged one, and a fused donor into a fused engine
+   (``handoff_cell``): streams equal the uninterrupted run's, or each
+   difference at a near-tie, counted; a warm restore runs fewer
+   prefills than a cold restart (no prefix cache); the bundle's bytes,
+   snapshot and restore seconds, the carried requests' next-token
+   seconds warm and cold; a truncated bundle is quarantined and its
+   restore falls back to a cold start that serves.  ``--phases
+   tiered_serving,handoff_serving`` runs 5f and 5g alone.
 6. training — gpt3_1p3b bf16 at full width through
    ``hybrid.build_train_step(num_micro=1, remat=False)``, B 8, S 1024,
    float32 AdamW moments, one warm step then 4 steps under
@@ -3375,6 +3407,12 @@ def _prefix_run(eng, prompts, primer, fd, rg, fdl):
     return {"streams": [out[r] for r in rids],
             "ttft_s": [r.first_token_at - r.submitted_at for r in reqs],
             "hits": [r.prefix_hit for r in reqs],
+            "host_hits": [r.prefix_host_hit for r in reqs],
+            # TTFT split at admission: queue and install, then the
+            # rounds up to the first token
+            "admit_s": [r.admitted_at - r.submitted_at for r in reqs],
+            "first_after_admit_s": [r.first_token_at - r.admitted_at
+                                    for r in reqs],
             "suffix_tokens": [len(p) - 1 - r.prefix_hit if r.prefix_hit
                               else 0 for p, r in zip(prompts, reqs)],
             "deltas": d, "wall_s": wall,
@@ -3397,7 +3435,8 @@ def _prefix_logits(gpt, params, cfg, cache, token, pos, fused):
                                  attn_kernel="flash")[0]
 
 
-def _prefix_kv_delta(gpt, params, cfg, kd, primer, prompt, fused):
+def _prefix_kv_delta(gpt, params, cfg, kd, primer, prompt, fused,
+                     prefix_len=PREFIX_LEN):
     """How far the warm path's K/V and logits lie from the cold path's
     for one prompt: the cold cache from one prefill of the prompt, the
     warm one from the primer's prefill rows [0, P) (P the shared prefix)
@@ -3405,7 +3444,7 @@ def _prefix_kv_delta(gpt, params, cfg, kd, primer, prompt, fused):
     fused: one fused step a token); then one decode step feeding the
     last token on each.  Returns (max |K/V delta| over the rows and
     layers, max |logit delta|)."""
-    S, P = len(prompt), PREFIX_LEN
+    S, P = len(prompt), prefix_len
     slot0 = torch.zeros(1, dtype=torch.long, device="cuda")
     caches = []
     with torch.inference_mode():
@@ -3451,6 +3490,40 @@ def _prefix_margin(gpt, params, cfg, kd, seq, fused):
         top = torch.topk(_prefix_logits(gpt, params, cfg, cache, seq[-1],
                                         len(seq) - 1, fused)[0], 2).values
     return (top[0] - top[1]).item()
+
+
+def _near_ties(gpt, params, cfg, kd, prompts, got, want, bound, fused,
+               label, primer=None, prefix_len=PREFIX_LEN):
+    """The streams ``got`` against ``want`` (the cold path's) under the
+    near-tie rule: each request that leaves ``want`` must do so where
+    the cold path's top-2 margin is within ``bound`` (the first decode
+    step's logit |delta| between a warm and a cold cache,
+    ``_prefix_kv_delta``).  With ``primer``, a margin past ``bound`` is
+    held to the warm/cold logit |delta| at that request's own position
+    (``_prefix_kv_delta`` over its prompt and the tokens before the
+    divergence), logged as ``local_delta``.  Returns the divergences;
+    raises on one past its bound."""
+    diverged = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([prompts[i], np.asarray(b[:j], np.int64)])
+        margin = _prefix_margin(gpt, params, cfg, kd, seq, fused)
+        row = {"request": i, "token": j, "got": a[j], "want": b[j],
+               "top2_margin": margin}
+        limit = bound
+        if margin > bound and primer is not None:
+            row["local_delta"] = _prefix_kv_delta(
+                gpt, params, cfg, kd, primer, seq, fused, prefix_len)[1]
+            limit = max(bound, row["local_delta"])
+        diverged.append(row)
+        if margin > limit:
+            raise AssertionError(
+                f"{label}: request {i} leaves the cold stream at token {j} "
+                f"(top-2 margin {margin}, the warm/cold logit |delta| "
+                f"{limit})")
+    return diverged
 
 
 def _dequant(cache, name):
@@ -3534,21 +3607,9 @@ def prefix_serving_phase(gpt, engines, fd, rg, fdl, cfg, params, qparams):
         fused = kind == "fused"
         kv_delta, logit_delta = _prefix_kv_delta(gpt, tree, cfg, kd, primer,
                                                  use[0], fused)
-        diverged = []
-        for i, (a, b) in enumerate(zip(w["streams"],
-                                       runs["cold"]["streams"])):
-            if a == b:
-                continue
-            j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
-            margin = _prefix_margin(gpt, tree, cfg, kd, np.concatenate(
-                [use[i], np.asarray(b[:j], np.int64)]), fused)
-            diverged.append({"request": i, "token": j, "warm": a[j],
-                             "cold": b[j], "top2_margin": margin})
-            if margin > logit_delta:
-                raise AssertionError(
-                    f"prefix serving {kind} {kd}: request {i} leaves the "
-                    f"cold stream at token {j} (top-2 margin {margin}, the "
-                    f"warm/cold logit |delta| {logit_delta})")
+        diverged = _near_ties(gpt, tree, cfg, kd, use, w["streams"],
+                              runs["cold"]["streams"], logit_delta, fused,
+                              f"prefix serving {kind} {kd}")
         row = {"phase": "prefix_serving", "engine": kind, "kv_dtype": kd,
                "requests": len(use), "prefix_len": PREFIX_LEN,
                "prompt_lens": [len(p) for p in use], "max_new": 32,
@@ -6492,17 +6553,648 @@ def serving_faults_alone(gpt, engines, Spec, programs, kernels):
                                 params, keep)
 
 
+# -- the prefix cache's host tier and the live handoff at full width --------
+
+TIER_HOST_BYTES = 2 << 30     # the host tier's budget: 2 GiB
+#: the cells of the tiered phase: (engine, kv_dtype); fused runs int8
+#: weights and the first 3 requests
+TIER_CELLS = (("contiguous", "bf16"), ("paged", "bf16"), ("paged", "int8"),
+              ("paged", "fp8"), ("fused", "int8"))
+#: engine sizes of the tiered and handoff phases (prefix_serving's): the
+#: card tests pass a smaller one
+TIER_SIZE = dict(max_len=1024, max_batch=8, block=64, pages=64,
+                 prefix=PREFIX_LEN, tails=PREFIX_TAILS, fused_requests=3)
+TIER_FAULT_CELLS = (("contiguous", "bf16"), ("paged", "bf16"))
+TIER_COPY_REPS = 5
+TIER_OVERLAP_ROUNDS, TIER_OVERLAP_PAIRS = 16, 3
+TIER_CHUNK_BYTES = 8 << 20    # the chunked variant's copy size
+HANDOFF_ROUNDS = 8            # the donor's rounds before its snapshot
+
+
+def _kv_token_bytes(cfg, kd):
+    """Stored K/V bytes a token at ``kd`` (all layers, scales
+    included)."""
+    from paddle_tpu_torch.incubate.nn.kv_quant import (kv_has_scales,
+                                                       kv_storage_dtype)
+    elem = torch.empty(0, dtype=kv_storage_dtype(kd, cfg.dtype)).element_size()
+    per = cfg.num_layers * cfg.num_heads * cfg.head_dim * elem
+    if kv_has_scales(kd):
+        per += cfg.num_layers * cfg.num_heads * 4
+    return 2 * per
+
+
+def _tier_budgets(cfg, kind, kd, size):
+    """(device-warm budget, host-warm device budget) in bytes: the
+    device-warm run keeps every span on the device (paged: 3/8 of the
+    pool, prefix_serving's 24 of 64 pages), the host-warm run has half a
+    shared span's bytes, so every insert demotes."""
+    tok = _kv_token_bytes(cfg, kd)
+    warm = None
+    if kind == "paged":
+        warm = size["pages"] * 3 // 8 * size["block"] * tok
+    return warm, size["prefix"] * tok // 2
+
+
+def _tier_engine(engines, kind, tree, cfg, kd, budget, host, size,
+                 dev="cuda", **kw):
+    Engine, PagedEngine, FusedEngine = engines
+    common = dict(kv_dtype=kd, device=dev, prefix_cache_bytes=budget,
+                  prefix_host_bytes=host, attn_kernel="flash", **kw)
+    if kind == "fused":
+        return FusedEngine(tree, cfg, max_len=size["max_len"], **common)
+    if kind == "paged":
+        return PagedEngine(tree, cfg, max_batch=size["max_batch"],
+                           max_len=size["max_len"], block_size=size["block"],
+                           num_blocks=size["pages"], **common)
+    return Engine(tree, cfg, max_batch=size["max_batch"],
+                  max_len=size["max_len"], **common)
+
+
+def _pool_whole(eng, label):
+    """Paged: free pages plus trie-pinned pages make the whole pool, and
+    every page is free once the trie is cleared."""
+    if not hasattr(eng, "_page_rc"):
+        return
+    rc = np.asarray(eng._page_rc)
+    if eng.free_blocks + int((rc > 0).sum()) != eng.num_blocks:
+        raise AssertionError(f"{label}: free {eng.free_blocks} + pinned "
+                             f"{int((rc > 0).sum())} != {eng.num_blocks}")
+
+
+def _pool_cleared(eng, label):
+    if not hasattr(eng, "_page_rc"):
+        return
+    eng._prefix.clear()
+    if eng.free_blocks != eng.num_blocks or np.asarray(eng._page_rc).any():
+        raise AssertionError(f"{label}: pages held after the trie cleared")
+
+
+def _tier_launch_want(kind, L, d, suffix_tokens):
+    """The launches the host-warm load must count (prefix_serving's
+    rule): flash_decode L a decode step, suffix pass and prefill (paged:
+    the paged layout for steps and passes), row_gemm 4 L + 1 a decode
+    step and 4 L a suffix pass; fused: one a decode step and one a
+    suffix token."""
+    steps = d["decode_steps"]
+    prefills = d.get("prefill", 0) + d.get("prefill_fused", 0)
+    passes = sum(1 for s in suffix_tokens if s)
+    if kind == "fused":
+        return {"fused_decode": steps + sum(suffix_tokens)}
+    want = {"row_gemm": (4 * L + 1) * steps + 4 * L * passes,
+            "flash_decode": L * prefills}
+    if kind == "paged":
+        want["flash_decode_paged"] = L * (steps + passes)
+    else:
+        want["flash_decode"] += L * (steps + passes)
+    return want
+
+
+#: the engine calls whose host seconds a tiered run splits out (a
+#: blocking call's seconds include the device work it waits for)
+TIER_CALLS = ("_prefill_batch", "_admit_hit", "_start_reinstall",
+              "_await_install", "_complete_reinstall", "_demote_payload",
+              "_decode_many")
+
+
+@contextlib.contextmanager
+def _call_seconds(eng, names=TIER_CALLS):
+    """Patch ``names`` on the instance to add their host seconds and
+    calls into the yielded dict; restores the engine on exit."""
+    out = {n: [0.0, 0] for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                out[name][0] += time.perf_counter() - t
+                out[name][1] += 1
+        return timed
+
+    for n in names:
+        setattr(eng, n, wrap(n, getattr(eng, n)))
+    trie = eng._prefix
+    if trie is not None and "_demote_payload" in names:
+        # the trie holds the demoter it was built with
+        trie._demoter = eng._demote_payload
+    try:
+        yield out
+    finally:
+        for n in names:
+            eng.__dict__.pop(n, None)
+        if trie is not None:
+            trie._demoter = eng._demote_payload
+
+
+def tiered_cell(gpt, engines, counters, cfg, tree, kind, kd, primer, use,
+                size=TIER_SIZE):
+    """One cell of the tiered phase: the load cold (no prefix cache),
+    device-warm and host-warm (device budget half a span, host 2 GiB),
+    each after the primer (``_prefix_run``).  Gates: host-warm streams
+    equal device-warm streams bit for bit and cold's under the near-tie
+    rule; every host-warm request a host hit; nothing left INSTALLING;
+    exact launch counts of the host-warm load (counts set to 0 before
+    it); the same captured programs as the device-warm run; paged, the
+    pool whole.  Returns (row, host-warm engine, the near-tie bound)."""
+    fd, rg, fdl = counters
+    fused = kind == "fused"
+    label = f"tiered serving {kind} {kd}"
+    warm_budget, small = _tier_budgets(cfg, kind, kd, size)
+    runs, eng = {}, None
+    for run, budget, host in (("cold", 0, 0), ("device", warm_budget, 0),
+                              ("host", small, TIER_HOST_BYTES)):
+        eng = _tier_engine(engines, kind, tree, cfg, kd, budget, host, size)
+        with _call_seconds(eng) as calls:
+            runs[run] = _prefix_run(eng, use, primer, fd, rg, fdl)
+        runs[run]["calls"] = calls
+        _pool_whole(eng, f"{label} {run}")
+        if run != "host":
+            del eng
+            torch.cuda.empty_cache()
+    h, w = runs["host"], runs["device"]
+    if h["streams"] != w["streams"]:
+        bad = [i for i, (a, b) in enumerate(zip(h["streams"], w["streams"]))
+               if a != b]
+        raise AssertionError(f"{label}: host-warm streams {bad} differ from "
+                             f"device-warm")
+    tiers = h["metrics"]["prefix_tiers"]
+    if min(h["host_hits"]) <= 0 or tiers["installing"] or \
+            tiers["reinstalls"] < len(use) or eng._installing:
+        raise AssertionError(f"{label}: host hits {h['host_hits']}, tiers "
+                             f"{tiers}")
+    want = _tier_launch_want(kind, cfg.num_layers, h["deltas"],
+                             h["suffix_tokens"])
+    got = {k: h["counts"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want} "
+                             f"({h['deltas']})")
+    graphs = {r: {k: v["captured"] for k, v in runs[r]["metrics"][
+        "graphs"].items()} for r in ("device", "host")}
+    if graphs["host"] != graphs["device"]:
+        raise AssertionError(f"{label}: programs {graphs}")
+    _, bound = _prefix_kv_delta(gpt, tree, cfg, kd, primer, use[0], fused,
+                                size["prefix"])
+    diverged = _near_ties(gpt, tree, cfg, kd, use, h["streams"],
+                          runs["cold"]["streams"], bound, fused, label,
+                          primer, size["prefix"])
+    n = tiers["reinstalls"]
+    row = {"phase": "tiered_serving", "engine": kind, "kv_dtype": kd,
+           "requests": len(use), "prefix_len": size["prefix"],
+           "span_bytes": size["prefix"] * _kv_token_bytes(cfg, kd),
+           "device_budget_bytes": {"device_warm": warm_budget,
+                                   "host_warm": small},
+           "host_budget_bytes": TIER_HOST_BYTES,
+           "ttft_mean_s": {r: float(np.mean(runs[r]["ttft_s"]))
+                           for r in runs},
+           "ttft_median_s": {r: float(np.median(runs[r]["ttft_s"]))
+                             for r in runs},
+           "wall_s": {r: runs[r]["wall_s"] for r in runs},
+           "admit_mean_s": {r: float(np.mean(runs[r]["admit_s"]))
+                            for r in runs},
+           "first_after_admit_mean_s": {
+               r: float(np.mean(runs[r]["first_after_admit_s"]))
+               for r in runs},
+           # primer and load: host seconds and calls of each engine call
+           "call_seconds": {r: {k: v for k, v in runs[r]["calls"].items()
+                                if v[1]} for r in runs},
+           "host_hits": h["host_hits"], "launches": got,
+           "graphs": graphs["host"],
+           "reinstalls": n, "reinstall_mean_s": tiers["reinstall_seconds"] / n,
+           "reinstall_decode_overlap_mean_s":
+               tiers["reinstall_decode_overlap_seconds"] / n,
+           "prefix_tiers": tiers,
+           "host_equals_device": f"{len(use)}/{len(use)}",
+           "host_vs_cold_equal": f"{len(use) - len(diverged)}/{len(use)}",
+           "divergences_vs_cold": diverged, "near_tie_bound": bound,
+           "cold_streams": runs["cold"]["streams"],
+           "host_streams": h["streams"]}
+    return row, eng, bound
+
+
+def tier_fault_checks(gpt, eng, tree, cfg, kd, primer, use, row, bound,
+                      label, size=TIER_SIZE):
+    """On a host-warm engine whose trie holds the prefix on the host: a
+    slow copy (``defer_ready=3``) keeps the host-warm streams bit for
+    bit; a reinstall that always fails and one past ``install_timeout``
+    re-prefill to DONE (streams equal cold's, or at a near-tie); a cancel
+    mid-install frees the slot; no slot, install or page is left."""
+    from paddle_tpu_torch.testing.faults import inject_engine_faults
+    fused = False
+    out = {}
+    fails0 = eng._tier_stats["reinstall_failures"]
+    with inject_engine_faults(eng, kinds=(), defer_ready=3) as inj:
+        rids = [eng.submit(p, max_new=32) for p in use[:2]]
+        res = eng.run(steps_per_sync=1)
+    if inj.deferred != 3 or [res[r] for r in rids] != row["host_streams"][:2]:
+        raise AssertionError(f"{label}: defer_ready streams or polls "
+                             f"({inj.deferred})")
+    out["defer_ready"] = {"deferred": inj.deferred, "streams_equal": True}
+    for name, case in (("reinstall_fails", 2), ("install_timeout", 3)):
+        before = eng._tier_stats["reinstall_failures"]
+        if name == "reinstall_fails":
+            ctx = inject_engine_faults(eng, fail_always=True,
+                                       kinds=("reinstall",))
+        else:
+            eng.install_timeout = 0.0
+            ctx = inject_engine_faults(eng, kinds=(), defer_ready=1)
+        with ctx:
+            rid = eng.submit(use[case], max_new=32)
+            res = eng.run(steps_per_sync=1)
+        eng.install_timeout = 30.0
+        if eng.status(rid) != "DONE" or \
+                eng._tier_stats["reinstall_failures"] != before + 1:
+            raise AssertionError(f"{label}: {name} {eng.status(rid)}")
+        div = _near_ties(gpt, tree, cfg, kd, [use[case]], [res[rid]],
+                         [row["cold_streams"][case]], bound, fused,
+                         f"{label} {name}", primer, size["prefix"])
+        out[name] = {"status": "DONE", "divergences_vs_cold": div,
+                     "reprefill": eng.request(rid).prefix_host_hit == 0}
+    with inject_engine_faults(eng, kinds=(), defer_ready=100):
+        rid = eng.submit(use[4], max_new=32)
+        eng.step(1)
+        if eng.status(rid) != "INSTALLING" or not eng.cancel(rid):
+            raise AssertionError(f"{label}: cancel mid-install "
+                                 f"{eng.status(rid)}")
+    if eng.status(rid) != "CANCELLED" or eng._installing or \
+            eng.active_slots or eng._has_work():
+        raise AssertionError(f"{label}: a cancelled install left work")
+    _pool_whole(eng, f"{label} faults")
+    out["cancel_mid_install"] = {"status": "CANCELLED", "slots_free": True}
+    out["reinstall_failures"] = eng._tier_stats["reinstall_failures"] - fails0
+    return out
+
+
+def _event_ms(fn, stream):
+    """Device ms of ``fn()``'s work on ``stream`` (CUDA events)."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record(stream)
+    fn()
+    b.record(stream)
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def tier_copy_rates(eng, size=TIER_SIZE):
+    """One shared span's copies on a host-tier contiguous engine: the
+    demotion (``demote()``: blocking copy to pinned host memory, host
+    clock), the reinstall's copies (``io.device_put_async`` on the
+    engine's side stream, CUDA events there) and, as the yardstick, a
+    pinned ``copy_`` of the same tensors on the current stream; medians
+    of TIER_COPY_REPS."""
+    from paddle_tpu_torch.incubate.nn.kv_quant import kv_components
+    from paddle_tpu_torch.io import device_put_async
+    P = size["prefix"]
+    span = eng._read_span(0, 0, P)
+    nbytes = span.nbytes
+    demote_ms, host = [], None
+    for _ in range(TIER_COPY_REPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host = span.demote()
+        demote_ms.append((time.perf_counter() - t) * 1e3)
+    srcs = list(kv_components(host.k)) + list(kv_components(host.v))
+    side, cur = eng._h2d_stream, torch.cuda.current_stream()
+    dsts = [torch.empty(x.shape, dtype=x.dtype, device="cuda") for x in srcs]
+    h2d, yard = [], []
+    for _ in range(TIER_COPY_REPS + 1):
+        h2d.append(_event_ms(lambda: [device_put_async(x, "cuda", side)
+                                      for x in srcs], side))
+        yard.append(_event_ms(lambda: [d.copy_(x, non_blocking=True)
+                                       for d, x in zip(dsts, srcs)], cur))
+    med = [statistics.median(v[1:]) for v in (demote_ms, h2d, yard)]
+    return {"span_tokens": P, "bytes": nbytes, "demote_ms": med[0],
+            # the first demotion allocates its pinned buffers
+            "demote_first_ms": demote_ms[0],
+            "demote_gb_s": nbytes / med[0] / 1e6,
+            "reinstall_h2d_ms": med[1], "reinstall_h2d_gb_s": nbytes / med[1]
+            / 1e6, "pinned_copy_ms": med[2],
+            "pinned_copy_gb_s": nbytes / med[2] / 1e6,
+            "reinstall_vs_pinned_copy": med[2] / med[1]}, host
+
+
+def tier_overlap_tok_s(engines, cfg, params, host, size=TIER_SIZE):
+    """The decode-loop tok/s of captured 8-slot rounds (one decode step a
+    round) without and with a reinstall's copies in flight (one shared
+    span, ``device_put_async`` on the side stream before each round), and
+    with the same bytes as TIER_CHUNK_BYTES copies (``h2d_chunked``: does
+    a round's own small host copy wait behind one long transfer?), in
+    turns: TIER_OVERLAP_PAIRS rounds of the three, TIER_OVERLAP_ROUNDS
+    rounds each."""
+    from paddle_tpu_torch.incubate.nn.kv_quant import kv_components
+    from paddle_tpu_torch.io import device_put_async
+    eng = engines[0](params, cfg, max_batch=size["max_batch"],
+                     max_len=size["max_len"], device="cuda")
+    rng = np.random.default_rng(11)
+    need = 4 + 3 * TIER_OVERLAP_PAIRS * TIER_OVERLAP_ROUNDS + 8
+    rids = [eng.submit(rng.integers(0, cfg.vocab_size, 16), max_new=need)
+            for _ in range(size["max_batch"])]
+    for _ in range(4):
+        eng.step(1)                  # admitted, programs captured
+    srcs = list(kv_components(host.k)) + list(kv_components(host.v))
+    n = TIER_CHUNK_BYTES
+    chunks = [b[i:i + n] for b in (x.view(torch.uint8).view(-1)
+                                   for x in srcs)
+              for i in range(0, b.numel(), n)]
+    side = eng._h2d_stream
+    copies = {"plain": [], "h2d_in_flight": srcs, "h2d_chunked": chunks}
+    rates = {mode: [] for mode in copies}
+    # the same, less the host seconds spent issuing the copies: what is
+    # left of a loss is the device's or the copy engines'
+    net = {mode: [] for mode in copies}
+    for _ in range(TIER_OVERLAP_PAIRS):
+        for mode, xs in copies.items():
+            before = sum(len(eng.request(r).tokens) for r in rids)
+            issue = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(TIER_OVERLAP_ROUNDS):
+                t_issue = time.perf_counter()
+                for x in xs:
+                    device_put_async(x, "cuda", side)
+                issue += time.perf_counter() - t_issue
+                eng.step(1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            tokens = sum(len(eng.request(r).tokens) for r in rids) - before
+            rates[mode].append(tokens / dt)
+            net[mode].append(tokens / (dt - issue))
+    for r in rids:
+        eng.cancel(r)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    med_net = {k: statistics.median(v) for k, v in net.items()}
+    return {"slots": size["max_batch"], "rounds": TIER_OVERLAP_ROUNDS,
+            "tok_s": rates, "tok_s_median": med,
+            "tok_s_less_issue_median": med_net,
+            "less_issue_share": {k: v / med_net["plain"]
+                                 for k, v in med_net.items()},
+            "in_flight_share": med["h2d_in_flight"] / med["plain"],
+            "chunked_share": med["h2d_chunked"] / med["plain"],
+            "chunks_a_round": len(chunks),
+            "h2d_bytes_a_round": sum(x.numel() * x.element_size()
+                                     for x in srcs)}
+
+
+def tiered_serving_phase(gpt, engines, fd, rg, fdl, cfg, params, qparams,
+                         size=TIER_SIZE):
+    """The prefix cache's host tier at gpt3_1p3b's full width (bf16,
+    seed-0 weights; fused: int8 weights): prefix_serving's load (a
+    512-token prefix, a primer and 12 requests with tails of 16-128, 32
+    new tokens) through every TIER_CELLS cell cold, device-warm and
+    host-warm (``tiered_cell``), the fault checks on contiguous and paged
+    bf16 (``tier_fault_checks``), a span's copy rates
+    (``tier_copy_rates``) and the decode tok/s with a reinstall in flight
+    (``tier_overlap_tok_s``)."""
+    rng = np.random.default_rng(7)
+    load = _shared_prefix_load(rng, cfg.vocab_size, PREFIX_REQUESTS + 1,
+                               size["prefix"], size["tails"])
+    primer, prompts = load[0], load[1:]
+    results, bounds, copies = {}, {}, None
+    for kind, kd in TIER_CELLS:
+        fused = kind == "fused"
+        use = prompts[:size["fused_requests"]] if fused else prompts
+        tree = qparams if fused else params
+        row, eng, bound = tiered_cell(gpt, engines, (fd, rg, fdl), cfg, tree,
+                                      kind, kd, primer, use, size)
+        bounds[(kind, kd)] = bound
+        label = f"tiered serving {kind} {kd}"
+        if (kind, kd) in TIER_FAULT_CELLS:
+            row["faults"] = tier_fault_checks(gpt, eng, tree, cfg, kd, primer,
+                                              use, row, bound, label, size)
+        if (kind, kd) == ("contiguous", "bf16"):
+            copies, host = tier_copy_rates(eng, size)
+            row["copies"] = copies
+        _pool_cleared(eng, label)
+        del eng
+        torch.cuda.empty_cache()
+        for key in ("cold_streams", "host_streams"):
+            row.pop(key)
+        _log(row)
+        results[(kind, kd)] = row
+    overlap = tier_overlap_tok_s(engines, cfg, params, host, size)
+    _log({"phase": "tiered_overlap", **overlap})
+    torch.cuda.empty_cache()
+    return {"cells": results, "copies": copies, "overlap": overlap,
+            "bounds": bounds}
+
+
+def _drive_next_tokens(eng, rids):
+    """Run ``eng`` to the end, one decode step a sync; the seconds from
+    the start to each of ``rids``' next token."""
+    base = {r: len(eng.request(r).tokens) for r in rids}
+    first = {}
+    t0 = time.perf_counter()
+    while eng._has_work():
+        eng.step(1)
+        t = time.perf_counter()
+        for r in rids:
+            if r not in first and len(eng.request(r).tokens) > base[r]:
+                first[r] = t - t0
+    return first
+
+
+def _bundle_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def handoff_cell(gpt, engines, counters, cfg, tree, kd, old_kind, new_kinds,
+                 primer, use, bound, root, size=TIER_SIZE,
+                 rounds=HANDOFF_ROUNDS):
+    """A mid-run handoff: the uninterrupted run of ``use`` (one decode
+    step a sync), then a donor of ``old_kind`` stopped after ``rounds``
+    rounds and snapshotted, restored into a fresh engine of each of
+    ``new_kinds`` (counts set to 0 before the successor's run, each
+    kernel of its layout launched), and into a cold restart (no prefix
+    cache: every span dropped, the carried requests re-prefill).  Gates:
+    the streams equal the uninterrupted run's, or each difference at a
+    near-tie (counted); the warm restore runs fewer prefills than the
+    cold restart; no slot, install or page left."""
+    from paddle_tpu_torch.inference import handoff
+    fd, rg, fdl = counters
+    fused = old_kind == "fused"
+    label = f"handoff serving {old_kind} {kd}"
+
+    def mk(kind, budget="warm"):
+        warm, _ = _tier_budgets(cfg, kind, kd, size)
+        return _tier_engine(engines, kind, tree, cfg, kd,
+                            warm if budget == "warm" else 0, TIER_HOST_BYTES,
+                            size)
+
+    ref = mk(old_kind)
+    rids = [ref.submit(p, max_new=32) for p in use]
+    out = ref.run(steps_per_sync=1)
+    want = [out[r] for r in rids]
+    del ref
+    old = mk(old_kind)
+    rids = [old.submit(p, max_new=32) for p in use]
+    for _ in range(rounds):
+        old.step(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bundle = handoff.snapshot(old, root)
+    snap_s = time.perf_counter() - t
+    nbytes = _bundle_bytes(bundle)
+    done_old = {r for r in rids if old.request(r).status == "DONE"}
+    row = {"phase": "handoff_serving", "donor": old_kind, "kv_dtype": kd,
+           "requests": len(use), "rounds_before_snapshot": rounds,
+           "done_on_donor": len(done_old), "bundle_bytes": nbytes,
+           "snapshot_s": snap_s, "donor_spans": old.metrics()["handoff"][
+               "spans_out"], "successors": {}}
+    prefills = {}
+    rng = np.random.default_rng(13)
+    for new_kind in tuple(new_kinds) + ("cold",):
+        kind = old_kind if new_kind == "cold" else new_kind
+        new = mk(kind, "cold" if new_kind == "cold" else "warm")
+        # a successor that serves: its kernels built and its decode
+        # program captured by one short request of its own first
+        new.submit(rng.integers(0, cfg.vocab_size, 16), max_new=4)
+        new.run(steps_per_sync=1)
+        base = new.metrics()["launches"]
+        t = time.perf_counter()
+        rep = handoff.restore(new, bundle)
+        restore_s = time.perf_counter() - t
+        if not rep.ok or (new_kind != "cold") != (rep.spans_installed > 0):
+            raise AssertionError(f"{label} -> {new_kind}: restore {rep}")
+        carried = [rep.rid_map[r] for r in rids if r not in done_old]
+        fd.reset_launches()
+        rg.reset_launches()
+        fdl.reset_launches()
+        first = _drive_next_tokens(new, carried)
+        torch.cuda.synchronize()
+        counts = {"flash_decode": fd.LAUNCHES,
+                  "flash_decode_paged": fd.PAGED_LAUNCHES,
+                  "row_gemm": rg.LAUNCHES, "fused_decode": fdl.LAUNCHES}
+        need = (("fused_decode",) if fused else
+                ("flash_decode_paged", "row_gemm") if kind == "paged"
+                else ("flash_decode", "row_gemm"))
+        if any(counts[k] == 0 for k in need):
+            raise AssertionError(f"{label} -> {new_kind}: launches {counts}")
+        streams = [old.request(r).tokens if r in done_old else
+                   new.request(rep.rid_map[r]).tokens for r in rids]
+        if any(new.request(r).status != "DONE" for r in carried) or \
+                new._installing or new.active_slots:
+            raise AssertionError(f"{label} -> {new_kind}: successor state")
+        diverged = _near_ties(gpt, tree, cfg, kd, use, streams, want, bound,
+                              fused, f"{label} -> {new_kind}", primer,
+                              size["prefix"])
+        _pool_whole(new, f"{label} -> {new_kind}")
+        _pool_cleared(new, f"{label} -> {new_kind}")
+        m = new.metrics()
+        prefills[new_kind] = sum(
+            m["launches"].get(k, 0) - base.get(k, 0)
+            for k in ("prefill", "prefill_fused"))
+        row["successors"][new_kind] = {
+            "restore_s": restore_s, "spans_installed": rep.spans_installed,
+            "spans_bad": rep.spans_bad, "carried": len(carried),
+            "bytes_in": rep.bytes_in, "prefills": prefills[new_kind],
+            "reinstalls": m.get("prefix_tiers", {}).get("reinstalls", 0),
+            "next_token_mean_s": float(np.mean(list(first.values()))),
+            "next_token_max_s": float(np.max(list(first.values()))),
+            "streams_equal": f"{len(use) - len(diverged)}/{len(use)}",
+            "divergences": diverged, "launches": counts}
+        del new
+        torch.cuda.empty_cache()
+    warm_kind = new_kinds[0]
+    if not prefills[warm_kind] < prefills["cold"]:
+        raise AssertionError(f"{label}: warm restore prefills {prefills}")
+    row["warm_vs_cold_next_token_s"] = [
+        row["successors"][warm_kind]["next_token_mean_s"],
+        row["successors"]["cold"]["next_token_mean_s"]]
+    return row, bundle
+
+
+def handoff_serving_phase(gpt, engines, fd, rg, fdl, cfg, params, qparams,
+                          bounds, size=TIER_SIZE):
+    """The live handoff at gpt3_1p3b's full width: the tiered load on a
+    contiguous bf16 donor (host tier 2 GiB) snapshotted after 8 rounds and
+    restored into a fresh contiguous engine and a paged one, the fused
+    b1 int8 donor (3 requests) into a fused engine (``handoff_cell``);
+    then a truncated copy of a bundle is quarantined and its restore
+    falls back to a cold start that still serves."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.inference import handoff
+    rng = np.random.default_rng(7)
+    load = _shared_prefix_load(rng, cfg.vocab_size, PREFIX_REQUESTS + 1,
+                               size["prefix"], size["tails"])
+    prompts = load[1:]
+    root = tempfile.mkdtemp(prefix="handoff-smoke-")
+    out = {}
+    try:
+        for old_kind, kd, new_kinds in (
+                ("contiguous", "bf16", ("contiguous", "paged")),
+                ("fused", "int8", ("fused",))):
+            fused = old_kind == "fused"
+            use = prompts[:size["fused_requests"]] if fused else prompts
+            tree = qparams if fused else params
+            bound = bounds.get((old_kind, kd))
+            if bound is None:
+                _, bound = _prefix_kv_delta(gpt, tree, cfg, kd, load[0],
+                                            use[0], fused, size["prefix"])
+            row, bundle = handoff_cell(
+                gpt, engines, (fd, rg, fdl), cfg, tree, kd, old_kind,
+                new_kinds, load[0], use, bound, root, size)
+            _log(row)
+            out[(old_kind, kd)] = row
+        torn = str(Path(root) / "handoff-000099")
+        shutil.copytree(bundle, torn)
+        with open(Path(torn) / handoff.CACHE_FILE, "r+b") as f:
+            f.truncate(f.seek(0, 2) // 2)
+        eng = _tier_engine(engines, "fused", qparams, cfg, "int8", None,
+                           TIER_HOST_BYTES, size)
+        rep = handoff.restore(eng, torn)
+        quarantined = [n for n in Path(root).iterdir()
+                       if n.name.startswith(handoff.QUARANTINE_PREFIX)]
+        rid = eng.submit(prompts[0][:40], max_new=4)
+        eng.run()
+        if rep.ok or rep.fallback != "cold" or Path(torn).exists() or \
+                not quarantined or eng.status(rid) != "DONE":
+            raise AssertionError(f"handoff serving: truncated bundle {rep}")
+        out["truncated"] = {"ok": rep.ok, "fallback": rep.fallback,
+                            "problems": rep.problems,
+                            "quarantined": quarantined[0].name,
+                            "cold_request": "DONE"}
+        _log({"phase": "handoff_truncated", **out["truncated"]})
+        del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gpt3_trees(gpt):
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    return cfg, params, gpt.quantize_decode_params(params, cfg)
+
+
+def tiered_serving_alone(gpt, engines, fd, rg, fdl):
+    """``tiered_serving_phase`` on its own: gpt3_1p3b bf16 from seed 0
+    and its int8 serving weights."""
+    return tiered_serving_phase(gpt, engines, fd, rg, fdl, *_gpt3_trees(gpt))
+
+
+def handoff_serving_alone(gpt, engines, fd, rg, fdl):
+    """``handoff_serving_phase`` on its own (the near-tie bounds computed
+    there)."""
+    return handoff_serving_phase(gpt, engines, fd, rg, fdl,
+                                 *_gpt3_trees(gpt), {})
+
+
 #: the phases ``--phases`` runs alone, and the sources each builds
 ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "float32_training": float32_training_phase,
                "ring_kernel": ring_kernel_phase,
                "compiled_serving": compiled_serving_alone,
                "serving_faults": serving_faults_alone,
+               "tiered_serving": tiered_serving_alone,
+               "handoff_serving": handoff_serving_alone,
                "rms_kernel": rms_kernel_phase}
-ONLY_SOURCES = {"compiled_serving": ("flash_decode", "fused_decode",
-                                     "row_gemm", "sampling"),
-                "serving_faults": ("flash_decode", "fused_decode",
-                                   "row_gemm", "sampling"),
+_SERVING_SOURCES = ("flash_decode", "fused_decode", "row_gemm", "sampling")
+ONLY_SOURCES = {"compiled_serving": _SERVING_SOURCES,
+                "serving_faults": _SERVING_SOURCES,
+                "tiered_serving": _SERVING_SOURCES,
+                "handoff_serving": _SERVING_SOURCES,
                 "rms_kernel": ("rms_norm",)}
 
 
@@ -6583,6 +7275,8 @@ def main(argv=None) -> int:
         _log({"phase": "kernel_resources", "kernels": new_resources})
 
     seconds = {}
+    engines = (ContinuousBatchingEngine, PagedContinuousBatchingEngine,
+               FusedB1Engine)
 
     def timed(name, phase, *a):
         """Run one phase and keep its seconds (host clock, synchronised)."""
@@ -6604,6 +7298,8 @@ def main(argv=None) -> int:
                        ContinuousBatchingEngine,
                        PagedContinuousBatchingEngine, FusedB1Engine),
                        SpeculativeConfig, programs, (fd, rg, fdl, sm)),
+                   "tiered_serving": (gpt, engines, fd, rg, fdl),
+                   "handoff_serving": (gpt, engines, fd, rg, fdl),
                    "rms_kernel": (fnr,)}
         for name in only:
             timed(name, ONLY_PHASES[name], *args_of[name])
@@ -6625,8 +7321,6 @@ def main(argv=None) -> int:
           ContinuousBatchingEngine, PagedContinuousBatchingEngine)
     f32_launches = timed("train_reference", train_reference_phase, gpt,
                          hybrid, fa, fce)
-    engines = (ContinuousBatchingEngine, PagedContinuousBatchingEngine,
-               FusedB1Engine)
     spec_reference = timed("speculative_reference",
                            speculative_reference_phase, gpt, llama, engines,
                            SpeculativeConfig, fd, fdl, fnr)
@@ -6665,7 +7359,13 @@ def main(argv=None) -> int:
     faults = timed("serving_faults", serving_faults_phase, gpt, engines,
                    SpeculativeConfig, programs, (fd, rg, fdl, sm), cfg, params,
                    fault_keep)
-    del params, fault_keep
+    del fault_keep
+    torch.cuda.empty_cache()
+    tiered = timed("tiered_serving", tiered_serving_phase, gpt, engines, fd,
+                   rg, fdl, cfg, params, qparams)
+    handoffs = timed("handoff_serving", handoff_serving_phase, gpt, engines,
+                     fd, rg, fdl, cfg, params, qparams, tiered["bounds"])
+    del params
     torch.cuda.empty_cache()
     fused_kernels = timed("fused_kernel", fused_kernel_phase, fdl, kvq, gpt,
                           cfg, qparams)
@@ -7078,6 +7778,36 @@ def main(argv=None) -> int:
                "sampling_filter_draw": "sampling"}.get(e["name"])
         if key is not None:
             e["serving_faults_launches"] = faults["launches"][key]
+    # the tiered phase's host-warm loads and the handoff successors'
+    # runs, beside each kernel they launch
+    tier_key = {"flash_decode": ("contiguous", "bf16", "flash_decode"),
+                "flash_decode_paged": ("paged", "bf16", "flash_decode_paged"),
+                "flash_decode_paged_int8": ("paged", "int8",
+                                            "flash_decode_paged"),
+                "flash_decode_paged_fp8": ("paged", "fp8",
+                                           "flash_decode_paged"),
+                "row_gemm": None,
+                "fused_decode_layers_int8": ("fused", "int8",
+                                             "fused_decode")}
+    for e in entries:
+        if e["name"] not in tier_key:
+            continue
+        cells = tiered["cells"]
+        if e["name"] == "row_gemm":
+            e["tiered_serving_launches"] = {
+                f"{a} {b}": r["launches"]["row_gemm"]
+                for (a, b), r in cells.items() if "row_gemm" in r["launches"]}
+        else:
+            kind, kd, key = tier_key[e["name"]]
+            e["tiered_serving_launches"] = cells[(kind, kd)]["launches"][key]
+        hkey = {"flash_decode": "flash_decode", "row_gemm": "row_gemm",
+                "flash_decode_paged": "flash_decode_paged",
+                "fused_decode_layers_int8": "fused_decode"}.get(e["name"])
+        if hkey is not None:
+            e["handoff_serving_launches"] = {
+                f"{' '.join(k)} -> {n}": c["launches"][hkey]
+                for k, r in handoffs.items() if isinstance(k, tuple)
+                for n, c in r["successors"].items()}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -7114,6 +7844,12 @@ def main(argv=None) -> int:
              "prefix_serving": {f"{a} {b}": r
                                 for (a, b), r in prefix_runs.items()},
              "compiled_serving": compiled, "serving_faults": faults,
+             "tiered_serving": {
+                 "cells": {f"{a} {b}": r
+                           for (a, b), r in tiered["cells"].items()},
+                 "copies": tiered["copies"], "overlap": tiered["overlap"]},
+             "handoff_serving": {" ".join(k) if isinstance(k, tuple) else k:
+                                 v for k, v in handoffs.items()},
              "speculative_serving": {" ".join(k) if isinstance(k, tuple)
                                      else k: v for k, v in spec_runs.items()
                                      if k != "verify_rows"},

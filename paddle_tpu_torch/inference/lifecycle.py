@@ -3,13 +3,18 @@
 backend, so statuses and errors stay importable anywhere.
 
 * :class:`RequestStatus` — the request state machine: ``QUEUED`` →
-  ``RUNNING`` → one **terminal** status (``DONE`` / ``FAILED`` /
-  ``TIMEOUT`` / ``CANCELLED`` / ``REJECTED``); a terminal status never
-  changes again.  (JAX's ``INSTALLING``, the host-tier reinstall state,
-  comes with the prefix cache's host tier.)
+  [``INSTALLING`` →] ``RUNNING`` → one **terminal** status (``DONE`` /
+  ``FAILED`` / ``TIMEOUT`` / ``CANCELLED`` / ``REJECTED``); a terminal
+  status never changes again.  ``INSTALLING`` is the host-tier
+  reinstall state: the slot is reserved and a host-to-device copy of
+  the request's cached prefix is in flight; the decode rounds go on,
+  and admission completes when the copy has landed (a failed reinstall
+  sends the request back to QUEUED, never to a terminal status).
 * :class:`EngineState` — ``SERVING`` → ``DRAINING`` → ``STOPPED``.
-  :data:`DRAIN_MODES` names the two drains; the port's engines run
-  ``"retire"`` (``"handoff"`` comes with the serving fleet).
+  :data:`DRAIN_MODES` names the two drains: ``"retire"`` finishes or
+  fails everything before stopping; ``"handoff"`` stops at a step
+  boundary and parks every non-terminal request back in the queue,
+  still QUEUED, for ``inference.handoff`` to carry to a successor.
 * :class:`AdmissionQueue` — a bounded admission queue with an overload
   policy (``reject`` / ``shed-oldest`` / ``block``).
 * :class:`CircuitBreaker` — opens after N consecutive device failures so
@@ -39,6 +44,9 @@ class RequestStatus:
     """Per-request states (plain strings, so they serialize and compare
     without an import on the client side)."""
     QUEUED = "QUEUED"
+    # slot reserved, the host-tier prefix reinstall in flight: RUNNING
+    # when the copy lands, QUEUED again (re-prefill) if it fails
+    INSTALLING = "INSTALLING"
     RUNNING = "RUNNING"
     DONE = "DONE"
     FAILED = "FAILED"

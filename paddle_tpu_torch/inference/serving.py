@@ -98,21 +98,54 @@ poison-pill guard).  ``submit(ttl=, deadline=)``, ``cancel``,
 breaker's fail-fast and half-open probe, ``prefill_budget`` and
 ``drain(timeout)`` follow the JAX engine.
 
-The port writes its caches in place and its programs read static
-buffers that only a round's ``_load_round`` writes, so a device call
-that raised after it ran is run again from unchanged host state and
-writes the same rows and tokens.  JAX donates its caches instead: a
-program that dies mid-run deletes them and the JAX engine re-prefills
-every slot (``_cache_lost`` / ``_rematerialize_cache``); the port has
-nothing to rebuild, and its prefill count does not move.  A sticky CUDA
-error (an illegal address, a device assert) leaves the context unusable:
-every later call raises, the breaker opens and every request retires
-FAILED.
+The host tier of the prefix cache (``prefix_host_bytes``): a span
+evicted under the device budget is demoted to host memory (one blocking
+device-to-host copy, funnel kind "demote"; paged spans gather their
+pages and then release them) instead of dropped.  An admission whose
+matched prefix lies on host spans reserves its slot (paged: fresh pool
+pages for the host pages) and starts ONE asynchronous host-to-device
+copy a tensor on the engine's side stream (``io.device_put_async``,
+funnel kind "reinstall"); the request is INSTALLING, and the decode
+rounds go on without it (a reserved slot is inactive to the round).
+Each step polls the copies' events first (``_poll_installs``, outside
+every program: an event query is not allowed during a capture); a
+finished copy is installed in place (the current stream waits on its
+event; paged: one ``index_copy_`` of the pages a tensor), the suffix is
+filled as on a device hit, the span is promoted back to the device tier
+and the request becomes RUNNING.  A failed or timed-out reinstall
+(``install_timeout``) sends the request back to the queue front to
+re-prefill (never to FAILED); cancel, TTL, ``_retire_all`` and both
+drains resolve INSTALLING requests.  Decode never waits on the side
+stream; only a step with no slot decoding blocks on the oldest copy
+(``_await_install``).
 
-Left out (ROADMAP Queue 1): the prefix cache's host tier (item 2b: the
-INSTALLING state), handoff and reinstall hooks and ``drain(mode=
-"handoff")`` (item 9), tensor-parallel mesh and the draft's replication
-over it (item 10), observability (item 9), the ``PT_KV_DTYPE`` flag.
+Live handoff: ``drain(mode="handoff")`` stops at a step boundary,
+aborts in-flight reinstalls back to QUEUED, caches each running slot's
+rows in the prefix cache and parks every live request in the queue;
+``export_cache_spans`` writes the trie out span by span in the
+canonical ``[L, tokens, nH, hD]`` layout (funnel kind "snapshot"), and
+a successor's ``restore_requests`` and host-tier imports
+(``_canonical_to_payload``) take them back, on any of the three
+layouts (``inference.handoff`` writes and reads the bundle).
+
+Known differences from the JAX engine.  The port writes its caches in
+place and its programs read static buffers that only a round's
+``_load_round`` writes, so a device call that raised after it ran is
+run again from unchanged host state and writes the same rows and
+tokens.  JAX donates its caches instead: a program that dies mid-run
+deletes them and the JAX engine re-prefills every slot (``_cache_lost``
+/ ``_rematerialize_cache``, where its host-tier spans serve the replay);
+the port has nothing to rebuild, its prefill count does not move, and
+its host spans stay in the trie for the next hit.  A sticky CUDA error
+(an illegal address, a device assert) leaves the context unusable:
+every later call raises, the breaker opens and every request retires
+FAILED.  The tier and handoff counters are plain dicts in ``metrics()``
+(``prefix_tiers``, ``handoff``); JAX's registry series and flight
+events wait for the observability port.
+
+Left out (ROADMAP Queue 1): tensor-parallel mesh and the draft's
+replication over it (item 10), observability and tracing (item 9), the
+``PT_KV_DTYPE`` and ``PT_PREFIX_HOST_BYTES`` flags.
 """
 from __future__ import annotations
 
@@ -126,16 +159,18 @@ import torch
 from ..device import resolve_device
 from ..incubate.nn.kernels.flash_decode import SUPPORTED_HEAD_DIMS
 from ..incubate.nn.kernels.fused_decode import KV_CHUNK
-from ..incubate.nn.kv_quant import (byte_view, kv_components,
-                                    kv_has_scales, kv_storage_dtype,
-                                    kv_zeros, resolve_kv_dtype)
+from ..incubate.nn.kv_quant import (byte_view, kv_components, kv_has_scales,
+                                    kv_map, kv_storage_dtype, kv_zeros,
+                                    resolve_kv_dtype)
 from ..distributed import watchdog
+from ..io import ByteCounter, device_put_async
 from ..models import decoding, gpt, llama
 from ..utils.retry import TRANSIENT_EXCS, RetryPolicy
 from .lifecycle import (DRAIN_MODES, AdmissionQueue, CircuitBreaker,
                         CircuitOpenError, EngineClosedError, EngineState,
                         QueueFullError, RequestStatus, now as _now)
-from .prefix_cache import KVSpanPayload, PagePayload, RadixPrefixCache
+from .prefix_cache import (HostPagePayload, KVSpanPayload, PagePayload,
+                           RadixPrefixCache, host_select, to_host)
 from .programs import ProgramCache, resolve_capture
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine",
@@ -199,6 +234,12 @@ class Request:
     finished_at: Optional[float] = None
     # prompt tokens served from the prefix cache at the last admission
     prefix_hit: int = 0
+    # of which came from the host tier (an asynchronous reinstall)
+    prefix_host_hit: int = 0
+    # set after a failed reinstall: the next admission plans from device
+    # spans only (re-prefill, never a failed request); cleared at
+    # admission
+    no_host: bool = False
     # sampling seed: with engine temperature > 0, the token fed at
     # position p is drawn with key fold_in(PRNGKey(seed), p)
     seed: int = 0
@@ -241,14 +282,33 @@ class _AdmitPlan:
     admit, and the prefix cache's outcome — ``hit`` usable cached tokens
     and ``install`` the engine's install info (contiguous: the matched
     payload spans to copy; paged: the shared page ids, consumed when the
-    pages are reserved).  ``solo``: a member of a batched prefill that
-    failed, run again alone so that a poison pill is found."""
+    pages are reserved, and the host pages' copy jobs).  ``solo``: a
+    member of a batched prefill that failed, run again alone so that a
+    poison pill is found.  ``hosted``: the install needs a host-tier
+    reinstall, of ``host_tokens`` tokens."""
     slot: int
     req: Request
     seq: np.ndarray
     hit: int = 0
     install: Any = None
     solo: bool = False
+    hosted: bool = False
+    host_tokens: int = 0
+
+
+@dataclasses.dataclass(eq=False)
+class _InstallJob:
+    """A reinstall in flight: the plan whose slot is reserved, the
+    device tensors of each host payload (``xfer``, by payload id, in the
+    engine's form), every tensor the copies fill and their events (None
+    on the CPU), the start time, and the engine's decode seconds then
+    (so completion reports how much decode overlapped the copy)."""
+    plan: _AdmitPlan
+    xfer: Dict[int, Any]
+    tensors: List[torch.Tensor]
+    events: List[Any]
+    started: float
+    decode_s0: float
 
 
 def _span_rows(parts):
@@ -266,6 +326,38 @@ def _span_copy(x):
     if isinstance(x, tuple):
         return tuple(_span_copy(c) for c in x)
     return byte_view(x).clone().view(x.dtype)
+
+
+def _canonical_array(x: torch.Tensor) -> np.ndarray:
+    """A cache tensor (device or host) as a host numpy array of its
+    stored bytes: bf16 as its 16-bit words (numpy has no bfloat16 without
+    ``ml_dtypes``), fp8 as its bytes, the rest as they are.  The bytes
+    are what the JAX package's numpy arrays hold, so a span's SHA-256 is
+    JAX's for the same K/V."""
+    h = to_host(x) if x.is_cuda else x.contiguous()
+    if h.dtype == torch.bfloat16:
+        return h.view(torch.int16).numpy().view(np.uint16)
+    if h.dtype == torch.float8_e4m3fn:
+        return h.view(torch.uint8).numpy()
+    return h.numpy()
+
+
+def _host_tensor(arr: np.ndarray, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """A canonical array back to a host tensor of ``dtype`` (the inverse
+    of :func:`_canonical_array`), pinned for a CUDA engine.  Raises
+    ValueError when the array's element type is not ``dtype``'s."""
+    a = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16 and a.dtype == np.uint16:
+        t = torch.from_numpy(a.view(np.int16)).view(dtype)
+    elif dtype == torch.float8_e4m3fn and a.dtype == np.uint8:
+        t = torch.from_numpy(a).view(dtype)
+    else:
+        t = torch.from_numpy(a)
+    if t.dtype != dtype:
+        raise ValueError(f"span stored as {a.dtype}, the cache holds "
+                         f"{dtype}")
+    return t.pin_memory() if device.type == "cuda" else t.clone()
 
 
 class ContinuousBatchingEngine:
@@ -301,7 +393,13 @@ class ContinuousBatchingEngine:
     ``prefix_cache_bytes`` — byte budget of the radix prefix cache (0,
     the default: off; None: unbounded): admissions reuse the longest
     cached prefix of their sequence and fill only the suffix.
-    ``temperature`` / ``top_k`` / ``top_p`` — engine-level sampling (the
+    ``prefix_host_bytes`` — byte budget of the prefix cache's host tier
+    (0, the default: spans evicted from the device are dropped; None:
+    unbounded): evicted spans are demoted to host memory and come back
+    through the INSTALLING state (the module note).
+    ``install_timeout`` — seconds a reinstall's copy may take before the
+    request falls back to re-prefill.  ``temperature`` / ``top_k`` /
+    ``top_p`` — engine-level sampling (the
     JAX engine's defaults 0.0 / 0 / 1.0): temperature <= 0 is greedy;
     else each request draws with its ``submit(seed=...)`` at each
     absolute position (the module note).  ``cuda_graphs`` — None (the
@@ -324,6 +422,8 @@ class ContinuousBatchingEngine:
                  attn_kernel: str = "flash", kv_dtype: str = "bf16",
                  max_stall_rounds: int = 8, speculative: Any = None,
                  prefix_cache_bytes: Optional[int] = 0,
+                 prefix_host_bytes: Optional[int] = 0,
+                 install_timeout: float = 30.0,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, cuda_graphs: Optional[bool] = None,
                  device=None):
@@ -402,9 +502,32 @@ class ContinuousBatchingEngine:
             self._check_speculative(speculative, cfg, max_len)
         # prompt tokens served from the prefix cache
         self._prefix_hit_tokens = 0
+        if prefix_host_bytes is not None and prefix_host_bytes < 0:
+            raise ValueError("prefix_host_bytes must be >= 0 or None")
+        self.prefix_host_bytes = prefix_host_bytes
+        self.install_timeout = float(install_timeout)
+        self._installing: List[_InstallJob] = []
+        # the host tier's counters: reinstalls, their seconds and the
+        # decode seconds that overlapped them, bytes each way
+        self._tier_stats = {"reinstalls": 0, "reinstall_failures": 0,
+                            "host_hit_tokens": 0, "reinstall_seconds": 0.0,
+                            "reinstall_decode_overlap_seconds": 0.0}
+        self._h2d_bytes = ByteCounter()
+        self._d2h_bytes = ByteCounter()
+        # the side stream every reinstall copies on (decode never waits
+        # on it)
+        self._h2d_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+        self._handoff_stats = {"snapshots": 0, "restores": 0,
+                               "carried_out": 0, "carried_in": 0,
+                               "fallbacks": 0, "bytes_out": 0,
+                               "bytes_in": 0, "spans_out": 0,
+                               "spans_in": 0, "spans_bad": 0}
         self._prefix: Optional[RadixPrefixCache] = None
         if prefix_cache_bytes is None or prefix_cache_bytes > 0:
-            self._prefix = RadixPrefixCache(prefix_cache_bytes)
+            self._prefix = RadixPrefixCache(
+                prefix_cache_bytes, host_capacity_bytes=prefix_host_bytes,
+                demoter=self._demote_payload, on_demote=self._on_demote)
         # the compiled programs and their static buffers: a round's fed
         # token, position, done flag and seed a slot (rows 0-3; the
         # seeds row is ``_seeds``), and the drafts a verify pass checks
@@ -461,7 +584,17 @@ class ContinuousBatchingEngine:
         """Replace the cache storage (and the draft cache) wholesale,
         dropping the programs that bind it.  Contiguous engines keep the
         prefix cache — its payloads are owned copies; the paged engine
-        flushes it first."""
+        flushes its device spans first.  In-flight reinstalls target the
+        old storage: they go back to the queue front (their host spans
+        stay and serve the re-admission)."""
+        requeue = []
+        for job in list(self._installing):
+            req = job.plan.req
+            if not req.terminal:
+                self._abort_install(job)
+                req.status = RequestStatus.QUEUED
+                requeue.append(req)
+        self._requeue_front(requeue)
         self._programs.drop()
         self._init_cache()
         self._init_draft_cache()
@@ -648,18 +781,22 @@ class ContinuousBatchingEngine:
               mode: str = "retire") -> Dict[int, Request]:
         """Graceful shutdown: SERVING → DRAINING (submissions refused)
         → STOPPED; returns {rid: Request} of every request the engine
-        knows, each in a terminal status.  ``mode="retire"`` finishes
-        everything queued or running; with ``timeout``, whatever is
-        unfinished at the deadline retires TIMEOUT, so drain always
-        returns.  ``mode="handoff"`` (park live requests for a successor
-        engine) is not ported (ROADMAP Queue 1 item 9)."""
+        knows.  ``mode="retire"`` finishes everything queued, installing
+        or running, each reaching a terminal status; with ``timeout``,
+        whatever is unfinished at the deadline retires TIMEOUT, so drain
+        always returns, and no install job outlives DRAINING (a reinstall
+        completes in the loop, falls back to re-prefill past
+        ``install_timeout``, or retires at the deadline).
+        ``mode="handoff"`` stops at a step boundary WITHOUT retiring:
+        in-flight reinstalls go back to QUEUED, each running slot's rows
+        so far are cached in the prefix cache and its request parked in
+        the queue, still QUEUED, for ``inference.handoff`` to carry to a
+        successor."""
         if mode not in DRAIN_MODES:
             raise ValueError(f"unknown drain mode {mode!r}; choose one "
                              f"of {DRAIN_MODES}")
         if mode == "handoff":
-            raise NotImplementedError(
-                "drain(mode='handoff') needs the serving fleet's handoff, "
-                "not ported yet (ROADMAP Queue 1 item 9)")
+            return self._drain_handoff()
         if self.state == EngineState.SERVING:
             self.state = EngineState.DRAINING
         give_up = None if timeout is None else _now() + timeout
@@ -673,6 +810,133 @@ class ContinuousBatchingEngine:
         self.state = EngineState.STOPPED
         self._pending_report = []
         return dict(self._requests)
+
+    # -- live handoff hooks (inference.handoff drives them) ----------------
+    def _drain_handoff(self) -> Dict[int, Request]:
+        """The handoff drain: stop admissions at a step boundary and park
+        every live request back in the queue.  In-flight reinstalls are
+        aborted back to QUEUED first (their host spans stay); a running
+        slot's prompt and emitted rows go into the prefix cache before
+        its slot is freed (the span a DONE retirement would cache), so a
+        warm successor skips their prefill.  Idempotent: on a stopped
+        engine it returns the same request map."""
+        if self.state == EngineState.SERVING:
+            self.state = EngineState.DRAINING
+        requeue: List[Request] = []
+        for job in list(self._installing):
+            req = job.plan.req
+            if not req.terminal:
+                self._abort_install(job)
+                req.status = RequestStatus.QUEUED
+                requeue.append(req)
+        for i, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            seq = req.seq_so_far()
+            if self._prefix is not None and seq.size > 1:
+                self._insert_spans(seq[:seq.size - 1], i, extend=True)
+            self._slot_req[i] = None
+            self._release_slot(i)
+            req.status = RequestStatus.QUEUED
+            requeue.append(req)
+        self._requeue_front(requeue)
+        self.state = EngineState.STOPPED
+        return dict(self._requests)
+
+    def kv_storage_name(self) -> str:
+        """The name of the cache's stored K/V dtype ("bfloat16",
+        "float32", "int8", "float8_e4m3fn"): a handoff span record
+        carries it beside its bytes."""
+        return str(self._cache["k"].dtype).replace("torch.", "")
+
+    def export_cache_spans(self):
+        """The prefix cache span by span as canonical host records
+        ``[(key, a, b, k, v), ...]``: numpy arrays in the layout
+        ``[L, tokens, nH, hD]`` (int8: ``(data, scale)`` pairs, the
+        scales ``[L, tokens, nH, 1]``), parents before children.  Each
+        span goes through the funnel (kind "snapshot"), so the retry
+        policy absorbs transients; a persistent failure propagates and
+        fails the snapshot."""
+        if self._prefix is None:
+            return []
+        out = []
+        for key, a, b, payload in self._prefix.export_spans():
+            rec = self._device_call("snapshot", self._span_to_canonical,
+                                    payload, a, b)
+            if rec is None:
+                continue
+            k, v, a2, b2 = rec
+            out.append((key[:b2], a2, b2, k, v))
+        return out
+
+    def _span_to_canonical(self, payload, a: int, b: int):
+        """One span as canonical host arrays: ``(k, v, a2, b2)``, the
+        backed sub-range [a2, b2), or None when nothing is exportable.
+        The contiguous layout is the canonical one; quantized spans
+        export their stored bytes, never a dequantized copy."""
+        return (kv_map(_canonical_array, payload.k),
+                kv_map(_canonical_array, payload.v), a, b)
+
+    def _canonical_to_payload(self, k, v, a: int, b: int):
+        """A restored canonical record as a HOST-tier payload of this
+        engine's layout: the reinstall path turns it back into device
+        state at its first hit, so a restore touches no device memory."""
+        del a, b
+        return KVSpanPayload(self._from_canonical(k),
+                             self._from_canonical(v), tier="host")
+
+    def _from_canonical(self, x):
+        """Canonical arrays (bf16 as 16-bit words, fp8 as bytes) back to
+        host tensors of the cache's stored dtypes, pinned on a CUDA
+        engine."""
+        dtypes = (self._cache["k"].dtype, torch.float32)
+        if isinstance(x, tuple):
+            return tuple(_host_tensor(c, dt, self.device)
+                         for c, dt in zip(x, dtypes))
+        return _host_tensor(x, dtypes[0], self.device)
+
+    def restore_requests(self, records) -> Tuple[List[Request],
+                                                 List[Request],
+                                                 Dict[int, int]]:
+        """Re-admit carried requests from a verified bundle AHEAD of new
+        traffic (queue front, their order kept).  Deadlines arrive as
+        remaining TTL and are rebased onto this engine's clock; emitted
+        tokens ride along, so the stream resumes at its recorded offset.
+        A request this engine cannot host (longer than its ``max_len``)
+        retires REJECTED with the reason.  Returns ``(restored,
+        rejected, rid_map)``; ``rid_map`` maps the bundle's rids to this
+        engine's (a fresh rid where the bundle's is taken)."""
+        t = _now()
+        restored: List[Request] = []
+        rejected: List[Request] = []
+        rid_map: Dict[int, int] = {}
+        for rec in records:
+            prompt = np.asarray(rec["prompt"], np.int32).reshape(-1)
+            rid = int(rec["rid"])
+            if rid in self._requests:
+                rid = self._next_rid
+            ttl = rec.get("remaining_ttl")
+            req = Request(rid, prompt, int(rec["max_new"]),
+                          tokens=[int(x) for x in rec["tokens"]],
+                          deadline=None if ttl is None else t + float(ttl),
+                          submitted_at=t, seed=int(rec.get("seed", 0)))
+            self._next_rid = max(self._next_rid, req.rid + 1)
+            self._requests[req.rid] = req
+            rid_map[int(rec["rid"])] = req.rid
+            seq_len = prompt.size + len(req.tokens)
+            if seq_len > self.max_len or \
+                    prompt.size + req.max_new > self.max_len:
+                self._retire(req, RequestStatus.REJECTED,
+                             f"carried request does not fit the successor "
+                             f"engine (sequence {seq_len}, prompt+budget "
+                             f"{prompt.size + req.max_new}, max_len "
+                             f"{self.max_len})")
+                rejected.append(req)
+                continue
+            restored.append(req)
+        self._requeue_front(restored)
+        self._handoff_stats["carried_in"] += len(restored)
+        return restored, rejected, rid_map
 
     def step(self, max_tokens: int = 1) -> List[Request]:
         """Admit into free slots, advance every active slot up to
@@ -693,6 +957,10 @@ class ContinuousBatchingEngine:
             return
         retired_before = len(self._pending_report)
         self._expire(_now())
+        # finish the reinstalls whose copies have landed (outside every
+        # program: an event query is not allowed inside a capture), then
+        # admit
+        self._poll_installs()
         self._admit()
         self._decode_round(max_tokens, retired_before)
 
@@ -732,6 +1000,16 @@ class ContinuousBatchingEngine:
                 self._retire(req, RequestStatus.CANCELLED,
                              "cancelled by client", slot=i)
                 return True
+        for job in list(self._installing):
+            if job.plan.req is req:
+                # mid-reinstall: free the reserved slot (paged: pages)
+                # before anything is installed; the copy's tensors are
+                # dropped (the caching allocators keep their blocks
+                # until the copy's stream has passed them)
+                self._abort_install(job)
+                self._retire(req, RequestStatus.CANCELLED,
+                             "cancelled by client")
+                return True
         try:
             self._queue.remove(req)
         except ValueError:
@@ -764,7 +1042,12 @@ class ContinuousBatchingEngine:
         beyond the first, by funnel kind), ``retired`` (requests by
         terminal status), ``quarantined`` admissions and ``breaker``
         (open, half-open, consecutive and total failures, opens, flaps,
-        probes, last error)."""
+        probes, last error).  The host tier: ``prefix_tiers`` (JAX's keys:
+        the tiers' bytes, budgets and transitions, host hits, requests
+        ``installing``, reinstalls and their failures, plus the summed
+        reinstall seconds, the decode seconds that overlapped them and the
+        bytes each way); the live handoff: ``handoff`` (JAX's
+        counters)."""
         br = self._breaker
         out = {
             "attn_kernel": self.attn_kernel,
@@ -793,8 +1076,24 @@ class ContinuousBatchingEngine:
                                  else self._prefix.evictions),
             **self._programs.metrics(),
         }
+        out["handoff"] = dict(self._handoff_stats)
         if self._prefix is not None:
-            out["prefix_cache"] = self._prefix.stats()
+            p = self._prefix
+            out["prefix_cache"] = p.stats()
+            out["prefix_tiers"] = {
+                "device_bytes": p.bytes,
+                "device_capacity_bytes": p.capacity_bytes,
+                "host_bytes": p.host_bytes,
+                "host_capacity_bytes": p.host_capacity_bytes,
+                "host_entries": p.host_entries,
+                "demotions": p.demotions, "promotions": p.promotions,
+                "host_evictions": p.host_evictions,
+                "host_hits": p.host_hits,
+                "host_hit_tokens": p.host_hit_tokens,
+                "installing": len(self._installing),
+                **self._tier_stats,
+                "reinstall_bytes": self._h2d_bytes.value,
+                "demote_bytes": self._d2h_bytes.value}
         if self._spec is not None:
             out["speculative"] = {
                 "k": self._spec.k,
@@ -823,7 +1122,8 @@ class ContinuousBatchingEngine:
 
     # -- scheduler ---------------------------------------------------------
     def _has_work(self) -> bool:
-        return bool(self._queue) or self.active_slots > 0
+        return bool(self._queue) or self.active_slots > 0 or any(
+            not j.plan.req.terminal for j in self._installing)
 
     def _bucket(self, n: int) -> int:
         return _bucket(n, self._buckets)
@@ -846,16 +1146,19 @@ class ContinuousBatchingEngine:
         misses in one prefill, each hit as an install plus its suffix."""
         t = _now()
         plans: List[_AdmitPlan] = []
+        busy = {job.plan.slot for job in self._installing
+                if not job.plan.req.terminal}
         spent = 0
         for slot in range(self.max_batch):
-            if self._slot_req[slot] is not None:
+            if self._slot_req[slot] is not None or slot in busy:
                 continue
             req = self._next_admissible(t)
             if req is None:
                 break
             plan = self._plan_admission(slot, req)
             # the prefill budget: tokens the device must prefill or fill
-            # for this plan; the FIRST admission always proceeds
+            # for this plan (a host-tier copy is free here: it overlaps
+            # decode, not prefill); the FIRST admission always proceeds
             cost = max(plan.seq.size - 1 - plan.hit, 0)
             if self.prefill_budget is not None and plans \
                     and spent + cost > self.prefill_budget:
@@ -895,9 +1198,36 @@ class ContinuousBatchingEngine:
             # only rows [0, S-1) are needed: priming recomputes the last
             # position's K/V on the first decode step
             length, spans = self._prefix.match(plan.seq[:S - 1])
+            if req.no_host:
+                # a reinstall for this request failed: plan from the
+                # device spans before the first host span (re-prefill)
+                kept, n = [], 0
+                for payload, m in spans:
+                    if payload.tier == "host":
+                        break
+                    kept.append((payload, m))
+                    n += m
+                length, spans = n, kept
             plan.hit, plan.install = self._prefix_usable(length, spans,
                                                          S - 1)
+            plan.hosted, plan.host_tokens = self._install_host_info(plan)
         return plan
+
+    def _install_host_info(self, plan: _AdmitPlan) -> Tuple[bool, int]:
+        """(needs a reinstall, host tokens) of a planned install —
+        contiguous layout: the install's tokens that lie on host
+        payloads."""
+        if not plan.hit or plan.install is None:
+            return False, 0
+        got = htok = 0
+        for payload, m in plan.install:
+            take = min(m, plan.hit - got)
+            if take <= 0:
+                break
+            if payload.tier == "host":
+                htok += take
+            got += take
+        return htok > 0, htok
 
     def _prefix_usable(self, length: int, spans, cap: int):
         """How many matched tokens this engine can install, and the
@@ -925,6 +1255,12 @@ class ContinuousBatchingEngine:
                           and self._bucket(p.seq.size) == b]:
                     group.append(p)
                     work.remove(p)
+            if head.hosted:
+                # a host-tier hit: start the asynchronous copy and park
+                # the request INSTALLING; its install, suffix and draft
+                # prefill run in a later step once the copy has landed
+                self._begin_install(head)
+                continue
             try:
                 if head.hit:
                     self._admit_hit(head)
@@ -1015,7 +1351,10 @@ class ContinuousBatchingEngine:
         req.status = RequestStatus.RUNNING
         req.admitted_at = _now()
         req.prefix_hit = plan.hit
+        req.prefix_host_hit = plan.host_tokens
+        req.no_host = False   # a fresh reinstall may serve re-admission
         self._prefix_hit_tokens += plan.hit
+        self._tier_stats["host_hit_tokens"] += plan.host_tokens
         # prime: feed the last REAL token at pos len-1 — the next decode
         # step's argmax continues the sequence (for a fresh request that
         # is generated token #1; after an eviction the next unconsumed
@@ -1043,6 +1382,194 @@ class ContinuousBatchingEngine:
                                   suffix, plan.hit)
             self._note_launch("prefix")
 
+    # -- host-tier reinstall (the INSTALLING path) ---------------------------
+    def _begin_install(self, plan: _AdmitPlan):
+        """Start a host-tier reinstall: the plan's copies (funnel kind
+        "reinstall"), then the request is INSTALLING.  A start that fails
+        after its retries sends the request back to re-prefill."""
+        req = plan.req
+        try:
+            xfer, tensors, events = self._device_call(
+                "reinstall", self._start_reinstall, plan)
+        except Exception as e:  # noqa: BLE001 — the tier's fallback
+            self._reinstall_failed(plan, e)
+            return
+        req.status = RequestStatus.INSTALLING
+        self._installing.append(_InstallJob(plan, xfer, tensors, events,
+                                            _now(), self._decode_seconds))
+
+    def _put(self, x: torch.Tensor, tensors: List[torch.Tensor],
+             events: List[Any]) -> torch.Tensor:
+        """One reinstall copy of host tensor ``x`` on the side stream,
+        its tensor and event kept for the poll.  Every host payload of a
+        CUDA engine is contiguous and pinned (``to_host``, the host
+        splits, ``_host_tensor``), as ``device_put_async`` requires."""
+        t, ev = device_put_async(x, self.device, self._h2d_stream,
+                                 self._h2d_bytes)
+        tensors.append(t)
+        events.append(ev)
+        return t
+
+    def _start_reinstall(self, plan: _AdmitPlan):
+        """The copies of a hosted plan (contiguous layout): one
+        asynchronous copy a host tensor of each host payload.  Returns
+        (xfer, tensors, events)."""
+        xfer: Dict[int, Any] = {}
+        tensors: List[torch.Tensor] = []
+        events: List[Any] = []
+        for payload, _m in plan.install:
+            if payload.tier != "host":
+                continue
+            k = kv_map(lambda x: self._put(x, tensors, events), payload.k)
+            v = kv_map(lambda x: self._put(x, tensors, events), payload.v)
+            xfer[id(payload)] = (payload, k, v)
+        return xfer, tensors, events
+
+    def _install_ready(self, job: _InstallJob) -> bool:
+        """Whether a reinstall's copies have landed, without blocking
+        (``Event.query()``; the CPU's copies are done at once).  The
+        decode rounds go on until this turns true."""
+        return all(ev is None or ev.query() for ev in job.events)
+
+    def _poll_installs(self):
+        """Finish the reinstalls whose copies have landed: install and
+        fill the suffix (and the draft's prefill), promote the spans back
+        to the device tier and hand the slot to the decode rounds.
+        Copies still in flight stay parked; one older than
+        ``install_timeout`` falls back to re-prefill."""
+        if not self._installing:
+            return
+        jobs, self._installing = self._installing, []
+        for job in jobs:
+            plan, req = job.plan, job.plan.req
+            if req.terminal:
+                continue     # cancel or TTL released the slot already
+            if not self._install_ready(job):
+                if _now() - job.started > self.install_timeout:
+                    self._reinstall_failed(plan, TimeoutError(
+                        f"reinstall copy not ready after "
+                        f"{self.install_timeout}s"))
+                else:
+                    self._installing.append(job)
+                continue
+            try:
+                self._device_call("reinstall", self._complete_reinstall,
+                                  job)
+                self._note_launch("reinstall")
+                if self._draft_cache is not None:
+                    self._device_call("draft", self._draft_prefill,
+                                      (plan.slot,), (req,))
+                    self._note_launch("draft_prefill")
+            except Exception as e:  # noqa: BLE001 — the isolation boundary
+                self._reinstall_failed(plan, e)
+                continue
+            self._breaker.record_success()
+            self._promote_installed(job)
+            self._finish_admit(plan)
+            st = self._tier_stats
+            st["reinstalls"] += 1
+            st["reinstall_seconds"] += _now() - job.started
+            st["reinstall_decode_overlap_seconds"] += \
+                self._decode_seconds - job.decode_s0
+
+    def _consume_copies(self, job: _InstallJob):
+        """Order a job's copies before the current stream's reads: wait
+        on their events, and mark their tensors (allocated on the side
+        stream) as used on this one, so the allocator does not hand
+        their blocks back before this stream's work on them is done."""
+        if self.device.type != "cuda":
+            return
+        cur = torch.cuda.current_stream(self.device)
+        for ev in job.events:
+            cur.wait_event(ev)
+        for t in job.tensors:
+            t.record_stream(cur)
+
+    def _complete_reinstall(self, job: _InstallJob):
+        """Install the copied prefix into the slot (in place) and fill the
+        suffix: a hosted ``_admit_hit``, run only once the copies have
+        landed."""
+        plan = job.plan
+        self._consume_copies(job)
+        resolved = []
+        for payload, m in plan.install:
+            part = job.xfer.get(id(payload))
+            if part is not None:
+                _p, k, v = part
+                resolved.append((KVSpanPayload(k, v, payload.token_axis), m))
+            else:
+                resolved.append((payload, m))
+        with torch.inference_mode():
+            self._install_prefix(plan, resolved)
+            self._fill_reinstalled_suffix(plan)
+
+    def _fill_reinstalled_suffix(self, plan: _AdmitPlan):
+        suffix = plan.seq[plan.hit:plan.seq.size - 1]
+        if suffix.size:
+            self._suffix_fill(plan.slot, suffix, plan.hit)
+
+    def _promote_installed(self, job: _InstallJob):
+        """Swap the reinstalled host spans for device payloads in place,
+        so the next hit is a device hit (contiguous: the copied tensors
+        become the payload)."""
+        for payload, k, v in job.xfer.values():
+            self._prefix.promote(payload,
+                                 KVSpanPayload(k, v, payload.token_axis))
+
+    def _reinstall_failed(self, plan: _AdmitPlan, err: BaseException,
+                          no_host: bool = True):
+        """The tier's fallback: release the reservation and send the
+        request to the queue FRONT, to re-prefill (planning from device
+        spans only with ``no_host``) instead of failing.  Faults below
+        the retry budget never reach here."""
+        del err
+        req = plan.req
+        self._release_slot(plan.slot)
+        req.status = RequestStatus.QUEUED
+        req.no_host = no_host
+        self._requeue_front([req])
+        self._tier_stats["reinstall_failures"] += 1
+
+    def _abort_install(self, job: _InstallJob):
+        """Drop an in-flight reinstall (cancel, TTL, drains): free the
+        reserved slot and forget the job.  Nothing was installed yet;
+        the copy's tensors are dropped (the device block stays on the
+        side stream's pool until the stream has passed the copy, the
+        pinned source in the caching host allocator until the copy's
+        event has completed)."""
+        if job in self._installing:
+            self._installing.remove(job)
+        self._release_slot(job.plan.slot)
+
+    def _await_install(self):
+        """No slot decodes and a reinstall is in flight: block on the
+        oldest copy (nothing exists for it to overlap), through the
+        funnel (kind "reinstall"); a failure is left to the poll."""
+        jobs = [j for j in self._installing if not j.plan.req.terminal]
+        if not jobs:
+            return
+        oldest = min(jobs, key=lambda j: j.started)
+        try:
+            self._device_call("reinstall", self._wait_copies, oldest)
+        except Exception:  # noqa: BLE001 — the poll reports the error
+            pass
+
+    @staticmethod
+    def _wait_copies(job: _InstallJob):
+        for ev in job.events:
+            if ev is not None:
+                ev.synchronize()
+
+    # -- tier demotion (a device-budget eviction to host memory) -------------
+    def _demote_payload(self, payload):
+        """The prefix cache's demoter: one blocking copy to host memory a
+        span, through the funnel (kind "demote").  It runs on the insert
+        and eviction path only, never inside a decode round."""
+        return self._device_call("demote", payload.demote)
+
+    def _on_demote(self, host_payload):
+        self._d2h_bytes.inc(host_payload.nbytes)
+
     def _read_span(self, slot: int, a: int, b: int) -> KVSpanPayload:
         """Copy K/V rows [a, b) of ``slot`` out of the cache (the payload
         of a prefix-cache insert); int8 caches copy the scale rows
@@ -1065,12 +1592,13 @@ class ContinuousBatchingEngine:
             if len(comps) > 1:
                 cache[name + "s"][:, slot, :P] = comps[1]
 
-    def _install_prefix(self, plan: _AdmitPlan):
+    def _install_prefix(self, plan: _AdmitPlan, spans=None):
         """Concatenate the matched payload spans and write rows [0, P)
-        into the slot."""
+        into the slot, in place.  ``spans`` overrides ``plan.install`` on
+        the reinstall path (host payloads resolved to device tensors)."""
         P = plan.hit
         parts_k, parts_v, got = [], [], 0
-        for payload, m in plan.install:
+        for payload, m in (plan.install if spans is None else spans):
             take = min(m, P - got)
             if take <= 0:
                 break
@@ -1254,6 +1782,11 @@ class ContinuousBatchingEngine:
     def _decode_round(self, max_tokens: int, retired_before: int):
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not active:
+            if self._installing:
+                # nothing decodes: the only progress is a reinstall in
+                # flight, and waiting for it overlaps nothing
+                self._await_install()
+                return
             # capacity-blocked admission with nothing running: only a
             # round that retired nothing counts toward the livelock guard
             if self._queue and len(self._pending_report) == retired_before:
@@ -1436,10 +1969,15 @@ class ContinuousBatchingEngine:
             self._retire_all(RequestStatus.FAILED, self._breaker.reason)
 
     def _retire_all(self, status: str, reason: str):
-        """The fail-fast path (open breaker, drain timeout): every queued
-        and running request retires with ``status`` at once."""
+        """The fail-fast path (open breaker, drain timeout): every queued,
+        installing and running request retires with ``status`` at once."""
         while self._queue:
             self._retire(self._queue.popleft(), status, reason)
+        for job in list(self._installing):
+            req = job.plan.req
+            if not req.terminal:
+                self._abort_install(job)
+                self._retire(req, status, reason)
         for i, r in enumerate(self._slot_req):
             if r is not None:
                 self._retire(r, status, reason, slot=i)
@@ -1456,6 +1994,14 @@ class ContinuousBatchingEngine:
                     req, RequestStatus.TIMEOUT,
                     f"deadline expired mid-decode after "
                     f"{len(req.tokens)}/{req.max_new} tokens", slot=i)
+        for job in list(self._installing):
+            req = job.plan.req
+            if not req.terminal and req.deadline is not None \
+                    and t >= req.deadline:
+                self._abort_install(job)
+                self._retire(req, RequestStatus.TIMEOUT,
+                             "deadline expired during the host-tier "
+                             "reinstall")
 
     # -- the device-call funnel (retry + watchdog + fault-injection seam) ----
     def _device_invoke(self, kind: str, fn, *args, **kwargs):
@@ -1467,7 +2013,8 @@ class ContinuousBatchingEngine:
 
     def _device_call(self, kind: str, fn, *args, **kwargs):
         """Run a device call of ``kind`` ("prefill", "decode", "verify",
-        "draft", "prefix") under the retry policy, each attempt under a
+        "draft", "prefix", "demote", "reinstall", "snapshot", "restore")
+        under the retry policy, each attempt under a
         watchdog deadline of ``step_timeout`` seconds when it is set.
         Attempts beyond the first count into ``metrics()["retries"]``.
 
@@ -1548,8 +2095,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     into private pages; a page's refcount counts its slot and every
     span that pins it, and it is free again at zero.
 
-    Left out of this port: the host tier, and handoff and reinstall
-    hooks."""
+    Host tier: a demoted span's pages are gathered to host memory
+    (``HostPagePayload``) and their pins released.  A host-tier hit
+    claims fresh pool pages for the host pages, copies them in with one
+    asynchronous copy a tensor and ONE in-place ``index_copy_`` into the
+    pool, then promotes the span to a refcounted ``PagePayload`` of the
+    fresh pages.  Handoff: spans export their leading run of whole pages
+    in the canonical token layout and import as host pages."""
 
     def __init__(self, params, cfg, max_batch: int = 4,
                  max_len: int = 1024, eos_token_id: Optional[int] = None,
@@ -1749,39 +2301,78 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         S = plan.seq.size
         need = max(-(-self._bucket(S) // self.block_size),
                    S // self.block_size + 1)
-        shared = plan.install if plan.hit else None
-        shared = list(shared) if shared else []
-        got = self._claim(max(need - len(shared), 0))
+        install = plan.install if plan.hit else None
+        if isinstance(install, dict):
+            dev_list, host_list = install["device"], install["host"]
+        elif install:
+            dev_list, host_list = list(enumerate(install)), []
+        else:
+            dev_list, host_list = [], []
+        # host pages need FRESH pool pages (their contents are copied
+        # back); only the device pages are shared
+        got = self._claim(max(need - len(dev_list), 0))
         if got is None:
             return False
         slot = plan.slot
         self._tables[slot] = -1
-        for j, pid in enumerate(shared):
+        for j, pid in dev_list:
             self._tables[slot, j] = pid
             self._page_rc[pid] += 1
-        self._tables[slot, len(shared):len(shared) + len(got)] = got
-        # the table holds everything: a hit needs no install program
-        plan.install = None
+        scatter: Dict[int, List] = {}
+        gi = 0
+        for j, payload, idx in host_list:
+            pid = got[gi]
+            gi += 1
+            self._tables[slot, j] = pid
+            ent = scatter.setdefault(id(payload), [payload, [], [], []])
+            ent[1].append(idx)   # the page's index in the host tensors
+            ent[2].append(pid)   # the fresh pool page
+            ent[3].append(j)     # its global page number
+        nshared = len(dev_list) + len(host_list)
+        rest = got[gi:]
+        self._tables[slot, nshared:nshared + len(rest)] = rest
+        # the table holds everything: a device hit needs no install; the
+        # host pages become the reinstall's copy jobs
+        plan.install = list(scatter.values()) or None
         return True
 
     def _prefix_usable(self, length: int, spans, cap: int):
-        """Only pages FULLY covered by the matched prefix are shareable
-        (the slot must never write into a shared page), so the usable
-        prefix is the longest page-aligned run of cached pages from
-        position 0: (P, the run's page ids)."""
+        """Only pages FULLY covered by the matched prefix are usable (the
+        slot must never write into a shared page), so the usable prefix
+        is the longest page-aligned run from position 0 over device pages
+        (shared by id) and host pages (copied back); where both tiers
+        hold a page, the device's wins.  Returns (P, the run's page ids)
+        or, with host pages in the run, (P, {"device": [(j, pid)],
+        "host": [(j, payload, index)]})."""
         if not spans:
             return 0, None
-        pages: Dict[int, int] = {}
+        dev: Dict[int, int] = {}
+        host: Dict[int, Tuple[Any, int]] = {}
         for payload, m in spans:
-            pages.update(payload.usable_pages(m))
+            up = payload.usable_pages(m)
+            if payload.tier == "host":
+                for j, idx in up.items():
+                    host[j] = (payload, idx)
+            else:
+                dev.update(up)
         run = 0
-        while run in pages:
+        while run in dev or run in host:
             run += 1
         shared_run = min(run * self.block_size, cap) // self.block_size
         if shared_run <= 0:
             return 0, None
-        return (shared_run * self.block_size,
-                [pages[j] for j in range(shared_run)])
+        P = shared_run * self.block_size
+        dev_list = [(j, dev[j]) for j in range(shared_run) if j in dev]
+        host_list = [(j,) + host[j] for j in range(shared_run)
+                     if j not in dev]
+        if not host_list:
+            return P, [pid for _, pid in dev_list]
+        return P, {"device": dev_list, "host": host_list}
+
+    def _install_host_info(self, plan: _AdmitPlan) -> Tuple[bool, int]:
+        if isinstance(plan.install, dict):
+            return True, len(plan.install["host"]) * self.block_size
+        return False, 0
 
     def _suffix_fill(self, slot: int, tokens: np.ndarray, start: int):
         """The suffix as ONE windowed pass of the decode block over the
@@ -1816,9 +2407,138 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 pages[j] = pid
                 self._page_rc[pid] += 1
             return PagePayload(a, b - a, pages, bs, self._page_bytes,
-                               self._unref_pages)
+                               self._unref_pages,
+                               gather_cb=self._gather_pages)
 
         self._prefix.insert(key, make, extend=extend)
+
+    def _gather_pages(self, pids: List[int]):
+        """The pool pages ``pids`` copied to host memory, [L, n,
+        block_size, nH, hD] ((data, scale) pairs under int8): the read
+        behind a demotion and a snapshot.  It returns once the copy has
+        landed (``to_host``), so the caller may then release the
+        pages."""
+        sel = torch.tensor(pids, dtype=torch.long, device=self.device)
+        c = self._cache
+
+        def g(a):
+            return to_host(byte_view(a).index_select(1, sel).view(a.dtype))
+
+        k, v = g(c["k"]), g(c["v"])
+        if "ks" in c:
+            k, v = (k, g(c["ks"])), (v, g(c["vs"]))
+        return k, v
+
+    # -- handoff hooks on the paged layout -----------------------------------
+    def _span_to_canonical(self, payload, a: int, b: int):
+        """The span's leading run of whole pages in the canonical token
+        layout (device pages gathered, host pages as they are); None when
+        its leading pages were dropped by edge splits (capacity lost,
+        never wrong K/V)."""
+        pages = getattr(payload, "pages", None)
+        if not pages:
+            return None
+        bs = self.block_size
+        js = sorted(pages)
+        run = [js[0]]
+        for j in js[1:]:
+            if j != run[-1] + 1:
+                break
+            run.append(j)
+        a2, b2 = run[0] * bs, (run[-1] + 1) * bs
+        if a2 < a or b2 > b:
+            return None
+        if payload.tier == "host":
+            idx = [pages[j] for j in run]
+            k = kv_map(lambda x: host_select(x, idx), payload.k)
+            v = kv_map(lambda x: host_select(x, idx), payload.v)
+        else:
+            k, v = self._gather_pages([pages[j] for j in run])
+
+        def flat(x):
+            x = _canonical_array(x)
+            return x.reshape((x.shape[0], len(run) * bs) + x.shape[3:])
+
+        return kv_map(flat, k), kv_map(flat, v), a2, b2
+
+    def _canonical_to_payload(self, k, v, a: int, b: int):
+        """Canonical token rows repacked into whole host pages [L, n, bs,
+        nH, hD]: only the pages fully inside [a, b) are kept (the
+        straddled-page rule); a later hit copies them into fresh pool
+        pages."""
+        bs = self.block_size
+        j = -(-a // bs)
+        js: List[int] = []
+        while (j + 1) * bs <= b:
+            js.append(j)
+            j += 1
+
+        def repack(x):
+            x = np.asarray(x)
+            if not js:
+                return np.zeros((x.shape[0], 0, bs) + x.shape[2:], x.dtype)
+            return np.stack([x[:, jj * bs - a:jj * bs - a + bs]
+                             for jj in js], axis=1)
+
+        return HostPagePayload(a, b - a, {jj: i for i, jj in enumerate(js)},
+                               bs, self._from_canonical(kv_map(repack, k)),
+                               self._from_canonical(kv_map(repack, v)))
+
+    # -- host-tier reinstall (copies into fresh pool pages) ------------------
+    def _start_reinstall(self, plan: _AdmitPlan):
+        """One asynchronous copy of each host tensor of every copy job's
+        payload, whole ([L, n, bs, ...]: a few pages past the plan's
+        travel too, where a host-side gather would cost a copy of the
+        rest in host memory)."""
+        xfer: Dict[int, Any] = {}
+        tensors: List[torch.Tensor] = []
+        events: List[Any] = []
+        for payload, idxs, pids, js in plan.install:
+            k = kv_map(lambda x: self._put(x, tensors, events), payload.k)
+            v = kv_map(lambda x: self._put(x, tensors, events), payload.v)
+            xfer[id(payload)] = (payload, k, v, pids, js, idxs)
+        return xfer, tensors, events
+
+    def _complete_reinstall(self, job: _InstallJob):
+        """Copy each job's pages into its fresh pool pages with ONE
+        in-place ``index_copy_`` a tensor (the plan's pages picked out of
+        the copied payload on the device first when it used only some),
+        then fill the suffix."""
+        self._consume_copies(job)
+        c = self._cache
+        dev = self.device
+        with torch.inference_mode():
+            for payload, k, v, pids, _js, idxs in job.xfer.values():
+                idx = torch.tensor(pids, dtype=torch.long, device=dev)
+                sel = (None if idxs == list(range(len(payload.pages)))
+                       else torch.tensor(idxs, dtype=torch.long, device=dev))
+                for name, val in (("k", k), ("v", v)):
+                    for plane, src in zip((name, name + "s"),
+                                          kv_components(val)):
+                        src = byte_view(src)
+                        if sel is not None:
+                            src = src.index_select(1, sel)
+                        byte_view(c[plane]).index_copy_(1, idx, src)
+            self._fill_reinstalled_suffix(job.plan)
+
+    def _promote_installed(self, job: _InstallJob):
+        """Pin the freshly written pages back into the trie: the host
+        span becomes a refcounted device ``PagePayload`` again (+1 a page
+        for the cache's co-ownership, as a prefill-time insert), so the
+        next hit shares the page ids.  A span copied in part keeps its
+        host copy."""
+        for payload, _k, _v, pids, js, _idxs in job.xfer.values():
+            if set(js) != set(payload.pages):
+                continue
+            for pid in pids:
+                self._page_rc[pid] += 1
+            newp = PagePayload(payload.start, payload.length,
+                               dict(zip(js, pids)), self.block_size,
+                               self._page_bytes, self._unref_pages,
+                               gather_cb=self._gather_pages)
+            if not self._prefix.promote(payload, newp):
+                # a host eviction overtook the copy: nothing is shared
+                newp.release()
 
     def _prefill_batch(self, slots: Sequence[int],
                        reqs: Sequence[Request]):
@@ -1865,10 +2585,13 @@ class FusedB1Engine(ContinuousBatchingEngine):
     hit zeroes the recycled cache whole (the fused prefill replaces
     rather than scatters), installs the prefix and feeds the suffix
     through the fused decode step a token, as the JAX engine's suffix
-    program does, so the rows are the fused kernel's own.
+    program does, so the rows are the fused kernel's own.  A host-tier
+    hit clears the previous occupant's rows the same way before the
+    reinstalled prefix lands; handoff spans convert between the flat
+    layout and the canonical ``[L, tokens, nH, hD]`` (scales ``[L,
+    tokens, nH]`` and ``[..., nH, 1]``).
 
-    Left out of this port: the handoff hooks and tensor-parallel
-    replication."""
+    Left out of this port: tensor-parallel replication."""
 
     _prefill_kind = "prefill_fused"
 
@@ -1941,6 +2664,39 @@ class FusedB1Engine(ContinuousBatchingEngine):
         for a in self._cache.values():
             byte_view(a).zero_()
         super()._admit_hit(plan)
+
+    def _complete_reinstall(self, job: _InstallJob):
+        # a hosted hit recycles the slot the same way: clear the previous
+        # occupant's rows (in place) before the reinstalled prefix lands
+        for a in self._cache.values():
+            byte_view(a).zero_()
+        super()._complete_reinstall(job)
+
+    # -- handoff hooks on the flat [L, T, H] layout --------------------------
+    def _span_to_canonical(self, payload, a: int, b: int):
+        k, v, a2, b2 = super()._span_to_canonical(payload, a, b)
+        nH, hD = self.cfg.num_heads, self.cfg.head_dim
+
+        def conv(x):
+            if isinstance(x, tuple):
+                d, s = x
+                return (d.reshape(d.shape[0], d.shape[1], nH, hD),
+                        s.reshape(s.shape[0], s.shape[1], nH, 1))
+            return x.reshape(x.shape[0], x.shape[1], nH, hD)
+
+        return conv(k), conv(v), a2, b2
+
+    def _canonical_to_payload(self, k, v, a: int, b: int):
+        del a, b
+
+        def conv(x):
+            # canonical [L, t, nH, hD] (scales [L, t, nH, 1]) back to the
+            # flat layout: the trailing head axes collapse
+            return kv_map(lambda y: np.asarray(y).reshape(
+                y.shape[0], y.shape[1], -1), x)
+
+        return KVSpanPayload(self._from_canonical(conv(k)),
+                             self._from_canonical(conv(v)), tier="host")
 
     def _suffix_fill(self, slot: int, tokens: np.ndarray, start: int):
         """One fused decode step a suffix token (no head), as the JAX

@@ -1,22 +1,111 @@
-"""Device-fault injection for the serving engines (port of the engine
-part of ``paddle_tpu/testing/faults.py``: ``EngineFaultInjector`` and
+"""Fault injection for the serving engines and the checkpoint IO
+layer (port of ``paddle_tpu/testing/faults.py``: ``FaultInjected``,
+``FaultyIO``, ``inject_io``, ``EngineFaultInjector`` and
 ``inject_engine_faults``).
 
 Every device call of an engine lands in ``engine._device_invoke`` — one
 override point — and :func:`inject_engine_faults` patches it, so a test
 can make device calls fail N times then succeed (the retry policy), fail
 always (quarantine and the circuit breaker) or stall (the watchdog's
-step deadline), deterministically and by call kind.  (The checkpoint IO
-and store fakes of the JAX module come with the serving fleet; the
-tiered cache's ``defer_ready`` with its reinstall path.)
+step deadline), deterministically and by call kind; ``defer_ready``
+patches the engine's ``_install_ready`` poll, the slow host-to-device
+copy of the tiered cache's reinstall.
+
+The handoff's bundle bytes go through
+``distributed.checkpoint._io.CheckpointIO._write``: :func:`inject_io`
+installs a :class:`FaultyIO` that crashes at the Nth write syscall
+(:class:`FaultInjected`, a BaseException, so ``except Exception`` in the
+save path cannot absorb it: the disk is left as a kill at that syscall
+leaves it), truncates, fails transiently or stalls.  (``FlakyFS``, the
+train-step injector and the store fakes of the JAX module come with the
+modules they test.)
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
-from typing import Dict, Type
+from typing import Dict, Optional, Type
 
-__all__ = ["EngineFaultInjector", "inject_engine_faults"]
+from ..distributed.checkpoint._io import CheckpointIO, set_io
+
+__all__ = ["FaultInjected", "FaultyIO", "inject_io", "EngineFaultInjector",
+           "inject_engine_faults"]
+
+
+class FaultInjected(BaseException):
+    """A simulated hard crash (kill at a syscall).  Not an Exception
+    subclass: the save path cannot catch it, so the disk state when it
+    escapes is the disk state after a SIGKILL."""
+
+
+class FaultyIO(CheckpointIO):
+    """A CheckpointIO whose per-chunk ``_write`` misbehaves on schedule.
+    Write syscalls are counted from 1 across all files (only paths
+    containing ``match``, when it is given):
+
+    * ``crash_at_write=N`` — the Nth write (and every later one) raises
+      :class:`FaultInjected`;
+    * ``truncate_at_write=N`` — the Nth write keeps half its chunk and
+      later writes to that file are lost: a torn write that looks
+      successful, caught only by the manifest;
+    * ``fail_times=K`` — the first K writes raise ``fail_exc``;
+    * ``slow_write=seconds`` — every write sleeps first."""
+
+    def __init__(self, crash_at_write: Optional[int] = None,
+                 truncate_at_write: Optional[int] = None,
+                 fail_times: int = 0,
+                 fail_exc: Type[BaseException] = OSError,
+                 slow_write: float = 0.0, match: Optional[str] = None):
+        self.crash_at_write = crash_at_write
+        self.truncate_at_write = truncate_at_write
+        self.fail_times = int(fail_times)
+        self.fail_exc = fail_exc
+        self.slow_write = float(slow_write)
+        self.match = match
+        self.writes = 0            # matching write syscalls seen
+        self.injected = 0          # faults fired
+        self._truncating = set()   # files past their torn write
+        self._lock = threading.Lock()
+
+    def _write(self, f, chunk: bytes) -> None:
+        if self.match is not None and self.match not in getattr(
+                f, "name", ""):
+            f.write(chunk)
+            return
+        with self._lock:
+            self.writes += 1
+            n = self.writes
+        if self.slow_write:
+            time.sleep(self.slow_write)
+        if n <= self.fail_times:
+            self.injected += 1
+            raise self.fail_exc(f"injected transient failure (write #{n})")
+        if self.crash_at_write is not None and n >= self.crash_at_write:
+            self.injected += 1
+            raise FaultInjected(f"injected crash at write #{n}")
+        if id(f) in self._truncating:
+            return  # the rest of this file's bytes are lost
+        if self.truncate_at_write is not None and \
+                n >= self.truncate_at_write:
+            self.injected += 1
+            f.write(chunk[:max(0, len(chunk) // 2)])
+            self._truncating.add(id(f))
+            return
+        f.write(chunk)
+
+
+@contextlib.contextmanager
+def inject_io(**kwargs):
+    """Install a :class:`FaultyIO` as the checkpoint IO layer for the
+    scope; yields it and restores the previous layer whatever
+    escaped."""
+    io = FaultyIO(**kwargs)
+    prev = set_io(io)
+    try:
+        yield io
+    finally:
+        set_io(prev)
 
 
 class EngineFaultInjector:
@@ -24,8 +113,10 @@ class EngineFaultInjector:
 
     Per-kind knobs (``kind`` is ``"prefill"``, ``"decode"``,
     ``"prefix"`` — the prefix cache's install and suffix calls —,
-    ``"draft"`` — a model draft's prefill and proposal — or
-    ``"verify"``; restrict with ``kinds``):
+    ``"draft"`` — a model draft's prefill and proposal —, ``"verify"``,
+    ``"demote"`` and ``"reinstall"`` — the host tier's copies out and
+    back —, ``"snapshot"`` and ``"restore"`` — the handoff's span export
+    and install; restrict with ``kinds``):
 
     * ``fail_times=K`` — the first K matching calls raise ``fail_exc``
       BEFORE the device call runs, then calls pass through;
@@ -36,23 +127,41 @@ class EngineFaultInjector:
     * ``fail_always=True`` — every matching call raises;
     * ``stall=seconds`` — every matching call sleeps first, then
       proceeds (with an engine ``step_timeout`` below the stall, the
-      watchdog deadline fires).
+      watchdog deadline fires);
+    * ``defer_ready=N`` — the slow host-to-device copy: the first N
+      ``_install_ready`` polls report the reinstall still in flight, so
+      the request stays INSTALLING for N scheduler rounds while the
+      decode rounds go on (past the engine's ``install_timeout`` it
+      falls back to re-prefill).
 
-    Counters: ``calls`` / ``injected`` are per-kind dicts.
+    Counters: ``calls`` / ``injected`` are per-kind dicts; ``deferred``
+    counts the polls answered not ready.
     """
 
     def __init__(self, fail_times: int = 0, fail_always: bool = False,
                  fail_after_times: int = 0, stall: float = 0.0,
+                 defer_ready: int = 0,
                  fail_exc: Type[BaseException] = OSError,
-                 kinds=("prefill", "decode", "prefix", "draft", "verify")):
+                 kinds=("prefill", "decode", "prefix", "draft", "verify",
+                        "demote", "reinstall", "snapshot", "restore")):
         self.fail_times = int(fail_times)
         self.fail_always = bool(fail_always)
         self.fail_after_times = int(fail_after_times)
         self.stall = float(stall)
+        self.defer_ready = int(defer_ready)
         self.fail_exc = fail_exc
         self.kinds = tuple(kinds)
         self.calls: Dict[str, int] = {}
         self.injected: Dict[str, int] = {}
+        self.deferred = 0
+
+    def defer(self) -> bool:
+        """The readiness-poll gate: True while the injected slow copy
+        still has the reinstall in flight."""
+        if self.deferred < self.defer_ready:
+            self.deferred += 1
+            return True
+        return False
 
     def before(self, kind: str):
         """Called before the real device call; raises or stalls per the
@@ -83,9 +192,10 @@ class EngineFaultInjector:
 
 @contextlib.contextmanager
 def inject_engine_faults(engine, **kwargs):
-    """Patch ``engine._device_invoke`` with an
-    :class:`EngineFaultInjector` for the scope; yields the injector and
-    restores the engine on exit whatever escaped."""
+    """Patch ``engine._device_invoke`` (and with ``defer_ready``,
+    ``engine._install_ready``) with an :class:`EngineFaultInjector` for
+    the scope; yields the injector and restores the engine on exit
+    whatever escaped."""
     inj = EngineFaultInjector(**kwargs)
     orig = engine._device_invoke
 
@@ -96,7 +206,17 @@ def inject_engine_faults(engine, **kwargs):
         return out
 
     engine._device_invoke = faulty
+    if inj.defer_ready:
+        orig_ready = engine._install_ready
+
+        def slow_ready(job):
+            if inj.defer():
+                return False
+            return orig_ready(job)
+
+        engine._install_ready = slow_ready
     try:
         yield inj
     finally:
         engine.__dict__.pop("_device_invoke", None)
+        engine.__dict__.pop("_install_ready", None)

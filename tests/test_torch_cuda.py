@@ -2417,3 +2417,105 @@ def test_robust_funnel_host_cost(robust):
     eng = robust["keep"]["contiguous bf16"][0]
     cost = chip_smoke.funnel_host_us(eng, n=2000)
     assert 0 < cost["funnel_watchdog_us"] < 1000, cost
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache's host tier and the live handoff on the card: the gates
+# of chip_smoke's tiered_serving and handoff_serving at a small size
+# ---------------------------------------------------------------------------
+
+TIER_SIZE = dict(max_len=256, max_batch=4, block=16, pages=48, prefix=64,
+                 tails=(8, 64), fused_requests=3)
+
+
+@pytest.fixture(scope="module")
+def tier():
+    """gpt_tiny bf16 at initializer_range 0.3 (seed 0), its int8 serving
+    weights, the three engines, the kernels' counters and a shared-prefix
+    load: a 64-token prefix, a primer and 6 requests with tails of 8-64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from paddle_tpu_torch.incubate.nn.kernels import fused_decode as fdl
+    from paddle_tpu_torch.incubate.nn.kernels import row_gemm as rg
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine, FusedB1Engine, PagedContinuousBatchingEngine)
+    cfg = gpt.gpt_tiny(dtype=torch.bfloat16, initializer_range=0.3,
+                       max_position_embeddings=1024)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    load = chip_smoke._shared_prefix_load(
+        np.random.default_rng(7), cfg.vocab_size, 7, TIER_SIZE["prefix"],
+        TIER_SIZE["tails"])
+    return {"cfg": cfg, "params": params,
+            "qparams": gpt.quantize_decode_params(params, cfg),
+            "engines": (ContinuousBatchingEngine,
+                        PagedContinuousBatchingEngine, FusedB1Engine),
+            "counters": (fd, rg, fdl), "primer": load[0], "prompts": load[1:]}
+
+
+def _tier_args(tier, kind):
+    fused = kind == "fused"
+    use = tier["prompts"][:TIER_SIZE["fused_requests"]] if fused \
+        else tier["prompts"]
+    return (tier["qparams"] if fused else tier["params"]), use
+
+
+@pytest.mark.parametrize("kind,kd", chip_smoke.TIER_CELLS)
+def test_tiered_host_warm_equals_device_warm(tier, kind, kd):
+    """Cold, device-warm and host-warm runs of the load: host-warm
+    streams equal device-warm bit for bit (cold's under the near-tie
+    rule), every request a host hit, exact launches, the same captured
+    programs, the pool whole; on contiguous and paged bf16 the slow
+    copy, the failed reinstall, the install timeout and the cancel
+    mid-install keep the streams and free the slot."""
+    tree, use = _tier_args(tier, kind)
+    row, eng, bound = chip_smoke.tiered_cell(
+        gpt, tier["engines"], tier["counters"], tier["cfg"], tree, kind, kd,
+        tier["primer"], use, TIER_SIZE)
+    assert row["host_equals_device"] == f"{len(use)}/{len(use)}"
+    if (kind, kd) in chip_smoke.TIER_FAULT_CELLS:
+        faults = chip_smoke.tier_fault_checks(
+            gpt, eng, tree, tier["cfg"], kd, tier["primer"], use, row, bound,
+            f"card {kind} {kd}", TIER_SIZE)
+        assert faults["reinstall_failures"] == 2
+    chip_smoke._pool_cleared(eng, f"card {kind} {kd}")
+
+
+def test_tiered_copies_and_decode_with_a_copy_in_flight(tier):
+    """A span's demotion, its reinstall copies on the side stream and a
+    pinned copy_ of the same bytes all move it; decode rounds go on with
+    a reinstall's copies in flight."""
+    eng = chip_smoke._tier_engine(tier["engines"], "contiguous",
+                                  tier["params"], tier["cfg"], "bf16", 1,
+                                  chip_smoke.TIER_HOST_BYTES, TIER_SIZE)
+    eng.submit(tier["prompts"][0], max_new=4)
+    eng.run()
+    copies, host = chip_smoke.tier_copy_rates(eng, TIER_SIZE)
+    assert copies["bytes"] > 0 and host.tier == "host"
+    assert all(copies[k] > 0 for k in ("demote_ms", "reinstall_h2d_ms",
+                                       "pinned_copy_ms"))
+    overlap = chip_smoke.tier_overlap_tok_s(tier["engines"], tier["cfg"],
+                                            tier["params"], host, TIER_SIZE)
+    assert all(v > 0 for v in overlap["tok_s_median"].values())
+
+
+@pytest.mark.parametrize("old_kind,kd,new_kinds", [
+    ("contiguous", "bf16", ("contiguous", "paged")),
+    ("fused", "int8", ("fused",))])
+def test_handoff_restore_keeps_the_streams(tier, tmp_path, old_kind, kd,
+                                           new_kinds):
+    """A donor snapshotted after 8 rounds, restored into each successor:
+    the uninterrupted streams (or near-ties, counted), fewer prefills
+    than a cold restart, nothing left over."""
+    tree, use = _tier_args(tier, old_kind)
+    _, bound = chip_smoke._prefix_kv_delta(
+        gpt, tree, tier["cfg"], kd, tier["primer"], use[0],
+        old_kind == "fused", TIER_SIZE["prefix"])
+    row, _ = chip_smoke.handoff_cell(
+        gpt, tier["engines"], tier["counters"], tier["cfg"], tree, kd,
+        old_kind, new_kinds, tier["primer"], use, bound, str(tmp_path),
+        TIER_SIZE)
+    for n in new_kinds:
+        assert row["successors"][n]["spans_installed"] > 0
+        assert row["successors"][n]["prefills"] < \
+            row["successors"]["cold"]["prefills"]

@@ -1,10 +1,12 @@
 """The port stands alone: paddle_tpu_torch imports neither jax nor
-anything of paddle_tpu.
+anything of paddle_tpu, nor ``ml_dtypes``.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``jaxlib`` and ``paddle_tpu``, imports every module of the port, serves
-one request (again under injected device faults, then drained, and one
-through the fused b1 engine on int8 weights),
+``jaxlib``, ``paddle_tpu`` and ``ml_dtypes``, imports every module of
+the port, serves one request (again under injected device faults, then
+drained, and one through the fused b1 engine on int8 weights), serves a
+shared prefix through the prefix cache's host tier in bf16, hands the
+engine off mid-run (snapshot, restore) to a successor that finishes it,
 takes one train step and runs one llama_tiny ``generate`` on the CPU.  A source scan checks the import
 statements of the package and of the chip scripts (``chip_smoke.py``,
 ``chip_fused_ab.py``, ``tools/llama_ab.py``, ``tools/serving_ab.py``).
@@ -15,12 +17,12 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = {"jax", "jaxlib", "paddle_tpu"}
+BLOCKED = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
 
 _CHILD = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "paddle_tpu"}
+BLOCKED = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -60,6 +62,30 @@ feng = FusedB1Engine(qp, cfg, max_len=32, kv_dtype="int8", device="cpu")
 rid = feng.submit(np.arange(5), max_new=4)
 out = feng.run()
 assert len(out[rid]) == 4 and fused_decode.LAUNCHES == 0, out
+
+import tempfile
+import torch
+from paddle_tpu_torch.inference import handoff
+bcfg = gpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                     num_heads=2, max_position_embeddings=64,
+                     dtype=torch.bfloat16)
+bp = gpt.init_params(bcfg, 0, device="cpu")
+def tiered():
+    return ContinuousBatchingEngine(bp, bcfg, max_batch=2, max_len=48,
+                                    prefix_cache_bytes=1000,
+                                    prefix_host_bytes=1 << 20, device="cpu")
+shared = np.arange(3, 27)
+old = tiered()
+rids = [old.submit(np.concatenate([shared, [i, i + 1]]), max_new=6)
+        for i in range(3)]
+old.step(2)
+root = tempfile.mkdtemp()
+new = tiered()
+rep = handoff.restore(new, handoff.snapshot(old, root))
+assert rep.ok and rep.spans_installed > 0, rep
+new.run()
+tiers = new.metrics()["prefix_tiers"]
+assert tiers["reinstalls"] > 0 and tiers["installing"] == 0, tiers
 
 import torch
 from paddle_tpu_torch.distributed import hybrid

@@ -185,10 +185,15 @@ def test_page_payload_split_and_release_match_jax():
 
 
 def test_host_tier_is_refused():
-    with pytest.raises(NotImplementedError, match="2b"):
-        RadixPrefixCache(host_capacity_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="2b"):
-        RadixPrefixCache(host_capacity_bytes=None)
+    """A negative host budget is refused, as in JAX; the host tier itself
+    is ported (``tests/test_torch_tiered_cache.py``): 0 is one tier,
+    None and a positive budget turn it on."""
+    for Trie in (JaxTrie, RadixPrefixCache):
+        with pytest.raises(ValueError, match="host_capacity_bytes"):
+            Trie(host_capacity_bytes=-1)
+        assert not Trie(host_capacity_bytes=0).host_tier_enabled
+        assert Trie(host_capacity_bytes=None).host_tier_enabled
+        assert Trie(host_capacity_bytes=1 << 20).host_tier_enabled
 
 
 # ---------------------------------------------------------------------------

@@ -913,8 +913,9 @@ def test_raising_prefill_strands_nothing():
 
 def test_retries_counted_by_kind_and_drain_modes():
     """``metrics()["retries"]`` counts attempts beyond the first by funnel
-    kind; ``drain(mode="handoff")`` is not ported and says so; an unknown
-    mode is a ValueError."""
+    kind; ``drain(mode="handoff")`` parks the engine (STOPPED, nothing
+    retired; ``tests/test_torch_handoff.py`` drives it); an unknown mode
+    is a ValueError."""
     _, api = _apis()
     eng = _engine(api, max_batch=2, max_len=64, prefix_cache_bytes=1 << 30)
     p = _shared_prompts(1)[0]
@@ -925,11 +926,12 @@ def test_retries_counted_by_kind_and_drain_modes():
         eng.run()
     assert inj.injected == {"prefill": 1, "decode": 1, "prefix": 1}
     assert eng.metrics()["retries"] == inj.injected
-    with pytest.raises(NotImplementedError, match="handoff"):
-        eng.drain(mode="handoff")
     with pytest.raises(ValueError, match="drain mode"):
         eng.drain(mode="later")
     assert eng.state == tlifecycle.EngineState.SERVING
+    parked = eng.drain(mode="handoff")
+    assert eng.state == tlifecycle.EngineState.STOPPED
+    assert {r.status for r in parked.values()} == {api.Status.DONE}
 
 
 class _FailingCapture:
