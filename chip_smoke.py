@@ -414,6 +414,51 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    kernels, 8 launches each) against ``loss_fn`` without a group: loss
    within 1e-6 relative, each gradient leaf within 1e-3 in norm; a
    first call sets up the communicator, the second is counted and timed.
+15a. the rest of the one-device train step, gpt3_1p3b
+   at full width (H 2048, 16 x 128, V 50304, bf16 weights, float32
+   moments, seed 0), batches from a seeded host loader (batch i made
+   from seed + i) through ``io.prefetch_to_device`` and ``TrainLoop``:
+   * remat plans (``remat_plans_phase``): 24 layers, B 8, S 1024, one
+     warm and four timed steps under False, True, dots_saveable,
+     dots_saveable_attn and partial:12: losses equal False's within
+     LOSS_TOL; flash forward launches a step L, 2L, 2L, L, L, the dK/dV
+     and dQ kernels L each under every plan; step ms, tokens/s, peak
+     memory, the idle share of a profiled step;
+   * remat fit (``remat_fit_phase``): B 32, where remat False is
+     predicted not to fit: True, then partial:K with the fewest
+     rematted layers K that the B 8 peaks predict within 90 % of the
+     card (every byte above the states scaled by 4); tokens/s and the
+     measured peak beside the predicted one;
+   * prefetch (``prefetch_phase``): the B 8 remat-False step fed by
+     ``prefetch_to_device(depth=2)`` against a synchronous ``.to``, in
+     turns (sync, prefetch, prefetch, sync): the first run of each mode
+     profiles its first two steps (H2D seconds, the copies' overlap
+     with kernels, the idle share), then every run times four steps by
+     the host clock alone (step ms); H2D bytes of each;
+   * training checkpoint (``train_checkpoint_phase``): 4 layers (about
+     0.31 B elements, about 3.1 GB on disk; 24 layers would be about 13
+     GB on disk and more than twice that in host memory while
+     pickling): an ``AsyncCheckpointer`` save after step 2, steps
+     beside its commit until it is done, a second save (into the
+     first's pinned buffers) and steps beside its commit; each step's
+     host dispatch, card ms and wall against the commit's parts (wait,
+     pack, write, metadata), the save steps' ms, save
+     lag, commit seconds and GB/s, bytes on disk; the verify walk and
+     the load of the newest step into a fresh state, bit for bit (their
+     seconds); a flipped byte in that step is quarantined and
+     ``load_latest`` loads the first bit for bit;
+   * preemption (``preemption_phase``): the 4-layer model at partial:2
+     under ``torch.use_deterministic_algorithms(True)`` and
+     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: an uninterrupted 10-step run
+     here (while the first process below starts and builds), and two
+     processes of this script that import only the port and share a
+     fresh ``PT_COMPILE_CACHE_DIR``: the first trains under
+     ``PreemptionGuard`` with an ``AsyncCheckpointer`` every 2 steps,
+     sends itself SIGTERM after step 5 and must exit 143 with the marker
+     at the step ``ElasticInterrupt`` reported; the second resumes
+     (``resume_step`` / ``load_latest``) and trains to step 10.  Its
+     losses and final params equal the uninterrupted run's bit for bit,
+     and it runs no nvcc (both processes' build counts and seconds).
 16. the seconds of each phase, the kernels line (flash_decode in each
    layout and storage mode that the serving runs launch, row_gemm, the
    training kernels, fused_decode in each storage mode, rms_norm's
@@ -435,11 +480,16 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
+import hashlib
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -7182,6 +7232,673 @@ def handoff_serving_alone(gpt, engines, fd, rg, fdl):
 
 
 #: the phases ``--phases`` runs alone, and the sources each builds
+# ---------------------------------------------------------------------------
+# The rest of the one-device train step: remat plans, the prefetcher,
+# the training checkpoint and preemption with an exact resume
+# ---------------------------------------------------------------------------
+
+REMAT_PLANS = (False, True, "dots_saveable", "dots_saveable_attn",
+               "partial:12")
+#: flash forward launches a step, in units of L, under each plan
+REMAT_FWD = {False: 1, True: 2, "dots_saveable": 2, "dots_saveable_attn": 1,
+             "partial:12": 1}
+REMAT_STEPS = 4              # timed steps a plan, after one warm step
+PREFETCH_PROFILED = 2        # prefetch's first steps a run (profiled once)
+FIT_BATCH = 32               # remat_fit's batch rows (B 8 x 4)
+FIT_SHARE = 0.9              # of the card's memory a predicted peak may use
+CKPT_LAYERS = 4              # the checkpoint and preemption model's depth
+CKPT_BESIDE_MAX = 200        # steps beside one commit before the phase waits
+PREEMPT_STEPS = 10           # the preemption phase's run
+PREEMPT_KILL_AFTER = 5       # the first process's SIGTERM, after this step
+CUBLAS_DETERMINISTIC = ":4096:8"
+TRAIN_FAMILIES = (("flash_fwd", ("flash_attention_fwd",)),
+                  ("flash_bwd", ("flash_attention_bwd",)))
+
+
+def host_batches(cfg, seed, start, stop, B=8, S=1024):
+    """The seeded host loader: batch i (0-based) is (ids, labels) int64
+    numpy arrays made from ``seed + i``, for i in [start, stop)."""
+    for i in range(start, stop):
+        rng = np.random.default_rng(seed + i)
+        yield (rng.integers(0, cfg.vocab_size, (B, S)),
+               rng.integers(0, cfg.vocab_size, (B, S)))
+
+
+def _plan_name(plan):
+    return plan if isinstance(plan, str) else f"remat={plan}"
+
+
+def _train_plan(gpt, hybrid, TrainLoop, fa, prefetch, cfg, params, plan, B,
+                steps, profile=True):
+    """One plan: a fresh copy of ``params`` and AdamW state, one warm
+    step, ``steps`` timed steps through TrainLoop over the prefetcher
+    (batches 1..steps of the seeded loader), the flash launches of the
+    timed steps, peak memory, and a profiled step's idle share."""
+    step, shard, init_opt = hybrid.build_train_step(cfg, remat=plan,
+                                                    device="cuda")
+    # earlier phases leave cycles (an engine and its programs' closures)
+    # holding device memory: collect them, so the states and peaks below
+    # are this plan's
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = shard(params)
+    o = init_opt(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    states = torch.cuda.memory_allocated()
+    batches = prefetch(host_batches(cfg, 0, 0, steps + 1, B),
+                       device=step.data_device)
+    batch = next(batches)
+    S = batch[0].shape[1]
+    first, p, o = step(p, o, *batch)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    loop = TrainLoop(step, max_inflight=2)
+    t0 = time.perf_counter()
+    handles = []
+    for batch in batches:
+        handles.append(loop.step(p, o, *batch)[0])
+    loop.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v / steps for k, v in fa.launches().items()}
+    losses = [first.item()] + [float(d) for d in handles]
+    step_ms = wall / steps * 1e3
+    row = {"plan": _plan_name(plan), "B": B, "S": S, "losses": losses,
+           "step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": states, "flash_launches_per_step": launches,
+           "stall_s": loop.stall_seconds}
+    if profile:
+        prof = _profile(lambda: step(p, o, *batch), 1, step_ms,
+                        list(TRAIN_FAMILIES), top_n=6)
+        row.update({k: prof[k] for k in ("device_ms", "device_busy_ms",
+                                         "idle_share", "sm_clock_power")})
+    del p, o, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def remat_plans_phase(gpt, hybrid, TrainLoop, fa, prefetch):
+    """gpt3_1p3b bf16, 24 layers, B 8, S 1024 under each plan of
+    REMAT_PLANS (module docstring, 15a)."""
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16)
+    L = cfg.num_layers
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    rows = {}
+    for plan in REMAT_PLANS:
+        row = _train_plan(gpt, hybrid, TrainLoop, fa, prefetch, cfg, params,
+                          plan, 8, REMAT_STEPS)
+        _log({"phase": "remat_plans", **row})
+        rows[row["plan"]] = row
+        want = {"flash_attention_fwd": REMAT_FWD[plan] * L,
+                "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L}
+        if row["flash_launches_per_step"] != want:
+            raise AssertionError(f"remat {plan}: flash launches a step "
+                                 f"{row['flash_launches_per_step']} != "
+                                 f"{want}")
+        ref = rows["remat=False"]["losses"]
+        if not all(np.isfinite(row["losses"])) or max(
+                abs(a - b) for a, b in zip(row["losses"], ref)) > LOSS_TOL:
+            raise AssertionError(f"remat {plan}: losses {row['losses']} vs "
+                                 f"remat=False {ref} (atol {LOSS_TOL})")
+    return {"rows": rows, "params": params, "cfg": cfg}
+
+
+def _fit_prediction(rows, L, scale, total):
+    """The predicted peak at ``scale`` x the B 8 batch: the states, plus
+    every byte above them at B 8 times ``scale`` (grads included: an
+    over-estimate); partial:K from the B 8 False and dots_saveable_attn
+    peaks, K of L layers at the latter's per-layer bytes.  Returns
+    (K, predicted bytes of partial:K, predicted bytes of False) with K
+    the fewest rematted layers predicted within FIT_SHARE of
+    ``total``."""
+    f, a = rows["remat=False"], rows["dots_saveable_attn"]
+    base = min(r["state_bytes"] for r in rows.values())
+    over_f = f["peak_memory_bytes"] - f["state_bytes"]
+    over_a = a["peak_memory_bytes"] - a["state_bytes"]
+
+    def pred(k):
+        return base + scale * (over_f - k * (over_f - over_a) / L)
+    fits = [k for k in range(1, L + 1) if pred(k) <= FIT_SHARE * total]
+    if not fits:
+        raise AssertionError(f"remat fit: no partial:K predicted within "
+                             f"{FIT_SHARE} of {total} bytes "
+                             f"(partial:{L}: {pred(L):.4g})")
+    return fits[0], pred(fits[0]), pred(0)
+
+
+def remat_fit_phase(gpt, hybrid, TrainLoop, fa, prefetch, plans):
+    """gpt3_1p3b at B 32, S 1024: remat True, then partial:K (module
+    docstring, 15a).  No OOM is provoked or caught: K comes from the B 8
+    peaks with every byte above the states scaled by 4."""
+    cfg, params, rows = plans["cfg"], plans["params"], plans["rows"]
+    L = cfg.num_layers
+    total = torch.cuda.get_device_properties(0).total_memory
+    scale = FIT_BATCH / 8
+    k, pred_k, pred_false = _fit_prediction(rows, L, scale, total)
+    pred_true = rows["remat=True"]["state_bytes"] + scale * (
+        rows["remat=True"]["peak_memory_bytes"]
+        - rows["remat=True"]["state_bytes"])
+    if not pred_false > FIT_SHARE * total:
+        raise AssertionError(f"remat fit: remat False predicted to fit at "
+                             f"B {FIT_BATCH} ({pred_false:.4g} bytes)")
+    out = {"card_bytes": total, "k": k, "predicted_false_bytes": pred_false}
+    for plan, pred in ((True, pred_true), (f"partial:{k}", pred_k)):
+        row = _train_plan(gpt, hybrid, TrainLoop, fa, prefetch, cfg, params,
+                          plan, FIT_BATCH, 2, profile=False)
+        row["predicted_peak_bytes"] = pred
+        out[row["plan"]] = row
+        _log({"phase": "remat_fit", "card": _nvidia_smi("name,power.limit"),
+              **row})
+        if not all(np.isfinite(row["losses"])):
+            raise AssertionError(f"remat fit {plan}: losses {row['losses']}")
+    return out
+
+
+def _copy_overlap(prof):
+    """(H2D copy ms, the part of it during which a kernel ran) from a
+    profile's device events; (None, None) when the profile holds none."""
+    copies, kernels = [], []
+    for ev in prof.events():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        iv = (ev.time_range.start, ev.time_range.end)
+        if "memcpy htod" in ev.name.lower():
+            copies.append(iv)
+        elif "memcpy" not in ev.name.lower() \
+                and "memset" not in ev.name.lower():
+            kernels.append(iv)
+    if not copies:
+        return None, None
+    kernels.sort()
+    total = over = 0.0
+    for a, b in copies:
+        total += b - a
+        for ka, kb in kernels:
+            if ka >= b:
+                break
+            over += max(0.0, min(b, kb) - max(a, ka))
+    return total / 1e3, min(over, total) / 1e3
+
+
+def prefetch_phase(gpt, hybrid, fa, prefetch, tio, plans):
+    """The B 8 remat-False step with its batches through
+    ``prefetch_to_device(depth=2)`` against a synchronous ``.to`` of
+    each batch, in turns (module docstring, 15a).  A run takes
+    PREFETCH_PROFILED steps, under the profiler in the first run of
+    each mode (the idle share and the copies' overlap; the prefetcher
+    issues its copies from the first batch on), then REMAT_STEPS steps
+    timed by the host clock alone."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params = plans["cfg"], plans["params"]
+    step, shard, init_opt = hybrid.build_train_step(cfg, remat=False,
+                                                    device="cuda")
+    p = shard(params)
+    o = init_opt(p)
+    step(p, o, *next(prefetch(host_batches(cfg, 0, 0, 1), device="cuda")))
+    torch.cuda.synchronize()
+    n, m = REMAT_STEPS, PREFETCH_PROFILED
+    runs = []
+    for mode in ("sync", "prefetch", "prefetch", "sync"):
+        host = [0]
+
+        def counted(it):
+            for a, b in it:
+                host[0] += a.nbytes + b.nbytes
+                yield a, b
+        src = counted(host_batches(cfg, 0, 1, n + m + 1))
+        batches = iter(prefetch(src, device="cuda", depth=2)
+                       if mode == "prefetch" else
+                       ((torch.from_numpy(a).to("cuda"),
+                         torch.from_numpy(b).to("cuda")) for a, b in src))
+        h2d0 = tio.TRAIN_H2D_BYTES.value
+        profiled = mode not in (r["mode"] for r in runs)
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            for _ in range(m):
+                step(p, o, *next(batches))
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for ids, lab in batches:
+            step(p, o, ids, lab)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        row = {"mode": mode, "steps": n, "wall_ms": wall_ms,
+               "step_ms": wall_ms / n, "h2d_bytes": host[0]}
+        if profiled:
+            busy = sum(ev.self_device_time_total
+                       for ev in prof.key_averages()
+                       if "CUDA" in str(getattr(ev, "device_type", "")))
+            copy_ms, overlap_ms = _copy_overlap(prof)
+            row.update({"profiled_steps": m, "h2d_copy_ms": copy_ms,
+                        "h2d_overlapped_ms": overlap_ms,
+                        "device_busy_ms": busy / 1e3,
+                        "idle_share": 1 - busy / 1e3 / prof_ms})
+        _log({"phase": "prefetch", **row})
+        runs.append(row)
+        moved = tio.TRAIN_H2D_BYTES.value - h2d0
+        if moved != (host[0] if mode == "prefetch" else 0):
+            raise AssertionError(f"prefetch {mode}: the prefetcher counted "
+                                 f"{moved} bytes of {host[0]}")
+    del p, o
+    torch.cuda.empty_cache()
+    return {"runs": runs, "card": _nvidia_smi("name,power.limit")}
+
+
+def _flat_state(state):
+    from paddle_tpu_torch.distributed.checkpoint import flatten_state_dict
+    return flatten_state_dict(state)[0]
+
+
+def _state_equal(a, b):
+    fa_, fb = _flat_state(a), _flat_state(b)
+    return sorted(fa_) == sorted(fb) and all(
+        torch.equal(fa_[k], fb[k].to(fa_[k].device)) for k in fa_)
+
+
+def _clone_state(state):
+    if isinstance(state, dict):
+        return {k: _clone_state(v) for k, v in state.items()}
+    return state.detach().clone()
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
+
+
+def _span_overlap(spans, t0, t1):
+    """ms of [t0, t1] (``time.perf_counter``) under each commit part of
+    ``spans`` ((step, name, start, end) tuples), by part name."""
+    out = {}
+    for _, name, a, b in spans:
+        ov = min(t1, b) - max(t0, a)
+        if ov > 0:
+            out[name] = out.get(name, 0.0) + ov * 1e3
+    return out
+
+
+def _commit_split(steps, spans, plain_ms):
+    """Where the steps beside a commit lose their time: for each commit
+    part, its ms (summed over the commits), the steps that ran mostly
+    (over half their wall) under it, their mean wall, host dispatch and
+    card ms, and their ms over a plain step."""
+    out = {}
+    for name in dict.fromkeys(n for _, n, _, _ in spans):
+        mine = [st for st in steps
+                if st["commit_parts_ms"].get(name, 0.0) > st["wall_ms"] / 2]
+        out[name] = {
+            "part_ms": sum((b - a) * 1e3 for _, n, a, b in spans
+                           if n == name),
+            "steps": len(mine)}
+        if mine:
+            out[name].update({
+                k: statistics.mean(st[f] for st in mine) for k, f in (
+                    ("wall_ms_mean", "wall_ms"), ("host_ms_mean", "host_ms"),
+                    ("card_ms_mean", "card_ms"))})
+            out[name]["over_plain_ms"] = sum(st["wall_ms"] - plain_ms
+                                             for st in mine)
+    return out
+
+
+def train_checkpoint_phase(gpt, hybrid, TrainLoop, prefetch):
+    """The 4-layer full-width model (module docstring, 15a): a save, the
+    steps beside its commit until it is done, a second save (into the
+    first's pinned buffers) and the steps beside its commit; each step's
+    host dispatch, card ms and wall against the commit's parts
+    (``AsyncCheckpointer.spans``); then the verify walk and the load of
+    the newest step, and the flipped-byte fallback through
+    ``load_latest``."""
+    from paddle_tpu_torch.distributed import checkpoint as dist_cp
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16, num_layers=CKPT_LAYERS)
+    step, shard, init_opt = hybrid.build_train_step(cfg, remat=False,
+                                                    device="cuda")
+    params = shard(gpt.init_params(cfg, seed=0, device="cuda"))
+    state = {"params": params, "opt": init_opt(params)}
+    elements = sum(t.numel() for t in _flat_state(state).values())
+    snaps, steps, saves = {}, [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ckpt")
+        # no retention: its walk re-hashes every kept step (SHA-256 of
+        # 3.1 GB, ~4 s each here), and the CPU tests cover it
+        ac = dist_cp.AsyncCheckpointer(root)
+        loop = TrainLoop(step, max_inflight=2)
+        batches = prefetch(host_batches(cfg, 0, 0, 2 * CKPT_BESIDE_MAX + 6),
+                           device="cuda")
+        torch.cuda.synchronize()
+
+        def one(kind):
+            i = len(steps) + 1
+            ids, lab = next(batches)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            t0 = time.perf_counter()
+            loop.step(state["params"], state["opt"], ids, lab)
+            t_host = time.perf_counter()
+            if kind == "save":
+                loop.drain()
+                snaps[i] = _clone_state(state)
+                ac.save(state, i)
+                saves.append(i)
+            loop.drain()
+            ev1.record()
+            ev1.synchronize()
+            t1 = time.perf_counter()
+            steps.append({"step": i, "kind": kind, "t0": t0, "t1": t1,
+                          "host_ms": (t_host - t0) * 1e3,
+                          "card_ms": ev0.elapsed_time(ev1),
+                          "wall_ms": (t1 - t0) * 1e3,
+                          "save_lag_s": ac.save_lag()})
+
+        def beside():
+            for _ in range(CKPT_BESIDE_MAX):
+                if ac.save_lag() == 0.0:
+                    break
+                one("beside")
+            # the next save then finds the first's buffer set free
+            ac.drain()
+
+        for kind in ("plain", "save", "beside", "plain", "save", "beside",
+                     "plain"):
+            if kind == "beside":
+                beside()
+            else:
+                one(kind)
+        commit_s = ac.stats["commit_seconds"]
+        spans = list(ac.spans)
+        # both saves took one pinned buffer set: the second reused it
+        buffer_sets = sum(1 for bufs in list(ac._free.queue) if bufs)
+        ac.close()
+        if buffer_sets != 1:
+            raise AssertionError(f"the two saves made {buffer_sets} pinned "
+                                 f"buffer sets, not one")
+        new, old = saves[-1], saves[0]
+        dn = dist_cp.step_dir(root, new)
+        nbytes = _dir_bytes(dn)
+        p2 = shard(gpt.init_params(cfg, seed=1, device="cuda"))
+        fresh = {"params": p2, "opt": init_opt(p2)}
+        t0 = time.perf_counter()
+        found = dist_cp.find_latest_verified(root)
+        verify_s = time.perf_counter() - t0
+        if found != (new, dn):
+            raise AssertionError(f"the verify walk found {found}, not step "
+                                 f"{new}")
+        t0 = time.perf_counter()
+        dist_cp.load_state_dict(fresh, dn, verify=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not _state_equal(fresh, snaps[new]):
+            raise AssertionError(f"step {new} loaded a tensor that is not "
+                                 f"the saved one bit for bit")
+        shard_file = os.path.join(dn, "0_0.distcp")
+        with open(shard_file, "r+b") as f:
+            f.seek(os.path.getsize(shard_file) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        got = dist_cp.load_latest(fresh, root)
+        quarantined = sorted(n for n in os.listdir(root)
+                             if n.startswith(".corrupt-"))
+        if got != old or not _state_equal(fresh, snaps[old]) \
+                or not quarantined:
+            raise AssertionError(f"after a flipped byte in step {new}: "
+                                 f"loaded {got}, quarantined {quarantined}")
+    base = steps[0]["t0"]
+    for st in steps:
+        st["commit_parts_ms"] = _span_overlap(spans, st["t0"], st["t1"])
+    plain = [st["wall_ms"] for st in steps
+             if st["kind"] == "plain" and not st["commit_parts_ms"]]
+    plain_ms = statistics.mean(plain)
+    beside_ = [st for st in steps if st["kind"] == "beside"]
+    commits = {}
+    for s_, name, a, b in spans:
+        commits.setdefault(s_, {})[name] = (b - a) * 1e3
+    row = {"phase": "train_checkpoint", "card": _nvidia_smi(
+               "name,power.limit"),
+           "config": f"gpt3_1p3b bf16, {CKPT_LAYERS} layers, float32 "
+                     f"moments", "elements": elements,
+           "saves": saves,
+           "save_step_ms": {"first (pinned buffers made)":
+                            steps[saves[0] - 1]["wall_ms"],
+                            "second (buffers reused)":
+                            steps[saves[1] - 1]["wall_ms"]},
+           "plain_step_ms_mean": plain_ms,
+           "beside_steps": len(beside_),
+           "beside_step_ms_mean": statistics.mean(
+               st["wall_ms"] for st in beside_) if beside_ else None,
+           "beside_step_ms_max": max(
+               (st["wall_ms"] for st in beside_), default=None),
+           "commit_ms_by_part": commits,
+           "beside_by_part": _commit_split(steps, spans, plain_ms),
+           "save_lag_max_s": max(st["save_lag_s"] for st in steps),
+           "commit_s": commit_s,
+           "bytes_on_disk": nbytes,
+           "commit_gb_per_s": nbytes / commit_s / 1e9,
+           "verify_s": verify_s, "load_s": load_s,
+           "quarantined": quarantined,
+           "steps": [{**{k: v for k, v in st.items() if k not in ("t0",
+                                                                  "t1")},
+                      "start_s": st["t0"] - base} for st in steps]}
+    _log(row)
+    del state, fresh, snaps
+    torch.cuda.empty_cache()
+    return row
+
+
+def _state_digest(state):
+    """SHA-256 of each tensor's bytes, by flattened key."""
+    out = {}
+    for k, t in sorted(_flat_state(state).items()):
+        raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+        out[k] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def preempt_run(role, workdir):
+    """The preemption phase's training: gpt3_1p3b bf16 at CKPT_LAYERS
+    layers, remat partial:2, deterministic algorithms, seed-0 weights,
+    the seeded loader's batches through prefetch_to_device and TrainLoop.
+    ``role`` "reference" runs PREEMPT_STEPS steps; "first" saves every 2
+    steps (an AsyncCheckpointer), sends itself SIGTERM after step
+    PREEMPT_KILL_AFTER and leaves through
+    PreemptionGuard.checkpoint_and_exit (exit 143); "resume" resumes
+    from the marker (or load_latest over the first's saves) and trains
+    to the end.
+    Returns (or, before exiting, writes to ``workdir/<role>.json``) the
+    losses by step, the final state's digest and the build stats."""
+    from paddle_tpu_torch.distributed import checkpoint as dist_cp
+    from paddle_tpu_torch.distributed import hybrid
+    from paddle_tpu_torch.distributed.fleet.preemption import (
+        PreemptionGuard, resume_step)
+    from paddle_tpu_torch.incubate.nn.kernels import _build
+    from paddle_tpu_torch.io import prefetch_to_device
+    from paddle_tpu_torch.jit.loop import ElasticInterrupt, TrainLoop
+    from paddle_tpu_torch.models import gpt
+    torch.use_deterministic_algorithms(True)
+    cfg = gpt.gpt3_1p3b(dtype=torch.bfloat16, num_layers=CKPT_LAYERS)
+    step, shard, init_opt = hybrid.build_train_step(cfg, remat="partial:2",
+                                                    device="cuda")
+    params = shard(gpt.init_params(cfg, seed=0, device="cuda"))
+    state = {"params": params, "opt": init_opt(params)}
+    final = os.path.join(workdir, "final")
+    roots = os.path.join(workdir, "steps")
+    start, resumed_from = 0, None
+    if role == "resume":
+        start = resume_step(final)
+        if start is not None:
+            # resume_step has just verified the directory's manifest
+            dist_cp.load_state_dict(state, final, verify=False)
+            resumed_from = "marker"
+        else:
+            start = dist_cp.load_latest(state, roots) or 0
+            resumed_from = "load_latest"
+    ac = dist_cp.AsyncCheckpointer(roots) if role == "first" else None
+    guard = PreemptionGuard(checkpointer=ac) if role == "first" else None
+    loop = TrainLoop(step, max_inflight=2,
+                     interrupt_check=guard.should_save if guard else None)
+    losses = {}
+
+    def result(**more):
+        return {"role": role, "start": start, "resumed_from": resumed_from,
+                "losses": {i: float(d) for i, d in losses.items()},
+                "builds": _build.BUILD_STATS["builds"],
+                "build_s": _build.BUILD_STATS["seconds"],
+                "build_dir": str(_build.BUILD_DIR), **more}
+
+    try:
+        for i, (ids, lab) in enumerate(prefetch_to_device(
+                host_batches(cfg, 0, start, PREEMPT_STEPS),
+                device=step.data_device), start=start + 1):
+            losses[i] = loop.step(state["params"], state["opt"], ids, lab)[0]
+            if ac is not None and i % 2 == 0:
+                ac.save(state, i)
+            if role == "first" and i == PREEMPT_KILL_AFTER:
+                os.kill(os.getpid(), signal.SIGTERM)
+        loop.drain()
+    except ElasticInterrupt as e:
+        with open(os.path.join(workdir, f"{role}.json"), "w") as f:
+            json.dump(result(completed_steps=e.completed_steps), f)
+        guard.checkpoint_and_exit(state, final, e.completed_steps)
+    if ac is not None:
+        ac.close()
+    out = result(digest=_state_digest(state))
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def preemption_phase(gpt, hybrid):
+    """An uninterrupted run here, then the preempted and the resuming
+    process (module docstring, 15a)."""
+    from paddle_tpu_torch.distributed.fleet.preemption import MARKER
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != CUBLAS_DETERMINISTIC:
+        raise AssertionError("the preemption phase needs "
+                             f"CUBLAS_WORKSPACE_CONFIG={CUBLAS_DETERMINISTIC} "
+                             "from the start of the process")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PT_COMPILE_CACHE_DIR=os.path.join(tmp, "cache"),
+                   CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+
+        def child(role):
+            return subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--preempt-child", role, "--preempt-dir", tmp],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
+        def finish(role, proc, t0):
+            try:
+                out, err = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            procs[role] = (subprocess.CompletedProcess(
+                proc.args, proc.returncode, out, err),
+                time.perf_counter() - t0)
+
+        procs = {}
+        # the first process starts and builds its kernels (host work)
+        # while the uninterrupted run trains here
+        t_first = time.perf_counter()
+        first_proc = child("first")
+        try:
+            t0 = time.perf_counter()
+            ref = preempt_run("reference", tmp)
+            ref_s = time.perf_counter() - t0
+        finally:
+            finish("first", first_proc, t_first)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        finish("resume", child("resume"), t0)
+        first, resume = ({}, {})
+        for role, (proc, _) in procs.items():
+            path = os.path.join(tmp, f"{role}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    (first if role == "first" else resume).update(json.load(f))
+        marker = None
+        if os.path.exists(os.path.join(tmp, "final", MARKER)):
+            with open(os.path.join(tmp, "final", MARKER)) as f:
+                marker = json.load(f)["step"]
+    rc = {r: p.returncode for r, (p, _) in procs.items()}
+    want = {int(i): v for i, v in ref["losses"].items()}
+    row = {"phase": "preemption", "card": _nvidia_smi("name,power.limit"),
+           "config": f"gpt3_1p3b bf16, {CKPT_LAYERS} layers, partial:2, "
+                     f"B 8, S 1024, deterministic",
+           "returncodes": rc, "marker_step": marker,
+           "interrupt_completed_steps": first.get("completed_steps"),
+           "resumed_from": resume.get("resumed_from"),
+           "resume_start": resume.get("start"),
+           "reference_losses": want, "first_losses": first.get("losses"),
+           "resumed_losses": resume.get("losses"),
+           "builds": {"first": first.get("builds"),
+                      "resume": resume.get("builds")},
+           "build_s": {"first": first.get("build_s"),
+                       "resume": resume.get("build_s")},
+           "process_s": {r: s for r, (_, s) in procs.items()},
+           "reference_s": ref_s}
+    _log(row)
+    errors = []
+    if rc["first"] != 143 or first.get("completed_steps") is None \
+            or marker != first["completed_steps"]:
+        errors.append(f"first process: exit {rc['first']}, marker {marker}, "
+                      f"interrupt at {first.get('completed_steps')}")
+    if rc["resume"] != 0 or resume.get("start") != marker:
+        errors.append(f"resume: exit {rc['resume']}, start "
+                      f"{resume.get('start')}")
+    got = {int(i): v for i, v in (resume.get("losses") or {}).items()}
+    got.update({int(i): v for i, v in (first.get("losses") or {}).items()})
+    # the first process's losses up to the one before the interrupted
+    # step (whose handle the interrupt drops), the resumed process's after
+    steps = (list(range(1, marker)) if marker else []) \
+        + list(range((marker or 0) + 1, PREEMPT_STEPS + 1))
+    if sorted(got) != steps or any(got[i] != want[i] for i in steps):
+        errors.append(f"losses {got} != uninterrupted {want}")
+    if resume.get("digest") != ref["digest"]:
+        errors.append("final params and moments differ from the "
+                      "uninterrupted run's")
+    if resume.get("builds") != 0 or not first.get("builds"):
+        errors.append(f"builds: first {first.get('builds')}, resume "
+                      f"{resume.get('builds')} (want > 0, 0)")
+    if errors:
+        for role, (proc, _) in procs.items():
+            print(f"--- {role} stderr ---\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+        raise AssertionError("preemption: " + "; ".join(errors))
+    return row
+
+
+def train_slice_alone(gpt, hybrid, TrainLoop, fa):
+    """``--phases train_slice``: the phases of 15a on their own, each
+    one's seconds logged."""
+    from paddle_tpu_torch import io as tio
+    prefetch = tio.prefetch_to_device
+    seconds = {}
+
+    def timed(name, phase, *a):
+        t = time.perf_counter()
+        out = phase(*a)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+    plans = timed("remat_plans", remat_plans_phase, gpt, hybrid, TrainLoop,
+                  fa, prefetch)
+    timed("remat_fit", remat_fit_phase, gpt, hybrid, TrainLoop, fa,
+          prefetch, plans)
+    timed("prefetch", prefetch_phase, gpt, hybrid, fa, prefetch, tio, plans)
+    del plans
+    torch.cuda.empty_cache()
+    timed("train_checkpoint", train_checkpoint_phase, gpt, hybrid,
+          TrainLoop, prefetch)
+    timed("preemption", preemption_phase, gpt, hybrid)
+    _log({"phase": "train_slice_seconds", **seconds})
+
+
 ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "float32_training": float32_training_phase,
                "ring_kernel": ring_kernel_phase,
@@ -7189,7 +7906,8 @@ ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "serving_faults": serving_faults_alone,
                "tiered_serving": tiered_serving_alone,
                "handoff_serving": handoff_serving_alone,
-               "rms_kernel": rms_kernel_phase}
+               "rms_kernel": rms_kernel_phase,
+               "train_slice": train_slice_alone}
 _SERVING_SOURCES = ("flash_decode", "fused_decode", "row_gemm", "sampling")
 ONLY_SOURCES = {"compiled_serving": _SERVING_SOURCES,
                 "serving_faults": _SERVING_SOURCES,
@@ -7205,7 +7923,13 @@ def main(argv=None) -> int:
                     "build their sources (the training kernels' two, the "
                     "serving kernels' four) and run just these phases (no "
                     "kernels line, no device line)")
+    ap.add_argument("--preempt-child", choices=("first", "resume"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--preempt-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    # deterministic cuBLAS for the preemption phase's bit-for-bit resume:
+    # read when the first cuBLAS handle is made, so set before any work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7215,6 +7939,14 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.preempt_child:
+        # one process of the preemption phase: "first" leaves through
+        # PreemptionGuard (exit 143), "resume" writes its result
+        out = preempt_run(args.preempt_child, args.preempt_dir)
+        with open(os.path.join(args.preempt_dir,
+                               f"{args.preempt_child}.json"), "w") as f:
+            json.dump(out, f)
+        return 0
     global _LOG_FILE
     if args.out:
         _LOG_FILE = Path(args.out).with_suffix(".log.jsonl")
@@ -7300,7 +8032,8 @@ def main(argv=None) -> int:
                        SpeculativeConfig, programs, (fd, rg, fdl, sm)),
                    "tiered_serving": (gpt, engines, fd, rg, fdl),
                    "handoff_serving": (gpt, engines, fd, rg, fdl),
-                   "rms_kernel": (fnr,)}
+                   "rms_kernel": (fnr,),
+                   "train_slice": (gpt, hybrid, TrainLoop, fa)}
         for name in only:
             timed(name, ONLY_PHASES[name], *args_of[name])
         seconds["total_with_build"] = time.perf_counter() - t0
@@ -7400,6 +8133,20 @@ def main(argv=None) -> int:
     llama_sp = timed("llama_sp", llama_sp_phase, llama, fa, *train_state)
     del train_state
     torch.cuda.empty_cache()
+    from paddle_tpu_torch import io as tio
+    prefetch = tio.prefetch_to_device
+    plans = timed("remat_plans", remat_plans_phase, gpt, hybrid, TrainLoop,
+                  fa, prefetch)
+    remat_fit = timed("remat_fit", remat_fit_phase, gpt, hybrid, TrainLoop,
+                      fa, prefetch, plans)
+    prefetched = timed("prefetch", prefetch_phase, gpt, hybrid, fa, prefetch,
+                       tio, plans)
+    plan_rows = plans["rows"]
+    del plans
+    torch.cuda.empty_cache()
+    train_ckpt = timed("train_checkpoint", train_checkpoint_phase, gpt,
+                       hybrid, TrainLoop, prefetch)
+    preemption = timed("preemption", preemption_phase, gpt, hybrid)
     seconds["total_with_build"] = time.perf_counter() - t0
     _log({"phase": "phase_seconds", "card": card, "build_s": build_s,
           **seconds})
@@ -7626,6 +8373,10 @@ def main(argv=None) -> int:
             # the same kernels on the llama_7b training run (4 steps)
             e["llama_7b_train_launches"] = \
                 llama_train["launches_4_steps"][e["name"]]
+            # launches a gpt3_1p3b step (B 8, S 1024) under each remat plan
+            e["remat_plan_launches_per_step"] = {
+                name: r["flash_launches_per_step"][e["name"]]
+                for name, r in plan_rows.items()}
     # RMSNorm: the forward, the fused residual-add instance and the
     # backward of csrc/rms_norm.cu, one entry per instance and policy;
     # forward and fused instance timed at the prefill rows of llama_7b
@@ -7853,6 +8604,9 @@ def main(argv=None) -> int:
              "speculative_serving": {" ".join(k) if isinstance(k, tuple)
                                      else k: v for k, v in spec_runs.items()
                                      if k != "verify_rows"},
+             "remat_plans": plan_rows, "remat_fit": remat_fit,
+             "prefetch": prefetched, "train_checkpoint": train_ckpt,
+             "preemption": preemption,
              "speculative_verify_rows": {
                  " ".join(k): v
                  for k, v in spec_runs["verify_rows"].items()}},

@@ -1,3 +1,4 @@
 """Distributed training (port of ``paddle_tpu/distributed``): the
-one-device train step of ``hybrid`` and the differentiable collectives
-of ``collective`` that the sequence-parallel path runs."""
+one-device train step of ``hybrid``, the differentiable collectives of
+``collective`` that the sequence-parallel path runs, the training
+checkpoints of ``checkpoint`` and ``fleet.preemption``."""

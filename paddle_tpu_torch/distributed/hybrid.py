@@ -1,6 +1,8 @@
 """The train step (port of ``paddle_tpu/distributed/hybrid.py``:
 ``AdamWConfig``, ``adamw_init``, ``adamw_update``, the GPT and LLaMA
-stage models and ``build_train_step`` — on ONE device).
+stage models, ``build_train_step`` with every remat plan of
+``models/common.py`` and its in-process program cache (``_STEP_CACHE``,
+``clear_train_step_cache``) — on ONE device).
 
 The JAX builder compiles a shard_map program over a (dp, pp, mp) mesh.
 Here the mesh is one device and the gpipe schedule at pp = 1 is what
@@ -15,21 +17,26 @@ more than one device, the 1F1B schedule, sequence parallelism and ZeRO
 stages are not ported (ROADMAP Queue 1 item 10).
 
 JAX's step donates its params and optimizer state; here ``step``
-updates them IN PLACE and returns the same dicts.
+updates them IN PLACE and returns the same dicts.  A JAX step's params
+and AdamW state, passed through ``np.asarray``, enter the port through
+``models.common.params_from_numpy`` and :func:`opt_state_from_numpy`,
+so a JAX training checkpoint resumes here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
 from ..models import gpt as gpt_mod
 from ..models import llama as llama_mod
+from ..models.common import params_from_numpy
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "StageModel",
-           "gpt_stage_model", "llama_stage_model", "build_train_step"]
+           "gpt_stage_model", "llama_stage_model", "build_train_step",
+           "clear_train_step_cache", "opt_state_from_numpy"]
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +86,19 @@ def adamw_init(params, moment_dtype: torch.dtype = torch.float32):
     dev = _leaves(params)[0].device
     return {"m": _tree_map(zeros, params), "v": _tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int64, device=dev)}
+
+
+def opt_state_from_numpy(state, device=None):
+    """The JAX step's AdamW state (``{"m", "v", "step"}`` passed through
+    ``np.asarray``) -> the port's: the moments through
+    :func:`~..models.common.params_from_numpy` in their own dtype
+    (float32, or bfloat16 words), the step count a 0-d int64 tensor (JAX
+    keeps it in int32), all on ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+    return {"m": params_from_numpy(state["m"], dev),
+            "v": params_from_numpy(state["v"], dev),
+            "step": torch.tensor(int(state["step"]), dtype=torch.int64,
+                                 device=dev)}
 
 
 @torch.no_grad()
@@ -159,14 +179,49 @@ def llama_stage_model(cfg, remat=False) -> StageModel:
         head=lambda p, h, lbl: llama_mod._head_loss(p, h, lbl, cfg))
 
 
+# In-process cache of built train steps, keyed on everything the step's
+# closures depend on (model config, num_micro, AdamW config, remat plan,
+# moment dtype, device): a rebuild with an identical recipe returns the
+# same (step, shard_params, init_opt).  The port has no program to trace;
+# what the cache keeps is the built step, its identity and the kernel
+# libraries it has loaded.
+_STEP_CACHE: Dict[Any, Tuple] = {}
+
+
+def clear_train_step_cache() -> int:
+    """Drop every cached train step; returns how many were held."""
+    n = len(_STEP_CACHE)
+    _STEP_CACHE.clear()
+    return n
+
+
+def _train_step_cache_key(cfg, num_micro, adamw, remat, moment_dtype, dev):
+    """Hashable identity of a built train step, from resolved values
+    only; None when the build is not cacheable (a non-dataclass
+    config)."""
+    if not dataclasses.is_dataclass(cfg):
+        return None
+    try:
+        key = ((type(cfg).__name__, dataclasses.astuple(cfg)),
+               int(num_micro), dataclasses.astuple(adamw),
+               tuple(remat) if isinstance(remat, (list, tuple)) else remat,
+               str(moment_dtype), str(dev))
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
 def build_train_step(cfg, num_micro: int = 1,
                      adamw: Optional[AdamWConfig] = None,
                      remat=None, moment_dtype: torch.dtype = torch.float32,
-                     device=None, model: Optional[StageModel] = None):
+                     device=None, model: Optional[StageModel] = None,
+                     cache: bool = True):
     """The one-device train step; ``model`` (a :class:`StageModel`, e.g.
     ``llama_stage_model(cfg, remat)``) picks the family, a ``GPTConfig``
-    with ``gpt_stage_model(cfg, remat)`` by default.  ``remat`` (False or
-    True: full per-layer recompute; True when None) is read only for
+    with ``gpt_stage_model(cfg, remat)`` by default.  ``remat`` (any plan
+    of ``models.common.scan_layers_with_remat``; True when None) is read
+    only for
     that default: a given model carries its own, and passing both
     raises.
 
@@ -182,17 +237,37 @@ def build_train_step(cfg, num_micro: int = 1,
         returned; loss is a 0-d float32 tensor on the device (the mean
         over micro-batches), read without a host sync.
     ``step.loss_and_grads(params, ids, labels)`` -> ``(loss, grads)``
-    is the test surface: exactly what ``step`` feeds the optimizer."""
+    is the test surface: exactly what ``step`` feeds the optimizer.
+    ``step.data_device`` is the device the step expects its batches on
+    (what ``io.prefetch_to_device`` takes), ``step.cache_key`` its key in
+    the program cache.
+
+    With ``cache`` (the default) an equal recipe returns the same
+    ``(step, shard_params, init_opt)`` from the in-process cache; a given
+    ``model`` carries arbitrary closures and is never cached.  Every
+    build first points the kernel build cache at ``PT_COMPILE_CACHE_DIR``
+    when that is set (``jit.loop.maybe_enable_compile_cache``)."""
+    from ..jit.loop import maybe_enable_compile_cache
+    maybe_enable_compile_cache()
     dev = resolve_device(device)
     adamw = adamw or AdamWConfig()
-    if model is None:
-        model = gpt_stage_model(cfg, True if remat is None else remat)
-    elif remat is not None:
+    custom_model = model is not None
+    if model is not None and remat is not None:
         raise ValueError("build_train_step: pass remat to the stage model "
                          "(e.g. llama_stage_model(cfg, remat)), not beside "
                          "model=")
     if num_micro < 1:
         raise ValueError(f"num_micro must be >= 1, got {num_micro}")
+    remat = True if remat is None else remat
+    cache_key = None
+    if cache and not custom_model:
+        cache_key = _train_step_cache_key(cfg, num_micro, adamw, remat,
+                                          moment_dtype, dev)
+        cached = _STEP_CACHE.get(cache_key)
+        if cached is not None:
+            return cached
+    if model is None:
+        model = gpt_stage_model(cfg, remat)
 
     def loss_and_grads(params, ids, labels):
         B = ids.shape[0]
@@ -231,4 +306,9 @@ def build_train_step(cfg, num_micro: int = 1,
         return adamw_init(params, moment_dtype=moment_dtype)
 
     step.loss_and_grads = loss_and_grads
-    return step, shard_params, init_opt
+    step.data_device = dev
+    step.cache_key = cache_key
+    result = (step, shard_params, init_opt)
+    if cache_key is not None:
+        _STEP_CACHE[cache_key] = result
+    return result

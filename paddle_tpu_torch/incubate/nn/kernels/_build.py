@@ -8,6 +8,13 @@ changed source or header rebuilds and an unchanged one is loaded as it
 is.  Nothing is built at import: the first launch of a
 kernel builds it.  :func:`build` starts one ``nvcc`` per source, all at
 once, so a caller that needs several kernels pays for the slowest one.
+
+The library directory is :data:`BUILD_DIR`; :func:`set_build_dir` points
+it elsewhere (``jit.loop.maybe_enable_compile_cache``, the port's
+counterpart of JAX's persistent compilation cache): a second process
+given the same directory finds every library under its hash and runs no
+``nvcc``.  :data:`BUILD_STATS` counts the sources compiled in this
+process and the seconds their builds took.
 """
 from __future__ import annotations
 
@@ -17,10 +24,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["build", "load", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["build", "load", "set_build_dir", "BUILD_DIR", "BUILD_STATS",
+           "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
@@ -29,6 +38,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+#: sources compiled by this process, and the wall seconds of those builds
+BUILD_STATS = {"builds": 0, "seconds": 0.0}
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from ``path`` from now on (libraries already
+    loaded stay loaded); returns it."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -64,6 +84,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         return targets
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in missing:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -80,6 +101,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         else:
             os.unlink(tmp)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+    BUILD_STATS["builds"] += len(procs)
+    BUILD_STATS["seconds"] += time.perf_counter() - t0
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return targets

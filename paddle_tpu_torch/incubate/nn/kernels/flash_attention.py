@@ -4,8 +4,10 @@ and its custom VJP ``_flash_bh``; ``flash_attention_with_lse``, the ring
 variant with a run-time q offset, and its custom VJP ``_flash_bh_lse``).
 
 softmax(Q K^T * scale, causal or not) V on [B, S, nH, hD] with O(S)
-memory.  :func:`flash_attention` is a ``torch.autograd.Function``: the
-forward saves (q, k, v, out, lse); the backward computes
+memory.  :func:`flash_attention` and :func:`flash_attention_with_lse`
+call one ``torch.library`` custom op, :func:`flash_attention_op`
+(``torch.ops.paddle_tpu_torch.flash_attention_fwd``), with its autograd
+registered: the forward saves (q, k, v, out, lse); the backward computes
 delta = rowsum(dO * O) in plain torch (the JAX wrapper computes it in
 XLA outside the kernels) and launches the dK/dV kernel, then the dQ
 kernel, both recomputing P from the saved lse.  The TPU kernels
@@ -61,7 +63,7 @@ from __future__ import annotations
 import ctypes
 import math
 import numbers
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,8 +78,8 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv_tf32x3_plain",
            "flash_attention_bwd_dq_tf32x3_plain",
-           "default_use_flash", "launches", "reset_launches", "NEG_INF",
-           "ENTRIES", "LAUNCHES"]
+           "flash_attention_op", "default_use_flash", "launches",
+           "reset_launches", "NEG_INF", "ENTRIES", "LAUNCHES"]
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -114,7 +116,9 @@ def _scale(q, scale):
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
 
 
-def _check(*ts):
+def _check(*ts, fake: bool = False):
+    """Shapes and devices of q, k, v (and dO); True for CUDA operands.
+    ``fake`` (the op's fake implementation) skips the device type."""
     q, k, v = ts[:3]
     if any(t.dim() != 4 for t in ts):
         raise ValueError("flash_attention operands must be 4-D "
@@ -133,6 +137,8 @@ def _check(*ts):
         raise ValueError(f"flash_attention operands lie on different "
                          f"devices: {sorted(map(str, devs))}")
     dev = q.device
+    if fake:
+        return False
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"got {dev}")
@@ -430,33 +436,43 @@ def _backward(ctx, dout, g_lse=None):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.offset = causal, scale, 0
-        ctx.entry = "flash_attention"
-        return out
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: Optional[float], offset: int,
+                       entry: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable forward as one dispatcher op,
+    ``torch.ops.paddle_tpu_torch.flash_attention_fwd``: (out, lse) of
+    :func:`flash_attention_fwd` (CPU tensors: the plain version; CUDA
+    tensors: the kernel, counted under ``LAUNCHES[entry + "_fwd"]``, or
+    a raise).  Its backward is registered with it (the dK/dV and dQ
+    kernels).  The kernel launches through ``ctypes``, which no
+    dispatch mode sees; as an op, the forward itself is visible to one,
+    so a selective-checkpoint policy can save its outputs and the
+    backward of a rematerialized layer does not run it again (the JAX
+    package's ``checkpoint_name(attn, "attn_out")``)."""
+    return flash_attention_fwd(q, k, v, causal, scale, offset, entry)
 
-    @staticmethod
-    def backward(ctx, dout):
-        return (*_backward(ctx, dout), None, None)
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, scale, offset, entry):
+    _check(q, k, v, fake=True)
+    B, Sq, nH, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, nH, Sq), dtype=torch.float32))
 
 
-class _FlashAttentionLse(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, offset, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale, offset,
-                                       "flash_attention_with_lse")
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.offset = causal, scale, offset
-        ctx.entry = "flash_attention_with_lse"
-        return out, lse
+def _op_setup(ctx, inputs, output):
+    q, k, v, causal, scale, offset, entry = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale, ctx.offset, ctx.entry = causal, scale, offset, entry
 
-    @staticmethod
-    def backward(ctx, dout, g_lse):
-        return (*_backward(ctx, dout, g_lse), None, None, None)
+
+def _op_backward(ctx, dout, g_lse):
+    return (*_backward(ctx, dout, g_lse), None, None, None, None)
+
+
+flash_attention_op.register_autograd(_op_backward, setup_context=_op_setup)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -465,7 +481,8 @@ def flash_attention(q, k, v, causal: bool = True,
     shorter than q; causal masks key j from query i unless j <= i).
     Differentiable: both passes are kernels on the card and plain
     PyTorch on the CPU.  ``scale`` defaults to 1/sqrt(hD)."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention_op(q, k, v, causal, scale, 0,
+                              "flash_attention")[0]
 
 
 def flash_attention_with_lse(q, k, v, offset: int,
@@ -479,4 +496,5 @@ def flash_attention_with_lse(q, k, v, offset: int,
     :func:`flash_attention_with_lse_plain` and the plain backward, CUDA
     tensors the kernels (counted under ``flash_attention_with_lse_*``)
     or raise."""
-    return _FlashAttentionLse.apply(q, k, v, _offset(offset), causal, scale)
+    return flash_attention_op(q, k, v, causal, scale, _offset(offset),
+                              "flash_attention_with_lse")

@@ -11,12 +11,14 @@ family's serving entry points take them from here.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..incubate.nn.kernels.flash_attention import (default_use_flash,
@@ -25,7 +27,8 @@ from ..incubate.nn.kv_quant import (byte_view, cast_kv, kv_has_scales,
                                     kv_storage_dtype, kv_zeros, quantize_kv,
                                     resolve_kv_dtype)
 
-__all__ = ["layer_slices", "scan_layers_with_remat", "matmul_f32out",
+__all__ = ["layer_slices", "scan_layers_with_remat", "remat_policy",
+           "matmul_f32out",
            "params_from_numpy", "param_count"]
 
 
@@ -165,30 +168,127 @@ def layer_slices(layers: Dict[str, torch.Tensor]
         yield {name: ws[l] for name, ws in per.items()}
 
 
+def _aten_ops(*names):
+    """The aten overloads ``"op.overload"`` this PyTorch has (the
+    ``out_dtype`` overload ``mm.dtype`` is recent)."""
+    out = set()
+    for name in names:
+        op, overload = name.split(".")
+        packet = getattr(torch.ops.aten, op, None)
+        if packet is not None and hasattr(packet, overload):
+            out.add(getattr(packet, overload))
+    return frozenset(out)
+
+
+#: products with no batch dimension: ``x @ w`` of a layer (a 3-D by 2-D
+#: ``matmul`` dispatches ``view`` + ``mm``), ``F.linear``'s ``addmm`` and
+#: ``matmul_f32out``'s CUDA product ``mm.dtype``
+_NO_BATCH_DOTS = _aten_ops("mm.default", "mm.dtype", "addmm.default",
+                           "addmm.dtype")
+#: every product: the above and the batched ones (the plain attention's
+#: ``einsum`` dispatches ``bmm``)
+_DOTS = _NO_BATCH_DOTS | _aten_ops("bmm.default", "bmm.dtype",
+                                   "baddbmm.default", "baddbmm.dtype")
+
+
+def _flash_ops():
+    return frozenset({torch.ops.paddle_tpu_torch.flash_attention_fwd.default})
+
+
+def _saving(ops):
+    """A selective-checkpoint policy that saves the outputs of ``ops``
+    (a frozenset, or None for every op) and recomputes the rest."""
+    def policy(ctx, func, *args, **kwargs):
+        if ops is None or func in ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+#: the argument-free policies of ``jax.checkpoint_policies`` and what
+#: each saves; the products the layer bodies dispatch, logged once with a
+#: ``TorchDispatchMode`` over GPT's and LLaMA's layers (float32 and
+#: bfloat16, flash and plain attention): ``aten.mm.default`` for every
+#: ``x @ w``, ``aten.bmm.default`` for the plain attention's two
+#: ``einsum``s, and ``paddle_tpu_torch.flash_attention_fwd.default`` for
+#: the flash forward (no ``addmm``/``baddbmm``; ``mm.dtype`` only in the
+#: heads' ``matmul_f32out`` on CUDA, outside the layers)
+_POLICIES = {
+    "everything_saveable": lambda: None,
+    "nothing_saveable": lambda: frozenset(),
+    "dots_saveable": lambda: _DOTS,
+    "checkpoint_dots": lambda: _DOTS,
+    "dots_with_no_batch_dims_saveable": lambda: _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": lambda: _NO_BATCH_DOTS,
+    # dots_saveable + the flash forward's outputs (JAX: save_from_both_
+    # policies(dots_saveable, save_only_these_names("attn_out")))
+    "dots_saveable_attn": lambda: _DOTS | _flash_ops(),
+}
+
+
+def remat_policy(name: str):
+    """The selective-checkpoint policy of a named remat plan (a policy
+    function for ``create_selective_checkpoint_contexts``).  An unknown
+    name raises ``AttributeError``, as JAX's
+    ``getattr(jax.checkpoint_policies, name)`` does."""
+    if name not in _POLICIES:
+        raise AttributeError(
+            f"remat={name!r}: no such checkpoint policy (the plans are "
+            f"False, True, 'partial:K' and {sorted(_POLICIES)})")
+    return _saving(_POLICIES[name]())
+
+
+def _checkpointed(body, policy=None):
+    """``body`` run under ``torch.utils.checkpoint`` (non-reentrant);
+    with ``policy``, selectively: the ops it saves keep their outputs,
+    the rest re-run in the backward."""
+    kw = {} if policy is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+    return lambda h, lp: checkpoint(body, h, lp, use_reentrant=False, **kw)
+
+
 def scan_layers_with_remat(body: Callable, h: Any,
                            layers: Dict[str, torch.Tensor],
                            remat: Union[bool, str] = False) -> Any:
-    """``h = body(h, lp)`` over the stacked layers, with the remat plan
+    """``h = body(h, lp)`` over the stacked layers, with the remat plans
     of the JAX function; the carry h is a tensor, or a tuple of them
     (LLaMA's residual pair without remat, its add pending):
 
-      False — save everything;
-      True  — full per-layer recompute: each layer runs under
-              ``torch.utils.checkpoint`` (non-reentrant), which keeps
-              only the layer's input and re-runs the layer in the
-              backward (the kernels inside launch twice).
-
-    The JAX plans ``'partial:K'`` and the named checkpoint policies
-    (``dots_saveable_attn``, ...) are not ported and raise."""
+      False        — save everything;
+      True         — full per-layer recompute: each layer runs under
+                     ``torch.utils.checkpoint`` (non-reentrant), which
+                     keeps only the layer's input and re-runs the layer
+                     in the backward (the kernels inside launch twice);
+      '<policy>'   — selective: a named policy of :func:`remat_policy`
+                     (JAX's ``jax.checkpoint_policies`` names without
+                     arguments) through PyTorch's selective activation
+                     checkpointing; the saved ops' outputs are kept, the
+                     rest re-run in the backward;
+      'dots_saveable_attn' — ``dots_saveable`` and the flash forward's
+                     outputs (the flash op, ``flash_attention_op``): its
+                     kernel does not run again in the backward;
+      'partial:K'  — the first K layers under ``dots_saveable_attn``,
+                     the rest saving everything: recompute scales with
+                     K/L.  K >= L is the uniform policy; K <= 0 raises
+                     ``ValueError``."""
+    n_layers = next(iter(layers.values()))
+    n_layers = (n_layers[0] if isinstance(n_layers, tuple)
+                else n_layers).shape[0]
+    first = 0
+    if isinstance(remat, str) and remat.startswith("partial:"):
+        k = int(remat.split(":", 1)[1])
+        if k <= 0:
+            raise ValueError(f"remat={remat!r}: K must be >= 1")
+        remat = "dots_saveable_attn"
+        first = min(k, n_layers)
+    elif remat:
+        first = n_layers
     if isinstance(remat, str):
-        raise NotImplementedError(
-            f"remat={remat!r}: only False and True are ported (partial "
-            f"and policy remat plans: ROADMAP Queue 1 item 10)")
-    for lp in layer_slices(layers):
-        if remat:
-            h = checkpoint(body, h, lp, use_reentrant=False)
-        else:
-            h = body(h, lp)
+        wrapped = _checkpointed(body, remat_policy(remat))
+    else:
+        wrapped = _checkpointed(body) if remat else body
+    for l, lp in enumerate(layer_slices(layers)):
+        h = wrapped(h, lp) if l < first else body(h, lp)
     return h
 
 

@@ -46,7 +46,8 @@ Differences from the JAX functions, by design:
   bfloat16.
 * Training attention (``use_flash``) is the hand-written flash kernel
   pair on the card and its plain forward/backward on the CPU; remat is
-  ``torch.utils.checkpoint`` per layer (False and True only).
+  ``torch.utils.checkpoint`` per layer, selective under the named plans
+  and ``'partial:K'`` (``common.scan_layers_with_remat``).
 * The products of the decode block (:func:`_decode_layer_step`) and the
   head of the decode, verify and suffix paths run the ``row_gemm``
   kernel on the card, whose rows are the same bits at any batch, so a
@@ -286,8 +287,9 @@ def logits_from_hidden(params, h, cfg: GPTConfig, rows: bool = False):
 
 
 def forward_layers(h, layer_params, cfg: GPTConfig, remat=False):
-    """The stacked decoder layers over h [B, S, H]; ``remat`` False or
-    True (full per-layer recompute), see ``scan_layers_with_remat``."""
+    """The stacked decoder layers over h [B, S, H]; ``remat`` is any plan
+    of ``scan_layers_with_remat`` (False, True, a named policy,
+    ``'partial:K'``)."""
     return scan_layers_with_remat(lambda c, lp: _decoder_layer(c, lp, cfg),
                                   h, layer_params, remat)
 

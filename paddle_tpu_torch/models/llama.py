@@ -295,8 +295,9 @@ def forward_layers(h, layer_params, cfg: LlamaConfig, remat=False,
                    sp_group=None):
     """The stacked decoder layers over h [B, S, H] -> the residual pair
     (h, delta) of the last layer, its add pending (the final norm
-    fuses it); ``remat`` False or True (see ``scan_layers_with_remat``).
-    Without remat the pair is the carry.  Under remat each layer's
+    fuses it); ``remat`` is any plan of ``scan_layers_with_remat``
+    (False, True, a named policy, ``'partial:K'``).  Without remat the
+    pair is the carry.  Under remat each layer's
     checkpoint keeps its input, so the carry is the sum h + delta, one
     tensor a layer as the unfused stack keeps: each layer ends in that
     add, and its attention norm is the norm alone (delta None).  Under

@@ -1,2 +1,2 @@
-"""Test harnesses (port of ``paddle_tpu/testing``): the serving engines'
-device-fault injector."""
+"""Test harnesses (port of ``paddle_tpu/testing``): the fault injectors
+of the serving engines, the train step and the checkpoint IO layer."""

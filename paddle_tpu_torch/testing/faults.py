@@ -9,16 +9,18 @@ can make device calls fail N times then succeed (the retry policy), fail
 always (quarantine and the circuit breaker) or stall (the watchdog's
 step deadline), deterministically and by call kind; ``defer_ready``
 patches the engine's ``_install_ready`` poll, the slow host-to-device
-copy of the tiered cache's reinstall.
+copy of the tiered cache's reinstall.  :class:`TrainStepFaultInjector`
+(:func:`wrap_train_step`) does the same for a train step callable, the
+one ``TrainLoop`` drives.
 
 The handoff's bundle bytes go through
 ``distributed.checkpoint._io.CheckpointIO._write``: :func:`inject_io`
 installs a :class:`FaultyIO` that crashes at the Nth write syscall
 (:class:`FaultInjected`, a BaseException, so ``except Exception`` in the
 save path cannot absorb it: the disk is left as a kill at that syscall
-leaves it), truncates, fails transiently or stalls.  (``FlakyFS``, the
-train-step injector and the store fakes of the JAX module come with the
-modules they test.)
+leaves it), truncates, fails transiently or stalls; the training
+checkpoints go through the same layer.  (``FlakyFS`` and the store fakes
+of the JAX module come with the modules they test.)
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from typing import Dict, Optional, Type
 from ..distributed.checkpoint._io import CheckpointIO, set_io
 
 __all__ = ["FaultInjected", "FaultyIO", "inject_io", "EngineFaultInjector",
-           "inject_engine_faults"]
+           "inject_engine_faults", "TrainStepFaultInjector",
+           "wrap_train_step"]
 
 
 class FaultInjected(BaseException):
@@ -188,6 +191,42 @@ class EngineFaultInjector:
             raise self.fail_exc(
                 f"injected post-execution device fault "
                 f"({kind} call #{n})")
+
+
+class TrainStepFaultInjector:
+    """Schedules failures of a train step callable: :meth:`wrap` returns
+    a step whose scheduled calls raise ``OSError`` before the real step
+    runs (the loop's contract under test: the error names the right
+    step index and the loop drains).
+
+    * ``fail_at=N`` — the Nth call (1-based) raises, later calls pass;
+    * ``fail_times=K`` — the first K calls raise, then calls pass.
+
+    Counters ``calls`` and ``injected``."""
+
+    def __init__(self, fail_at: Optional[int] = None, fail_times: int = 0):
+        self.fail_at = fail_at
+        self.fail_times = int(fail_times)
+        self.calls = 0
+        self.injected = 0
+
+    def wrap(self, step_fn):
+        def faulty(*args, **kwargs):
+            self.calls += 1
+            n = self.calls
+            if n <= self.fail_times or n == self.fail_at:
+                self.injected += 1
+                raise OSError(
+                    f"injected train-step device fault (call #{n})")
+            return step_fn(*args, **kwargs)
+
+        return faulty
+
+
+def wrap_train_step(step_fn, **kwargs):
+    """Returns (faulty step_fn, its :class:`TrainStepFaultInjector`)."""
+    inj = TrainStepFaultInjector(**kwargs)
+    return inj.wrap(step_fn), inj
 
 
 @contextlib.contextmanager

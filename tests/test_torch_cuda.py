@@ -2519,3 +2519,170 @@ def test_handoff_restore_keeps_the_streams(tier, tmp_path, old_kind, kd,
         assert row["successors"][n]["spans_installed"] > 0
         assert row["successors"][n]["prefills"] < \
             row["successors"]["cold"]["prefills"]
+
+
+# ---------------------------------------------------------------------------
+# The rest of the one-device train step: remat plans, the prefetcher,
+# the training checkpoint
+# ---------------------------------------------------------------------------
+
+REMAT_WANT = {False: 1, True: 2, "dots_saveable": 2, "dots_saveable_attn": 1,
+              "partial:2": 1}
+
+
+@pytest.mark.parametrize("plan", list(REMAT_WANT))
+def test_remat_plan_flash_launches_on_card(cuda, plan):
+    """Selective checkpointing saves the flash op's outputs under
+    dots_saveable_attn and partial:K: L forward launches a step, 2L under
+    True and dots_saveable; the backward kernels L each under every
+    plan; the gradients equal remat=False's within 1e-2 of each leaf's
+    largest value (bfloat16; the embedding gradient's index-accumulate
+    is not deterministic on CUDA)."""
+    cfg = gpt.gpt_tiny(dtype=torch.bfloat16)
+    params = gpt.init_params(cfg, seed=5, device=cuda)
+    rng = np.random.default_rng(5)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 128)),
+                       device=cuda)
+    leaves = [t.requires_grad_(True) for t in hybrid._leaves(params)]
+
+    def grads(remat):
+        loss = gpt.loss_fn(params, ids, ids.roll(-1, 1), cfg, remat=remat)
+        return torch.autograd.grad(loss, leaves)
+
+    ref = grads(False)
+    fa.reset_launches()
+    got = grads(plan)
+    L = cfg.num_layers
+    assert fa.launches() == {
+        "flash_attention_fwd": REMAT_WANT[plan] * L,
+        "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L}, plan
+    for a, b in zip(got, ref):
+        _assert_rel(a, b, 1e-2)
+
+
+def test_flash_op_under_dots_saveable_attn_matches_plain(cuda):
+    """The flash custom op's CUDA kernel under dots_saveable_attn against
+    its plain version (the CPU run of the same loss and gradients):
+    float32 gpt_tiny, loss at rel 1e-4, each gradient within 1e-4 of
+    its largest value."""
+    cfg = gpt.gpt_tiny(use_flash=True)
+    params = gpt.init_params(cfg, seed=6, device="cpu")
+    rng = np.random.default_rng(6)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 128)))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = chip_smoke._to_device(params, dev)
+        leaves = [t.requires_grad_(True) for t in hybrid._leaves(p)]
+        fa.reset_launches()
+        loss = gpt.loss_fn(p, ids.to(dev), ids.roll(-1, 1).to(dev), cfg,
+                           remat="dots_saveable_attn")
+        out[str(dev)] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, leaves)], fa.launches()["flash_attention_fwd"])
+    assert out["cuda"][2] == cfg.num_layers and out["cpu"][2] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        _assert_rel(a, b, 1e-4)
+
+
+def test_prefetch_to_device_on_card(cuda, monkeypatch):
+    """The prefetcher's batches equal the source's; each leaf was copied
+    on the prefetcher's side stream (not the consumer's), and the
+    consumer's stream waited on the copy's event before the batch came
+    out."""
+    from paddle_tpu_torch import io as tio
+    streams, waited = [], []
+    put = tio.device_put_async
+
+    def recording_put(x, device, stream=None, counter=None):
+        streams.append(stream)
+        return put(x, device, stream, counter)
+
+    consume = tio._consume
+
+    def recording_consume(batch, event, device):
+        waited.append(event)
+        return consume(batch, event, device)
+    monkeypatch.setattr(tio, "device_put_async", recording_put)
+    monkeypatch.setattr(tio, "_consume", recording_consume)
+    rng = np.random.default_rng(7)
+    src = [(rng.integers(0, 50304, (8, 1024)),
+            torch.from_numpy(rng.standard_normal((8, 64)).astype(
+                np.float32)).bfloat16()) for _ in range(5)]
+    got = []
+    for ids, x in tio.prefetch_to_device(iter(src), device=cuda, depth=2):
+        assert ids.is_cuda and x.is_cuda
+        got.append((ids * 1, x * 1))      # work on the consumer's stream
+    cur = torch.cuda.current_stream(cuda)
+    assert len(streams) == 10 and all(s is not None and s != cur
+                                      for s in streams)
+    assert len(waited) == 5 and all(e is not None for e in waited)
+    for (a, b), (ga, gb) in zip(src, got):
+        assert torch.equal(ga.cpu(), torch.from_numpy(a))
+        assert torch.equal(gb.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_checkpoint_round_trip_on_card(cuda, tmp_path, dtype):
+    """CUDA params and float32 moments through save_checkpoint and
+    load_latest bit for bit; an AsyncCheckpointer save keeps the values
+    of save() time though the next kernels overwrite the tensors."""
+    from paddle_tpu_torch.distributed import checkpoint as dist_cp
+    g = torch.Generator(device=cuda).manual_seed(8)
+    state = {"params": {"w": torch.randn(256, 512, device=cuda, generator=g,
+                                         dtype=dtype)},
+             "opt": {"m": torch.randn(256, 512, device=cuda, generator=g),
+                     "step": torch.tensor(3, device=cuda)}}
+    want = {k: v.clone() for k, v in
+            dist_cp.flatten_state_dict(state)[0].items()}
+    dist_cp.save_checkpoint(state, str(tmp_path / "sync"), 3)
+    with dist_cp.AsyncCheckpointer(str(tmp_path / "async")) as ac:
+        ac.save(state, 3)
+        state["params"]["w"].mul_(2)      # the next step, in place
+        state["opt"]["m"].zero_()
+        ac.drain()
+    for root in ("sync", "async"):
+        fresh = {"params": {"w": torch.zeros(256, 512, device=cuda,
+                                             dtype=dtype)},
+                 "opt": {"m": torch.zeros(256, 512, device=cuda),
+                         "step": torch.tensor(0, device=cuda)}}
+        assert dist_cp.load_latest(fresh, str(tmp_path / root)) == 3
+        for k, v in dist_cp.flatten_state_dict(fresh)[0].items():
+            assert v.is_cuda and torch.equal(v, want[k]), (root, k)
+
+
+def test_async_checkpointer_reuses_its_pinned_buffers(cuda, tmp_path):
+    """Four saves with in-place steps between them, the second while the
+    first still commits (slow writes): the two take the two pinned
+    buffer sets, the later saves reuse them (no new pinned memory), and
+    each step loads bit for bit its own values."""
+    from paddle_tpu_torch.distributed import checkpoint as dist_cp
+    from paddle_tpu_torch.testing.faults import inject_io
+    g = torch.Generator(device=cuda).manual_seed(9)
+    state = {"params": {"w": torch.randn(128, 256, device=cuda, generator=g,
+                                         dtype=torch.bfloat16)},
+             "opt": {"m": torch.randn(128, 256, device=cuda, generator=g)}}
+    root = str(tmp_path / "ckpt")
+    want, ptrs = {}, []
+
+    def buffer_ptrs(ac):
+        return {t.data_ptr() for bufs in list(ac._free.queue)
+                for t in bufs.values()}
+    with inject_io(slow_write=0.05), dist_cp.AsyncCheckpointer(root) as ac:
+        for step in range(1, 5):
+            want[step] = {k: v.clone() for k, v in
+                          dist_cp.flatten_state_dict(state)[0].items()}
+            ac.save(state, step)
+            state["params"]["w"].add_(1)      # the next step, in place
+            state["opt"]["m"].mul_(0.5)
+            if step >= 2:
+                ac.drain()
+                ptrs.append(buffer_ptrs(ac))
+    assert len(ptrs[0]) == 4 and ptrs[0] == ptrs[1] == ptrs[2]
+    assert [s for s, name, *_ in ac.spans if name == "commit"] == [1, 2, 3, 4]
+    for step in range(1, 5):
+        fresh = {"params": {"w": torch.zeros(128, 256, device=cuda,
+                                             dtype=torch.bfloat16)},
+                 "opt": {"m": torch.zeros(128, 256, device=cuda)}}
+        dist_cp.load_state_dict(fresh, dist_cp.step_dir(root, step))
+        for k, v in dist_cp.flatten_state_dict(fresh)[0].items():
+            assert torch.equal(v, want[step][k]), (step, k)

@@ -64,13 +64,13 @@ def test_forward_matches_jax(models):
 
 
 def test_causal_attention_flash_is_not_silently_plain():
-    """use_flash=True goes through the flash_attention Function (its
-    plain versions on the CPU), not the plain composition."""
+    """use_flash=True goes through the flash_attention op (its plain
+    versions on the CPU), not the plain composition."""
     q = torch.randn(1, 4, 2, 16, requires_grad=True)
     out = tgpt._causal_attention(q, q, q, 16, use_flash=True)
-    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert "flash_attention_fwd" in type(out.grad_fn).__name__
     plain = tgpt._causal_attention(q, q, q, 16, use_flash=False)
-    assert type(plain.grad_fn).__name__ != "_FlashAttentionBackward"
+    assert "flash_attention_fwd" not in type(plain.grad_fn).__name__
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-6)
 
 

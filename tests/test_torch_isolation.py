@@ -7,7 +7,9 @@ the port, serves one request (again under injected device faults, then
 drained, and one through the fused b1 engine on int8 weights), serves a
 shared prefix through the prefix cache's host tier in bf16, hands the
 engine off mid-run (snapshot, restore) to a successor that finishes it,
-takes one train step and runs one llama_tiny ``generate`` on the CPU.  A source scan checks the import
+takes one train step, one ``partial:1`` step on a prefetched batch with a
+save / ``load_latest`` round trip, and runs one llama_tiny ``generate`` on
+the CPU.  A source scan checks the import
 statements of the package and of the chip scripts (``chip_smoke.py``,
 ``chip_fused_ab.py``, ``tools/llama_ab.py``, ``tools/serving_ab.py``).
 """
@@ -96,6 +98,25 @@ p = shard(gpt.init_params(tcfg, 0, device="cpu"))
 ids = torch.arange(64).reshape(2, 32) % tcfg.vocab_size
 loss, p, o = step(p, init_opt(p), ids, ids.roll(-1, 1))
 assert torch.isfinite(loss) and int(o["step"]) == 1, loss
+
+from paddle_tpu_torch.distributed import checkpoint as dist_cp
+from paddle_tpu_torch.io import prefetch_to_device
+pstep, pshard, pinit = hybrid.build_train_step(tcfg, remat="partial:1",
+                                               device="cpu")
+pp = pshard(gpt.init_params(tcfg, 0, device="cpu"))
+state = {"params": pp, "opt": pinit(pp)}
+(bids, blab), = prefetch_to_device(iter([(ids.numpy(), ids.roll(-1, 1))]),
+                                   device=pstep.data_device)
+loss, _, _ = pstep(state["params"], state["opt"], bids, blab)
+assert torch.isfinite(loss), loss
+ckpt = tempfile.mkdtemp()
+dist_cp.save_checkpoint(state, ckpt, 1)
+fresh = {"params": pshard(gpt.init_params(tcfg, 1, device="cpu"))}
+fresh["opt"] = pinit(fresh["params"])
+assert dist_cp.load_latest(fresh, ckpt) == 1
+flat = dist_cp.flatten_state_dict
+assert all(torch.equal(a, flat(fresh)[0][k])
+           for k, a in flat(state)[0].items())
 
 from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope
 from paddle_tpu_torch.models import llama

@@ -45,6 +45,16 @@ def _flat_tensors(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: llama_tiny's products are small, and more
+    threads only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=[2, None], ids=["gqa", "mha"])
 def tiny(request):
     jcfg = jl.llama_tiny(num_kv_heads=request.param)

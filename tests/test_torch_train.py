@@ -10,6 +10,10 @@ zero (AdamW's m / (sqrt(v) + eps) turns tiny gradient differences into
 steps of up to lr where a gradient is near zero, so there every param
 is held at 3 x lr).
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -22,8 +26,8 @@ from paddle_tpu.distributed.process_mesh import ProcessMesh
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu_torch.distributed import hybrid as thybrid
 from paddle_tpu_torch.jit import loop as tl
-from paddle_tpu_torch.jit.loop import DeferredScalar, TrainLoop, \
-    TrainStepError
+from paddle_tpu_torch.jit.loop import DeferredScalar, ElasticInterrupt, \
+    TrainLoop, TrainStepError
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.common import matmul_f32out
 
@@ -37,6 +41,16 @@ def _flat(tree, prefix=""):
     if torch.is_tensor(tree):
         return {prefix[:-1]: tree.detach().float().numpy()}
     return {prefix[:-1]: np.asarray(tree, np.float32)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: gpt_tiny's products are small, and more threads
+    only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -109,8 +123,8 @@ def test_forward_remat_matches_plain(tiny):
     a = tgpt.forward(tp, torch.from_numpy(ids), cfg, remat=False)
     b = tgpt.forward(tp, torch.from_numpy(ids), cfg, remat=True)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="partial"):
-        tgpt.forward(tp, torch.from_numpy(ids), cfg, remat="partial:2")
+    c = tgpt.forward(tp, torch.from_numpy(ids), cfg, remat="partial:2")
+    torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
@@ -297,3 +311,205 @@ def test_loop_step_error_names_the_step_and_drains():
         assert [float(o) for o in outs] == [0.0, 2.0]
         assert float(loop.step(torch.tensor(5.0))) == 10.0
     assert loop.inflight == 0
+
+
+# ---------------------------------------------------------------------------
+# The rest of TrainLoop (after tests/test_train_loop.py)
+# ---------------------------------------------------------------------------
+
+def test_sync_mode_materializes_immediately():
+    with tl.synchronous():
+        d = DeferredScalar(torch.tensor(3.0))
+        assert d.materialized
+    d2 = DeferredScalar(torch.tensor(3.0))
+    assert not d2.materialized
+
+
+def test_sync_hook_fires():
+    fired = []
+
+    def hook():
+        fired.append(1)
+
+    tl.add_host_sync_hook(hook)
+    try:
+        float(DeferredScalar(torch.tensor(1.0)))
+    finally:
+        tl.remove_host_sync_hook(hook)
+    float(DeferredScalar(torch.tensor(1.0)))
+    assert fired == [1]
+
+
+def test_fail_times_schedule():
+    from paddle_tpu_torch.testing.faults import TrainStepFaultInjector
+    inj = TrainStepFaultInjector(fail_times=2)
+    wrapped = inj.wrap(lambda x: x)
+    for _ in range(2):
+        with pytest.raises(OSError):
+            wrapped(1)
+    assert wrapped(7) == 7
+    assert inj.calls == 3 and inj.injected == 2
+
+
+def test_wrapped_step_fault_names_the_step():
+    from paddle_tpu_torch.testing.faults import wrap_train_step
+    faulty, inj = wrap_train_step(lambda x: x * 2.0, fail_at=3)
+    loop = TrainLoop(faulty, max_inflight=2)
+    outs = [loop.step(torch.tensor(float(i))) for i in range(2)]
+    with pytest.raises(TrainStepError) as ei:
+        loop.step(torch.tensor(2.0))
+    assert ei.value.step_index == 2 and inj.injected == 1
+    assert loop.inflight == 0 and loop.stats()["inflight"] == 0
+    assert [float(o) for o in outs] == [0.0, 2.0]
+
+
+def test_interrupt_check_drains_at_a_step_boundary():
+    """JAX's ElasticInterrupt: the check is polled once per admitted
+    step; when it fires the loop drains and reports the completed steps
+    (the exact checkpoint step)."""
+    polls = []
+
+    def check():
+        polls.append(1)
+        return "preempted" if len(polls) == 4 else None
+
+    loop = TrainLoop(lambda x: x + 1.0, max_inflight=2,
+                     interrupt_check=check)
+    for i in range(3):
+        loop.step(torch.tensor(float(i)))
+    with pytest.raises(ElasticInterrupt) as ei:
+        loop.step(torch.tensor(3.0))
+    assert ei.value.completed_steps == 4 and ei.value.reason == "preempted"
+    assert loop.inflight == 0 and len(polls) == 4
+
+
+def test_stats_report_the_stall_histogram_and_gauge():
+    loop = TrainLoop(max_inflight=2)
+    for i in range(5):
+        loop.admit(torch.tensor(float(i)))
+        assert loop.stats()["inflight"] == loop.inflight <= 2
+    loop.drain()
+    st = loop.stats()
+    assert st["inflight"] == 0 and st["steps"] == 5
+    # CPU losses are complete when admitted: no wait is observed
+    assert st["stall_histogram"]["count"] == 0
+    h = tl.Histogram()
+    for x in (0.002, 0.2, 3.0):
+        h.observe(x)
+    s = h.summary()
+    assert s["count"] == 3 and s["max"] == 3.0
+    assert s["buckets"][0.005] == 1 and s["buckets"][5.0] == 3
+
+
+# ---------------------------------------------------------------------------
+# The train-step program cache (after TestTrainStepProgramCache)
+# ---------------------------------------------------------------------------
+
+def _cached_build(**over):
+    cfg = tgpt.GPTConfig(vocab_size=128, hidden_size=32, num_heads=2,
+                         num_layers=2, max_position_embeddings=32)
+    kw = dict(num_micro=1, remat=False, device="cpu")
+    kw.update(over)
+    return thybrid.build_train_step(cfg, **kw)
+
+
+def test_identical_recipe_hits():
+    thybrid.clear_train_step_cache()
+    s1 = _cached_build()
+    s2 = _cached_build()       # a fresh, equal config
+    assert s1[0] is s2[0] and s1[2] is s2[2]
+    assert s1[0].cache_key is not None
+    assert s1[0].data_device == torch.device("cpu")
+    assert thybrid.clear_train_step_cache() == 1
+
+
+def test_different_recipe_misses():
+    thybrid.clear_train_step_cache()
+    steps = [_cached_build(), _cached_build(remat=True),
+             _cached_build(remat="partial:1"), _cached_build(num_micro=2),
+             _cached_build(moment_dtype=torch.bfloat16)]
+    assert len({id(s[0]) for s in steps}) == 5
+    assert thybrid.clear_train_step_cache() == 5
+
+
+def test_cache_opt_out():
+    thybrid.clear_train_step_cache()
+    s1 = _cached_build(cache=False)
+    s2 = _cached_build(cache=False)
+    assert s1[0] is not s2[0] and s1[0].cache_key is None
+    assert thybrid.clear_train_step_cache() == 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel build cache across processes (TestPersistentCompileCache)
+# ---------------------------------------------------------------------------
+
+def _stand_in_library():
+    """A real shared library for ctypes to load on a machine without
+    nvcc: the C math library."""
+    import ctypes.util
+    name = ctypes.util.find_library("m")
+    for d in ("/lib/x86_64-linux-gnu", "/usr/lib/x86_64-linux-gnu", "/lib64",
+              "/usr/lib64", "/lib", "/usr/lib"):
+        if name and os.path.exists(os.path.join(d, name)):
+            return os.path.join(d, name)
+    pytest.skip("no libm to stand in for a kernel library")
+
+
+def test_compile_cache_loads_without_the_compiler(tmp_path, monkeypatch):
+    """PT_COMPILE_CACHE_DIR points the kernel build cache at a directory;
+    a library staged there under its hash key loads without nvcc."""
+    from paddle_tpu_torch.incubate.nn.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(tl, "_compile_cache_dir", None)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setenv("PT_COMPILE_CACHE_DIR", str(tmp_path / "cache"))
+
+    def no_compiler():
+        raise AssertionError("nvcc was called")
+    monkeypatch.setattr(_build, "_nvcc", no_compiler)
+    assert tl.maybe_enable_compile_cache() == str(tmp_path / "cache")
+    assert _build.BUILD_DIR == tmp_path / "cache"
+    lib = _build._target("flash_attention")
+    assert lib.parent == tmp_path / "cache"
+    lib.parent.mkdir(parents=True)
+    lib.write_bytes(open(_stand_in_library(), "rb").read())
+    builds = dict(_build.BUILD_STATS)
+    assert _build.load("flash_attention") is not None
+    assert _build.BUILD_STATS == builds
+    # idempotent, and build_train_step enables it before every build
+    assert tl.maybe_enable_compile_cache() == str(tmp_path / "cache")
+    _cached_build(cache=False)
+    assert _build.BUILD_DIR == tmp_path / "cache"
+
+
+_CACHE_CHILD = r"""
+import os, sys
+from paddle_tpu_torch.incubate.nn.kernels import _build
+from paddle_tpu_torch.jit.loop import maybe_enable_compile_cache
+d = maybe_enable_compile_cache()
+assert d == os.environ["PT_COMPILE_CACHE_DIR"], d
+def no_compiler():
+    raise AssertionError("nvcc was called")
+_build._nvcc = no_compiler
+_build.load("flash_attention")
+print("BUILDS", _build.BUILD_STATS["builds"], _build._target(
+    "flash_attention").parent)
+"""
+
+
+def test_compile_cache_round_trips_through_env_dir(tmp_path):
+    """A second process given the same PT_COMPILE_CACHE_DIR loads the
+    library the first left there and compiles nothing."""
+    from paddle_tpu_torch.incubate.nn.kernels import _build
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    name = _build._target("flash_attention").name
+    (cache / name).write_bytes(open(_stand_in_library(), "rb").read())
+    env = dict(os.environ, PT_COMPILE_CACHE_DIR=str(cache),
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))))
+    r = subprocess.run([sys.executable, "-c", _CACHE_CHILD],
+                       capture_output=True, text=True, env=env, timeout=240)
+    assert r.returncode == 0, r.stderr
+    assert f"BUILDS 0 {cache}" in r.stdout
