@@ -459,6 +459,39 @@ Phases; any failure is an uncaught exception and a non-zero exit:
      (``resume_step`` / ``load_latest``) and trains to step 10.  Its
      losses and final params equal the uninterrupted run's bit for bit,
      and it runs no nvcc (both processes' build counts and seconds).
+15b. BERT and CTC (``--phases bert_kernel,bert_training,bert_float32,ctc``):
+   * bert kernels (``bert_kernel_phase``): the three flash kernels at
+     bert_large's attention, non-causal at head dim 64, bf16 [16, 512,
+     16x64] (the bench shape) and float32 [4, 512, 16x64], each held to
+     its plain version at the limits above, timed against its bound and
+     SDPA non-causal (forward, and its autograd backward); the hD-64
+     instances' registers, spills and shared memory; the MLM head's
+     float32-output product of the bias fold, [8192, 1025] x [1025,
+     30522] bf16, with 1025 features and zero-padded to 1032, both
+     timed, the head loss forward + backward at each;
+   * bert training (``bert_training_phase``): bert_large in bf16 (24
+     layers, H 1024, 16 x 64, V 30522, seed 0), MLM + NSP, AdamW,
+     through ``build_train_step(model=bert_stage_model)`` with dict
+     labels, ``TrainLoop`` and ``prefetch_to_device``, B 16, S 512 (one
+     seeded batch, MLM labels on ~15 % of the positions): 1 warm + 4
+     timed steps (the loss must fall; each flash kernel 24 times a
+     step), step ms, tokens/s, peak memory, a profiled step split into
+     flash, GEMMs outside the head, the MLM head (its forward + backward
+     alone), AdamW (alone, CUDA events) and other, with the idle share;
+     one step each under remat True (48 forward launches) and
+     dots_saveable_attn (24), first loss at LOSS_TOL of remat False's;
+     4 layers, ``use_flash=None`` against ``use_flash=False`` (no flash
+     launch), 1 warm + 3 steps from one init, losses within
+     BERT_PLAIN_TOL;
+   * bert float32 (``bert_float32_phase``): bert_large at its default
+     float32 (the TF32x3 flash kernels), 4 layers, B 4, S 512, 1 warm + 4
+     steps against the same run through the plain composition, each
+     loss within BERT_F32_LOSS_REL, step ms and a profiled step;
+   * ctc (``ctc_phase``): ``nn.functional.ctc_loss`` at bench_ctc's card
+     shape (T 500, B 32, L 100, C 80): loss and gradient against the CPU
+     run of the same code (CTC_LOSS_REL, CTC_GRAD_REL), forward +
+     backward seconds and sequences a second, a profiled call's idle
+     share.
 16. the seconds of each phase, the kernels line (flash_decode in each
    layout and storage mode that the serving runs launch, row_gemm, the
    training kernels, fused_decode in each storage mode, rms_norm's
@@ -468,7 +501,9 @@ Phases; any failure is an uncaught exception and a non-zero exit:
    instances of the flash and CE kernels beside their bf16 rows
    (launches from phase 6a, both bounds, the witness), and
    the speculative runs' launches and verify times beside rows 1, 2
-   and 9; the sampler, launches from the sampled contiguous run)
+   and 9; the sampler, launches from the sampled contiguous run; beside
+   the flash rows, bert_large's launches a step and times at its
+   non-causal hD-64 shapes, bf16 and float32)
    and, last, the device line.
 
 TF32 is off for every matmul (``allow_tf32 = False``), so float32
@@ -1689,6 +1724,115 @@ def _ffma_shares(times, bounds):
             for k in ("fwd", "dkv", "dq") if f"{k}_ms" in times}
 
 
+def flash_kernel_case(fa, gen, flush, name, B, S, nH, hD, dt, causal):
+    """One shape of the three flash kernels (q, k, v strided slices of a
+    packed qkv): each held per element to its plain version (bf16: one
+    rounding step; float32: F32_REL of the max, and to its TF32x3
+    emulation), then timed beside the plain version and SDPA (forward,
+    and its autograd backward for dq, dk and dv together), with each
+    kernel's bound from the bytes and operations the shape needs.  The
+    logged row."""
+    dts = str(dt).split(".")[-1]
+    qkv = torch.randn((B, S, 3, nH * hD), generator=gen,
+                      device="cuda").to(dt)
+    q, k, v = (qkv[:, :, i].view(B, S, nH, hD) for i in range(3))
+    dout = torch.randn((B, S, nH, hD), generator=gen,
+                       device="cuda").to(dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                        causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
+    torch.cuda.synchronize()
+    w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0,
+                                                     causal=causal)
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse,
+                                                  delta, causal)
+    w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
+                                           causal)
+    errs = {"out": _err(out, w_out), "dk": _err(dk, w_dk),
+            "dv": _err(dv, w_dv), "dq": _err(dq, w_dq)}
+    lse_err = (lse - w_lse).abs().max().item()
+    # float32: the three kernels against their own arithmetic too
+    emu = None if dt != torch.float32 else {
+        **tf32x3_forward_share(fa, q, k, v, out, lse, causal, 0),
+        **tf32x3_backward_share(fa, q, k, v, dout, lse, delta,
+                                (dk, dv, dq), causal, 0)}
+    _log({"phase": "kernel_training_check", "name": name,
+          "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
+          "lse_max_abs_err": lse_err, "tf32x3_emulation": emu})
+    for key, (err, _, _, share) in errs.items():
+        if not share <= 1:
+            raise AssertionError(f"flash_attention {name} {key}: max abs "
+                                 f"err {err}, {share} of its limit")
+    if not lse_err <= 1e-3 or (emu and not max(emu.values()) <= 1):
+        raise AssertionError(f"flash_attention {name} lse: {lse_err}, "
+                             f"against the tf32x3 emulation {emu}")
+    del w_out, w_lse, w_dk, w_dv, w_dq
+    # the yardstick: SDPA forward and its autograd backward
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves), is_causal=causal)
+    lib_err = (lib_out.detach().transpose(1, 2).float()
+               - out.float()).abs().max().item()
+    times = {
+        "fwd_ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                          causal),
+                           reps=10, flush=flush),
+        "fwd_plain_ms": _time_ms(
+            lambda: fa.flash_attention_with_lse_plain(
+                q, k, v, 0, causal=causal), reps=3, flush=flush),
+        "fwd_library_ms": _time_ms(
+            lambda: F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in (q, k, v)),
+                is_causal=causal), reps=10, flush=flush),
+        "dkv_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, dout, lse, delta, causal), reps=10, flush=flush),
+        "dkv_plain_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+            q, k, v, dout, lse, delta, causal), reps=3, flush=flush),
+        "dq_ms": _time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, dout, lse, delta, causal), reps=10, flush=flush),
+        "dq_plain_ms": _time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+            q, k, v, dout, lse, delta, causal), reps=3, flush=flush),
+        "bwd_library_ms": _time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout.transpose(1, 2), retain_graph=True),
+            reps=10, flush=flush),
+    }
+    del lib_out, leaves
+    # visible (query, key) pairs per (batch, head); elem bytes
+    pairs = S * (S + 1) // 2 if causal else S * S
+    n_el, e, stats = B * S * nH * hD, q.element_size(), B * nH * S * 4
+    bounds = {
+        "fwd": _bound(4 * n_el * e + stats, 4 * hD * pairs * B * nH, dts),
+        "dkv": _bound(6 * n_el * e + 2 * stats, 8 * hD * pairs * B * nH,
+                      dts),
+        "dq": _bound(5 * n_el * e + 2 * stats, 6 * hD * pairs * B * nH,
+                     dts),
+        # the whole backward at FlashAttention-2's count (2.5x fwd)
+        "bwd_pair": _bound(7 * n_el * e + 2 * stats,
+                           10 * hD * pairs * B * nH, dts),
+    }
+    if dt == torch.float32:
+        _split_bounds(bounds)
+    row = {"phase": "kernel_training", "name": name,
+           "shape": f"B={B} S={S} nH={nH} hD={hD} {dts} "
+                    f"causal={causal} packed qkv",
+           **times, **_rates(times, bounds),
+           "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
+           "max_ref": {k2: v2[1] for k2, v2 in errs.items()},
+           "share_differing": {k2: v2[2] for k2, v2 in errs.items()},
+           "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
+           "lse_max_abs_err": lse_err, "tf32x3_emulation": emu,
+           "library_fwd_max_abs_err": lib_err,
+           "bounds": bounds}
+    if dt == torch.float32:
+        row["bound_share_ffma"] = _ffma_shares(times, bounds)
+    _log(row)
+    del qkv, q, k, v, dout, out, lse, delta, dk, dv, dq
+    return row
+
+
 def train_kernel_phase(fa, fce, matmul_f32out):
     """The training kernels against their plain versions on the card,
     with times, bounds and the library yardsticks."""
@@ -1705,105 +1849,8 @@ def train_kernel_phase(fa, fce, matmul_f32out):
     ]
     results = {}
     for name, B, S, nH, hD, dt, causal in cases:
-        dts = str(dt).split(".")[-1]
-        qkv = torch.randn((B, S, 3, nH * hD), generator=gen,
-                          device="cuda").to(dt)
-        q, k, v = (qkv[:, :, i].view(B, S, nH, hD) for i in range(3))
-        dout = torch.randn((B, S, nH, hD), generator=gen,
-                           device="cuda").to(dt)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal)
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-            .contiguous()
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                            causal)
-        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
-        torch.cuda.synchronize()
-        w_out, w_lse = fa.flash_attention_with_lse_plain(q, k, v, 0,
-                                                         causal=causal)
-        w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, dout, lse,
-                                                      delta, causal)
-        w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
-                                               causal)
-        errs = {"out": _err(out, w_out), "dk": _err(dk, w_dk),
-                "dv": _err(dv, w_dv), "dq": _err(dq, w_dq)}
-        lse_err = (lse - w_lse).abs().max().item()
-        # float32: the three kernels against their own arithmetic too
-        emu = None if dt != torch.float32 else {
-            **tf32x3_forward_share(fa, q, k, v, out, lse, causal, 0),
-            **tf32x3_backward_share(fa, q, k, v, dout, lse, delta,
-                                    (dk, dv, dq), causal, 0)}
-        _log({"phase": "kernel_training_check", "name": name,
-              "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
-              "lse_max_abs_err": lse_err, "tf32x3_emulation": emu})
-        for key, (err, _, _, share) in errs.items():
-            if not share <= 1:
-                raise AssertionError(f"flash_attention {name} {key}: max abs "
-                                     f"err {err}, {share} of its limit")
-        if not lse_err <= 1e-3 or (emu and not max(emu.values()) <= 1):
-            raise AssertionError(f"flash_attention {name} lse: {lse_err}, "
-                                 f"against the tf32x3 emulation {emu}")
-        del w_out, w_lse, w_dk, w_dv, w_dq
-        # the yardstick: SDPA forward and its autograd backward
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(
-            *(t.transpose(1, 2) for t in leaves), is_causal=causal)
-        lib_err = (lib_out.detach().transpose(1, 2).float()
-                   - out.float()).abs().max().item()
-        times = {
-            "fwd_ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v,
-                                                              causal),
-                               reps=10, flush=flush),
-            "fwd_plain_ms": _time_ms(
-                lambda: fa.flash_attention_with_lse_plain(
-                    q, k, v, 0, causal=causal), reps=3, flush=flush),
-            "fwd_library_ms": _time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    *(t.transpose(1, 2) for t in (q, k, v)),
-                    is_causal=causal), reps=10, flush=flush),
-            "dkv_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, dout, lse, delta, causal), reps=10, flush=flush),
-            "dkv_plain_ms": _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
-                q, k, v, dout, lse, delta, causal), reps=3, flush=flush),
-            "dq_ms": _time_ms(lambda: fa.flash_attention_bwd_dq(
-                q, k, v, dout, lse, delta, causal), reps=10, flush=flush),
-            "dq_plain_ms": _time_ms(lambda: fa.flash_attention_bwd_dq_plain(
-                q, k, v, dout, lse, delta, causal), reps=3, flush=flush),
-            "bwd_library_ms": _time_ms(lambda: torch.autograd.grad(
-                lib_out, leaves, dout.transpose(1, 2), retain_graph=True),
-                reps=10, flush=flush),
-        }
-        del lib_out, leaves
-        # visible (query, key) pairs per (batch, head); elem bytes
-        pairs = S * (S + 1) // 2 if causal else S * S
-        n_el, e, stats = B * S * nH * hD, q.element_size(), B * nH * S * 4
-        bounds = {
-            "fwd": _bound(4 * n_el * e + stats, 4 * hD * pairs * B * nH, dts),
-            "dkv": _bound(6 * n_el * e + 2 * stats, 8 * hD * pairs * B * nH,
-                          dts),
-            "dq": _bound(5 * n_el * e + 2 * stats, 6 * hD * pairs * B * nH,
-                         dts),
-            # the whole backward at FlashAttention-2's count (2.5x fwd)
-            "bwd_pair": _bound(7 * n_el * e + 2 * stats,
-                               10 * hD * pairs * B * nH, dts),
-        }
-        if dt == torch.float32:
-            _split_bounds(bounds)
-        row = {"phase": "kernel_training", "name": name,
-               "shape": f"B={B} S={S} nH={nH} hD={hD} {dts} "
-                        f"causal={causal} packed qkv",
-               **times, **_rates(times, bounds),
-               "max_abs_err": {k2: v2[0] for k2, v2 in errs.items()},
-               "max_ref": {k2: v2[1] for k2, v2 in errs.items()},
-               "share_differing": {k2: v2[2] for k2, v2 in errs.items()},
-               "limit_share": {k2: v2[3] for k2, v2 in errs.items()},
-               "lse_max_abs_err": lse_err, "tf32x3_emulation": emu,
-               "library_fwd_max_abs_err": lib_err,
-               "bounds": bounds}
-        if dt == torch.float32:
-            row["bound_share_ffma"] = _ffma_shares(times, bounds)
-        _log(row)
-        results[name] = row
-        del qkv, q, k, v, dout, out, lse, delta, dk, dv, dq
+        results[name] = flash_kernel_case(fa, gen, flush, name, B, S, nH, hD,
+                                          dt, causal)
     torch.cuda.empty_cache()
 
     # fused_ce_fwd at the eval shape
@@ -7899,6 +7946,431 @@ def train_slice_alone(gpt, hybrid, TrainLoop, fa):
     _log({"phase": "train_slice_seconds", **seconds})
 
 
+BERT_B, BERT_S = 16, 512        # bench_models.bench_bert's card shape
+BERT_MLM_SHARE = 0.15           # positions a sequence with an MLM label
+BERT_STEPS = 4                  # timed steps, after one warm step
+BERT_PLAIN_LAYERS = 4           # the flash-vs-plain run's depth
+BERT_PLAIN_STEPS = 3
+BERT_PLAIN_TOL = 1e-2           # |loss_flash - loss_plain| a step, bf16
+BERT_F32_LAYERS, BERT_F32_B = 4, 4
+BERT_F32_LOSS_REL = 1e-4        # float32 flash vs plain, each step's loss
+BERT_KERNEL_CASES = (
+    # name, B, S, nH, hD, dtype: bert_large's attention, non-causal
+    ("bert_bf16", BERT_B, BERT_S, 16, 64, torch.bfloat16),
+    ("bert_f32", BERT_F32_B, BERT_S, 16, 64, torch.float32))
+BERT_FAMILIES = (("flash_fwd", ("flash_attention_fwd",)),
+                 ("flash_bwd", ("flash_attention_bwd",)))
+CTC_SHAPE = dict(T=500, B=32, L=100, C=80)   # bench_models.bench_ctc's
+CTC_LOSS_REL = 1e-5             # card vs CPU, the loss
+# card vs CPU, each gradient element, of max |grad|: the float32
+# recursion's gradients sit 1.5e-4 of the max from float64's on the CPU
+# at this shape, and each side carries such an error
+CTC_GRAD_REL = 2e-3
+CTC_REPS = 5
+
+
+def bert_batches(cfg, seed, n, B, S):
+    """The BERT loader: ``n`` fresh host copies of one batch made from
+    ``seed`` — (ids [B, S], {"mlm": [B, S] labels, -100 but on ~15 % of
+    the positions, "nsp": [B]}) int64 numpy arrays — so that the loss of
+    a short run falls."""
+    for _ in range(n):
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(0, cfg.vocab_size, (B, S))
+        mlm = rng.integers(0, cfg.vocab_size, (B, S))
+        mlm[rng.random((B, S)) >= BERT_MLM_SHARE] = -100
+        yield ids, {"mlm": mlm, "nsp": rng.integers(0, 2, (B,))}
+
+
+def mlm_head_check(bert, cfg, gen, flush):
+    """The MLM head's float32-output product of the bias fold at
+    bert_large's [B S, H + 1] x [H + 1, V], bf16, with the feature axis
+    as it is (1025: rows of 2050 bytes) and zero-padded to a multiple of
+    8 (1032): both products' times and their logits' difference, then
+    the head loss forward + backward (``mlm_masked_loss``'s steps, the
+    fold at each width) at each."""
+    from paddle_tpu_torch.incubate.nn.functional.chunked_ce import (
+        chunked_vocab_nll, pick_num_chunks)
+    from paddle_tpu_torch.models.common import matmul_f32out
+    N, H, V = BERT_B * BERT_S, cfg.hidden_size, cfg.vocab_size
+    params = {"wte": (torch.randn((V, H), generator=gen, device="cuda")
+                      * 0.02).to(torch.bfloat16).requires_grad_(True),
+              "mlm_bias": torch.zeros((V,), dtype=torch.bfloat16,
+                                      device="cuda", requires_grad=True)}
+    for name in ("mlm_w", "mlm_b", "mlm_ln_g", "mlm_ln_b"):
+        shape = (H, H) if name == "mlm_w" else (H,)
+        w = (torch.randn(shape, generator=gen, device="cuda") * 0.02
+             if name == "mlm_w" else torch.zeros(shape, device="cuda")
+             + (name == "mlm_ln_g"))
+        params[name] = w.to(torch.bfloat16).requires_grad_(True)
+    h = torch.randn((BERT_B, BERT_S, H), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    rng = np.random.default_rng(5)
+    lbl = rng.integers(0, V, (BERT_B, BERT_S))
+    lbl[rng.random((BERT_B, BERT_S)) >= BERT_MLM_SHARE] = -100
+    lbl = torch.tensor(lbl, device="cuda")
+    x = torch.randn((N, H), generator=gen, device="cuda").to(torch.bfloat16)
+    mask = (lbl != -100).reshape(N)
+    safe = torch.where(mask, lbl.reshape(N), 0)
+    leaves = [params["wte"], params["mlm_bias"], h]
+    row, logits, align = {}, {}, bert.MLM_FEATURE_ALIGN
+    for a in (1, 8):
+        xf, W = bert._bias_folded(x, {k: v.detach()
+                                      for k, v in params.items()}, a)
+        Wt = W.t()
+        logits[a] = matmul_f32out(xf, Wt)
+
+        def head():
+            xh = bert._mlm_transform(params, h, cfg).reshape(N, H)
+            nll = chunked_vocab_nll(*bert._bias_folded(xh, params, a), safe,
+                                    0, pick_num_chunks(N, V))
+            loss = (nll * mask).sum() / mask.sum()
+            return torch.autograd.grad(loss, leaves)
+        row[f"features_{xf.shape[1]}"] = {
+            "product_ms": _time_ms(lambda: matmul_f32out(xf, Wt),
+                                   reps=10, flush=flush),
+            "head_fwd_bwd_ms": _time_ms(head, reps=5, flush=flush)}
+    torch.cuda.synchronize()
+    diff = (logits[1] - logits[8]).abs().max().item()
+    row.update({
+        "shape": f"[{N}, {H + 1}] x [{H + 1}, {V}] bf16 -> float32",
+        "align_used": align, "logits_max_abs_diff": diff,
+        "logits_max": logits[8].abs().max().item(),
+        **_bound(2 * (N + V) * (H + 1) + 4 * N * V, 2 * N * V * (H + 1),
+                 "bfloat16")})
+    # the same zero-free products: only the summation order may differ
+    if not diff <= F32_REL * max(1.0, row["logits_max"]):
+        raise AssertionError(f"MLM head: padded vs unpadded logits {diff}")
+    _log({"phase": "bert_mlm_head", **row})
+    return row
+
+
+def bert_kernel_phase(fa, resources):
+    """The flash kernels at bert_large's attention, non-causal at head
+    dim 64: bf16 [16, 512, 16x64] (the bench shape) and float32 [4, 512,
+    16x64] (the float32 cell), each held per element to its plain
+    version, timed against its bound and SDPA; the instances'
+    registers, spills and shared memory; the MLM head's product."""
+    from paddle_tpu_torch.models import bert
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    rows = {name: flash_kernel_case(fa, gen, flush, name, B, S, nH, hD, dt,
+                                    False)
+            for name, B, S, nH, hD, dt in BERT_KERNEL_CASES}
+    torch.cuda.empty_cache()
+    rows["resources"] = {k: v for k, v in resources.items()
+                         if k.endswith("hD 64")}
+    _log({"phase": "bert_kernel_resources", **rows["resources"]})
+    rows["mlm_head"] = mlm_head_check(bert, bert.bert_large(), gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _bert_split(step, hybrid, bert, cfg, p, o, batch, step_ms):
+    """A profiled step by family (flash forward, flash backward, cuBLAS
+    GEMMs, the rest), the MLM head alone (forward + backward on the
+    step's encoder output: its GEMMs and the rest) and AdamW alone (CUDA
+    events): the step's device time split into flash, GEMMs outside the
+    head, the head, AdamW and other."""
+    ids, lbl = batch
+    prof = _profile(lambda: step(p, o, *batch), 1, step_ms,
+                    list(BERT_FAMILIES), top_n=10)
+    model = hybrid.bert_stage_model(cfg)
+    with torch.no_grad():
+        h = model.trunk(p, model.embed(p, ids))
+    h.requires_grad_(True)
+    leaves = [p["wte"], p["mlm_bias"], p["mlm_w"], p["mlm_b"],
+              p["mlm_ln_g"], p["mlm_ln_b"], h]
+
+    def head():
+        loss = bert.mlm_masked_loss(p, h, lbl["mlm"], cfg)
+        return torch.autograd.grad(loss, leaves)
+    head()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head()
+    torch.cuda.synchronize()
+    head_prof = _profile(head, 1, (time.perf_counter() - t0) * 1e3, [],
+                         top_n=6)
+    _, grads = step.loss_and_grads(p, ids, lbl)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    hybrid.adamw_update(p, grads, o, hybrid.AdamWConfig())
+    b.record()
+    torch.cuda.synchronize()
+    del grads
+    dev = prof["device_ms"]
+    head_ms = head_prof["device_busy_ms"]
+    adamw_ms = a.elapsed_time(b)
+    flash = dev["flash_fwd"] + dev["flash_bwd"]
+    gemm_out = dev["matmul"] - head_prof["device_ms"]["matmul"]
+    return {"step_profile": prof,
+            "split_ms": {"flash": flash, "gemm_outside_head": gemm_out,
+                         "mlm_head": head_ms, "adamw": adamw_ms,
+                         "other": prof["device_busy_ms"] - flash - gemm_out
+                         - head_ms - adamw_ms},
+            "mlm_head_profile": {k: head_prof[k] for k in (
+                "device_ms", "device_busy_ms", "top_kernels_ms_count_name")}}
+
+
+def _bert_run(hybrid, TrainLoop, fa, prefetch, cfg, params, remat, steps,
+              B=None):
+    """A fresh copy of ``params`` and AdamW state, one warm step and
+    ``steps`` steps through ``TrainLoop`` on batches of the seeded BERT
+    loader through ``prefetch_to_device``: (row, step, p, o, last
+    batch), the flash launches of the timed steps in the row."""
+    B = BERT_B if B is None else B
+    step, shard, init_opt = hybrid.build_train_step(
+        cfg, model=hybrid.bert_stage_model(cfg, remat), device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = shard(params)
+    o = init_opt(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = prefetch(bert_batches(cfg, 0, steps + 1, B,
+                                    BERT_S), device=step.data_device)
+    batch = next(batches)
+    warm, p, o = step(p, o, *batch)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    loop = TrainLoop(step, max_inflight=2)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    a.record()
+    handles = []
+    for batch in batches:
+        handles.append(loop.step(p, o, *batch)[0])
+    loop.drain()
+    b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = wall / steps * 1e3
+    row = {"remat": _plan_name(remat), "B": B, "S": BERT_S,
+           "layers": cfg.num_layers, "dtype": str(cfg.dtype),
+           "use_flash": cfg.use_flash,
+           "losses": [warm.item()] + [float(d) for d in handles],
+           "step_ms": step_ms, "step_ms_events": a.elapsed_time(b) / steps,
+           "tokens_per_s": B * BERT_S / (step_ms / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "stall_s": loop.stall_seconds,
+           "flash_launches": fa.launches()}
+    if not all(np.isfinite(row["losses"])):
+        raise AssertionError(f"BERT losses {row['losses']}")
+    return row, step, p, o, batch
+
+
+def _bert_launch_want(L, steps, remat, use_flash=None):
+    if use_flash is False:
+        return {f"flash_attention_{k}": 0 for k in ("fwd", "bwd_dkv",
+                                                    "bwd_dq")}
+    fwd = 2 if remat in (True, "dots_saveable") else 1
+    return {"flash_attention_fwd": fwd * L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "flash_attention_bwd_dq": L * steps}
+
+
+def bert_training_phase(bert, hybrid, TrainLoop, fa, prefetch):
+    """bert_large in bf16 at B 16, S 512 (bench_bert's card shape), MLM
+    + NSP, AdamW, through ``build_train_step(model=bert_stage_model)``,
+    ``TrainLoop`` and ``prefetch_to_device``: 1 warm + 4 timed steps
+    (remat False; 24 launches of each flash kernel a step), a profiled
+    split of a step; one step each under remat True and
+    dots_saveable_attn (the warm and the next step's loss at LOSS_TOL of
+    remat False's, so each plan's gradients are held through an update;
+    then a profiled step);
+    then 4 layers, use_flash=None against use_flash=False, 3 steps from
+    one init (losses within BERT_PLAIN_TOL, the plain run launching no
+    flash kernel)."""
+    cfg = bert.bert_large(dtype=torch.bfloat16)
+    L = cfg.num_layers
+    params = bert.init_params(cfg, seed=0, device="cuda")
+    row, step, p, o, batch = _bert_run(hybrid, TrainLoop, fa, prefetch, cfg,
+                                       params, False, BERT_STEPS)
+    want = _bert_launch_want(L, BERT_STEPS, False)
+    if row["flash_launches"] != want:
+        raise AssertionError(f"BERT flash launches {row['flash_launches']} "
+                             f"!= {want}")
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"BERT losses do not fall: {row['losses']}")
+    row["param_count"] = bert.param_count(params)
+    row.update(_bert_split(step, hybrid, bert, cfg, p, o, batch,
+                           row["step_ms"]))
+    row["idle_share"] = row["step_profile"]["idle_share"]
+    row["launches_per_step"] = {k: v / BERT_STEPS
+                                for k, v in row["flash_launches"].items()}
+    _log({"phase": "bert_training", "config": "bert_large bf16", **row})
+    del step, p, o, batch
+    plans = {}
+    for remat in (True, "dots_saveable_attn"):
+        r, rstep, rp, ro, rbatch = _bert_run(hybrid, TrainLoop, fa, prefetch,
+                                             cfg, params, remat, 1)
+        # one more step under the profiler: device time by family, the
+        # idle share against the timed step's wall, the host's op time
+        r["step_profile"] = _profile(lambda: rstep(rp, ro, *rbatch), 1,
+                                     r["step_ms"], list(BERT_FAMILIES),
+                                     top_n=10)
+        r["idle_share"] = r["step_profile"]["idle_share"]
+        del rstep, rp, ro, rbatch
+        want = _bert_launch_want(L, 1, remat)
+        # the warm step's loss (a forward before any update) and the
+        # next one's, after an update from this plan's gradients
+        diffs = [abs(x - y) for x, y in zip(r["losses"], row["losses"])]
+        _log({"phase": "bert_remat", **r, "loss_diffs": diffs,
+              "atol": LOSS_TOL})
+        if r["flash_launches"] != want or not max(diffs) <= LOSS_TOL:
+            raise AssertionError(f"BERT remat {remat}: launches "
+                                 f"{r['flash_launches']} (want {want}), "
+                                 f"losses {r['losses']} vs "
+                                 f"{row['losses'][:2]}")
+        plans[_plan_name(remat)] = r
+    row["remat_plans"] = plans
+    del params
+    # the kernels against the plain composition, 4 layers from one init
+    cut = bert.bert_large(dtype=torch.bfloat16, num_layers=BERT_PLAIN_LAYERS)
+    params = bert.init_params(cut, seed=0, device="cuda")
+    runs = {}
+    for use_flash in (None, False):
+        c = dataclasses.replace(cut, use_flash=use_flash)
+        r, *rest = _bert_run(hybrid, TrainLoop, fa, prefetch, c, params,
+                             False, BERT_PLAIN_STEPS)
+        del rest
+        want = _bert_launch_want(BERT_PLAIN_LAYERS, BERT_PLAIN_STEPS, False,
+                                 use_flash)
+        if r["flash_launches"] != want:
+            raise AssertionError(f"BERT use_flash={use_flash}: launches "
+                                 f"{r['flash_launches']} != {want}")
+        runs[str(use_flash)] = r
+    diffs = [abs(a - b) for a, b in zip(runs["None"]["losses"],
+                                        runs["False"]["losses"])]
+    cmp = {"layers": BERT_PLAIN_LAYERS, "losses_flash": runs["None"]["losses"],
+           "losses_plain": runs["False"]["losses"], "loss_diffs": diffs,
+           "atol": BERT_PLAIN_TOL,
+           "step_ms": {k: r["step_ms"] for k, r in runs.items()},
+           "peak_memory_bytes": {k: r["peak_memory_bytes"]
+                                 for k, r in runs.items()}}
+    _log({"phase": "bert_plain_attention", **cmp})
+    if not max(diffs) <= BERT_PLAIN_TOL:
+        raise AssertionError(f"BERT flash vs plain losses: {cmp}")
+    row["plain_attention"] = cmp
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def bert_float32_phase(bert, hybrid, TrainLoop, fa, prefetch):
+    """bert_large at its default dtype (float32, the TF32x3 flash
+    kernels) cut to 4 layers, B 4, S 512: 1 warm + 4 steps through
+    ``TrainLoop`` (4 launches of each flash kernel a step), against the
+    same run through the plain composition (use_flash=False): each
+    step's loss within BERT_F32_LOSS_REL."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 phase entered with TF32 matmuls on")
+    cfg = bert.bert_large(num_layers=BERT_F32_LAYERS)
+    if cfg.dtype != torch.float32 or cfg.use_flash is not None:
+        raise AssertionError(f"bert_large defaults: {cfg.dtype}, "
+                             f"use_flash={cfg.use_flash}")
+    params = bert.init_params(cfg, seed=0, device="cuda")
+    runs = {}
+    for use_flash in (None, False):
+        c = dataclasses.replace(cfg, use_flash=use_flash)
+        r, step, p, o, batch = _bert_run(hybrid, TrainLoop, fa, prefetch, c,
+                                         params, False, BERT_STEPS,
+                                         B=BERT_F32_B)
+        want = _bert_launch_want(BERT_F32_LAYERS, BERT_STEPS, False,
+                                 use_flash)
+        if r["flash_launches"] != want:
+            raise AssertionError(f"BERT float32 use_flash={use_flash}: "
+                                 f"launches {r['flash_launches']} != {want}")
+        if use_flash is None:
+            prof = _profile(lambda: step(p, o, *batch), 1, r["step_ms"],
+                            list(BERT_FAMILIES), top_n=8)
+            r.update({k: prof[k] for k in ("device_ms", "device_busy_ms",
+                                           "idle_share", "sm_clock_power")})
+        del step, p, o, batch
+        runs[str(use_flash)] = r
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["None"]["losses"],
+                                               runs["False"]["losses"])]
+    row = {"config": f"bert_large float32, {BERT_F32_LAYERS} layers",
+           "flash": runs["None"], "plain": runs["False"], "loss_rel": rel,
+           "rtol": BERT_F32_LOSS_REL}
+    _log({"phase": "bert_float32", **row})
+    if not max(rel) <= BERT_F32_LOSS_REL:
+        raise AssertionError(f"BERT float32 flash vs plain losses: {rel}")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def ctc_phase(nnf):
+    """``nn.functional.ctc_loss`` at bench_ctc's card shape (T 500, B 32,
+    L 100, C 80, Dirichlet log-probs, full lengths): the card's loss and
+    gradient held to the CPU run of the same code (CTC_LOSS_REL,
+    CTC_GRAD_REL); forward + backward timed (median of CTC_REPS,
+    synchronised) in sequences a second, and one call profiled (device
+    busy against wall: the idle share)."""
+    T, B, L, C = (CTC_SHAPE[k] for k in ("T", "B", "L", "C"))
+    rng = np.random.default_rng(0)
+    lp = np.log(rng.dirichlet(np.ones(C), size=(T, B)).astype("f4"))
+    host = [torch.tensor(lp), torch.tensor(rng.integers(1, C, (B, L))),
+            torch.full((B,), T, dtype=torch.int64),
+            torch.full((B,), L, dtype=torch.int64)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x, *rest = (t.to(dev) for t in host)
+        x.requires_grad_(True)
+
+        def run():
+            loss = nnf.ctc_loss(x, *rest)
+            return loss, torch.autograd.grad(loss, x)[0]
+        loss, grad = run()
+        out[dev] = (loss.item(), grad.cpu())
+    card, cpu = out["cuda"], out["cpu"]
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    grad_rel = ((card[1] - cpu[1]).abs().max()
+                / cpu[1].abs().max()).item()
+    times = []
+    for _ in range(CTC_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    prof = _profile(run, 1, ms, [], top_n=6)
+    row = {"phase": "ctc", "shape": dict(CTC_SHAPE), "loss_card": card[0],
+           "loss_cpu": cpu[0], "loss_rel": loss_rel,
+           "grad_rel_of_max": grad_rel, "loss_rtol": CTC_LOSS_REL,
+           "grad_rtol_of_max": CTC_GRAD_REL, "fwd_bwd_ms": ms,
+           "fwd_bwd_ms_runs": times, "seq_per_s": B / (ms / 1e3),
+           **{k: prof[k] for k in ("device_busy_ms", "idle_share",
+                                   "kernels_per_step", "host_op_self_ms",
+                                   "sm_clock_power")}}
+    _log(row)
+    if not (loss_rel <= CTC_LOSS_REL and grad_rel <= CTC_GRAD_REL):
+        raise AssertionError(f"ctc_loss card vs CPU: loss {loss_rel}, "
+                             f"grad {grad_rel}")
+    return row
+
+
+def _flash_cell(r, key):
+    """One kernel's numbers from a ``flash_kernel_case`` row: ``key`` is
+    fwd, dkv or dq (SDPA's backward computes dq, dk and dv in one
+    call)."""
+    err = {"fwd": ("out",), "dkv": ("dk", "dv"), "dq": ("dq",)}[key]
+    return {"shape": r["shape"],
+            "max_abs_err": max(r["max_abs_err"][x] for x in err),
+            "limit_share": max(r["limit_share"][x] for x in err),
+            "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
+            "bound_ms": r["bounds"][key]["bound_ms"],
+            "bound_by": r["bounds"][key]["bound_by"],
+            "bound_share": r["bound_share"][key],
+            "library_ms": r["fwd_library_ms" if key == "fwd"
+                            else "bwd_library_ms"]}
+
+
 ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "float32_training": float32_training_phase,
                "ring_kernel": ring_kernel_phase,
@@ -7907,13 +8379,18 @@ ONLY_PHASES = {"train_kernel": train_kernel_phase,
                "tiered_serving": tiered_serving_alone,
                "handoff_serving": handoff_serving_alone,
                "rms_kernel": rms_kernel_phase,
-               "train_slice": train_slice_alone}
+               "train_slice": train_slice_alone,
+               "bert_kernel": bert_kernel_phase,
+               "bert_training": bert_training_phase,
+               "bert_float32": bert_float32_phase,
+               "ctc": ctc_phase}
 _SERVING_SOURCES = ("flash_decode", "fused_decode", "row_gemm", "sampling")
 ONLY_SOURCES = {"compiled_serving": _SERVING_SOURCES,
                 "serving_faults": _SERVING_SOURCES,
                 "tiered_serving": _SERVING_SOURCES,
                 "handoff_serving": _SERVING_SOURCES,
-                "rms_kernel": ("rms_norm",)}
+                "rms_kernel": ("rms_norm",),
+                "ctc": ()}
 
 
 def main(argv=None) -> int:
@@ -7952,6 +8429,7 @@ def main(argv=None) -> int:
         _LOG_FILE = Path(args.out).with_suffix(".log.jsonl")
         _LOG_FILE.parent.mkdir(parents=True, exist_ok=True)
         _LOG_FILE.write_text("")
+    from paddle_tpu_torch import io as tio
     from paddle_tpu_torch.distributed import hybrid
     from paddle_tpu_torch.incubate.nn.kernels import _build
     from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
@@ -7968,7 +8446,9 @@ def main(argv=None) -> int:
         ContinuousBatchingEngine, FusedB1Engine,
         PagedContinuousBatchingEngine, SpeculativeConfig)
     from paddle_tpu_torch.jit.loop import TrainLoop
-    from paddle_tpu_torch.models import common, decoding, gpt, llama, prng
+    from paddle_tpu_torch.models import (bert, common, decoding, gpt, llama,
+                                         prng)
+    from paddle_tpu_torch.nn import functional as nnf
     from paddle_tpu_torch.models.common import matmul_f32out
 
     card = _nvidia_smi("name,power.limit")
@@ -8001,6 +8481,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     _log({"phase": "build", "seconds": build_s,
           "libraries": [p.name for p in libs.values()]})
+    resources = new_resources = {}
     if ptxas:
         resources, new_resources = flash_resources(ptxas, _build)
         _log({"phase": "flash_attention_resources", "kernels": resources})
@@ -8033,7 +8514,13 @@ def main(argv=None) -> int:
                    "tiered_serving": (gpt, engines, fd, rg, fdl),
                    "handoff_serving": (gpt, engines, fd, rg, fdl),
                    "rms_kernel": (fnr,),
-                   "train_slice": (gpt, hybrid, TrainLoop, fa)}
+                   "train_slice": (gpt, hybrid, TrainLoop, fa),
+                   "bert_kernel": (fa, resources),
+                   "bert_training": (bert, hybrid, TrainLoop, fa,
+                                     tio.prefetch_to_device),
+                   "bert_float32": (bert, hybrid, TrainLoop, fa,
+                                    tio.prefetch_to_device),
+                   "ctc": (nnf,)}
         for name in only:
             timed(name, ONLY_PHASES[name], *args_of[name])
         seconds["total_with_build"] = time.perf_counter() - t0
@@ -8133,7 +8620,6 @@ def main(argv=None) -> int:
     llama_sp = timed("llama_sp", llama_sp_phase, llama, fa, *train_state)
     del train_state
     torch.cuda.empty_cache()
-    from paddle_tpu_torch import io as tio
     prefetch = tio.prefetch_to_device
     plans = timed("remat_plans", remat_plans_phase, gpt, hybrid, TrainLoop,
                   fa, prefetch)
@@ -8147,6 +8633,12 @@ def main(argv=None) -> int:
     train_ckpt = timed("train_checkpoint", train_checkpoint_phase, gpt,
                        hybrid, TrainLoop, prefetch)
     preemption = timed("preemption", preemption_phase, gpt, hybrid)
+    bert_kernels = timed("bert_kernel", bert_kernel_phase, fa, resources)
+    bert_train = timed("bert_training", bert_training_phase, bert, hybrid,
+                       TrainLoop, fa, prefetch)
+    bert_f32 = timed("bert_float32", bert_float32_phase, bert, hybrid,
+                     TrainLoop, fa, prefetch)
+    ctc = timed("ctc", ctc_phase, nnf)
     seconds["total_with_build"] = time.perf_counter() - t0
     _log({"phase": "phase_seconds", "card": card, "build_s": build_s,
           **seconds})
@@ -8377,6 +8869,22 @@ def main(argv=None) -> int:
             e["remat_plan_launches_per_step"] = {
                 name: r["flash_launches_per_step"][e["name"]]
                 for name, r in plan_rows.items()}
+            # bert_large's non-causal head-dim-64 instances: launches a
+            # step of the bf16 training run and of the float32 cell (4
+            # layers), times at their shapes
+            key = e["name"].replace("flash_attention_", "").replace(
+                "bwd_", "")
+            e["bert_large"] = {
+                "launches_per_step": bert_train["launches_per_step"][
+                    e["name"]],
+                "remat_launches_one_step": {
+                    n: r["flash_launches"][e["name"]]
+                    for n, r in bert_train["remat_plans"].items()},
+                **_flash_cell(bert_kernels["bert_bf16"], key)}
+            e["float32"]["bert_large"] = {
+                "launches_per_step": bert_f32["flash"]["flash_launches"][
+                    e["name"]] / BERT_STEPS,
+                **_flash_cell(bert_kernels["bert_f32"], key)}
     # RMSNorm: the forward, the fused residual-add instance and the
     # backward of csrc/rms_norm.cu, one entry per instance and policy;
     # forward and fused instance timed at the prefill rows of llama_7b
@@ -8606,7 +9114,9 @@ def main(argv=None) -> int:
                                      if k != "verify_rows"},
              "remat_plans": plan_rows, "remat_fit": remat_fit,
              "prefetch": prefetched, "train_checkpoint": train_ckpt,
-             "preemption": preemption,
+             "preemption": preemption, "bert_kernel": bert_kernels,
+             "bert_training": bert_train, "bert_float32": bert_f32,
+             "ctc": ctc,
              "speculative_verify_rows": {
                  " ".join(k): v
                  for k, v in spec_runs["verify_rows"].items()}},

@@ -1,6 +1,6 @@
 """The train step (port of ``paddle_tpu/distributed/hybrid.py``:
-``AdamWConfig``, ``adamw_init``, ``adamw_update``, the GPT and LLaMA
-stage models, ``build_train_step`` with every remat plan of
+``AdamWConfig``, ``adamw_init``, ``adamw_update``, the GPT, LLaMA and
+BERT stage models, ``build_train_step`` with every remat plan of
 ``models/common.py`` and its in-process program cache (``_STEP_CACHE``,
 ``clear_train_step_cache``) — on ONE device).
 
@@ -12,8 +12,11 @@ own forward and backward and the gradients add up (gradient
 accumulation: the same result as one backward of the mean, with one
 micro-batch's activations alive at a time).  A ``StageModel`` (embed,
 trunk, head) picks the model family, as in JAX: ``gpt_stage_model`` by
-default, ``llama_stage_model`` for LLaMA, both at pp = mp = 1.  Meshes of
-more than one device, the 1F1B schedule, sequence parallelism and ZeRO
+default, ``llama_stage_model`` for LLaMA, ``bert_stage_model`` for BERT's
+MLM + NSP pretraining, all at pp = mp = 1.  Labels may be a tree (BERT's
+``{"mlm": [B, S], "nsp": [B]}``): each micro-batch takes its rows of
+every leaf along axis 0, as JAX's ``_tree_reshape_micro`` does.  Meshes
+of more than one device, the 1F1B schedule, sequence parallelism and ZeRO
 stages are not ported (ROADMAP Queue 1 item 10).
 
 JAX's step donates its params and optimizer state; here ``step``
@@ -30,12 +33,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..models import bert as bert_mod
 from ..models import gpt as gpt_mod
 from ..models import llama as llama_mod
 from ..models.common import params_from_numpy
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "StageModel",
-           "gpt_stage_model", "llama_stage_model", "build_train_step",
+           "gpt_stage_model", "llama_stage_model", "bert_stage_model",
+           "build_train_step",
            "clear_train_step_cache", "opt_state_from_numpy"]
 
 
@@ -64,6 +69,17 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {key: _tree_map(fn, v) for key, v in tree.items()}
     return fn(tree)
+
+
+def _micro_rows(tree, sl: slice, B: int):
+    """Rows ``sl`` of every leaf of a labels tree (a tensor or a dict
+    tree of them), each leaf's axis 0 the batch of B."""
+    def rows(t):
+        if t.dim() == 0 or t.shape[0] != B:
+            raise ValueError(f"a labels leaf of shape {tuple(t.shape)} "
+                             f"does not lead with the batch {B}")
+        return t[sl]
+    return _tree_map(rows, tree)
 
 
 def _unflatten(tree, leaves):
@@ -179,6 +195,33 @@ def llama_stage_model(cfg, remat=False) -> StageModel:
         head=lambda p, h, lbl: llama_mod._head_loss(p, h, lbl, cfg))
 
 
+def bert_stage_model(cfg, remat=False) -> StageModel:
+    """The BERT family (MLM + NSP pretraining, JAX's ``bert_stage_model``
+    at pp = mp = 1): embed (token rows + position rows + segment row 0,
+    the embedding LayerNorm, cast to the model dtype), the encoder
+    layers (no padding mask: the flash kernels on the card), and the
+    head ``mlm_masked_loss + nsp_loss_fn`` in float32.  Labels are the
+    tree ``{"mlm": [B, S], "nsp": [B]}``; ``remat`` is any plan of
+    ``models.common.scan_layers_with_remat``."""
+    def embed(p, tok):
+        S = tok.shape[-1]
+        h = (p["wte"][tok] + p["wpe"][torch.arange(S, device=tok.device)]
+             + p["wtt"][0])
+        h = bert_mod._layer_norm(h, p["emb_ln_g"], p["emb_ln_b"],
+                                 cfg.layer_norm_epsilon)
+        return h.to(cfg.dtype)
+
+    def head(p, h, lbl):
+        return (bert_mod.mlm_masked_loss(p, h, lbl["mlm"], cfg)
+                + bert_mod.nsp_loss_fn(p, h, lbl["nsp"])).float()
+
+    return StageModel(
+        embed=embed,
+        trunk=lambda p, h: bert_mod.forward_layers(h, p["layers"], cfg,
+                                                   remat=remat),
+        head=head)
+
+
 # In-process cache of built train steps, keyed on everything the step's
 # closures depend on (model config, num_micro, AdamW config, remat plan,
 # moment dtype, device): a rebuild with an identical recipe returns the
@@ -232,9 +275,10 @@ def build_train_step(cfg, num_micro: int = 1,
       * ``init_opt(params)`` -> AdamW state with ``moment_dtype``
         moments;
       * ``step(params, opt_state, ids, labels)`` -> ``(loss, params,
-        opt_state)``: ids/labels [B, S] integer tensors with B divisible
-        by ``num_micro``; params and state are updated in place and
-        returned; loss is a 0-d float32 tensor on the device (the mean
+        opt_state)``: ids [B, S] integer tensors with B divisible by
+        ``num_micro``, labels [B, S] or a tree of tensors that each lead
+        with B (a micro-batch takes its rows of every leaf); params and
+        state are updated in place and returned; loss is a 0-d float32 tensor on the device (the mean
         over micro-batches), read without a host sync.
     ``step.loss_and_grads(params, ids, labels)`` -> ``(loss, grads)``
     is the test surface: exactly what ``step`` feeds the optimizer.
@@ -283,7 +327,8 @@ def build_train_step(cfg, num_micro: int = 1,
             sl = slice(i * mb, (i + 1) * mb)
             with torch.enable_grad():
                 h = model.trunk(params, model.embed(params, ids[sl]))
-                part = model.head(params, h, labels[sl]) / num_micro
+                part = model.head(params, h,
+                                  _micro_rows(labels, sl, B)) / num_micro
                 grads = torch.autograd.grad(part, leaves)
             loss += part.detach()
             if acc is None:

@@ -42,7 +42,8 @@ from paddle_tpu_torch.incubate.nn.kernels import flash_decode as fd
 from paddle_tpu_torch.incubate.nn.kernels import fused_ce as fce
 from paddle_tpu_torch.incubate.nn.kernels import fused_norm_rope as fnr
 from paddle_tpu_torch.incubate.nn.kernels import ring_attention as ra
-from paddle_tpu_torch.models import gpt, llama
+from paddle_tpu_torch.models import bert, gpt, llama
+from paddle_tpu_torch.nn import functional as nnf
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -475,6 +476,7 @@ def test_engine_on_card_matches_cpu(cuda):
     (2, 128, 2, 128, True, True),    # the training layout
     (1, 1000, 2, 64, True, False),   # ragged S at length
     (4, 512, 32, 128, True, False),  # llama_7b generate prefill
+    (2, 512, 16, 64, False, True),   # bert_large's attention
 ])
 def test_flash_attention_kernels_match_plain(cuda, dtype, B, S, nH, hD,
                                              causal, packed):
@@ -2686,3 +2688,57 @@ def test_async_checkpointer_reuses_its_pinned_buffers(cuda, tmp_path):
         dist_cp.load_state_dict(fresh, dist_cp.step_dir(root, step))
         for k, v in dist_cp.flatten_state_dict(fresh)[0].items():
             assert torch.equal(v, want[step][k]), (step, k)
+
+
+def test_bert_train_steps_on_card_match_cpu(cuda):
+    """A small BERT (bert_tiny, 2 layers, float32, head dim 32) through
+    ``bert_stage_model`` at num_micro 2 with dict labels: three AdamW
+    steps on the card (the non-causal flash kernels, 2 launches of each a
+    micro-batch) against the same steps on the CPU (the plain
+    composition), losses at rel 1e-4."""
+    cfg = bert.bert_tiny(num_layers=2)
+    params = bert.init_params(cfg, seed=3, device="cpu")
+    batch = next(chip_smoke.bert_batches(cfg, 3, 1, 4, 64))
+    losses = {}
+    for dev in ("cpu", cuda):
+        step, shard, init_opt = hybrid.build_train_step(
+            cfg, num_micro=2, model=hybrid.bert_stage_model(cfg),
+            device=dev)
+        p = shard(params)
+        o = init_opt(p)
+        ids = torch.from_numpy(batch[0]).to(dev)
+        lbl = {k: torch.from_numpy(v).to(dev) for k, v in batch[1].items()}
+        fa.reset_launches()
+        losses[str(dev)] = [step(p, o, ids, lbl)[0].item() for _ in range(3)]
+        want = 0 if dev == "cpu" else 3 * 2 * cfg.num_layers
+        assert fa.launches() == {f"flash_attention_{k}": want
+                                 for k in ("fwd", "bwd_dkv", "bwd_dq")}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert losses["cpu"][2] < losses["cpu"][0]
+
+
+def test_ctc_loss_on_card_matches_cpu(cuda):
+    """``ctc_loss`` (varied lengths, repeated labels, a zero label
+    length) on the card against the CPU: the loss at CTC_LOSS_REL, the
+    gradient at CTC_GRAD_REL of its largest value, every reduction."""
+    rng = np.random.default_rng(4)
+    T, B, L, C = 60, 5, 12, 20
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((T, B, C)).astype(np.float32)), -1)
+    labels = torch.from_numpy(rng.integers(1, C, (B, L)))
+    labels[0, 1] = labels[0, 0]
+    ilen = torch.tensor([60, 41, 70, 30, 1])
+    llen = torch.tensor([12, 5, 0, 12, 1])
+    for reduction in ("mean", "sum", "none"):
+        out = []
+        for dev in ("cpu", cuda):
+            x = lp.to(dev).requires_grad_(True)
+            loss = nnf.ctc_loss(x, labels.to(dev), ilen.to(dev),
+                                llen.to(dev), reduction=reduction)
+            out.append((loss.detach().cpu(),
+                        torch.autograd.grad(loss.sum(), x)[0].cpu()))
+        (lc, gc), (lg, gg) = out
+        torch.testing.assert_close(lg, lc, rtol=chip_smoke.CTC_LOSS_REL,
+                                   atol=0)
+        assert (gg - gc).abs().max() <= chip_smoke.CTC_GRAD_REL * \
+            gc.abs().max()
